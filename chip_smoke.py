@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -9,7 +10,8 @@ failure exits non-zero:
 
  1. Card and settings: the card's name and power limit (nvidia-smi), TF32
     off for matmuls and convolutions, the CUDA kernels built from
-    trackmpnn_tpu_torch/csrc/ (set-up time).
+    trackmpnn_tpu_torch/csrc/ (one nvcc per source, run concurrently;
+    set-up time).
  2. Kernels: each kernel against its plain PyTorch version on the card, on
     the GraphView of the largest window of a 30-track sequence (capacity
     16384, H = 64, f32) and a random h: gather_diff exact,
@@ -25,6 +27,21 @@ failure exits non-zero:
  4. CLI: a JAX-format snapshot and a small synthetic KITTI test tree go
     through `python -m trackmpnn_tpu_torch.cli.infer` on the card, which must
     write one result file per sequence, identical to the CLI's CPU run.
+ 5. Training: the block train step (f32, nhidden 64, Adam 1e-4 with L2
+    5e-4, tp_classifier off) on bench.py's workload: 8 windows of
+    make_sequence(16 tracks, 16 frames, miss 0.05, fp 0.1, seeds 100+),
+    weights from torch.Generator seed 0.  A first step records the
+    block-kernel inputs of its widest step (P = 120 blocks); 3 warm-up
+    steps, then 20 timed steps with the launch counters set to 0 before
+    and read after (15 / 15 / 45 launches a step expected); one profiled
+    step.  The first step rerun on the CPU must agree: loss, loss_ce,
+    loss_f within rtol 1e-4, tp/fp/fn equal, grads within rtol 1e-3 with
+    an atol of 1e-4 x the largest |grad|.
+ 6. Block kernels: block_round_fwd (atol 1e-5), block_round_bwd (rtol
+    1e-4, atol 1e-5 x each output's scale) and window_scatter (atol 1e-5)
+    against their plain versions on the recorded inputs, each bitwise the
+    same on a second launch, timed beside its plain version, its bound
+    and, for the scatter, torch's index_add_.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -53,6 +70,20 @@ SERVE_TRACKS, SERVE_FRAMES, SERVE_SEEDS, WIN = 30, 100, (0, 1, 2), 5
 HIDDEN = 64
 SCATTER_RTOL = SCATTER_ATOL = 1e-5
 STEP_SCORE_ATOL = 1e-4
+
+# training: bench.py's workload and hyper-parameters
+TRAIN_B, TRAIN_TRACKS, TRAIN_FRAMES, TRAIN_SEED0 = 8, 16, 16, 100
+TRAIN_LR, TRAIN_WD = 1e-4, 5e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+ROUND_FWD_ATOL = WSCATTER_ATOL = 1e-5
+ROUND_BWD_RTOL, ROUND_BWD_ATOL_SCALE = 1e-4, 1e-5
+LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-3, 1e-4
+# f32 operations a live cell of the round takes beyond its products: the
+# gate arithmetic per hidden unit (adds, sigmoid x2, tanh, the output mix)
+GATE_FLOPS_PER_UNIT = 30
+# the plain versions launch tens of small ops a call: fewer timed calls, so
+# that their launches fit the device's queue behind the timer's sleep
+PLAIN_ITERS = 12
 
 
 def fail(msg: str):
@@ -356,6 +387,294 @@ def cli_phase(model, np):
     return {"result_files": len(files), "cli_s": cli_s}
 
 
+def training_workload(np):
+    """bench.py's workload: B windows of make_sequence(16 tracks, 16 frames,
+    miss 0.05, fp 0.1) from seeds 100, 101, ... that seed a graph, every
+    schedule padded to the longest's step count."""
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
+
+    chunks, s = [], 0
+    while len(chunks) < TRAIN_B:
+        X, bp, _ = make_sequence(num_tracks=TRAIN_TRACKS, num_frames=TRAIN_FRAMES,
+                                 seed=TRAIN_SEED0 + s, miss_rate=0.05, fp_rate=0.1)
+        y = bp[:, :2].astype(np.int64)
+        if build_window_schedule(X, y) is not None:
+            chunks.append((X, y))
+        s += 1
+    raw = [build_window_schedule(X, y) for X, y in chunks]
+    t_cap = max(ws.n_steps for ws in raw)
+    schedules = [build_window_schedule(X, y, t_cap=t_cap) for X, y in chunks]
+    # live edge rows summed over steps: what one step's message passing touches
+    edges = 0
+    for ws in schedules:
+        edge_pos = np.where(~ws.is_det[: ws.n_rows])[0]
+        edges += sum(int(np.sum(edge_pos < ws.n_after[s])) for s in range(ws.n_steps))
+    return schedules, t_cap, edges
+
+
+@contextlib.contextmanager
+def record_widest(module, name, keep: dict, key):
+    """While active, calls of module.name also store a clone of their
+    arguments in keep[key(args)], for the call whose first tensor has the
+    most rows."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def rec(*args):
+        k = key(args)
+        if k not in keep or args[0].shape[0] > keep[k][0].shape[0]:
+            keep[k] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+        return orig(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def tree_max_abs(tensors):
+    return max(float(t.abs().max()) for t in tensors)
+
+
+def training_phase(torch, np, block_ops):
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import optim
+
+    schedules, t_cap, edges = training_workload(np)
+    bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
+    live_cells = int((bb.blk_na * bb.blk_nt).sum())
+    print(f"training inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
+          f"nt_cap {bb.nt_cap}, H {HIDDEN}, P at the last step {bb.n_windows * t_cap}, "
+          f"live edge rows a step {edges}, live cells in all blocks {live_cells}")
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
+    params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
+    stats0 = mpnn.init_batch_stats(cfg)
+    step = train_block.make_block_train_step(cfg, tp_classifier=False)
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    params = train_block.trainable(to(params0, "cuda"))
+    stats = to(stats0, "cuda")
+    opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
+
+    # first step, recording the widest inputs of every kernel
+    inputs = {}
+    with record_widest(block_ops, "_block_round_fwd_cuda", inputs, lambda a: "fwd"), \
+            record_widest(block_ops, "_block_round_bwd_cuda", inputs, lambda a: "bwd"), \
+            record_widest(block_ops, "_window_scatter_cuda", inputs,
+                          lambda a: f"scatter_F{a[0].shape[2]}"):
+        params, stats, loss1, aux1 = step(params, stats, opt, bb)
+    grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_WARMUP):
+        params, stats, _, _ = step(params, stats, opt, bb)
+    torch.cuda.synchronize()
+
+    for k in block_ops.LAUNCHES:
+        block_ops.LAUNCHES[k] = 0
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        params, stats, loss, _ = step(params, stats, opt, bb)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(block_ops.LAUNCHES)
+    events_ms = start.elapsed_time(end) / TRAIN_STEPS
+    wall_ms = wall_s * 1e3 / TRAIN_STEPS
+    expected = {"block_round_fwd": t_cap, "block_round_bwd": t_cap, "window_scatter": 3 * t_cap}
+    for k, v in expected.items():
+        if launches[k] != v * TRAIN_STEPS:
+            fail(f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
+                 f"expected {v} a step")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"training loss not finite: {losses}")
+    print(f"training: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), "
+          f"{wall_ms:.3f} ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; "
+          f"launches a step { {k: v / TRAIN_STEPS for k, v in launches.items()} }; "
+          f"loss {float(loss1):.6g} -> {losses[-1]:.6g}")
+    profile = device_profile(torch, lambda: step(params, stats, opt, bb), wall_ms / 1e3)
+
+    # the first step again on the CPU, from the same weights and batch
+    bb_cpu = type(bb)(*(t.cpu() for t in bb))
+    params_c = train_block.trainable(params0)
+    opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
+    t0 = time.perf_counter()
+    params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c, bb_cpu)
+    cpu_step_s = time.perf_counter() - t0
+    for name, a, b in (("loss", loss1, loss_c), ("loss_ce", aux1["loss_ce"], aux_c["loss_ce"]),
+                       ("loss_f", aux1["loss_f"], aux_c["loss_f"])):
+        a, b = float(a), float(b)
+        if not abs(a - b) <= LOSS_RTOL * abs(b):
+            fail(f"first step {name}: card {a!r}, CPU {b!r} (rtol {LOSS_RTOL})")
+    for k in ("tp", "fp", "fn"):
+        if int(aux1[k]) != int(aux_c[k]):
+            fail(f"first step {k}: card {int(aux1[k])}, CPU {int(aux_c[k])}")
+    grads_c = [p.grad for p in train_block.param_leaves(params_c)]
+    gscale = tree_max_abs(grads_c)
+    worst_grad = 0.0
+    for i, (a, b) in enumerate(zip(grads1, grads_c)):
+        a = a.cpu()
+        worst_grad = max(worst_grad, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
+            fail(f"first step grad of leaf {i} differs between card and CPU by "
+                 f"{float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
+                 f"atol {GRAD_ATOL_SCALE * gscale:.3g})")
+    print(f"training vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
+          f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
+          f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
+    summary = {
+        "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD, "na_cap": bb.na_cap,
+        "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
+        "live_cells": live_cells, "steps": TRAIN_STEPS,
+        "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
+        "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "loss_first": float(loss1), "loss_last": float(losses[-1]),
+        "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad,
+        "grad_scale": gscale, "cpu_step_s": cpu_step_s,
+        "device_busy_share_step": None if profile is None else profile["busy_share"],
+        "profile_step": profile,
+    }
+    return summary, inputs
+
+
+def block_kernel_phase(torch, block_ops, inputs, launches):
+    """Each block kernel on the recorded widest inputs of the training step
+    against its plain version, twice (bitwise), and timed."""
+    H = HIDDEN
+    results = []
+    fwd_args = inputs["fwd"]
+    he, ga, gb, whh, bhh, web, mask, sign = fwd_args
+    P, na, nt, _ = he.shape
+    live = mask != 0
+    cells = int(live.sum())
+    rows_a = int(live.any(2).sum())
+    cols_b = int(live.any(1).sum())
+
+    got = block_ops._block_round_fwd_cuda(*fwd_args)
+    again = block_ops._block_round_fwd_cuda(*fwd_args)
+    want = block_ops.block_round_reference(*fwd_args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if err > ROUND_FWD_ATOL:
+        fail(f"block_round_fwd differs from its plain version by {err} (atol {ROUND_FWD_ATOL})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("block_round_fwd is not bitwise the same on a second launch")
+    if not (torch.all(got[0][~live] == 0) and torch.all(got[3][~live] == 0)):
+        fail("block_round_fwd wrote a nonzero edge_out or lg at a padded cell")
+    fwd_flops = cells * (2 * H * 3 * H + 2 * H + 2 * H + GATE_FLOPS_PER_UNIT * H)
+    fwd_bytes = 4 * (cells * H + P * na * nt + (rows_a + cols_b) * 3 * H + H * 3 * H + 4 * H
+                     + P * na * nt * (H + 1) + P * (na + nt) * H)
+    b, by = bound_ms(fwd_bytes, fwd_flops)
+    results.append({
+        "name": "block_round_fwd", "route": "cuda",
+        "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+        "replaces": "trackmpnn_tpu/ops/pallas_block.py:123",
+        "launches": launches["block_round_fwd"], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: block_ops._block_round_fwd_cuda(*fwd_args)),
+        "call_ms": cuda_time_ms(lambda: block_ops._block_round_fwd_cuda(*fwd_args),
+                                queue_ahead=False),
+        "plain_ms": cuda_time_ms(lambda: block_ops.block_round_reference(*fwd_args),
+                                 iters=PLAIN_ITERS),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}",
+    })
+
+    bwd_args = inputs["bwd"]
+    got = block_ops._block_round_bwd_cuda(*bwd_args)
+    again = block_ops._block_round_bwd_cuda(*bwd_args)
+    want = block_ops.block_round_backward_reference(*bwd_args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, w in zip(["dhe", "dga", "dgb", "dwhh", "dbhh", "dweb"], got, want):
+        atol = ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)
+        err = max(err, float((a - w).abs().max()))
+        if not torch.allclose(a, w, rtol=ROUND_BWD_RTOL, atol=atol):
+            fail(f"block_round_bwd {name} differs from its plain version by "
+                 f"{float((a - w).abs().max()):.3g} (rtol {ROUND_BWD_RTOL}, atol {atol:.3g})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("block_round_bwd is not bitwise the same on a second launch")
+    bwd_flops = cells * (3 * 2 * H * 3 * H + 2 * GATE_FLOPS_PER_UNIT * H)
+    bwd_bytes = 4 * (2 * cells * H + 2 * P * na * nt + (rows_a + cols_b) * (3 * H + H)
+                     + H * 3 * H + 4 * H + P * na * nt * H + P * (na + nt) * 3 * H
+                     + H * 3 * H + 4 * H)
+    b, by = bound_ms(bwd_bytes, bwd_flops)
+    results.append({
+        "name": "block_round_bwd", "route": "cuda",
+        "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+        "replaces": "trackmpnn_tpu/ops/pallas_block.py:140",
+        "launches": launches["block_round_bwd"], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: block_ops._block_round_bwd_cuda(*bwd_args)),
+        "call_ms": cuda_time_ms(lambda: block_ops._block_round_bwd_cuda(*bwd_args),
+                                queue_ahead=False),
+        "plain_ms": cuda_time_ms(lambda: block_ops.block_round_backward_reference(*bwd_args),
+                                 iters=PLAIN_ITERS),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}",
+    })
+
+    extra = {}
+    for key in sorted(k for k in inputs if k.startswith("scatter_F")):
+        vals, idx, B, capD = inputs[key]
+        Pw, n, F = vals.shape
+        got = block_ops._window_scatter_cuda(vals, idx, B, capD)
+        again = block_ops._window_scatter_cuda(vals, idx, B, capD)
+        want = block_ops.window_scatter_reference(vals, idx, B, capD)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > WSCATTER_ATOL:
+            fail(f"window_scatter ({key}) differs from its plain version by {err} "
+                 f"(atol {WSCATTER_ATOL})")
+        if not torch.equal(got, again):
+            fail(f"window_scatter ({key}) is not bitwise the same on a second launch")
+        gid = block_ops.global_idx(idx, B, capD).reshape(-1)
+        flat = vals.reshape(-1, F)
+        lib = torch.zeros(B * capD, F, device="cuda").index_add_(0, gid, flat)
+        if not torch.allclose(lib, want, rtol=1e-4, atol=1e-4):
+            fail("index_add_ yardstick does not compute the same function as window_scatter")
+        b, by = bound_ms(4 * (Pw * n * F + Pw * n + B * capD * F), Pw * n * F)
+        extra[key] = {
+            "name": "window_scatter", "route": "cuda",
+            "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+            "replaces": "trackmpnn_tpu/ops/pallas_block.py:616",
+            "launches": launches["window_scatter"], "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: block_ops._window_scatter_cuda(vals, idx, B, capD)),
+            "call_ms": cuda_time_ms(lambda: block_ops._window_scatter_cuda(vals, idx, B, capD),
+                                    queue_ahead=False),
+            "plain_ms": cuda_time_ms(lambda: block_ops.window_scatter_reference(vals, idx, B,
+                                                                                capD),
+                                     iters=PLAIN_ITERS),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_time_ms(
+                lambda: torch.zeros(B * capD, F, device="cuda").index_add_(0, gid, flat)),
+            "shape": f"P {Pw}, n {n}, F {F}, B {B}, capD {capD}",
+        }
+    # the kernels line carries the gate-gradient shape (F = 3H, 2 of the 3
+    # launches a step); the es shape (F = H) goes to the JSON file
+    results.append(extra[f"scatter_F{3 * H}"])
+    for r in results + [extra[f"scatter_F{H}"]]:
+        print(f"kernel {r['name']} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
+              f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}), "
+              f"max abs err {r['max_abs_err']:.3g}")
+    return results, extra[f"scatter_F{H}"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -371,6 +690,7 @@ def main():
         from trackmpnn_tpu_torch.decode import tracker as tracker_mod
         from trackmpnn_tpu_torch.graph import view as view_mod
         from trackmpnn_tpu_torch.ops import _build, mp
+        from trackmpnn_tpu_torch.ops import block as block_ops
     except ImportError as e:
         fail(f"the trackmpnn_tpu_torch package is not beside this script ({e})")
 
@@ -388,24 +708,33 @@ def main():
     print("settings: TF32 off for matmuls and cuDNN (full f32)")
     t0 = time.perf_counter()
     build = _build.build()
-    _build.load()
-    print(f"setup: kernels {'built' if build['built'] else 'up to date'} in "
-          f"{time.perf_counter() - t0:.2f} s ({_build.LIBRARY})")
-    for line in build["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name in _build.LIBRARIES:
+        _build.load(name)
+    each = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in build.items())
+    print(f"setup: kernels built in {time.perf_counter() - t0:.2f} s, one nvcc per source "
+          f"at once ({each})")
+    for name, b in build.items():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
-    # 2. kernels, 3. serving, 4. CLI
+    # 2. kernels, 3. serving, 4. CLI: the serving path
     kernels = kernel_phase(torch, mp, tracker_mod, view_mod)
     serving, model = serving_phase(torch, np, mp)
     for k in kernels:
         k["launches"] = serving["launches"][k["name"]]
     cli = cli_phase(model, np)
+    # 5. training, 6. block kernels: the training path
+    training, inputs = training_phase(torch, np, block_ops)
+    block_kernels, scatter_es = block_kernel_phase(torch, block_ops, inputs,
+                                                   training["launches"])
+    kernels += block_kernels
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "serving": serving, "cli": cli}, f, indent=1)
+            json.dump({"card": card, "kernels": kernels, "window_scatter_es": scatter_es,
+                       "serving": serving, "cli": cli, "training": training}, f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -1,6 +1,6 @@
 """Checks of the port's CUDA kernels that need the card.  They skip where
 CUDA is not available; chip_smoke.py runs the same comparisons at the
-serving shapes.  This file imports neither JAX nor the JAX package, so on
+serving and training shapes.  This file imports neither JAX nor the JAX package, so on
 a machine without JAX it runs alone:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from trackmpnn_tpu_torch.ops import mp
+from trackmpnn_tpu_torch.ops import block, mp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -93,3 +93,143 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mp.gather_diff(hid, past, fut.cpu(), edge)
     with pytest.raises(NotImplementedError):
         mp.gather_diff(hid.requires_grad_(), past, fut, edge)
+
+
+def round_problem(seed, P, na, nt, H, device):
+    """Inputs of the block round with a rectangular live part per block, as
+    the train step makes them (padded cells of h_e are 0), and cotangents."""
+    rng = np.random.default_rng(seed)
+    blk_na = rng.integers(0, na + 1, size=P)
+    blk_nt = rng.integers(0, nt + 1, size=P)
+    m = ((np.arange(na)[None, :, None] < blk_na[:, None, None])
+         & (np.arange(nt)[None, None, :] < blk_nt[:, None, None])).astype(np.float32)
+    arrays = [rng.normal(size=(P, na, nt, H)) * m[..., None],
+              rng.normal(size=(P, na, 3 * H)), rng.normal(size=(P, nt, 3 * H)),
+              rng.normal(size=(H, 3 * H)) * 0.3, rng.normal(size=(3 * H,)) * 0.1,
+              rng.normal(size=(H, 1)) * 0.4, m]
+    cots = [rng.normal(size=(P, na, nt, H)), rng.normal(size=(P, na, H)),
+            rng.normal(size=(P, nt, H)), rng.normal(size=(P, na, nt))]
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    return [put(a) for a in arrays], [put(a) for a in cots]
+
+
+def assert_grads_close(got, want):
+    """rtol 1e-4 with an absolute floor of 1e-5 times each output's scale:
+    the kernel sums in another order than the plain version's matmuls."""
+    for name, a, b in zip(["dhe", "dga", "dgb", "dwhh", "dbhh", "dweb"], got, want):
+        atol = 1e-5 * max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+@pytest.mark.parametrize("P,na,nt,H", [(11, 8, 16, 16), (16, 24, 24, 64), (3, 5, 40, 32)])
+def test_block_round_kernels_match_plain_versions(cuda, sign, P, na, nt, H):
+    """Forward within atol 1e-5 (padded cells exactly 0), backward within
+    rtol 1e-4; both bitwise the same on a second launch."""
+    args, cots = round_problem(P + na, P, na, nt, H, cuda)
+    before = dict(block.LAUNCHES)
+    got = block._block_round_fwd_cuda(*args, sign)
+    again = block._block_round_fwd_cuda(*args, sign)
+    want = block.block_round_reference(*args, sign)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        assert torch.equal(a, c)
+    m = args[-1]
+    assert torch.all(got[0][m == 0] == 0) and torch.all(got[3][m == 0] == 0)
+    gb = block._block_round_bwd_cuda(*args, sign, *cots)
+    gb2 = block._block_round_bwd_cuda(*args, sign, *cots)
+    wb = block.block_round_backward_reference(*args, sign, *cots)
+    torch.cuda.synchronize()
+    assert_grads_close(gb, wb)
+    assert all(torch.equal(a, b) for a, b in zip(gb, gb2))
+    assert block.LAUNCHES["block_round_fwd"] == before["block_round_fwd"] + 2
+    assert block.LAUNCHES["block_round_bwd"] == before["block_round_bwd"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,n,F,B,capD", [(120, 48, 64, 8, 256), (30, 48, 192, 8, 256),
+                                          (7, 5, 12, 3, 9)])
+def test_window_scatter_kernel_matches_plain_version(cuda, P, n, F, B, capD):
+    """Duplicate ids within a block included; atol 1e-5, bitwise repeatable."""
+    rng = np.random.default_rng(P)
+    vals = torch.from_numpy(rng.normal(size=(P, n, F)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, capD, (P, n)).astype(np.int32)).to(cuda)
+    before = block.LAUNCHES["window_scatter"]
+    got = block.window_scatter_raw(vals, idx, B, capD)
+    again = block.window_scatter_raw(vals, idx, B, capD)
+    want = block.window_scatter_reference(vals, idx, B, capD)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, again)
+    assert block.LAUNCHES["window_scatter"] == before + 2
+
+
+@pytest.mark.cuda
+def test_block_ops_autograd_launch_their_kernels(cuda):
+    """Through autograd: the round launches its forward and backward kernel
+    once each, the gather's backward two window scatters; the gradients
+    match the CPU's plain backward."""
+    args, _ = round_problem(0, 6, 8, 8, 16, cuda)
+    he, ga, gb, whh, bhh, web, m = args
+    B, capD = 3, 16
+    rng = np.random.default_rng(1)
+    ga_d = torch.from_numpy(rng.normal(size=(B * capD, 48)).astype(np.float32))
+    act = torch.from_numpy(rng.integers(0, capD, (6, 8)).astype(np.int32))
+    new = torch.from_numpy(rng.integers(0, capD, (6, 8)).astype(np.int32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (he, ga_d, whh, bhh, web)]
+        h, gd, w, b, we = leaves
+        before = dict(block.LAUNCHES)
+        a_g, b_g = block.window_gather2(gd, gd, act.to(dev), new.to(dev), B, capD)
+        eo, rs, cs, lg = block.fused_block_round(h, a_g, b_g, w, b, we, m.to(dev), -1.0)
+        es = block.window_scatter(torch.cat([rs, -cs], 1), torch.cat([act, new], 1).to(dev),
+                                  B, capD)
+        ((eo ** 2).sum() + lg.sum() + (es ** 2).sum()).backward()
+        launched = {k: block.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0}
+                            if dev == "cpu" else
+                            {"block_round_fwd": 1, "block_round_bwd": 1, "window_scatter": 3})
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+def test_window_scatter_traps_an_id_outside_its_window(cuda):
+    """A window-local id >= capD is a CUDA error at the next synchronisation,
+    not a write out of bounds (a process of its own: a trap leaves the CUDA
+    context unusable)."""
+    code = (
+        "import torch\n"
+        "from trackmpnn_tpu_torch.ops import block\n"
+        "vals = torch.ones(4, 3, 8, device='cuda')\n"
+        "idx = torch.zeros(4, 3, dtype=torch.int32, device='cuda'); idx[2, 1] = 16\n"
+        "block.window_scatter_raw(vals, idx, 2, 16)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no error" not in out.stdout, out.stdout
+    assert "CUDA error" in out.stderr or "AcceleratorError" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    args, _ = round_problem(0, 4, 8, 8, 16, cuda)
+    with pytest.raises(TypeError):
+        block._block_round_fwd_cuda(args[0].double(), *args[1:], -1.0)
+    with pytest.raises(ValueError):
+        block._block_round_fwd_cuda(args[0], args[1].cpu(), *args[2:], -1.0)
+    with pytest.raises(ValueError):
+        block._block_round_fwd_cuda(args[0].transpose(1, 2), *args[1:], -1.0)
+    vals = torch.zeros(4, 3, 6, device=cuda)
+    with pytest.raises(ValueError):
+        block.window_scatter_raw(vals, torch.zeros(4, 3, dtype=torch.int32, device=cuda), 2, 8)
+    with pytest.raises(TypeError):
+        block.window_scatter_raw(vals[..., :4].contiguous(),
+                                 torch.zeros(4, 3, dtype=torch.int64, device=cuda), 2, 8)

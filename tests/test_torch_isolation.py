@@ -31,8 +31,8 @@ def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'trackmpnn_tpu' or m.startswith('trackmpnn_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'optax', 'flax', 'trackmpnn_tpu'))\n"
         "print(repr(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -42,7 +42,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
-FORBIDDEN = re.compile(r"^\s*(import jax|from jax)|trackmpnn_tpu\.", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from) (jax|optax|flax)\b|trackmpnn_tpu\.", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))

@@ -43,3 +43,20 @@ def window_graph(num_tracks=6, num_frames=8, steps=3, seed=0):
         p = np.where(g.ts != -1, 0.99, 0.01).astype(np.float32)
         n_new = engine.update(g, y, t, np.stack([1 - p, p], 1), "test", use_hungarian=True)
     return g, X, n_new
+
+
+def training_chunks(n, seed0=0, num_tracks=4):
+    """`n` synthetic training chunks (features, (ts, track_id) labels) of 5-7
+    frames that seed a window, made with numpy so that both packages can
+    build their schedules from the same arrays."""
+    from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
+
+    out, s = [], seed0
+    while len(out) < n:
+        X, bp, _ = make_sequence(num_tracks=num_tracks, num_frames=5 + (s % 3), seed=s,
+                                 miss_rate=0.15, fp_rate=0.2)
+        y = bp[:, :2].astype(np.int64)
+        if build_window_schedule(X, y) is not None:
+            out.append((X, y))
+        s += 1
+    return out

@@ -1,0 +1,601 @@
+// Hopper (sm_90a) kernels for the block train step.  Built by
+// trackmpnn_tpu_torch/ops/_build.py into a shared library with a plain C
+// interface and called through ctypes from ops/block.py, which checks
+// device, dtype, shape and contiguity before any pointer gets here.  All
+// math is f32; no kernel uses atomics, so every result is the same from
+// run to run whatever order the blocks run in.
+//
+// block_round_fwd
+//   Replaces _fwd_kernel / fused_block_round in
+//   trackmpnn_tpu/ops/pallas_block.py.  Per block q of P, on its rectangle
+//   of na x nt edge cells of width H:
+//     he_m = mask * h_e;  gh = he_m @ w_hh + b_hh           ([H, 3H] product)
+//     gi[i, j] = ga[i] + sign * gb[j];  r, z, n (torch order r | z | n)
+//     edge_out = mask * ((1 - z) * n + z * he_m);  lg = edge_out @ w_eb
+//     rs, cs = row / column sums of he_m
+//   Bound: f32 operations (2*H*3H multiply-adds a cell for gh against
+//   H*4 B read and written a cell: ~50 flop/B at H = 64, above the card's
+//   f32 ratio of 67 TFLOP/s over 3.35 TB/s = 20 flop/B).  Design: a block's
+//   cells split over kRoundSplits CTAs (tile t goes to CTA t mod
+//   kRoundSplits, row and column i to CTA i mod kRoundSplits for rs / cs),
+//   so that at P ~ 100 blocks several CTAs share each SM; w_hh sits in
+//   shared memory (49 KB at H = 64, past the 48 KB default, so the launch
+//   opts in to more) with its rows padded to 3H + 1 floats, so that both
+//   w_hh[k][h] (forward) and w_hh[h][k] (backward) reads by neighbouring h
+//   fall in different banks.  Cells go through in tiles of TC; thread
+//   (h, g) keeps the three gate sums of kCellsPerThread cells of column h
+//   in registers while he_m comes from shared memory as a broadcast.  A
+//   tile whose cells are all masked is written as zeros and skips the
+//   product, so the work follows the live cells.  rs and cs are reduced in
+//   the CTA in a fixed order at the end.  The product runs on the CUDA
+//   cores, not the tensor cores: a later step.
+//
+// block_round_bwd
+//   Replaces _bwd_kernel (the custom VJP of fused_block_round).  Per block
+//   it recomputes the gates and writes d h_e (masked), d ga (sum over j)
+//   and d gb (sign * sum over i), and a row of per-block partials
+//   [d w_hh | d b_hh | d w_eb]; a second small kernel sums the partials
+//   over the blocks in block order.  Bound: f32 operations (three [H, 3H]
+//   products a cell: gh again, d gh @ w_hh^T and he_m^T @ d gh).  The
+//   per-block d w_hh, d ga and d gb accumulate in shared memory, each entry
+//   owned by one thread, tile after tile, so no atomics are needed.  The
+//   products are bound by shared-memory loads on the CUDA cores, so each
+//   value loaded is used several times: a w_hh value for 8 cells, a d gh
+//   value for 8 rows of d w_hh.
+//
+// window_scatter
+//   Replaces _wscatter_kernel / window_scatter in pallas_block.py.
+//   out[(p % B)*capD + idx[p, i]] += vals[p, i]  over blocks p and rows i.
+//   Bound: device-memory bytes (vals read once, out written once).  Each
+//   window owns its capD rows of out, so one CTA per (window, column tile
+//   of kScatterCols) walks that window's blocks p = w, w + B, ... in
+//   increasing order into a shared-memory accumulator [capD, tile] and
+//   writes it once.  The blocks come into shared memory a chunk at a time
+//   (coalesced 16-byte loads, all in flight at once); warp w owns the
+//   destination rows r with r % kScatterWarps == w and adds the staged rows with
+//   such an id in block, then row order, its lanes over the columns: a
+//   fixed order, no atomics.  A staged row of zeros is skipped (adding it
+//   changes nothing), so the padded positions, which all carry id 0 and
+//   zeros, do not queue up on row 0's warp.  It does not
+//   mask: callers scatter zeros from padded positions.  An id outside
+//   [0, capD) traps the kernel (a sticky CUDA error that the next
+//   synchronisation raises).
+//
+// No kernel synchronises or allocates: the caller allocates every output
+// and scratch and every launch goes to the stream it is given.  Each entry
+// point returns cudaGetLastError() so the caller can raise on a refused
+// launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreadsTarget = 256;
+constexpr int kCellsPerThread = 8;
+constexpr int kDwRows = 8;  // rows of d w_hh a backward thread sums at once (H % 8 == 0)
+constexpr int kScatterThreads = 256;
+constexpr int kScatterCols = 64;
+constexpr int kScatterWarps = kScatterThreads / 32;
+constexpr int kScatterStageBytes = 64 * 1024;
+constexpr int kScatterStageLoads = kScatterStageBytes / 16 / kScatterThreads;
+constexpr int kRoundSplits = 4;  // CTAs a block's forward is split over
+
+// threads of a block-round CTA: H columns times G cell groups
+inline int round_groups(int H) { return H >= kThreadsTarget ? 1 : kThreadsTarget / H; }
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+struct RoundSmem {
+  float *w, *b, *web, *he, *m;
+};
+
+__device__ __forceinline__ RoundSmem round_common_smem(float* smem, int H, int TC) {
+  RoundSmem s;
+  s.w = smem;                        // [H][3H + 1]
+  s.b = s.w + H * (3 * H + 1);       // [3H]
+  s.web = s.b + 3 * H;               // [H]
+  s.he = s.web + H;                  // [TC][H]  masked h_e of the tile
+  s.m = s.he + TC * H;               // [TC]     mask of the tile
+  return s;
+}
+
+__device__ void load_weights(const RoundSmem& s, const float* whh, const float* bhh,
+                             const float* web, int H) {
+  const int H3 = 3 * H, ws = H3 + 1;
+  for (int k = threadIdx.x; k < H * H3; k += blockDim.x) s.w[(k / H3) * ws + k % H3] = whh[k];
+  for (int k = threadIdx.x; k < H3; k += blockDim.x) s.b[k] = bhh[k];
+  for (int k = threadIdx.x; k < H; k += blockDim.x) s.web[k] = web[k];
+}
+
+// Loads the tile's masked h_e and mask; returns whether any cell is live
+// (a block-wide vote, so it also separates the tile from the one before).
+__device__ bool load_tile(const RoundSmem& s, const float* he, const float* mask,
+                          int64_t cell0, int t0, int ncell, int TC, int H) {
+  int live = 0;
+  for (int c = threadIdx.x; c < TC; c += blockDim.x) {
+    const float m = (t0 + c < ncell) ? mask[cell0 + t0 + c] : 0.f;
+    s.m[c] = m;
+    live |= (m != 0.f);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < TC * H; k += blockDim.x) {
+    const int c = k / H;
+    const float m = s.m[c];
+    s.he[k] = (m != 0.f) ? m * he[(cell0 + t0 + c) * H + k % H] : 0.f;
+  }
+  return __syncthreads_or(live) != 0;
+}
+
+// The three gh sums (without b_hh) of column h for this thread's cells.
+__device__ __forceinline__ void gate_products(const RoundSmem& s, int h, int g, int H,
+                                              float (&ar)[kCellsPerThread],
+                                              float (&az)[kCellsPerThread],
+                                              float (&an)[kCellsPerThread]) {
+  const int ws = 3 * H + 1;
+#pragma unroll
+  for (int cc = 0; cc < kCellsPerThread; ++cc) ar[cc] = az[cc] = an[cc] = 0.f;
+  const float* hrow = s.he + g * kCellsPerThread * H;
+  for (int k = 0; k < H; ++k) {
+    const float wr = s.w[k * ws + h], wz = s.w[k * ws + H + h], wn = s.w[k * ws + 2 * H + h];
+#pragma unroll
+    for (int cc = 0; cc < kCellsPerThread; ++cc) {
+      const float x = hrow[cc * H + k];
+      ar[cc] = fmaf(x, wr, ar[cc]);
+      az[cc] = fmaf(x, wz, az[cc]);
+      an[cc] = fmaf(x, wn, an[cc]);
+    }
+  }
+}
+
+// Row and column sums of the masked rectangle of block q, in a fixed order:
+// rows and columns split + nsplit * k of it.
+__device__ void row_col_sums(const float* he, const float* mask, int64_t q, int na, int nt,
+                             int H, float* rs, float* cs, int split, int nsplit) {
+  const int64_t cell0 = q * na * nt;
+  const int my_rows = (na - split + nsplit - 1) / nsplit, my_cols = (nt - split + nsplit - 1) / nsplit;
+  for (int k = threadIdx.x; k < my_rows * H; k += blockDim.x) {
+    const int i = split + nsplit * (k / H), h = k % H;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < nt; ++j) {
+      const int64_t cell = cell0 + (int64_t)i * nt + j;
+      acc += mask[cell] * he[cell * H + h];
+    }
+    rs[(q * na + i) * H + h] = acc;
+  }
+  for (int k = threadIdx.x; k < my_cols * H; k += blockDim.x) {
+    const int j = split + nsplit * (k / H), h = k % H;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < na; ++i) {
+      const int64_t cell = cell0 + (int64_t)i * nt + j;
+      acc += mask[cell] * he[cell * H + h];
+    }
+    cs[(q * nt + j) * H + h] = acc;
+  }
+}
+
+__global__ void block_round_fwd_kernel(const float* __restrict__ he,
+                                       const float* __restrict__ ga,
+                                       const float* __restrict__ gb,
+                                       const float* __restrict__ whh,
+                                       const float* __restrict__ bhh,
+                                       const float* __restrict__ web,
+                                       const float* __restrict__ mask,
+                                       float* __restrict__ eo, float* __restrict__ rs,
+                                       float* __restrict__ cs, float* __restrict__ lg,
+                                       int na, int nt, int H, float sign) {
+  extern __shared__ float smem[];
+  const int G = blockDim.x / H, TC = G * kCellsPerThread;
+  const RoundSmem s = round_common_smem(smem, H, TC);
+  float* eo_s = s.m + TC;  // [TC][H]
+  const int H3 = 3 * H, h = threadIdx.x % H, g = threadIdx.x / H;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
+  const int64_t q = blockIdx.x;
+  const int split = blockIdx.y, nsplit = gridDim.y;  // this CTA's share of the block
+  const int ncell = na * nt;
+  const int64_t cell0 = q * ncell;
+  load_weights(s, whh, bhh, web, H);
+
+  for (int t0 = split * TC; t0 < ncell; t0 += nsplit * TC) {
+    if (!load_tile(s, he, mask, cell0, t0, ncell, TC, H)) {
+      for (int k = threadIdx.x; k < TC * H; k += blockDim.x)
+        if (t0 + k / H < ncell) eo[(cell0 + t0) * H + k] = 0.f;
+      for (int c = threadIdx.x; c < TC; c += blockDim.x)
+        if (t0 + c < ncell) lg[cell0 + t0 + c] = 0.f;
+      continue;
+    }
+    float ar[kCellsPerThread], az[kCellsPerThread], an[kCellsPerThread];
+    gate_products(s, h, g, H, ar, az, an);
+#pragma unroll
+    for (int cc = 0; cc < kCellsPerThread; ++cc) {
+      const int c = g * kCellsPerThread + cc, cell = t0 + c;
+      const float m = s.m[c];
+      float out = 0.f;
+      if (m != 0.f) {
+        const int i = cell / nt, j = cell % nt;
+        const float* gai = ga + (q * na + i) * H3;
+        const float* gbj = gb + (q * nt + j) * H3;
+        const float hm = s.he[c * H + h];
+        const float r = sigmoid_f((gai[h] + sign * gbj[h]) + (ar[cc] + s.b[h]));
+        const float z = sigmoid_f((gai[H + h] + sign * gbj[H + h]) + (az[cc] + s.b[H + h]));
+        const float n = tanhf((gai[2 * H + h] + sign * gbj[2 * H + h])
+                              + r * (an[cc] + s.b[2 * H + h]));
+        out = m * ((1.f - z) * n + z * hm);
+      }
+      eo_s[c * H + h] = out;
+      if (cell < ncell) eo[(cell0 + cell) * H + h] = out;
+    }
+    __syncthreads();
+    // head partial lg = edge_out @ w_eb: one warp per cell, lanes over h,
+    // a fixed shuffle tree
+    for (int c = warp; c < TC; c += nwarps) {
+      float acc = 0.f;
+      for (int k = lane; k < H; k += 32) acc = fmaf(eo_s[c * H + k], s.web[k], acc);
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0 && t0 + c < ncell) lg[cell0 + t0 + c] = acc;
+    }
+    __syncthreads();
+  }
+  row_col_sums(he, mask, q, na, nt, H, rs, cs, split, nsplit);
+}
+
+__global__ void block_round_bwd_kernel(const float* __restrict__ he,
+                                       const float* __restrict__ ga,
+                                       const float* __restrict__ gb,
+                                       const float* __restrict__ whh,
+                                       const float* __restrict__ bhh,
+                                       const float* __restrict__ web,
+                                       const float* __restrict__ mask,
+                                       const float* __restrict__ geo,
+                                       const float* __restrict__ grs,
+                                       const float* __restrict__ gcs,
+                                       const float* __restrict__ glg,
+                                       float* __restrict__ dhe, float* __restrict__ dga,
+                                       float* __restrict__ dgb, float* __restrict__ part,
+                                       int na, int nt, int H, float sign) {
+  extern __shared__ float smem[];
+  const int G = blockDim.x / H, TC = G * kCellsPerThread;
+  const RoundSmem s = round_common_smem(smem, H, TC);
+  const int H3 = 3 * H, ws = H3 + 1;
+  float* glg_s = s.m + TC;        // [TC]
+  float* dgh_s = glg_s + TC;      // [TC][3H]  d gh: r | z | n*r
+  float* dgn_s = dgh_s + TC * H3; // [TC][H]   d gi of n (= d pre_n)
+  float* dw_s = dgn_s + TC * H;   // [H][3H]   this block's d w_hh
+  float* dga_s = dw_s + H * H3;   // [na][3H]
+  float* dgb_s = dga_s + na * H3; // [nt][3H]
+  float* red_s = dgb_s + nt * H3; // [G][4H]   cross-group d b_hh | d w_eb
+  const int h = threadIdx.x % H, g = threadIdx.x / H;
+  const int64_t q = blockIdx.x;
+  const int ncell = na * nt;
+  const int64_t cell0 = q * ncell;
+  load_weights(s, whh, bhh, web, H);
+  for (int k = threadIdx.x; k < H * H3; k += blockDim.x) dw_s[k] = 0.f;
+  for (int k = threadIdx.x; k < (na + nt) * H3; k += blockDim.x) dga_s[k] = 0.f;
+  float db_r = 0.f, db_z = 0.f, db_n = 0.f, dweb_acc = 0.f;
+
+  for (int t0 = 0; t0 < ncell; t0 += TC) {
+    if (!load_tile(s, he, mask, cell0, t0, ncell, TC, H)) {
+      for (int k = threadIdx.x; k < TC * H; k += blockDim.x)
+        if (t0 + k / H < ncell) dhe[(cell0 + t0) * H + k] = 0.f;
+      continue;
+    }
+    for (int c = threadIdx.x; c < TC; c += blockDim.x)
+      glg_s[c] = (t0 + c < ncell) ? glg[cell0 + t0 + c] : 0.f;
+    __syncthreads();
+    float ar[kCellsPerThread], az[kCellsPerThread], an[kCellsPerThread];
+    gate_products(s, h, g, H, ar, az, an);
+    float direct[kCellsPerThread];  // go * z, the part of d he_m not through w_hh
+#pragma unroll
+    for (int cc = 0; cc < kCellsPerThread; ++cc) {
+      const int c = g * kCellsPerThread + cc, cell = t0 + c;
+      const float m = s.m[c];
+      float d_r = 0.f, d_z = 0.f, d_n = 0.f, r = 0.f;
+      direct[cc] = 0.f;
+      if (m != 0.f) {
+        const int i = cell / nt, j = cell % nt;
+        const float* gai = ga + (q * na + i) * H3;
+        const float* gbj = gb + (q * nt + j) * H3;
+        const float hm = s.he[c * H + h];
+        r = sigmoid_f((gai[h] + sign * gbj[h]) + (ar[cc] + s.b[h]));
+        const float z = sigmoid_f((gai[H + h] + sign * gbj[H + h]) + (az[cc] + s.b[H + h]));
+        const float ghn = an[cc] + s.b[2 * H + h];
+        const float n = tanhf((gai[2 * H + h] + sign * gbj[2 * H + h]) + r * ghn);
+        const float gl = glg_s[c];
+        const float go = (geo[(cell0 + cell) * H + h] + gl * s.web[h]) * m;
+        const float out = m * ((1.f - z) * n + z * hm);
+        dweb_acc = fmaf(out, gl, dweb_acc);
+        const float dz = go * (hm - n);
+        d_n = go * (1.f - z) * (1.f - n * n);
+        d_r = d_n * ghn * r * (1.f - r);
+        d_z = dz * z * (1.f - z);
+        direct[cc] = go * z;
+      }
+      dgh_s[c * H3 + h] = d_r;
+      dgh_s[c * H3 + H + h] = d_z;
+      dgh_s[c * H3 + 2 * H + h] = d_n * r;
+      dgn_s[c * H + h] = d_n;
+      db_r += d_r;
+      db_z += d_z;
+      db_n += d_n * r;
+    }
+    __syncthreads();
+    // d h_e = mask * (go * z + d gh @ w_hh^T + g_rs[i] + g_cs[j])
+    {
+      float acc[kCellsPerThread];
+#pragma unroll
+      for (int cc = 0; cc < kCellsPerThread; ++cc) acc[cc] = 0.f;
+      const float* drow = dgh_s + g * kCellsPerThread * H3;
+      const float* wrow = s.w + h * ws;
+      for (int k = 0; k < H3; ++k) {
+        const float wk = wrow[k];
+#pragma unroll
+        for (int cc = 0; cc < kCellsPerThread; ++cc) acc[cc] = fmaf(drow[cc * H3 + k], wk, acc[cc]);
+      }
+#pragma unroll
+      for (int cc = 0; cc < kCellsPerThread; ++cc) {
+        const int c = g * kCellsPerThread + cc, cell = t0 + c;
+        if (cell >= ncell) continue;
+        const float m = s.m[c];
+        float v = 0.f;
+        if (m != 0.f) {
+          const int i = cell / nt, j = cell % nt;
+          v = m * (((direct[cc] + acc[cc]) + grs[(q * na + i) * H + h])
+                   + gcs[(q * nt + j) * H + h]);
+        }
+        dhe[(cell0 + cell) * H + h] = v;
+      }
+    }
+    // d w_hh += he_m^T @ d gh over the tile: item (kk group of kDwRows rows,
+    // column) owned by one thread, its kDwRows sums in registers
+    for (int it = threadIdx.x; it < (H / kDwRows) * H3; it += blockDim.x) {
+      const int kk0 = (it / H3) * kDwRows, col = it % H3;
+      float acc[kDwRows];
+#pragma unroll
+      for (int u = 0; u < kDwRows; ++u) acc[u] = 0.f;
+      for (int c = 0; c < TC; ++c) {
+        const float d = dgh_s[c * H3 + col];
+        const float4* hv = (const float4*)(s.he + c * H + kk0);
+#pragma unroll
+        for (int u = 0; u < kDwRows / 4; ++u) {
+          const float4 x = hv[u];
+          acc[4 * u] = fmaf(x.x, d, acc[4 * u]);
+          acc[4 * u + 1] = fmaf(x.y, d, acc[4 * u + 1]);
+          acc[4 * u + 2] = fmaf(x.z, d, acc[4 * u + 2]);
+          acc[4 * u + 3] = fmaf(x.w, d, acc[4 * u + 3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDwRows; ++u) dw_s[(kk0 + u) * H3 + col] += acc[u];
+    }
+    // d ga[i] += sum over the tile's cells of row i; d gb[j] likewise over column j
+    const int t1 = min(t0 + TC, ncell);
+    const int i_first = t0 / nt, rows = (t1 - 1) / nt - i_first + 1;
+    for (int k = threadIdx.x; k < rows * H3; k += blockDim.x) {
+      const int i = i_first + k / H3, col = k % H3;
+      const int c_lo = max(i * nt, t0) - t0, c_hi = min((i + 1) * nt, t1) - t0;
+      float acc = 0.f;
+      for (int c = c_lo; c < c_hi; ++c)
+        acc += col < 2 * H ? dgh_s[c * H3 + col] : dgn_s[c * H + col - 2 * H];
+      dga_s[i * H3 + col] += acc;
+    }
+    for (int k = threadIdx.x; k < nt * H3; k += blockDim.x) {
+      const int j = k / H3, col = k % H3;
+      float acc = 0.f;
+      for (int c = ((j - t0 % nt) + nt) % nt; t0 + c < t1; c += nt)
+        acc += col < 2 * H ? dgh_s[c * H3 + col] : dgn_s[c * H + col - 2 * H];
+      dgb_s[j * H3 + col] += acc;
+    }
+    __syncthreads();
+  }
+  for (int k = threadIdx.x; k < na * H3; k += blockDim.x) dga[q * na * H3 + k] = dga_s[k];
+  for (int k = threadIdx.x; k < nt * H3; k += blockDim.x) dgb[q * nt * H3 + k] = sign * dgb_s[k];
+  red_s[g * 4 * H + h] = db_r;
+  red_s[g * 4 * H + H + h] = db_z;
+  red_s[g * 4 * H + 2 * H + h] = db_n;
+  red_s[g * 4 * H + 3 * H + h] = dweb_acc;
+  __syncthreads();
+  const int width = H * H3 + 4 * H;
+  float* prow = part + q * width;
+  for (int o = threadIdx.x; o < H * H3; o += blockDim.x) prow[o] = dw_s[o];
+  for (int k = threadIdx.x; k < 4 * H; k += blockDim.x) {
+    float acc = 0.f;
+    for (int gg = 0; gg < G; ++gg) acc += red_s[gg * 4 * H + k];
+    prow[H * H3 + k] = acc;
+  }
+}
+
+// out[k] = sum over blocks q in increasing order of part[q][k]
+__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    int P, int width) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= width) return;
+  float acc = 0.f;
+  for (int q = 0; q < P; ++q) acc += part[(int64_t)q * width + k];
+  out[k] = acc;
+}
+
+__global__ void window_scatter_kernel(const float* __restrict__ vals,
+                                      const int32_t* __restrict__ idx,
+                                      float* __restrict__ out, int P, int n, int F,
+                                      int B, int capD, int chunk) {
+  extern __shared__ float4 smem4[];
+  float* stage = (float*)smem4;                  // [chunk][n][kScatterCols]
+  float* acc = stage + chunk * n * kScatterCols; // [capD][kScatterCols]
+  int* idx_s = (int*)(acc + capD * kScatterCols);  // [chunk][n]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int w = blockIdx.x, f0 = blockIdx.y * kScatterCols;
+  const int fw = min(kScatterCols, F - f0), f4 = fw / 4;  // fw is a multiple of 4
+  for (int k = threadIdx.x; k < capD * kScatterCols; k += blockDim.x) acc[k] = 0.f;
+  for (int p0 = w; p0 < P; p0 += chunk * B) {
+    __syncthreads();  // the previous chunk is no longer read
+    // stage `chunk` of the window's blocks: coalesced 16-byte loads,
+    // kScatterStageLoads of a thread issued before its first store
+    for (int base = 0; base < chunk * n * f4; base += kScatterStageLoads * kScatterThreads) {
+      float4 v[kScatterStageLoads];
+#pragma unroll
+      for (int u = 0; u < kScatterStageLoads; ++u) {
+        const int k = base + threadIdx.x + u * kScatterThreads;
+        const int pc = k / (n * f4), i = (k / f4) % n, f = k % f4;
+        const int p = p0 + pc * B;
+        if (k < chunk * n * f4 && p < P)
+          v[u] = __ldg((const float4*)(vals + ((int64_t)p * n + i) * F + f0) + f);
+      }
+#pragma unroll
+      for (int u = 0; u < kScatterStageLoads; ++u) {
+        const int k = base + threadIdx.x + u * kScatterThreads;
+        const int pc = k / (n * f4), i = (k / f4) % n, f = k % f4;
+        if (k < chunk * n * f4 && p0 + pc * B < P)
+          ((float4*)stage)[(pc * n + i) * (kScatterCols / 4) + f] = v[u];
+      }
+    }
+    for (int k = threadIdx.x; k < chunk * n; k += blockDim.x) {
+      const int p = p0 + (k / n) * B;
+      int r = -1;
+      if (p < P) {
+        r = idx[(int64_t)p * n + k % n];
+        if ((unsigned)r >= (unsigned)capD) __trap();
+      }
+      idx_s[k] = r;
+    }
+    __syncthreads();
+    // a row of zeros adds nothing: drop it here, so that the padded
+    // positions (all id 0, all zero) do not queue up on one owner warp
+    for (int k = threadIdx.x; k < chunk * n; k += blockDim.x) {
+      const float4* row = (const float4*)(stage + k * kScatterCols);
+      bool zero = true;
+      for (int f = 0; f < f4 && zero; ++f) {
+        const float4 v = row[f];
+        zero = v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f;
+      }
+      if (zero) idx_s[k] = -1;
+    }
+    __syncthreads();
+    // warp w owns the destination rows r with r % kScatterWarps == w and adds its
+    // staged rows in block, then row order, its lanes over the columns
+    // (ids read four at a time, so the scan does not wait on each one)
+    for (int k0 = 0; k0 < chunk * n; k0 += 4) {
+      int4 r4 = make_int4(-1, -1, -1, -1);
+      if (k0 + 4 <= chunk * n) {
+        r4 = ((const int4*)idx_s)[k0 / 4];
+      } else {
+        r4.x = idx_s[k0];
+        if (k0 + 1 < chunk * n) r4.y = idx_s[k0 + 1];
+        if (k0 + 2 < chunk * n) r4.z = idx_s[k0 + 2];
+      }
+      const int rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = rr[u];
+        if (r < 0 || r % kScatterWarps != warp) continue;  // the same for the whole warp
+        const float* src = stage + (k0 + u) * kScatterCols;
+        float* dst = acc + r * kScatterCols;
+        for (int f = lane; f < fw; f += 32) dst[f] += src[f];
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < capD * fw; k += blockDim.x) {
+    const int r = k / fw, f = k % fw;
+    out[((int64_t)w * capD + r) * F + f0 + f] = acc[r * kScatterCols + f];
+  }
+}
+
+size_t round_smem_bytes(int na, int nt, int H, bool backward) {
+  const size_t TC = (size_t)round_groups(H) * kCellsPerThread, H3 = 3 * (size_t)H;
+  size_t floats = H * (H3 + 1) + H3 + H + TC * H + TC;  // w_hh, b_hh, w_eb, tile, mask
+  if (!backward) return (floats + TC * H) * sizeof(float);  // + edge_out tile
+  floats += TC + TC * H3 + TC * H + H * H3 + (size_t)(na + nt) * H3
+            + (size_t)round_groups(H) * 4 * H;
+  return floats * sizeof(float);
+}
+
+cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+
+// Bytes of shared memory a CTA of the forward (backward = 0) or backward
+// kernel needs at these widths; -1 for a width the kernels do not take.
+extern "C" int tm_block_round_smem_bytes(int na, int nt, int H, int backward) {
+  if (H < kDwRows || H > kThreadsTarget || kThreadsTarget % H != 0) return -1;
+  return (int)round_smem_bytes(na, nt, H, backward != 0);
+}
+
+// h_e: f32[P, na, nt, H]; ga: f32[P, na, 3H]; gb: f32[P, nt, 3H];
+// w_hh: f32[H, 3H]; b_hh: f32[3H]; w_eb: f32[H]; mask: f32[P, na, nt];
+// out: edge_out f32[P, na, nt, H], rs f32[P, na, H], cs f32[P, nt, H],
+// lg f32[P, na, nt].  H divides 256 and is at least 8.
+extern "C" int tm_block_round_fwd(const void* he, const void* ga, const void* gb,
+                                  const void* whh, const void* bhh, const void* web,
+                                  const void* mask, void* eo, void* rs, void* cs, void* lg,
+                                  int P, int na, int nt, int H, float sign, void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  const size_t smem = round_smem_bytes(na, nt, H, false);
+  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  block_round_fwd_kernel<<<dim3(P, kRoundSplits), H * round_groups(H), smem,
+                           (cudaStream_t)stream>>>(
+      (const float*)he, (const float*)ga, (const float*)gb, (const float*)whh,
+      (const float*)bhh, (const float*)web, (const float*)mask, (float*)eo, (float*)rs,
+      (float*)cs, (float*)lg, na, nt, H, sign);
+  return (int)cudaGetLastError();
+}
+
+// Inputs as tm_block_round_fwd plus the cotangents g_eo, g_rs, g_cs, g_lg
+// (shapes of edge_out, rs, cs, lg).  Writes d h_e, d ga, d gb (shapes of
+// h_e, ga, gb), the per-block partials f32[P, H*3H + 4H] (scratch) and
+// dw f32[H*3H + 4H] = [d w_hh (H x 3H) | d b_hh (3H) | d w_eb (H)].
+extern "C" int tm_block_round_bwd(const void* he, const void* ga, const void* gb,
+                                  const void* whh, const void* bhh, const void* web,
+                                  const void* mask, const void* geo, const void* grs,
+                                  const void* gcs, const void* glg, void* dhe, void* dga,
+                                  void* dgb, void* partials, void* dw, int P, int na,
+                                  int nt, int H, float sign, void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = round_smem_bytes(na, nt, H, true);
+  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  block_round_bwd_kernel<<<P, H * round_groups(H), smem, s>>>(
+      (const float*)he, (const float*)ga, (const float*)gb, (const float*)whh,
+      (const float*)bhh, (const float*)web, (const float*)mask, (const float*)geo,
+      (const float*)grs, (const float*)gcs, (const float*)glg, (float*)dhe, (float*)dga,
+      (float*)dgb, (float*)partials, na, nt, H, sign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int width = 3 * H * H + 4 * H;
+  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials,
+                                                          (float*)dw, P, width);
+  return (int)cudaGetLastError();
+}
+
+// blocks of a window staged at once: as many as fit kScatterStageBytes
+static int scatter_chunk(int n) {
+  const int per_block = n * kScatterCols * (int)sizeof(float);
+  return per_block <= 0 ? 1 : (kScatterStageBytes / per_block > 1 ? kScatterStageBytes / per_block
+                                                                    : 1);
+}
+
+extern "C" int tm_window_scatter_smem_bytes(int n, int capD) {
+  const size_t chunk = scatter_chunk(n);
+  return (int)(((size_t)capD * kScatterCols + chunk * n * (kScatterCols + 1)) * sizeof(float));
+}
+
+// vals: f32[P, n, F] (F % 4 == 0, 16-byte aligned); idx: int32[P, n]
+// window-local ids in [0, capD) (else the kernel traps); out: f32[B*capD, F],
+// every element written.
+extern "C" int tm_window_scatter(const void* vals, const void* idx, void* out, int P, int n,
+                                 int F, int B, int capD, void* stream) {
+  if (B == 0 || capD == 0 || F == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)tm_window_scatter_smem_bytes(n, capD);
+  cudaError_t err = opt_in_smem((const void*)window_scatter_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B, (F + kScatterCols - 1) / kScatterCols);
+  window_scatter_kernel<<<grid, kScatterThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int32_t*)idx, (float*)out, P, n, F, B, capD,
+      scatter_chunk(n));
+  return (int)cudaGetLastError();
+}

@@ -1,9 +1,13 @@
-"""Build and load the hand-written CUDA kernels (csrc/mp_kernels.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-nvcc compiles the source into build/torch_kernels/libtm_mp.so at the root
-of the checkout on first use, and again whenever the source is newer than
-the library; ctypes loads it.  The source includes no PyTorch header, so
-the build takes seconds.  Nothing here runs when the module is imported.
+Each source compiles into its own shared library under build/torch_kernels/
+at the root of the checkout, on first use and again whenever the source is
+newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
+ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
+ops/block.py).  build() starts one nvcc per stale source, all at once, and
+waits for them.  The sources include no PyTorch header, so a build takes
+seconds; ctypes loads the result.  Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -15,13 +19,27 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "mp_kernels.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libtm_mp.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> (source, library, {entry point: argtypes}); every entry returns int
+LIBRARIES = {
+    "mp": (os.path.join(_PKG, "csrc", "mp_kernels.cu"),
+           os.path.join(BUILD_DIR, "libtm_mp.so"),
+           {"tm_gather_diff": [_P, _P, _P, _P, _P, _I, _I, _P],
+            "tm_signed_segment_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]}),
+    "block": (os.path.join(_PKG, "csrc", "block_kernels.cu"),
+              os.path.join(BUILD_DIR, "libtm_block.so"),
+              {"tm_block_round_smem_bytes": [_I, _I, _I, _I],
+               "tm_block_round_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+               "tm_block_round_bwd": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+               "tm_window_scatter_smem_bytes": [_I, _I],
+               "tm_window_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}),
+}
+
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -36,34 +54,52 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> dict:
-    """Compile the library if it is missing or older than its source.
+def _stale(name: str) -> bool:
+    source, library, _ = LIBRARIES[name]
+    return not (os.path.exists(library) and os.path.getmtime(library) >= os.path.getmtime(source))
 
-    Returns {"built": bool, "seconds": float, "log": compiler output}."""
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
-        return {"built": False, "seconds": 0.0, "log": ""}
+
+def build(names=None) -> dict:
+    """Compile every library of `names` (default: all) that is missing or
+    older than its source, one nvcc process per source, run concurrently.
+
+    Returns {name: {"built": bool, "seconds": float, "log": compiler output}}."""
+    names = list(LIBRARIES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half a file
-    return {"built": True, "seconds": time.perf_counter() - t0,
-            "log": res.stdout + res.stderr}
+    jobs, out = {}, {}
+    for name in names:
+        if not _stale(name):
+            out[name] = {"built": False, "seconds": 0.0, "log": ""}
+            continue
+        source, library, _ = LIBRARIES[name]
+        tmp = f"{library}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in jobs.items():
+        stdout, stderr = proc.communicate()
+        source, library, _ = LIBRARIES[name]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, library)  # atomic: a concurrent loader never sees half a file
+        out[name] = {"built": True, "seconds": time.perf_counter() - t0,
+                     "log": stdout + stderr}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed, with every entry point typed."""
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tm_gather_diff.argtypes = [p, p, p, p, p, i, i, p]
-        lib.tm_gather_diff.restype = i
-        lib.tm_signed_segment_sum.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.tm_signed_segment_sum.restype = i
-        _lib = lib
-    return _lib
+def load(name: str = "mp") -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed, every entry point typed."""
+    if name not in _libs:
+        build([name])
+        _, library, entries = LIBRARIES[name]
+        lib = ctypes.CDLL(library)
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

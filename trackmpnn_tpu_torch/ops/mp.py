@@ -63,8 +63,8 @@ def _check_cuda_inputs(name, h, past, fut, edge_mask):
         raise ValueError(f"{name}: h must be contiguous and 16-byte aligned")
     if h.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; its backward kernel "
-            "belongs to the training slice (ROADMAP.md queue 1, 'Block train step')")
+            f"{name}: the CUDA kernel is forward-only; no trained path uses it "
+            "yet (ROADMAP.md queue 1, 'Training CLI')")
 
 
 def _dispatch(h):
