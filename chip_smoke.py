@@ -42,6 +42,24 @@ failure exits non-zero:
     against their plain versions on the recorded inputs, each bitwise the
     same on a second launch, timed beside its plain version, its bound
     and, for the scatter, torch's index_add_.
+ 7. GAT training: the block train step of phase 5 with one attention head
+    (weights from torch.Generator seed 0) and real attention dropout.  The
+    first step takes keep masks drawn on the card (att_keep) and records
+    the attention kernels' widest inputs; 3 warm-up steps and 20 timed
+    steps draw their masks from a cuda generator, with the launch counters
+    set to 0 before and read after (T of each attention kernel, T / T / 5T
+    of the block kernels a step); one profiled step.  The first step rerun
+    on the CPU with the same masks must agree to phase 5's tolerances.
+ 8. GAT kernels: gat_scores_fwd / gat_aggregate_fwd (rtol and atol 1e-5) and
+    gat_scores_bwd / gat_aggregate_bwd (rtol 1e-4, atol 1e-5 x each
+    output's scale) against their plain versions at the widest round of
+    phase 7 (1 head) and at the same shape with 3 heads on seeded inputs;
+    each bitwise the same on a second launch, timed beside its plain
+    version and its bound.
+ 9. GAT serving: one 30-track x 100-frame sequence served by a random
+    one-head model on the card (gather_diff once a forward; the attention
+    replaces signed_segment_sum) and on the CPU: identical tracks, scores
+    within 1e-4.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -81,6 +99,19 @@ LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-3, 1e-4
 # f32 operations a live cell of the round takes beyond its products: the
 # gate arithmetic per hidden unit (adds, sigmoid x2, tanh, the output mix)
 GATE_FLOPS_PER_UNIT = 30
+# attention: one head ("GAT1", the TPU log logs/bench_r5_gat_final.log) on
+# the training path, three more for the kernels' check at the same shape
+GAT_HEADS, GAT_HEADS_WIDE = 1, 3
+# a score sums H products and an exp-sum up to nt terms: the rounding of
+# another summation order grows with the value, so forwards hold rtol too
+GAT_FWD_RTOL = GAT_FWD_ATOL = 1e-5
+# f32 operations a live cell and head takes in the softmax terms (leaky
+# relu, masked max, two exps, divisions, dropout scaling)
+GAT_CELL_OPS = 20
+GAT_REPLACES = {"gat_scores_fwd": "trackmpnn_tpu/ops/pallas_gat.py:505",
+                "gat_scores_bwd": "trackmpnn_tpu/ops/pallas_gat.py:531",
+                "gat_aggregate_fwd": "trackmpnn_tpu/ops/pallas_gat.py:644",
+                "gat_aggregate_bwd": "trackmpnn_tpu/ops/pallas_gat.py:664"}
 # the plain versions launch tens of small ops a call: fewer timed calls, so
 # that their launches fit the device's queue behind the timer's sleep
 PLAIN_ITERS = 12
@@ -414,17 +445,16 @@ def training_workload(np):
 
 
 @contextlib.contextmanager
-def record_widest(module, name, keep: dict, key):
+def record_widest(module, name, keep: dict, key, blocks=lambda args: args[0].shape[0]):
     """While active, calls of module.name also store a clone of their
-    arguments in keep[key(args)], for the call whose first tensor has the
-    most rows."""
+    arguments in keep[key(args)], for the call with the most blocks."""
     import torch
 
     orig = getattr(module, name)
 
     def rec(*args):
         k = key(args)
-        if k not in keep or args[0].shape[0] > keep[k][0].shape[0]:
+        if k not in keep or blocks(args) > blocks(keep[k]):
             keep[k] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
         return orig(*args)
 
@@ -439,106 +469,147 @@ def tree_max_abs(tensors):
     return max(float(t.abs().max()) for t in tensors)
 
 
-def training_phase(torch, np, block_ops):
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, params_c, what):
+    """The card's first step against the CPU's rerun: loss terms within
+    rtol LOSS_RTOL, tp/fp/fn equal, grads within GRAD_RTOL with an atol of
+    GRAD_ATOL_SCALE x the largest |grad|.  Returns (worst grad diff, scale)."""
+    for name, a, b in (("loss", loss1, loss_c), ("loss_ce", aux1["loss_ce"], aux_c["loss_ce"]),
+                       ("loss_f", aux1["loss_f"], aux_c["loss_f"])):
+        a, b = float(a), float(b)
+        if not abs(a - b) <= LOSS_RTOL * abs(b):
+            fail(f"{what} first step {name}: card {a!r}, CPU {b!r} (rtol {LOSS_RTOL})")
+    for k in ("tp", "fp", "fn"):
+        if int(aux1[k]) != int(aux_c[k]):
+            fail(f"{what} first step {k}: card {int(aux1[k])}, CPU {int(aux_c[k])}")
+    grads_c = [p.grad for p in train_block.param_leaves(params_c)]
+    gscale = tree_max_abs(grads_c)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(grads1, grads_c)):
+        a = a.cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
+            fail(f"{what} first step grad of leaf {i} differs between card and CPU by "
+                 f"{float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
+                 f"atol {GRAD_ATOL_SCALE * gscale:.3g})")
+    return worst, gscale
+
+
+def training_phase(torch, np, block_ops, gat_ops, heads):
+    """Phase 5 (heads = 0) or 7: the block train step on bench.py's
+    workload.  Returns (summary, the widest inputs of the path's kernels)."""
     from trackmpnn_tpu_torch.models import mpnn
     from trackmpnn_tpu_torch.train import block as train_block
     from trackmpnn_tpu_torch.train import optim
 
+    what = f"GAT training ({heads} head, dropout {mpnn.ATT_DROPOUT})" if heads else "training"
     schedules, t_cap, edges = training_workload(np)
     bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
-    print(f"training inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
+    print(f"{what} inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
           f"nt_cap {bb.nt_cap}, H {HIDDEN}, P at the last step {bb.n_windows * t_cap}, "
           f"live edge rows a step {edges}, live cells in all blocks {live_cells}")
-    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff",
+                           nattheads=heads)
     params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
     stats0 = mpnn.init_batch_stats(cfg)
     step = train_block.make_block_train_step(cfg, tp_classifier=False)
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
-    params = train_block.trainable(to(params0, "cuda"))
-    stats = to(stats0, "cuda")
+    params = train_block.trainable(to_device(params0, "cuda"))
+    stats = to_device(stats0, "cuda")
     opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
+    gen = keep1 = None
+    if heads:
+        # attention dropout: the first step's keep masks are drawn on the
+        # card and shared with its CPU rerun, later steps draw from gen
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        keep1 = [train_block.draw_att_keep(gen, heads, ((s + 1) * bb.n_windows, bb.na_cap,
+                                                         bb.nt_cap), "cuda")
+                 for s in range(t_cap)]
 
-    # first step, recording the widest inputs of every kernel
+    # first step, recording the widest inputs of every kernel of the path
     inputs = {}
-    with record_widest(block_ops, "_block_round_fwd_cuda", inputs, lambda a: "fwd"), \
-            record_widest(block_ops, "_block_round_bwd_cuda", inputs, lambda a: "bwd"), \
-            record_widest(block_ops, "_window_scatter_cuda", inputs,
-                          lambda a: f"scatter_F{a[0].shape[2]}"):
-        params, stats, loss1, aux1 = step(params, stats, opt, bb)
+    with contextlib.ExitStack() as rec:
+        if heads:
+            for name in ("gat_scores_fwd", "gat_scores_bwd"):
+                rec.enter_context(record_widest(gat_ops, f"_{name}_cuda", inputs,
+                                                lambda a, n=name: n))
+            for name in ("gat_aggregate_fwd", "gat_aggregate_bwd"):
+                rec.enter_context(record_widest(gat_ops, f"_{name}_cuda", inputs,
+                                                lambda a, n=name: n,
+                                                blocks=lambda a: a[5].shape[0]))
+        else:
+            rec.enter_context(record_widest(block_ops, "_block_round_fwd_cuda", inputs,
+                                            lambda a: "fwd"))
+            rec.enter_context(record_widest(block_ops, "_block_round_bwd_cuda", inputs,
+                                            lambda a: "bwd"))
+            rec.enter_context(record_widest(block_ops, "_window_scatter_cuda", inputs,
+                                            lambda a: f"scatter_F{a[0].shape[2]}"))
+        params, stats, loss1, aux1 = step(params, stats, opt, bb, att_keep=keep1)
     grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
     torch.cuda.synchronize()
     for _ in range(TRAIN_WARMUP):
-        params, stats, _, _ = step(params, stats, opt, bb)
+        params, stats, _, _ = step(params, stats, opt, bb, generator=gen)
     torch.cuda.synchronize()
 
-    for k in block_ops.LAUNCHES:
-        block_ops.LAUNCHES[k] = 0
+    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
     losses = []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for _ in range(TRAIN_STEPS):
-        params, stats, loss, _ = step(params, stats, opt, bb)
+        params, stats, loss, _ = step(params, stats, opt, bb, generator=gen)
         losses.append(loss)
     end.record()
     end.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(block_ops.LAUNCHES)
+    launches = {k: v for c in counters for k, v in c.items()}
     events_ms = start.elapsed_time(end) / TRAIN_STEPS
     wall_ms = wall_s * 1e3 / TRAIN_STEPS
-    expected = {"block_round_fwd": t_cap, "block_round_bwd": t_cap, "window_scatter": 3 * t_cap}
+    # window_scatter: the es sum and two launches for the backward of the
+    # gate gather, with heads two more for the attention projections' gather
+    expected = {"block_round_fwd": t_cap, "block_round_bwd": t_cap,
+                "window_scatter": (5 if heads else 3) * t_cap,
+                **{k: t_cap if heads else 0 for k in gat_ops.LAUNCHES}}
     for k, v in expected.items():
         if launches[k] != v * TRAIN_STEPS:
-            fail(f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
+            fail(f"{what}: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
                  f"expected {v} a step")
     losses = torch.stack(losses).cpu().numpy()
     if not np.all(np.isfinite(losses)):
-        fail(f"training loss not finite: {losses}")
-    print(f"training: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), "
+        fail(f"{what} loss not finite: {losses}")
+    print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), "
           f"{wall_ms:.3f} ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; "
-          f"launches a step { {k: v / TRAIN_STEPS for k, v in launches.items()} }; "
+          f"launches a step { {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; "
           f"loss {float(loss1):.6g} -> {losses[-1]:.6g}")
-    profile = device_profile(torch, lambda: step(params, stats, opt, bb), wall_ms / 1e3)
+    profile = device_profile(torch, lambda: step(params, stats, opt, bb, generator=gen),
+                             wall_ms / 1e3)
 
-    # the first step again on the CPU, from the same weights and batch
+    # the first step again on the CPU, from the same weights, batch and masks
     bb_cpu = type(bb)(*(t.cpu() for t in bb))
     params_c = train_block.trainable(params0)
     opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
+    keep_c = None if keep1 is None else [tuple(k.cpu() for k in ks) for ks in keep1]
     t0 = time.perf_counter()
-    params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c, bb_cpu)
+    params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c, bb_cpu, att_keep=keep_c)
     cpu_step_s = time.perf_counter() - t0
-    for name, a, b in (("loss", loss1, loss_c), ("loss_ce", aux1["loss_ce"], aux_c["loss_ce"]),
-                       ("loss_f", aux1["loss_f"], aux_c["loss_f"])):
-        a, b = float(a), float(b)
-        if not abs(a - b) <= LOSS_RTOL * abs(b):
-            fail(f"first step {name}: card {a!r}, CPU {b!r} (rtol {LOSS_RTOL})")
-    for k in ("tp", "fp", "fn"):
-        if int(aux1[k]) != int(aux_c[k]):
-            fail(f"first step {k}: card {int(aux1[k])}, CPU {int(aux_c[k])}")
-    grads_c = [p.grad for p in train_block.param_leaves(params_c)]
-    gscale = tree_max_abs(grads_c)
-    worst_grad = 0.0
-    for i, (a, b) in enumerate(zip(grads1, grads_c)):
-        a = a.cpu()
-        worst_grad = max(worst_grad, float((a - b).abs().max()))
-        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
-            fail(f"first step grad of leaf {i} differs between card and CPU by "
-                 f"{float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
-                 f"atol {GRAD_ATOL_SCALE * gscale:.3g})")
-    print(f"training vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
+    worst_grad, gscale = first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c,
+                                           aux_c, params_c, what)
+    print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
           f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
           f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
     summary = {
-        "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD, "na_cap": bb.na_cap,
-        "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
+        "heads": heads, "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
+        "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
         "live_cells": live_cells, "steps": TRAIN_STEPS,
         "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
         "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
@@ -675,6 +746,158 @@ def block_kernel_phase(torch, block_ops, inputs, launches):
     return results, extra[f"scatter_F{H}"]
 
 
+def gat_bounds(args, name, nh):
+    """(bytes, f32 operations) each attention kernel needs on these inputs:
+    every input read once (h_e at the live cells only) and every output
+    written once; per live cell and head, |diff| . a costs 4 operations a
+    hidden unit (subtract, absolute value, multiply-add) and the softmax
+    terms ~GAT_CELL_OPS."""
+    f = lambda *ts: 4 * sum(t.numel() for t in ts)
+    if name.startswith("gat_scores"):
+        ha, hn, a, m3 = args[:4]
+        H = ha.shape[2] // nh
+        cells = int((m3 != 0).sum())
+        if name == "gat_scores_fwd":
+            P, na, nt = m3.shape
+            out = 4 * nh * P * (na * nt + 2 * (na + nt))
+            return f(ha, hn, a, m3) + out, cells * nh * (4 * H + GAT_CELL_OPS)
+        # backward: the forward again, then d ha, d hn (3 each) and d a (2) a unit
+        return (f(ha, hn, a, m3, *args[6:9]) + f(ha, hn, a),
+                cells * nh * (12 * H + 2 * GAT_CELL_OPS))
+    e, mr, mc, zr, zc, he, m3, ka, kn, keep = args[:10]
+    H = he.shape[3]
+    cells = int((m3 != 0).sum())
+    masks = f(ka, kn) if keep < 1.0 else 0
+    small = f(e, mr, mc, zr, zc, m3) + masks + 4 * cells * H
+    if name == "gat_aggregate_fwd":
+        # rs and cs written; a multiply-add a cell and unit for each
+        P, na, nt = m3.shape
+        return small + 4 * P * (na + nt) * H, cells * (nh * GAT_CELL_OPS + 4 * H)
+    g_rs, g_cs = args[10:12]
+    # datt: two dot products a cell; d h_e: two multiply-adds a cell, head and unit
+    out = f(e, mr, mc, zr, zc) + 4 * he.numel()
+    return small + f(g_rs, g_cs) + out, cells * (4 * H + nh * (4 * H + GAT_CELL_OPS))
+
+
+def gat_kernel_phase(torch, gat_ops, inputs, launches):
+    """Phase 8: the four attention kernels at the widest round of phase 7,
+    and at the same shape with 3 heads on seeded inputs."""
+    fwd_s, bwd_s = inputs["gat_scores_fwd"], inputs["gat_scores_bwd"]
+    fwd_a, bwd_a = inputs["gat_aggregate_fwd"], inputs["gat_aggregate_bwd"]
+    ha, hn, a, m3, alpha, _ = fwd_s
+    P, na, nt = m3.shape
+    H = ha.shape[2] // GAT_HEADS
+    he = fwd_a[5]
+    # the same shape with GAT_HEADS_WIDE heads: seeded inputs, the widest
+    # round's mask and edge hiddens, row/column-local softmax statistics
+    nh3 = GAT_HEADS_WIDE
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, device="cuda", generator=g)
+    s3 = (rnd(P, na, nh3 * H), rnd(P, nt, nh3 * H), 0.3 * rnd(nh3 * H, 1), m3, alpha, nh3)
+    e3, rmax3, cmax3, sal3, sbl3 = gat_ops.gat_scores_stats_reference(*s3)
+    safe = lambda x: torch.where(x > gat_ops.NEG_SCORE / 2, x, 0.0)
+    keep3 = lambda: (torch.rand((nh3, P, na, nt), device="cuda", generator=g) < 0.5).float()
+    a3 = (e3, safe(rmax3), safe(cmax3), sal3, sbl3, he, m3, keep3(), keep3(), 0.5)
+    cases = {
+        "gat_scores_fwd": [(GAT_HEADS, fwd_s), (nh3, s3)],
+        "gat_scores_bwd": [(GAT_HEADS, bwd_s),
+                           (nh3, s3 + (rnd(nh3, P, na, nt), rnd(nh3, P, na), rnd(nh3, P, nt)))],
+        "gat_aggregate_fwd": [(GAT_HEADS, fwd_a), (nh3, a3)],
+        "gat_aggregate_bwd": [(GAT_HEADS, bwd_a), (nh3, a3 + (rnd(P, na, H), rnd(P, nt, H)))],
+    }
+    plain = {"gat_scores_fwd": gat_ops.gat_scores_stats_reference,
+             "gat_scores_bwd": gat_ops.gat_scores_stats_backward_reference,
+             "gat_aggregate_fwd": gat_ops.gat_aggregate_reference,
+             "gat_aggregate_bwd": gat_ops.gat_aggregate_backward_reference}
+    rows, wide = [], {}
+    for name, runs in cases.items():
+        kernel = getattr(gat_ops, f"_{name}_cuda")
+        forward = name.endswith("fwd")
+        for nh, args in runs:
+            got, again, want = kernel(*args), kernel(*args), plain[name](*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for k, (x, w) in enumerate(zip(got, want)):
+                err = max(err, float((x - w).abs().max()))
+                if forward:
+                    ok = torch.allclose(x, w, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL)
+                else:
+                    ok = torch.allclose(x, w, rtol=ROUND_BWD_RTOL,
+                                        atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()),
+                                                                        1e-30))
+                if not ok:
+                    fail(f"{name} (nh {nh}) output {k} differs from its plain version by "
+                         f"{float((x - w).abs().max()):.3g}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"{name} (nh {nh}) is not bitwise the same on a second launch")
+            b, by = bound_ms(*gat_bounds(args, name, nh))
+            r = {
+                "name": name, "route": "cuda",
+                "source": "trackmpnn_tpu_torch/csrc/gat_kernels.cu",
+                "replaces": GAT_REPLACES[name], "launches": launches[name],
+                "max_abs_err": err,
+                "ms": cuda_time_ms(lambda: kernel(*args)),
+                "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+                "plain_ms": cuda_time_ms(lambda: plain[name](*args), iters=PLAIN_ITERS),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "shape": f"nh {nh}, P {P}, na {na}, nt {nt}, H {H}, "
+                         f"live cells {int((m3 != 0).sum())}",
+            }
+            print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+                  f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
+            if nh == GAT_HEADS:
+                rows.append(r)
+            else:
+                wide[name] = r
+    return rows, wide
+
+
+def gat_serving_phase(torch, np, mp):
+    """Phase 9: one sequence served by a random GAT model, card against CPU."""
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.decode.tracker import Tracker, TrackerConfig
+    from trackmpnn_tpu_torch.models import mpnn
+
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff",
+                           nattheads=GAT_HEADS)
+    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
+    stats = mpnn.init_batch_stats(cfg)
+    tcfg = TrackerConfig(cur_win_size=WIN, hungarian=True)
+    X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=SERVE_FRAMES,
+                                    ncategories=3, seed=SERVE_SEEDS[0])
+    seq = [(X, bbox_pred[:, :2].astype(np.int64))]
+    gpu = Tracker(params, stats, cfg, tcfg, device="cuda")
+    gpu.run(X[:200], seq[0][1][:200])  # warm-up
+    torch.cuda.synchronize()
+    for k in mp.LAUNCHES:
+        mp.LAUNCHES[k] = 0
+    runs, fwd_ms, walls = serve(gpu, seq, np)
+    launches = dict(mp.LAUNCHES)
+    forwards = len(runs[0][0])
+    if launches != {"gather_diff": forwards, "signed_segment_sum": 0}:
+        fail(f"GAT serving: launches {launches} over {forwards} forwards, expected gather_diff "
+             "once a forward and no signed_segment_sum")
+    cpu_runs, _, _ = serve(Tracker(params, stats, cfg, tcfg, device="cpu"), seq, np)
+    (steps, y_out), (c_steps, c_y_out) = runs[0], cpu_runs[0]
+    if [n for n, _ in steps] != [n for n, _ in c_steps]:
+        fail("GAT serving: the card's and the CPU's windows differ")
+    worst = max(float(np.abs(s - cs).max()) for (_, s), (_, cs) in zip(steps, c_steps))
+    if not np.array_equal(y_out, c_y_out):
+        fail("GAT serving: decoded tracks differ between card and CPU")
+    if worst > STEP_SCORE_ATOL:
+        fail(f"GAT serving: per-step scores differ by {worst:.3g} > {STEP_SCORE_ATOL}")
+    frames = len(np.unique(seq[0][1][:, 0]))
+    f = np.array(fwd_ms)
+    summary = {"heads": GAT_HEADS, "frames": frames, "forwards": forwards, "wall_s": walls[0],
+               "frames_per_s": frames / walls[0], "forward_ms_mean": float(f.mean()),
+               "forward_ms_p99": float(np.percentile(f, 99)),
+               "max_step_score_err_vs_cpu": worst, "launches": launches}
+    print("GAT serving: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                                      for k, v in summary.items()) + "; tracks equal the CPU's")
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -691,6 +914,7 @@ def main():
         from trackmpnn_tpu_torch.graph import view as view_mod
         from trackmpnn_tpu_torch.ops import _build, mp
         from trackmpnn_tpu_torch.ops import block as block_ops
+        from trackmpnn_tpu_torch.ops import gat as gat_ops
     except ImportError as e:
         fail(f"the trackmpnn_tpu_torch package is not beside this script ({e})")
 
@@ -725,16 +949,23 @@ def main():
         k["launches"] = serving["launches"][k["name"]]
     cli = cli_phase(model, np)
     # 5. training, 6. block kernels: the training path
-    training, inputs = training_phase(torch, np, block_ops)
+    training, inputs = training_phase(torch, np, block_ops, gat_ops, heads=0)
     block_kernels, scatter_es = block_kernel_phase(torch, block_ops, inputs,
                                                    training["launches"])
     kernels += block_kernels
+    # 7. GAT training, 8. GAT kernels, 9. GAT serving: the attention path
+    gat_training, gat_inputs = training_phase(torch, np, block_ops, gat_ops, heads=GAT_HEADS)
+    gat_kernels, gat_wide = gat_kernel_phase(torch, gat_ops, gat_inputs, gat_training["launches"])
+    kernels += gat_kernels
+    gat_serving = gat_serving_phase(torch, np, mp)
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "window_scatter_es": scatter_es,
-                       "serving": serving, "cli": cli, "training": training}, f, indent=1)
+                       "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
+                       "training": training, "gat_training": gat_training,
+                       "gat_serving": gat_serving}, f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -157,8 +157,135 @@ def test_train_steps_lower_the_loss():
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("kw", [{"msg_type": "concat"}, {"nattheads": 1}, {"features": "2d temp"}])
+@pytest.mark.parametrize("kw", [{"msg_type": "concat"}, {"features": "2d vis"},
+                                {"features": "2d temp"}])
 def test_unported_configs_raise(kw):
     cfg = mpnn.ModelConfig(nhidden=HIDDEN)._replace(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         block.make_block_train_step(cfg, tp_classifier=True)
+
+
+# ------------------------------------------------------------ attention heads ----
+NH = 2
+
+
+def gat_configs():
+    return (jmpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, nattheads=NH),
+            mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, nattheads=NH))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_block_gat_step_matches_jax(monkeypatch, train):
+    """Loss and aux of the step with NH heads against JAX's block step
+    through its XLA attention path (fused=False), and in training the
+    grads, W_att and a included.  Dropout is off on both sides (as
+    tests/test_block_step.py:226 does): the two draw their keep masks from
+    different streams; test_block_gat_support_with_jax_dropout_masks shares
+    them."""
+    monkeypatch.setattr(jmpnn, "ATT_DROPOUT", 0.0)
+    monkeypatch.setattr(mpnn, "ATT_DROPOUT", 0.0)
+    jcfg, cfg = gat_configs()
+    jbb, tbb = batches(seed0=20)
+    p_np, s_np = spread_weights(cfg, 5)
+
+    def f(p):
+        return jblock.block_window_forward(p, s_np, jcfg, jbb, True, train=train,
+                                           rng=jax.random.key(0), defer_loss=True)
+
+    p_j = jax.tree_util.tree_map(jnp.asarray, p_np)
+    params, stats = weights.from_jax_params(p_np, s_np, cfg)
+    params = block.trainable(params)
+    tl, taux = block.block_window_forward(params, stats, cfg, tbb, True, train=train,
+                                          generator=torch.Generator().manual_seed(0))
+    if train:
+        (jl, jaux), jg = jax.jit(jax.value_and_grad(f, has_aux=True))(p_j)
+        tl.backward()
+    else:
+        jl, jaux = jax.jit(f)(p_j)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+    for k in ("loss_ce", "loss_f"):
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]), rtol=1e-4, atol=1e-6)
+    for k in ("tp", "fp", "fn"):
+        assert int(taux[k]) == int(jaux[k]), k
+    if not train:
+        return
+    grads = weights.map_shaped(lambda leaf, s, path: leaf.grad, params, weights.param_shapes(cfg))
+    pairs = list(zip(leaves_np(grads, cfg), leaves_np(jg, cfg)))
+    assert sum(path.startswith("branches/0/gat/") for (path, _), _ in pairs) == 2 * NH
+    for (path, a), (_, b) in pairs:
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=3e-5, err_msg=path)
+
+
+def test_block_gat_support_with_jax_dropout_masks():
+    """Real dropout (p = ATT_DROPOUT): JAX's own keep masks, drawn with the
+    fold_in calls of its per-head path (block.py:475-478), go to the port's
+    _block_gat_support through att_keep; es and its gradients (W_att, a,
+    the detection and edge hiddens) match JAX's _block_gat_support
+    (fused=False, train=True)."""
+    rng = np.random.default_rng(7)
+    B, capD, P, na, nt, H = 2, 16, 4, 5, 6, HIDDEN
+    blk_na, blk_nt = rng.integers(1, na + 1, P), rng.integers(1, nt + 1, P)
+    blk_nt[3] = 0  # a block with no new detection
+    row_live = np.arange(na)[None] < blk_na[:, None]
+    col_live = (np.arange(nt)[None] < blk_nt[:, None]) & (blk_nt[:, None] > 0)
+    em3 = row_live[:, :, None] & col_live[:, None, :]
+    win = (np.arange(P) % B)[:, None] * capD
+    act_l = np.where(row_live, rng.integers(0, capD, (P, na)), 0).astype(np.int32)
+    new_l = np.where(col_live, rng.integers(0, capD, (P, nt)), 0).astype(np.int32)
+    act, new = win + act_l, win + new_l
+    h_d = rng.normal(size=(B * capD, H)).astype(np.float32)
+    h_e = (rng.normal(size=(P, na, nt, H)) * em3[..., None]).astype(np.float32)
+    gp = [{"W_att": rng.normal(size=(H, H)).astype(np.float32) * 0.3,
+           "a": rng.normal(size=(H, 1)).astype(np.float32) * 0.3} for _ in range(NH)]
+    cot = rng.normal(size=(B * capD, H)).astype(np.float32)
+    seg = np.concatenate([act.reshape(-1), new.reshape(-1)])
+    vm = np.concatenate([row_live.reshape(-1), col_live.reshape(-1)])
+    drop = jax.random.key(3)
+    keep = 1.0 - jmpnn.ATT_DROPOUT
+    masks = [np.stack([np.asarray(jax.random.bernoulli(jax.random.fold_in(drop, 2 * h + k),
+                                                       keep, em3.shape))
+                       for h in range(NH)]).astype(np.float32) for k in (0, 1)]
+    assert 0 < masks[0].mean() < 1
+
+    def f(gp, h_d, h_e):
+        return jblock._block_gat_support(gp, h_d, h_e, jnp.asarray(act), jnp.asarray(new),
+                                         jnp.asarray(em3), jnp.asarray(seg), jnp.asarray(vm),
+                                         B * capD, drop, True, fused=False)
+
+    want, pull = jax.vjp(jax.jit(f), jax.tree_util.tree_map(jnp.asarray, gp),
+                         jnp.asarray(h_d), jnp.asarray(h_e))
+    (wg, wd, we) = jax.jit(pull)(jnp.asarray(cot))
+    tgp = [{k: torch.from_numpy(v).requires_grad_(True) for k, v in hp.items()} for hp in gp]
+    td, te = (torch.from_numpy(x).requires_grad_(True) for x in (h_d, h_e))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    got = block._block_gat_support(tgp, td, te, t(act).long(), t(new).long(), t(act_l),
+                                   t(new_l), t(em3.astype(np.float32)), t(row_live),
+                                   t(col_live), B, capD, att_keep=(t(masks[0]), t(masks[1])))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    leaves = [tgp[h][k] for h in range(NH) for k in ("W_att", "a")] + [td, te]
+    grads = torch.autograd.grad(got, leaves, t(cot))
+    wants = [wg[h][k] for h in range(NH) for k in ("W_att", "a")] + [wd, we]
+    for a, b in zip(grads, wants):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
+def test_gat_train_steps_with_dropout_lower_the_loss():
+    """A few steps of the port's step with real attention dropout drawn from
+    a generator run and lower the loss."""
+    _, cfg = gat_configs()
+    cfg = cfg._replace(nattheads=1)
+    _, tbb = batches(seed0=7)
+    p_np, s_np = spread_weights(cfg, 6, std=0.1)
+    params, stats = weights.from_jax_params(p_np, s_np, cfg)
+    params = block.trainable(params)
+    opt = optim.make_optimizer(block.param_leaves(params), 3e-3, 5e-4)
+    step = block.make_block_train_step(cfg, tp_classifier=True)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="generator"):
+        step(params, stats, opt, tbb)
+    losses = []
+    for _ in range(6):
+        params, stats, loss, _ = step(params, stats, opt, tbb, generator=gen)
+        assert np.isfinite(float(loss))
+        losses.append(float(loss))
+    assert losses[-1] < losses[0], losses

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from trackmpnn_tpu_torch.ops import block, mp
+from torch_port_util import gat_inputs
+from trackmpnn_tpu_torch.ops import block, gat, mp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -233,3 +234,102 @@ def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         block.window_scatter_raw(vals[..., :4].contiguous(),
                                  torch.zeros(4, 3, dtype=torch.int64, device=cuda), 2, 8)
+
+
+def gat_problem(seed, nh, P, na, nt, H, keep, device):
+    """torch_port_util.gat_inputs as tensors on `device`."""
+    x = gat_inputs(seed, nh, keep, P=P, na=na, nt=nt, H=H)
+    return {k: [torch.from_numpy(a).to(device) for a in v] for k, v in x.items()}
+
+
+def assert_close_scaled(got, want, names):
+    """rtol 1e-4 with an absolute floor of 1e-5 times each output's scale."""
+    for name, a, b in zip(names, got, want):
+        atol = 1e-5 * max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [1, 3])
+@pytest.mark.parametrize("P,na,nt,H,keep", [(17, 8, 16, 16, 0.5), (120, 24, 24, 64, 1.0),
+                                            (3, 5, 40, 32, 0.5)])
+def test_gat_kernels_match_plain_versions(cuda, nh, P, na, nt, H, keep):
+    """The four attention kernels against their plain versions: forwards
+    within rtol and atol 1e-5 (a score sums H products and an exp-sum up to
+    nt terms, so the rounding of another summation order grows with the
+    value), backwards within rtol 1e-4; each bitwise the same on a second
+    launch; all-masked rows give exactly 0."""
+    pr = gat_problem(P + nh, nh, P, na, nt, H, keep, cuda)
+    s_args, a_args = pr["scores"], pr["agg"]
+    before = dict(gat.LAUNCHES)
+    runs = [  # (kernel, plain version, arguments, output names, is a forward)
+        (gat._gat_scores_fwd_cuda, gat.gat_scores_stats_reference, (*s_args, 0.2, nh),
+         ["e", "rmax", "cmax", "sa_l", "sb_l"], True),
+        (gat._gat_scores_bwd_cuda, gat.gat_scores_stats_backward_reference,
+         (*s_args, 0.2, nh, *pr["scores_cot"]), ["dha", "dhn", "da"], False),
+        (gat._gat_aggregate_fwd_cuda, gat.gat_aggregate_reference, (*a_args, keep),
+         ["rs", "cs"], True),
+        (gat._gat_aggregate_bwd_cuda, gat.gat_aggregate_backward_reference,
+         (*a_args, keep, *pr["agg_cot"]), ["de", "dm_row", "dm_col", "dz_row", "dz_col", "dhe"],
+         False),
+    ]
+    for kernel, plain, args, names, forward in runs:
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if forward:
+            for name, a, b in zip(names, got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+        else:
+            assert_close_scaled(got, want, names)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rs, cs = gat._gat_aggregate_fwd_cuda(*a_args, keep)
+    live = a_args[6] > 0
+    assert torch.all(rs[~live.any(2)] == 0) and torch.all(cs[~live.any(1)] == 0)
+    assert {k: gat.LAUNCHES[k] - before[k] for k in before} == {
+        "gat_scores_fwd": 2, "gat_scores_bwd": 2, "gat_aggregate_fwd": 3,
+        "gat_aggregate_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_gat_autograd_launches_its_kernels(cuda):
+    """Through the autograd Functions, as the train step calls them: one
+    launch of each kernel, and the gradients of the CPU's plain versions."""
+    nh, keep = 2, 0.5
+    pr = gat_problem(5, nh, 6, 8, 8, 16, keep, "cpu")
+    grads = {}
+    for dev in ("cpu", cuda):
+        s_args = [t.detach().to(dev) for t in pr["scores"]]
+        a_args = [t.detach().to(dev) for t in pr["agg"]]
+        leaves = [t.requires_grad_(True) for t in s_args[:3] + a_args[:6]]
+        before = dict(gat.LAUNCHES)
+        e, _, _, sal, sbl = gat.gat_scores_stats(*s_args, 0.2, nh)
+        rs, cs = gat.gat_aggregate(*a_args, keep)
+        ((e ** 2).sum() + sal.sum() + sbl.sum() + (rs ** 2).sum() + cs.sum()).backward()
+        launched = {k: gat.LAUNCHES[k] - before[k] for k in before}
+        assert set(launched.values()) == ({0} if dev == "cpu" else {1}), launched
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    pr = gat_problem(0, 2, 4, 8, 8, 16, 0.5, cuda)
+    ha, hn, a, m = pr["scores"]
+    e, mr, mc, zr, zc, he, m3, ka, kn = pr["agg"]
+    with pytest.raises(TypeError):
+        gat._gat_scores_fwd_cuda(ha.double(), hn, a, m, 0.2, 2)
+    with pytest.raises(ValueError):
+        gat._gat_scores_fwd_cuda(ha, hn.cpu(), a, m, 0.2, 2)
+    with pytest.raises(ValueError):
+        gat._gat_scores_fwd_cuda(ha, hn, a, m, 0.2, 3)  # 32 features are not 3 heads
+    with pytest.raises(ValueError):
+        gat._gat_scores_fwd_cuda(ha, hn, a, m.transpose(1, 2), 0.2, 2)
+    with pytest.raises(TypeError):
+        gat._gat_aggregate_fwd_cuda(e, mr, mc, zr, zc, he.double(), m3, ka, kn, 0.5)
+    with pytest.raises(ValueError):
+        gat._gat_aggregate_fwd_cuda(e, mr, mc, zr, zc, he, m3, ka.repeat(2, 1, 1, 1),
+                                    kn.repeat(2, 1, 1, 1), 0.5)  # 4 mask heads for 2
+    with pytest.raises(TypeError):
+        gat._gat_aggregate_bwd_cuda(e, mr, mc, zr, zc, he, m3, ka, kn, 0.5,
+                                    pr["agg_cot"][0][:, :4], pr["agg_cot"][1])

@@ -170,10 +170,79 @@ def test_forward_matches_jax(weights_kind, train, with_hidden):
 
 @pytest.mark.parametrize("cfg", [
     tmpnn.ModelConfig(msg_type="concat"),
-    tmpnn.ModelConfig(nattheads=1),
+    tmpnn.ModelConfig(features="vis"),
     tmpnn.ModelConfig(features="2d+temp"),
     tmpnn.ModelConfig(features="2d+vis"),
 ])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmpnn.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+# ------------------------------------------------------------ attention heads ----
+GAT_J = CFG_J._replace(nattheads=2)
+GAT_T = CFG_T._replace(nattheads=2)
+
+
+def test_gat_init_shapes_and_weights_round_trip():
+    """init_params with heads has JAX's tree and shapes (W_att [H, H], a
+    [H, 1] per head); the gat leaves cross both ways unchanged."""
+    p_np = jax.tree_util.tree_map(np.asarray, jmpnn.init_params(jax.random.key(6), GAT_J))
+    s_np = jax.tree_util.tree_map(np.asarray, jmpnn.init_batch_stats(GAT_J))
+    p = tmpnn.init_params(torch.Generator().manual_seed(0), GAT_T)
+    assert jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0, p)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda a: 0, p_np))
+    for a, b in zip(jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(p_np)):
+        assert tuple(a.shape) == b.shape
+    bound = 1.414 * (6.0 / 32) ** 0.5  # xavier-uniform of [16, 16]
+    w = p["branches"][0]["gat"][1]["W_att"]
+    assert float(w.abs().max()) <= bound and float(w.std()) > 0.3 * bound
+    tp, ts = weights.from_jax_params(p_np, s_np, GAT_T)
+    assert tuple(tp["branches"][0]["gat"][0]["a"].shape) == (16, 1)
+    back_p, back_s = weights.to_jax_params(tp, ts, GAT_T)
+    for a, b in zip(jax.tree_util.tree_leaves((back_p, back_s)),
+                    jax.tree_util.tree_leaves((p_np, s_np))):
+        np.testing.assert_array_equal(a, b)
+    del p_np["branches"][0]["gat"][1]
+    with pytest.raises(ValueError, match="gat"):
+        weights.from_jax_params(p_np, s_np, GAT_T)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_gat_forward_matches_jax(monkeypatch, train):
+    """The forward with two heads against JAX's, in eval mode and in train
+    mode with the attention dropout set to 0 on both sides (the two draw
+    their keep masks from different streams)."""
+    monkeypatch.setattr(jmpnn, "ATT_DROPOUT", 0.0)
+    monkeypatch.setattr(tmpnn, "ATT_DROPOUT", 0.0)
+    g, X, n_new = window_graph(num_tracks=6, num_frames=8, steps=3, seed=5)
+    cap = 512
+    jv, tv = views(g, X, n_new, cap)
+    p_np, s_np = spread_weights(GAT_T, 7)
+    p, s = weights.from_jax_params(p_np, s_np, GAT_T)
+    h_prev = np.random.default_rng(5).normal(size=(cap, 16)).astype(np.float32)
+    want, want_s = jmpnn.forward(p_np, s_np, GAT_J, jv, jnp.asarray(h_prev), train=train,
+                                 rng=jax.random.key(1))
+    got, got_s = tmpnn.forward(p, s, GAT_T, tv, torch.from_numpy(h_prev), train=train)
+    close(got.hidden, want.hidden)
+    close(got.logits, want.logits)
+    close(got.scores, want.scores)
+    for k in ("mean", "var"):
+        close(got_s["branches"][0]["bn"][k], want_s["branches"][0]["bn"][k])
+    live = got.scores[: g.n].numpy()
+    assert (live > 0.5).any() and (live < 0.5).any()
+
+
+def test_gat_dropout_needs_a_generator_and_follows_it():
+    """Train-time attention dropout draws from the generator it is given:
+    the same seed gives the same forward, another seed another."""
+    g, X, n_new = window_graph(seed=6)
+    tv = tview.make_view(g, X, n_new, 512, "cpu")
+    p, s = weights.from_jax_params(*spread_weights(GAT_T, 8), GAT_T)
+    h_prev = torch.from_numpy(np.random.default_rng(6).normal(size=(512, 16)).astype(np.float32))
+    with pytest.raises(ValueError, match="generator"):
+        tmpnn.forward(p, s, GAT_T, tv, h_prev, train=True)
+    outs = [tmpnn.forward(p, s, GAT_T, tv, h_prev, train=True,
+                          generator=torch.Generator().manual_seed(k))[0].hidden
+            for k in (0, 0, 1)]
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])

@@ -44,6 +44,8 @@ CASES = {
                                cfg=dict(cur_win_size=4, ret_win_size=2, hungarian=True,
                                         prune_threshold=0.5, tp_classifier=False)),
     "reinit_after_gap": dict(seq=gap_sequence, cfg=dict(cur_win_size=3, hungarian=True)),
+    "gat_heads": dict(seq=lambda: synthetic(3), cfg=dict(cur_win_size=5, hungarian=True),
+                      nattheads=2),
 }
 
 
@@ -51,16 +53,18 @@ CASES = {
 def test_tracker_matches_jax(case):
     X, y = CASES[case]["seq"]()
     tcfg = CASES[case]["cfg"]
-    p_np, s_np = spread_weights(CFG_T, seed=0, std=0.3)
-    p, s = weights.from_jax_params(p_np, s_np, CFG_T)
+    heads = CASES[case].get("nattheads", 0)
+    cfg_j, cfg_t = CFG_J._replace(nattheads=heads), CFG_T._replace(nattheads=heads)
+    p_np, s_np = spread_weights(cfg_t, seed=0, std=0.3)
+    p, s = weights.from_jax_params(p_np, s_np, cfg_t)
 
     def record(steps):
         return lambda g, scores2: steps.append((g.ts.copy(), scores2.copy()))
 
     j_steps, t_steps = [], []
-    y_j = JTracker(p_np, s_np, CFG_J, JTrackerConfig(bucket=64, **tcfg)).run(
+    y_j = JTracker(p_np, s_np, cfg_j, JTrackerConfig(bucket=64, **tcfg)).run(
         X, y, on_step=record(j_steps))
-    y_t = Tracker(p, s, CFG_T, TrackerConfig(bucket=64, **tcfg), device="cpu").run(
+    y_t = Tracker(p, s, cfg_t, TrackerConfig(bucket=64, **tcfg), device="cpu").run(
         X, y, on_step=record(t_steps))
 
     assert len(t_steps) == len(j_steps) > 2

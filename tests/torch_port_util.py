@@ -60,3 +60,33 @@ def training_chunks(n, seed0=0, num_tracks=4):
             out.append((X, y))
         s += 1
     return out
+
+
+def gat_inputs(seed, nh, keep=1.0, mask_heads=None, P=5, na=6, nt=7, H=8):
+    """numpy f32 inputs and cotangents of both attention ops (ops/gat.py):
+    "scores" (ha, hn, a, m3), "scores_cot" (for e, sa_l, sb_l), "agg" (e,
+    m_row, m_col, z_row, z_col, h_e, m3, ka, kn), "agg_cot" (for rs, cs).
+    Each block has a rectangular live part (block 0 none) and a live cell
+    with ha_i == hn_j (d = 0); keep masks have `mask_heads` heads (default
+    nh), or at keep 1 are the cell mask, as the train step passes them."""
+    rng = np.random.default_rng(seed)
+    blk_na, blk_nt = rng.integers(1, na + 1, P), rng.integers(1, nt + 1, P)
+    blk_nt[0] = 0
+    m = ((np.arange(na)[None, :, None] < blk_na[:, None, None])
+         & (np.arange(nt)[None, None, :] < blk_nt[:, None, None]))
+    ha, hn = rng.normal(size=(P, na, nh * H)), rng.normal(size=(P, nt, nh * H))
+    hn[:, 0] = ha[:, 0]
+    e = rng.normal(size=(nh, P, na, nt)) * m
+    keep_mask = lambda: (rng.random((mask_heads or nh, P, na, nt)) < keep if keep < 1.0
+                         else m[None])
+    arrays = {
+        "scores": [ha, hn, rng.normal(size=(nh * H, 1)) * 0.3, m],
+        "scores_cot": [rng.normal(size=(nh, P, na, nt)), rng.normal(size=(nh, P, na)),
+                       rng.normal(size=(nh, P, nt))],
+        "agg": [e, e.max(3) + rng.uniform(0, 1, (nh, P, na)),
+                e.max(2) + rng.uniform(0, 1, (nh, P, nt)), rng.uniform(1, 3, (nh, P, na)),
+                rng.uniform(1, 3, (nh, P, nt)), rng.normal(size=(P, na, nt, H)) * m[..., None],
+                m, keep_mask(), keep_mask()],
+        "agg_cot": [rng.normal(size=(P, na, H)), rng.normal(size=(P, nt, H))],
+    }
+    return {k: [np.ascontiguousarray(a, np.float32) for a in v] for k, v in arrays.items()}

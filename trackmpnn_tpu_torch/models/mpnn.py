@@ -1,5 +1,6 @@
 """TrackMPNN forward on a GraphView (the counterpart of
-trackmpnn_tpu/models/mpnn.py), for msg_type 'diff' without attention.
+trackmpnn_tpu/models/mpnn.py), for msg_type 'diff', with or without GAT
+attention heads.
 
   * per-feature-branch input MLP (Linear-BN-ReLU-Linear) applied to the rows
     introduced this step - including zero-feature edge rows, which therefore
@@ -8,7 +9,9 @@ trackmpnn_tpu/models/mpnn.py), for msg_type 'diff' without attention.
   * one FactorGraphGRU round per step: edge rows update from the difference
     of their endpoints' hiddens (ops.mp.gather_diff) through the edge GRU;
     detection rows update from the signed sum of incident edge hiddens
-    (ops.mp.signed_segment_sum) through the node GRU (ref layers.py:84-116);
+    (ops.mp.signed_segment_sum), or with attention heads from the mean over
+    heads of the attention-weighted signed sums, through the node GRU (ref
+    layers.py:7-46, 84-116);
   * biased output heads: detections +4.595 prior, edges -4.595
     (ref track_mpnn.py:35-43).
 
@@ -25,7 +28,10 @@ import torch
 from trackmpnn_tpu_torch.graph.view import GraphView
 from trackmpnn_tpu_torch.models import nn
 from trackmpnn_tpu_torch.ops import mp
+from trackmpnn_tpu_torch.ops.segment import segment_softmax, segment_sum
 
+LEAKY_ALPHA = 0.2
+ATT_DROPOUT = 0.5
 HEAD_BIAS = 4.595  # sigmoid prior ~0.99 for detections, ~0.01 for edges
 
 
@@ -67,9 +73,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"msg_type={cfg.msg_type!r} is not ported yet "
             "(ROADMAP.md queue 1, 'msg concat and the row-layout train paths')")
-    if cfg.nattheads > 0:
-        raise NotImplementedError(
-            "attention heads (nattheads > 0) are not ported yet (ROADMAP.md queue 1, 'GAT')")
     other = [name for name, _ in cfg.branches if name != "2d"]
     if other:
         raise NotImplementedError(
@@ -85,17 +88,23 @@ class ModelOutput(NamedTuple):
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cpu"):
     """Reference-style init (normal std 0.01, zero biases, +/-4.595 head
-    priors) drawn from `generator`; the JAX package draws other numbers
-    from its own keys, so shared weights go through models/weights.py."""
+    priors; attention heads xavier-uniform with gain 1.414) drawn from
+    `generator`; the JAX package draws other numbers from its own keys, so
+    shared weights go through models/weights.py."""
     check_supported(cfg)
     H = cfg.nhidden
     branches = []
     for _, width in cfg.branches:
-        branches.append({
+        b = {
             "input": nn.input_transform_init(generator, width, H, device),
             "edge_gru": nn.gru_init(generator, H, H, device=device),
             "node_gru": nn.gru_init(generator, H, H, device=device),
-        })
+        }
+        if cfg.nattheads > 0:
+            b["gat"] = [{"W_att": nn.xavier_uniform(generator, (H, H), 1.414, device),
+                         "a": nn.xavier_uniform(generator, (H, 1), 1.414, device)}
+                        for _ in range(cfg.nattheads)]
+        branches.append(b)
     nb = len(cfg.branches)
     return {
         "branches": branches,
@@ -109,27 +118,61 @@ def init_batch_stats(cfg: ModelConfig, device="cpu"):
                          for _ in cfg.branches]}
 
 
-def _factor_graph_gru(params, h, g: GraphView):
+def _gat_head(params, h, g: GraphView, generator):
+    """One GraphAttentionLayer head (ref layers.py:7-46, mpnn.py:141-166).
+
+    A scalar score per edge from |h_att[past] - h_att[fut]| @ a; a softmax
+    per detection over its incident edges (each edge is in both endpoints'
+    sets, with sign +1 at its past end and -1 at its future end); with a
+    generator, dropout on the attention weights (train time).  The keep
+    draw differs from the JAX package's stream, not in distribution."""
+    n = g.capacity
+    em = g.edge_mask()
+    h_att = h @ params["W_att"]
+    a_in = torch.where(em[:, None], (h_att[g.past] - h_att[g.fut]).abs(), 0.0)
+    e_score = torch.nn.functional.leaky_relu(a_in @ params["a"], LEAKY_ALPHA)[:, 0]
+    # doubled incidence: entry k < n is (past[k] <- +e_k), k >= n is (fut[k] <- -e_k)
+    seg = torch.cat([g.past, g.fut])
+    mask2 = torch.cat([em, em])
+    att = segment_softmax(torch.cat([e_score, e_score]), seg, n, mask=mask2)
+    if generator is not None:
+        keep = torch.rand(att.shape, generator=generator, device=att.device) < 1.0 - ATT_DROPOUT
+        att = att * keep / (1.0 - ATT_DROPOUT)
+    sign = torch.cat([h.new_ones(n), -h.new_ones(n)])
+    return segment_sum(torch.cat([h, h]) * (att * sign)[:, None], seg, n, mask=mask2)
+
+
+def _factor_graph_gru(params, h, g: GraphView, nattheads, generator):
     """FactorGraphGRU round (ref layers.py:84-116): edge-GRU then node-GRU."""
     em = g.edge_mask()
     node_support = mp.gather_diff(h, g.past, g.fut, em)
     edge_out = nn.gru_cell(params["edge_gru"], node_support, h)
-    edge_support = mp.signed_segment_sum(h, g.past, g.fut, em, g.capacity)
+    if nattheads > 0:
+        edge_support = sum(_gat_head(hp, h, g, generator) for hp in params["gat"]) / nattheads
+    else:
+        edge_support = mp.signed_segment_sum(h, g.past, g.fut, em, g.capacity)
     node_out = nn.gru_cell(params["node_gru"], edge_support, h)
     out = torch.where(g.is_det[:, None], node_out, edge_out)
     return torch.where(g.live[:, None], out, 0.0)
 
 
 def forward(params, batch_stats, cfg: ModelConfig, g: GraphView,
-            h_prev: Optional[torch.Tensor], *, train: bool = False):
+            h_prev: Optional[torch.Tensor], *, train: bool = False,
+            generator: Optional[torch.Generator] = None):
     """One message-passing round over the live window.
 
     h_prev: f32[N, nbranches*nhidden] hidden state from the previous round
     (rows for slots not yet live are ignored), or None on the first round.
+    generator: draws the attention dropout at train time (on the device of
+    g); training with attention heads needs one unless ATT_DROPOUT is 0.
 
     Returns (ModelOutput, new_batch_stats).
     """
     check_supported(cfg)
+    dropout = train and cfg.nattheads > 0 and ATT_DROPOUT > 0.0
+    if dropout and generator is None:
+        raise ValueError("training with attention heads needs a generator for the "
+                         "attention dropout (pass generator=...)")
     n = g.capacity
     H = cfg.nhidden
     nb = len(cfg.branches)
@@ -155,7 +198,8 @@ def forward(params, batch_stats, cfg: ModelConfig, g: GraphView,
         # new detection rows take the transformed input; new edge rows start at 0
         h_b = torch.where(new_det[:, None], xt, torch.where(g.new[:, None], 0.0, h_b))
         h_b = torch.where(g.live[:, None], h_b, 0.0)
-        outs.append(_factor_graph_gru(bp, h_b, g))
+        outs.append(_factor_graph_gru(bp, h_b, g, cfg.nattheads,
+                                      generator if dropout else None))
 
     h_out = torch.cat(outs, dim=-1)
     y_node = nn.linear(params["out_node"], h_out)[:, 0]

@@ -26,6 +26,12 @@ def linear(params, x):
     return x @ params["w"] + params["b"]
 
 
+def xavier_uniform(generator, shape, gain=1.0, device="cpu"):
+    """torch.nn.init.xavier_uniform_: U(-a, a), a = gain * sqrt(6 / (fan_in + fan_out))."""
+    a = gain * (6.0 / (shape[0] + shape[1])) ** 0.5
+    return ((2.0 * torch.rand(shape, generator=generator) - 1.0) * a).to(device)
+
+
 # ------------------------------------------------------------- batchnorm ----
 def batchnorm_init(n, device="cpu"):
     return {"gamma": torch.ones(n, device=device), "beta": torch.zeros(n, device=device)}

@@ -28,6 +28,9 @@ def param_shapes(cfg: ModelConfig):
         "edge_gru": gru(H),
         "node_gru": gru(H),
     } for _, width in cfg.branches]
+    if cfg.nattheads > 0:
+        for b in branches:
+            b["gat"] = [{"W_att": (H, H), "a": (H, 1)} for _ in range(cfg.nattheads)]
     nb = len(cfg.branches)
     return {"branches": branches,
             "out_node": {"w": (nb * H, 1), "b": (1,)},

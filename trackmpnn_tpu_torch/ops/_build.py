@@ -4,8 +4,9 @@ Each source compiles into its own shared library under build/torch_kernels/
 at the root of the checkout, on first use and again whenever the source is
 newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
 ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
-ops/block.py).  build() starts one nvcc per stale source, all at once, and
-waits for them.  The sources include no PyTorch header, so a build takes
+ops/block.py), csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the
+train step, ops/gat.py).  build() starts one nvcc per stale source, all at
+once, and waits for them.  The sources include no PyTorch header, so a build takes
 seconds; ctypes loads the result.  Nothing here runs when the module is
 imported.
 """
@@ -37,6 +38,13 @@ LIBRARIES = {
                "tm_block_round_bwd": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
                "tm_window_scatter_smem_bytes": [_I, _I],
                "tm_window_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}),
+    "gat": (os.path.join(_PKG, "csrc", "gat_kernels.cu"),
+            os.path.join(BUILD_DIR, "libtm_gat.so"),
+            {"tm_gat_smem_bytes": [_I] * 6,
+             "tm_gat_scores_fwd": [_P] * 9 + [_I] * 5 + [_F, _P],
+             "tm_gat_scores_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+             "tm_gat_aggregate_fwd": [_P] * 11 + [_I] * 6 + [_F, _P],
+             "tm_gat_aggregate_bwd": [_P] * 17 + [_I] * 6 + [_F, _P]}),
 }
 
 _libs: dict = {}

@@ -1,0 +1,316 @@
+"""Ops of the GAT attention heads in the block train step (the counterpart
+of trackmpnn_tpu/ops/pallas_gat.py's stacked-head gat_scores_stats_mh and
+gat_aggregate_mh).
+
+Each op has
+  * a plain PyTorch version of its forward and of its hand-derived backward
+    (`*_reference`), the semantics the tests hold against the JAX package
+    and the version a CPU tensor gets;
+  * an autograd Function whose forward and backward, for a CUDA tensor,
+    check their inputs and launch the hand-written kernels in
+    csrc/gat_kernels.cu, or raise.  They never fall back to the plain
+    version on the card.  The forward saves only its inputs; the backward
+    recomputes, as the JAX custom VJPs do (pallas_gat.py:611, :740);
+  * launch counters, LAUNCHES[name], raised by one where a kernel is
+    launched and nowhere else.
+
+Layout (pallas_gat.py:459-485): the heads' detection projections sit side
+by side on the feature axis (ha [P, na, nh*H], hn [P, nt, nh*H], a
+[nh*H, 1]); scores and softmax statistics are head-leading ([nh, P, ...]);
+the aggregate sums its rs / cs over the heads (the caller divides by nh).
+Keep masks ka / kn are [nh or 1, P, na, nt] (one head broadcasts) and are
+read only when keep < 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trackmpnn_tpu_torch.ops import _build
+from trackmpnn_tpu_torch.ops.block import _check, _on_cuda, _stream, _zeros_if_none
+
+NEG_SCORE = -1e30  # score of a masked cell in the max (pallas_gat.py:164)
+Z_FLOOR = 1e-30    # floor of a softmax normaliser
+
+LAUNCHES = {"gat_scores_fwd": 0, "gat_scores_bwd": 0,
+            "gat_aggregate_fwd": 0, "gat_aggregate_bwd": 0}
+
+
+# -------------------------------------------------------------- references ----
+def _heads(x, nh):
+    """[P, n, nh*H] -> [nh, P, n, H]."""
+    P, n, HH = x.shape
+    return x.reshape(P, n, nh, HH // nh).permute(2, 0, 1, 3)
+
+
+def _unheads(x):
+    """[nh, P, n, H] -> [P, n, nh*H]."""
+    nh, P, n, H = x.shape
+    return x.permute(1, 2, 0, 3).reshape(P, n, nh * H)
+
+
+def _scores(ha, hn, a, mask3, alpha, nh):
+    """(d, pre_m, e, e_m): d = ha_i - hn_j [nh, P, na, nt, H]; pre_m the
+    masked |d| . a; e its leaky relu; e_m the scores with masked cells at
+    NEG_SCORE (_mh_stats_fwd_kernel, pallas_gat.py:512-522)."""
+    d = _heads(ha, nh)[:, :, :, None, :] - _heads(hn, nh)[:, :, None, :, :]
+    pre_m = (d.abs() * a.reshape(nh, 1, 1, 1, -1)).sum(-1) * mask3
+    e = torch.where(pre_m >= 0, pre_m, alpha * pre_m)
+    return d, pre_m, e, torch.where(mask3 > 0, e, NEG_SCORE)
+
+
+def _maxes(e_m):
+    """Row and column maxes of the masked scores, without gradient."""
+    return e_m.detach().amax(3), e_m.detach().amax(2)
+
+
+def gat_scores_stats_reference(ha, hn, a, mask3, alpha, nh):
+    """(e, rmax, cmax, sa_l, sb_l) of every head (gat_scores_stats_mh,
+    pallas_gat.py:572):
+
+        e      = leaky(sum_k |ha[i, hH+k] - hn[j, hH+k]| a[hH+k] * m3)   [nh, P, na, nt]
+        rmax   = max_j e_m,  cmax = max_i e_m      (e_m: NEG_SCORE where masked)
+        sa_l   = sum_j m3 exp(e_m - rmax),  sb_l = sum_i m3 exp(e_m - cmax)
+
+    rmax and cmax carry no gradient: the softmax is invariant to its shift,
+    so the caller stops it (block.py:428-429) and the backward ignores it."""
+    _, _, e, e_m = _scores(ha, hn, a, mask3, alpha, nh)
+    rmax, cmax = _maxes(e_m)
+    sal = (mask3 * torch.exp(e_m - rmax[..., None])).sum(3)
+    sbl = (mask3 * torch.exp(e_m - cmax[:, :, None, :])).sum(2)
+    return e, rmax, cmax, sal, sbl
+
+
+def gat_scores_stats_backward_reference(ha, hn, a, mask3, alpha, nh, ge, gsal, gsbl):
+    """The hand-derived backward (_mh_stats_bwd_kernel, pallas_gat.py:531-568):
+    recomputes the scores and returns (d ha, d hn, d a).  d|x| is sign(x),
+    0 at 0."""
+    d, pre_m, _, e_m = _scores(ha, hn, a, mask3, alpha, nh)
+    rmax, cmax = _maxes(e_m)
+    de = (ge + gsal[..., None] * mask3 * torch.exp(e_m - rmax[..., None])
+          + gsbl[:, :, None, :] * mask3 * torch.exp(e_m - cmax[:, :, None, :]))
+    slope = torch.where(pre_m >= 0, torch.ones_like(pre_m), torch.full_like(pre_m, alpha))
+    dpre = de * slope * mask3
+    t = dpre[..., None] * torch.sign(d) * a.reshape(nh, 1, 1, 1, -1)
+    da = (d.abs() * dpre[..., None]).sum((1, 2, 3)).reshape(-1, 1)
+    return _unheads(t.sum(3)), _unheads(-t.sum(2)), da
+
+
+def _attention(e, m_row, m_col, z_row, z_col, mask3, ka, kn, keep):
+    """att_a, att_n [nh, P, na, nt] (_att_rect, pallas_gat.py:294-303).  A
+    masked cell weighs exactly 0: its exponent is replaced before the exp,
+    so neither the value nor the gradient meets exp of a large number."""
+    live = mask3 > 0
+    att_a = (mask3 * torch.exp(torch.where(live, e - m_row[..., None], NEG_SCORE))
+             / torch.clamp(z_row[..., None], min=Z_FLOOR))
+    att_n = (mask3 * torch.exp(torch.where(live, e - m_col[:, :, None, :], NEG_SCORE))
+             / torch.clamp(z_col[:, :, None, :], min=Z_FLOOR))
+    if keep < 1.0:
+        att_a = att_a * ka / keep
+        att_n = att_n * kn / keep
+    return att_a, att_n
+
+
+def gat_aggregate_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    """(rs, cs) summed over heads (gat_aggregate_mh, pallas_gat.py:700):
+
+        att_a = m3 exp(e - m_row) / max(z_row, 1e-30) * ka / keep
+        att_n = m3 exp(e - m_col) / max(z_col, 1e-30) * kn / keep
+        rs[i] = sum_h sum_j att_a h_e[i, j],  cs[j] = sum_h sum_i att_n h_e[i, j]
+
+    e [nh, P, na, nt]; m_row, z_row [nh, P, na]; m_col, z_col [nh, P, nt];
+    h_e [P, na, nt, H]; mask3 [P, na, nt] 0/1; ka, kn [nh or 1, P, na, nt]."""
+    att_a, att_n = _attention(e, m_row, m_col, z_row, z_col, mask3, ka, kn, keep)
+    return (torch.einsum("hpij,pijd->pid", att_a, h_e),
+            torch.einsum("hpij,pijd->pjd", att_n, h_e))
+
+
+def gat_aggregate_backward_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn,
+                                     keep, g_rs, g_cs):
+    """The hand-derived backward (_mh_agg_bwd_kernel, pallas_gat.py:664-696,
+    with the datt contraction of _datt, :398-405): returns (d e, d m_row,
+    d m_col, d z_row, d z_col, d h_e)."""
+    att_a, att_n = _attention(e, m_row, m_col, z_row, z_col, mask3, ka, kn, keep)
+    datt_a = torch.einsum("pijd,pid->pij", h_e, g_rs)
+    datt_n = torch.einsum("pijd,pjd->pij", h_e, g_cs)
+    pa, pn = datt_a * att_a, datt_n * att_n
+    s_a, s_n = pa.sum(3), pn.sum(2)
+    dhe = (att_a[..., None] * g_rs[None, :, :, None, :]
+           + att_n[..., None] * g_cs[None, :, None, :, :]).sum(0)
+    return (pa + pn, -s_a, -s_n, -s_a / torch.clamp(z_row, min=Z_FLOOR),
+            -s_n / torch.clamp(z_col, min=Z_FLOOR), dhe)
+
+
+# ---------------------------------------------------------------- wrappers ----
+def _smem_fits(name, lib, device, kind, na, nt, nh, H):
+    have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    for backward in (0, 1):
+        need = lib.tm_gat_smem_bytes(kind, na, nt, nh, H, backward)
+        if need > have:
+            raise ValueError(f"{name}: na={na}, nt={nt}, nh={nh}, H={H} needs {need} B of "
+                             f"shared memory a block, the card has {have}")
+
+
+def _score_inputs(name, ha, hn, a, mask3, nh):
+    if ha.dim() != 3 or hn.dim() != 3:
+        raise TypeError(f"{name}: ha, hn must be [P, n, nh*H], got {list(ha.shape)}, "
+                        f"{list(hn.shape)}")
+    P, na, HH = ha.shape
+    nt = hn.shape[1]
+    if nh < 1 or HH % nh != 0:
+        raise ValueError(f"{name}: feature width {HH} is not nh={nh} heads")
+    f32 = torch.float32
+    _check(name, ha.device, ha=(ha, f32, (P, na, HH)), hn=(hn, f32, (P, nt, HH)),
+           a=(a, f32, (HH, 1)), mask3=(mask3, f32, (P, na, nt)))
+    lib = _build.load("gat")
+    _smem_fits(name, lib, ha.device, 0, na, nt, nh, HH // nh)
+    return lib, P, na, nt, HH // nh
+
+
+def _gat_scores_fwd_cuda(ha, hn, a, mask3, alpha, nh):
+    lib, P, na, nt, H = _score_inputs("gat_scores_fwd", ha, hn, a, mask3, nh)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=ha.device)
+    out = (new(nh, P, na, nt), new(nh, P, na), new(nh, P, nt), new(nh, P, na), new(nh, P, nt))
+    if P == 0 or na == 0 or nt == 0:
+        return tuple(t.zero_() for t in out)
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat_scores_fwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                   *(t.data_ptr() for t in out), P, na, nt, nh, H,
+                                   float(alpha), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat_scores_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_scores_fwd"] += 1
+    return out
+
+
+def _gat_scores_bwd_cuda(ha, hn, a, mask3, alpha, nh, ge, gsal, gsbl):
+    lib, P, na, nt, H = _score_inputs("gat_scores_bwd", ha, hn, a, mask3, nh)
+    f32 = torch.float32
+    _check("gat_scores_bwd", ha.device, ge=(ge, f32, (nh, P, na, nt)),
+           gsal=(gsal, f32, (nh, P, na)), gsbl=(gsbl, f32, (nh, P, nt)))
+    dha, dhn = torch.empty_like(ha), torch.empty_like(hn)
+    da = torch.empty(nh * H, 1, dtype=f32, device=ha.device)
+    if P == 0 or na == 0 or nt == 0:
+        return dha.zero_(), dhn.zero_(), da.zero_()
+    partials = torch.empty(P, nh * H, dtype=f32, device=ha.device)
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                   ge.data_ptr(), gsal.data_ptr(), gsbl.data_ptr(),
+                                   dha.data_ptr(), dhn.data_ptr(), partials.data_ptr(),
+                                   da.data_ptr(), P, na, nt, nh, H, float(alpha), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat_scores_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_scores_bwd"] += 1
+    return dha, dhn, da
+
+
+def _aggregate_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn):
+    if e.dim() != 4 or h_e.dim() != 4 or ka.dim() != 4:
+        raise TypeError(f"{name}: e, h_e, ka must be 4-d, got {list(e.shape)}, "
+                        f"{list(h_e.shape)}, {list(ka.shape)}")
+    nh = e.shape[0]
+    P, na, nt, H = h_e.shape
+    nk = ka.shape[0]
+    if nk not in (1, nh):
+        raise ValueError(f"{name}: keep masks have {nk} heads, expected 1 or {nh}")
+    f32 = torch.float32
+    _check(name, e.device, e=(e, f32, (nh, P, na, nt)), m_row=(m_row, f32, (nh, P, na)),
+           m_col=(m_col, f32, (nh, P, nt)), z_row=(z_row, f32, (nh, P, na)),
+           z_col=(z_col, f32, (nh, P, nt)), h_e=(h_e, f32, (P, na, nt, H)),
+           mask3=(mask3, f32, (P, na, nt)), ka=(ka, f32, (nk, P, na, nt)),
+           kn=(kn, f32, (nk, P, na, nt)))
+    lib = _build.load("gat")
+    _smem_fits(name, lib, e.device, 1, na, nt, nh, H)
+    return lib, nh, P, na, nt, H, nk
+
+
+def _gat_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+    lib, nh, P, na, nt, H, nk = _aggregate_inputs("gat_aggregate_fwd", *args)
+    rs = torch.empty(P, na, H, dtype=torch.float32, device=e.device)
+    cs = torch.empty(P, nt, H, dtype=torch.float32, device=e.device)
+    if P == 0 or na == 0 or nt == 0:
+        return rs.zero_(), cs.zero_()
+    with torch.cuda.device(e.device):
+        rc = lib.tm_gat_aggregate_fwd(*(t.data_ptr() for t in args), rs.data_ptr(),
+                                      cs.data_ptr(), P, na, nt, nh, H, nk, float(keep),
+                                      _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat_aggregate_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_aggregate_fwd"] += 1
+    return rs, cs
+
+
+def _gat_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep,
+                            g_rs, g_cs):
+    args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+    lib, nh, P, na, nt, H, nk = _aggregate_inputs("gat_aggregate_bwd", *args)
+    _check("gat_aggregate_bwd", e.device, g_rs=(g_rs, torch.float32, (P, na, H)),
+           g_cs=(g_cs, torch.float32, (P, nt, H)))
+    out = (torch.empty_like(e), torch.empty_like(m_row), torch.empty_like(m_col),
+           torch.empty_like(z_row), torch.empty_like(z_col), torch.empty_like(h_e))
+    if P == 0 or na == 0 or nt == 0:
+        return tuple(t.zero_() for t in out)
+    with torch.cuda.device(e.device):
+        rc = lib.tm_gat_aggregate_bwd(*(t.data_ptr() for t in args), g_rs.data_ptr(),
+                                      g_cs.data_ptr(), *(t.data_ptr() for t in out),
+                                      P, na, nt, nh, H, nk, float(keep), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat_aggregate_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_aggregate_bwd"] += 1
+    return out
+
+
+class GatScoresStats(torch.autograd.Function):
+    """(e, rmax, cmax, sa_l, sb_l) = gat_scores_stats_reference(...), with
+    the hand-derived backward; rmax and cmax are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, ha, hn, a, mask3, alpha, nh):
+        ctx.save_for_backward(ha, hn, a, mask3)
+        ctx.alpha, ctx.nh = float(alpha), int(nh)
+        fwd = _gat_scores_fwd_cuda if _on_cuda(ha) else gat_scores_stats_reference
+        out = fwd(ha, hn, a, mask3, alpha, nh)
+        ctx.mark_non_differentiable(out[1], out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, ge, _grmax, _gcmax, gsal, gsbl):
+        ha, hn, a, mask3 = ctx.saved_tensors
+        nh = ctx.nh
+        P, na, nt = mask3.shape
+        ge = _zeros_if_none(ge, (nh, P, na, nt), ha.device)
+        gsal = _zeros_if_none(gsal, (nh, P, na), ha.device)
+        gsbl = _zeros_if_none(gsbl, (nh, P, nt), ha.device)
+        bwd = _gat_scores_bwd_cuda if _on_cuda(ha) else gat_scores_stats_backward_reference
+        dha, dhn, da = bwd(ha, hn, a, mask3, ctx.alpha, nh, ge, gsal, gsbl)
+        return dha, dhn, da, None, None, None
+
+
+class GatAggregate(torch.autograd.Function):
+    """(rs, cs) = gat_aggregate_reference(...), with the hand-derived
+    backward; the masks take no gradient."""
+
+    @staticmethod
+    def forward(ctx, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+        ctx.save_for_backward(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+        ctx.keep = float(keep)
+        fwd = _gat_aggregate_fwd_cuda if _on_cuda(e) else gat_aggregate_reference
+        return fwd(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep)
+
+    @staticmethod
+    def backward(ctx, g_rs, g_cs):
+        args = ctx.saved_tensors
+        P, na, nt, H = args[5].shape
+        g_rs = _zeros_if_none(g_rs, (P, na, H), args[0].device)
+        g_cs = _zeros_if_none(g_cs, (P, nt, H), args[0].device)
+        bwd = _gat_aggregate_bwd_cuda if _on_cuda(args[0]) else gat_aggregate_backward_reference
+        return (*bwd(*args, ctx.keep, g_rs, g_cs), None, None, None, None)
+
+
+def gat_scores_stats(ha, hn, a, mask3, alpha, nh):
+    return GatScoresStats.apply(ha, hn, a, mask3, alpha, nh)
+
+
+def gat_aggregate(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    return GatAggregate.apply(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep)

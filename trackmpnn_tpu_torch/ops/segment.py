@@ -1,5 +1,5 @@
-"""Masked segment reductions (the counterpart of
-trackmpnn_tpu/ops/segment.py:22-52).
+"""Masked segment reductions and the segment softmax (the counterpart of
+trackmpnn_tpu/ops/segment.py:22-52 and :84-108).
 
 Every function takes an optional validity mask: masked rows go to a scratch
 bucket at `num_segments`, so their ids never matter, and the scratch is
@@ -48,3 +48,33 @@ def segment_max(values, segment_ids, num_segments, mask=None, initial=_NEG_LARGE
 def segment_min(values, segment_ids, num_segments, mask=None, initial=_POS_LARGE):
     """Min-reduce into buckets.  Empty buckets hold `initial`."""
     return _segment_reduce(values, segment_ids, num_segments, mask, initial, "amin")
+
+
+def _clipped(segment_ids, num_segments):
+    return segment_ids.long().clamp(0, num_segments - 1)
+
+
+def segment_logsumexp(logits, segment_ids, num_segments, mask=None):
+    """Per-segment logsumexp, shifted by the segment's max; empty segments
+    hold -1e30.  The shift carries no gradient (the value does not depend
+    on it)."""
+    m = segment_max(logits, segment_ids, num_segments, mask=mask).detach()
+    safe_m = torch.where(m > _NEG_LARGE / 2, m, 0.0)
+    e = torch.exp(logits - safe_m[_clipped(segment_ids, num_segments)])
+    s = segment_sum(e, segment_ids, num_segments, mask=mask)
+    out = safe_m + torch.log(torch.clamp(s, min=1e-30))
+    return torch.where(m > _NEG_LARGE / 2, out, _NEG_LARGE)
+
+
+def segment_softmax(logits, segment_ids, num_segments, mask=None):
+    """Per-segment softmax over rows; masked rows get 0.  The lse is clamped
+    before the exp: a masked row whose clipped id lands on an empty bucket
+    would otherwise see exp(x + 1e30) = inf, and its gradient inf * 0 = NaN.
+    Unmasked rows always belong to a nonempty segment, so the clamp never
+    changes a real output."""
+    lse = segment_logsumexp(logits, segment_ids, num_segments, mask=mask)
+    safe_lse = torch.where(lse > _NEG_LARGE / 2, lse, 0.0)
+    out = torch.exp(logits - safe_lse[_clipped(segment_ids, num_segments)])
+    if mask is not None:
+        out = torch.where(mask, out, 0.0)
+    return out

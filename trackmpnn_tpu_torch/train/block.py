@@ -15,17 +15,23 @@ per-window layout [B*capD, H]:
     the row sums (+) and column sums (-) into the detection layout
     (ops.block.window_scatter).
 
+With attention heads (cfg.nattheads > 0) edge_support is instead the mean
+over heads of attention-weighted signed sums (_block_gat_support): the
+stacked-head score and aggregation kernels (ops.gat), a segment max and sum
+for the per-detection softmax, and the same window scatter.
+
 This is the one composition the JAX package runs on the TPU by default
-(fused round, defer_loss, hoisted BN, window scatter/gather), for features
-'2d', msg 'diff', no GAT, f32.  Blocks are step-major (block q = s*B + w),
-so at step s the live blocks are exactly the first (s+1)*B: each step runs
-on that prefix and never touches a future block.  The loss of every step
-runs after the loop over steps, batched over a leading step axis.
+(fused round, defer_loss, hoisted BN, window scatter/gather, the stacked
+attention kernels), for features '2d', msg 'diff', f32.  Blocks are
+step-major (block q = s*B + w), so at step s the live blocks are exactly
+the first (s+1)*B: each step runs on that prefix and never touches a
+future block.  The loss of every step runs after the loop over steps,
+batched over a leading step axis.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ from trackmpnn_tpu_torch.graph.schedule import round_up
 from trackmpnn_tpu_torch.losses.losses import EPS
 from trackmpnn_tpu_torch.models import mpnn, nn
 from trackmpnn_tpu_torch.ops.block import fused_block_round, window_gather2, window_scatter
+from trackmpnn_tpu_torch.ops.gat import gat_aggregate, gat_scores_stats
 from trackmpnn_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 
 _BIG = float(1 << 30)  # larger than any slot row id (exact in f32)
@@ -331,15 +338,93 @@ def _step_losses(logits_d, logits_e, bb, st, act, bna, bnt, row_m,
     return l_ce, l_f, tp, fp, fn
 
 
+def _heads_last(x):
+    """[nh, P, n] -> [P*n, nh]: rows aligned with the segment ids, heads as
+    features."""
+    return x.permute(1, 2, 0).reshape(-1, x.shape[0])
+
+
+def _heads_first(x_d, idx):
+    """Rows idx [P, n] of a [nD, nh] detection array, as [nh, P, n]."""
+    return x_d[idx].permute(2, 0, 1).contiguous()
+
+
+def draw_att_keep(generator, nh, shape, device):
+    """The two [nh, P, na, nt] f32 0/1 keep masks (rows, columns) of one
+    round's attention dropout, kept with probability 1 - ATT_DROPOUT, as the
+    JAX package's stacked path draws them (block.py:448-453).  The stream
+    differs from JAX's; the distribution is the same."""
+    keep = 1.0 - mpnn.ATT_DROPOUT
+    return tuple((torch.rand((nh,) + tuple(shape), generator=generator, device=device)
+                  < keep).to(torch.float32) for _ in range(2))
+
+
+def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_live,
+                       col_live, B, capD, att_keep=None):
+    """edge_support with attention heads, all heads at once (the stacked
+    path of _block_gat_support, block.py:402-468; ref layers.py:7-46).
+
+    A detection's incident edges are the rows of blocks where it is active
+    (sign +1) and its introduction block's column (sign -1), so the softmax
+    over them is two rectangle reductions per block plus a segment max and
+    a segment sum over the active/new ids.  h_d_b [nD, H] the detections'
+    hiddens; h_e [P, na, nt, H] the raw edge rectangle (attention is 0 at
+    padded cells); act / new [P, na] / [P, nt] global and act_l / new_l
+    window-local detection ids; m3 [P, na, nt] f32 live cells; row_live /
+    col_live [P, na] / [P, nt] the live rows and columns.  att_keep: the two
+    keep masks of train-time dropout (draw_att_keep), or None for none.
+    Returns es [nD, H], the mean over heads."""
+    nD = h_d_b.shape[0]
+    nh = len(gat_params)
+    seg = torch.cat([act.reshape(-1), new.reshape(-1)])
+    vm = torch.cat([row_live.reshape(-1), col_live.reshape(-1)])
+    w_att = torch.cat([hp["W_att"] for hp in gat_params], dim=1)
+    a_att = torch.cat([hp["a"] for hp in gat_params], dim=0)
+    h_att = h_d_b @ w_att                                                 # [nD, nh*H]
+    # h_att[act], h_att[new], with the window scatter kernel as backward
+    ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD)
+    e, rmax, cmax, sal, sbl = gat_scores_stats(ha, hn, a_att, m3, mpnn.LEAKY_ALPHA, nh)
+    # the softmax shift: per-head segment max over [rows | columns] (no
+    # gradient, rmax and cmax carry none)
+    m_d = segment_max(torch.cat([_heads_last(rmax), _heads_last(cmax)]), seg, nD, mask=vm)
+    safe_m = torch.where(m_d > _NEG / 2, m_d, 0.0)                       # [nD, nh]
+    m_row, m_col = _heads_first(safe_m, act), _heads_first(safe_m, new)
+    # exp(-1e30 - m) is exactly 0 for an all-masked row
+    sa = torch.exp(rmax - m_row) * sal
+    sb = torch.exp(cmax - m_col) * sbl
+    z = segment_sum(torch.cat([_heads_last(sa), _heads_last(sb)]), seg, nD, mask=vm)
+    if att_keep is None:
+        keep, ka, kn = 1.0, m3[None], m3[None]  # ignored at keep 1
+    else:
+        keep, (ka, kn) = 1.0 - mpnn.ATT_DROPOUT, att_keep
+    rs, cs = gat_aggregate(e, m_row, m_col, _heads_first(z, act), _heads_first(z, new), h_e,
+                           m3, ka, kn, keep)
+    # attention is 0 at every padded cell, so rs / cs are 0 at padded rows
+    # and columns and the unmasked window scatter is exact
+    return window_scatter(torch.cat([rs, -cs], dim=1), torch.cat([act_l, new_l], dim=1),
+                          B, capD) / nh
+
+
 def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBatch,
-                         tp_classifier: bool, train: bool = True):
+                         tp_classifier: bool, train: bool = True,
+                         generator: Optional[torch.Generator] = None,
+                         att_keep: Optional[Sequence] = None):
     """(loss, aux) of a batch of windows (block_window_forward, block.py:533,
     as the TPU runs it: fused round, defer_loss, hoisted BN, window
-    scatter/gather, f32).  loss = (CE + BCE) / B; aux holds loss_ce,
-    loss_f, tp, fp, fn (detached) and the new BN running stats
-    (`batch_stats`).  Features '2d', msg 'diff', no GAT; mpnn.check_supported
-    raises for the rest, naming its ROADMAP item."""
+    scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
+    aux holds loss_ce, loss_f, tp, fp, fn (detached) and the new BN running
+    stats (`batch_stats`).  Features '2d', msg 'diff'; mpnn.check_supported
+    raises for the rest, naming its ROADMAP item.
+
+    With attention heads, training applies dropout to the attention weights:
+    att_keep[s] is round s's pair of keep masks (draw_att_keep's shapes,
+    P = (s+1)*B), or else `generator` draws them, two per round; one of the
+    two is required.  With ATT_DROPOUT 0 or train=False there is none."""
     mpnn.check_supported(cfg)
+    if train and cfg.nattheads > 0 and generator is None and att_keep is None:
+        raise ValueError("training with attention heads needs a generator for the "
+                         "attention dropout (pass generator=...)")
+    dropout = train and cfg.nattheads > 0 and mpnn.ATT_DROPOUT > 0.0
     dev = bb.det_feat.device
     B, T = bb.n_windows, bb.t_cap
     capD, na_cap, nt_cap = bb.capD, bb.na_cap, bb.nt_cap
@@ -407,7 +492,17 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
         ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
         edge_out, rs, cs, lg = fused_block_round(h_e, ga_g + eg["b_ih"], gb, eg["w_hh"],
                                                  eg["b_hh"], w_eb, m3[s, :P], -1.0)
-        es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
+        if cfg.nattheads > 0:
+            # the round's rs / cs go unused: attention weighs the edges
+            keep_s = None
+            if dropout:
+                keep_s = (att_keep[s] if att_keep is not None else
+                          draw_att_keep(generator, cfg.nattheads, (P, na_cap, nt_cap), dev))
+            es = _block_gat_support(bp["gat"], h_d_b, h_e, act[:P], new[:P], act_l[:P],
+                                    new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
+                                    blk_live[s, :P, None] & col_m[:P], B, capD, keep_s)
+        else:
+            es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
         node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
         h_d_out = torch.where(det_live[s][:, None], node_out, 0.0)
         hd_steps.append(h_d_out)
@@ -449,19 +544,22 @@ def trainable(params):
 def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool):
     """A train step over a BlockBatch (make_block_train_step, block.py:1129):
 
-        step(params, batch_stats, optimizer, bb)
+        step(params, batch_stats, optimizer, bb, generator=None, att_keep=None)
             -> (params, batch_stats, loss, aux)
 
     params: the parameter tree with leaves that require grad (`trainable`);
-    optimizer: train/optim.py::make_optimizer over param_leaves(params).
-    The leaves are updated in place; the returned batch_stats are new
-    tensors; loss and aux (loss_ce, loss_f, tp, fp, fn) are detached
-    tensors on the batch's device, so the step never waits for the card."""
+    optimizer: train/optim.py::make_optimizer over param_leaves(params);
+    generator / att_keep: the attention dropout of a config with heads
+    (block_window_forward).  The leaves are updated in place; the returned
+    batch_stats are new tensors; loss and aux (loss_ce, loss_f, tp, fp, fn)
+    are detached tensors on the batch's device, so the step never waits for
+    the card."""
     mpnn.check_supported(cfg)
 
-    def step(params, batch_stats, optimizer, bb: BlockBatch):
+    def step(params, batch_stats, optimizer, bb: BlockBatch, generator=None, att_keep=None):
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = block_window_forward(params, batch_stats, cfg, bb, tp_classifier)
+        loss, aux = block_window_forward(params, batch_stats, cfg, bb, tp_classifier,
+                                         generator=generator, att_keep=att_keep)
         loss.backward()
         optimizer.step()
         return params, aux["batch_stats"], loss.detach(), {
