@@ -60,6 +60,30 @@ failure exits non-zero:
     one-head model on the card (gather_diff once a forward; the attention
     replaces signed_segment_sum) and on the CPU: identical tracks, scores
     within 1e-4.
+10. Row-layout training, batch 1: train/step.py's make_train_step on the
+    first window of phase 5's workload (seed 100; packed at bench.py's
+    capacity, the largest window's rows rounded up to 1024), H 64, f32, Adam
+    1e-4 with L2 5e-4, tp_classifier off, weights from torch.Generator seed
+    0.  3 warm-up and 20 timed steps with the launch counters set to 0
+    before and read after: gather_diff and signed_segment_sum twice a valid
+    step each (a forward, and the other's backward); one profiled step.
+    The first step rerun on the CPU must agree to phase 5's tolerances.
+11. Packed training with the fused round: all 8 windows packed
+    (train/packed.py::pack_schedules); a step is packed_window_forward(
+    fused_round=True), loss.backward() and the optimizer, as
+    tests/test_pallas_round.py:75-79 drives the JAX function.  The first
+    step records the round kernels' inputs at their widest round; its
+    forward equals the unfused packed forward on the card (loss rtol 1e-4,
+    final hidden state rtol 1e-3 / atol 1e-4) and its CPU rerun agrees to
+    phase 5's tolerances.  3 warm-up and 20 timed steps: each of the four
+    round kernels once a valid step; one profiled step.  Then
+    make_packed_train_step (the unfused path, kernels 1 and 2 under
+    autograd) timed on the same batch.
+12. Round kernels: round_fwd (atol 1e-5) and round_bwd_gru, round_bwd_dw,
+    round_bwd_dh (rtol 1e-4, atol 1e-5 x each output's scale) against their
+    plain versions on phase 11's widest round, each bitwise the same on a
+    second launch, timed beside its plain version and its bound (live rows
+    only); no single PyTorch call computes the round (library: none).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -418,10 +442,9 @@ def cli_phase(model, np):
     return {"result_files": len(files), "cli_s": cli_s}
 
 
-def training_workload(np):
-    """bench.py's workload: B windows of make_sequence(16 tracks, 16 frames,
-    miss 0.05, fp 0.1) from seeds 100, 101, ... that seed a graph, every
-    schedule padded to the longest's step count."""
+def training_chunks(np):
+    """bench.py's chunks: the first B of make_sequence(16 tracks, 16 frames,
+    miss 0.05, fp 0.1) from seeds 100, 101, ... that seed a graph."""
     from trackmpnn_tpu_torch.data.synthetic import make_sequence
     from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
 
@@ -433,15 +456,26 @@ def training_workload(np):
         if build_window_schedule(X, y) is not None:
             chunks.append((X, y))
         s += 1
+    return chunks
+
+
+def training_workload(np):
+    """bench.py's workload: training_chunks' schedules, every one padded to
+    the longest's step count."""
+    from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
+
+    chunks = training_chunks(np)
     raw = [build_window_schedule(X, y) for X, y in chunks]
     t_cap = max(ws.n_steps for ws in raw)
     schedules = [build_window_schedule(X, y, t_cap=t_cap) for X, y in chunks]
-    # live edge rows summed over steps: what one step's message passing touches
-    edges = 0
-    for ws in schedules:
-        edge_pos = np.where(~ws.is_det[: ws.n_rows])[0]
-        edges += sum(int(np.sum(edge_pos < ws.n_after[s])) for s in range(ws.n_steps))
-    return schedules, t_cap, edges
+    return schedules, t_cap, sum(live_edges(np, ws) for ws in schedules)
+
+
+def live_edges(np, ws):
+    """A window's live edge rows summed over its steps: what one train
+    step's message passing touches."""
+    edge_pos = np.where(~ws.is_det[: ws.n_rows])[0]
+    return sum(int(np.sum(edge_pos < ws.n_after[s])) for s in range(ws.n_steps))
 
 
 @contextlib.contextmanager
@@ -455,7 +489,9 @@ def record_widest(module, name, keep: dict, key, blocks=lambda args: args[0].sha
     def rec(*args):
         k = key(args)
         if k not in keep or blocks(args) > blocks(keep[k]):
-            keep[k] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            keep[k] = tuple(a.detach().clone() if torch.is_tensor(a) else
+                            {n: v.detach().clone() for n, v in a.items()} if isinstance(a, dict)
+                            else a for a in args)
         return orig(*args)
 
     setattr(module, name, rec)
@@ -898,6 +934,338 @@ def gat_serving_phase(torch, np, mp):
     return summary
 
 
+# ------------------------------------------------------ row-layout training ----
+ROUND_REPLACES = {"round_fwd": "trackmpnn_tpu/ops/pallas_round.py:79",
+                  "round_bwd_gru": "trackmpnn_tpu/ops/pallas_round.py:225",
+                  "round_bwd_dw": "trackmpnn_tpu/ops/pallas_round.py:258",
+                  "round_bwd_dh": "trackmpnn_tpu/ops/pallas_round.py:268"}
+PACKED_HIDDEN_RTOL, PACKED_HIDDEN_ATOL = 1e-3, 1e-4  # tests/test_pallas_round.py:78
+
+
+def packed_workload(np):
+    """Phase 5's windows rebuilt at bench.py's packing capacity (the largest
+    window's rows rounded up to 1024, bench.py:118-122), with their live
+    edge rows summed over steps per window."""
+    from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
+
+    chunks = training_chunks(np)
+    raw = [build_window_schedule(X, y) for X, y in chunks]
+    cap = ((max(ws.n_rows for ws in raw) + 1023) // 1024) * 1024
+    t_cap = max(ws.n_steps for ws in raw)
+    packed = [build_window_schedule(X, y, cap=cap, t_cap=t_cap) for X, y in chunks]
+    return packed, cap, t_cap, [live_edges(np, ws) for ws in packed]
+
+
+def row_model(torch):
+    from trackmpnn_tpu_torch.models import mpnn
+
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
+    return cfg, mpnn.init_params(torch.Generator().manual_seed(0), cfg), mpnn.init_batch_stats(cfg)
+
+
+def timed_steps(torch, run, counters):
+    """3 warm-up steps, then TRAIN_STEPS timed ones with every counter set
+    to 0 before and read after.  Returns (losses, ms/step by CUDA events,
+    ms/step host wall, launches)."""
+    for _ in range(TRAIN_WARMUP):
+        run()
+    torch.cuda.synchronize()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        losses.append(run())
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = {k: v for c in counters for k, v in c.items()}
+    return (torch.stack(losses).cpu().numpy(), start.elapsed_time(end) / TRAIN_STEPS, wall_ms,
+            launches)
+
+
+def check_launches(what, launches, expected):
+    for k, v in expected.items():
+        if launches[k] != v * TRAIN_STEPS:
+            fail(f"{what}: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
+                 f"expected {v} a step")
+
+
+def batch1_phase(torch, np, mp, round_ops, packed_wl):
+    """Phase 10: train/step.py's batch-1 step on the first window."""
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import optim
+    from trackmpnn_tpu_torch.train import step as train_step
+
+    what = "row-layout training, batch 1"
+    schedules, cap, t_cap, edges = packed_wl
+    ws, edges = schedules[0], edges[0]
+    valid = int(ws.step_valid.sum())
+    cfg, params0, stats0 = row_model(torch)
+    step = train_step.make_train_step(cfg, tp_classifier=False)
+    sb = train_step.schedule_to_device(ws, device="cuda")
+    print(f"{what} inputs: one window, cap {cap}, rows {ws.n_rows}, T {t_cap} ({valid} valid), "
+          f"H {HIDDEN}, live edge rows summed over steps {edges}")
+    params = train_block.trainable(to_device(params0, "cuda"))
+    stats = to_device(stats0, "cuda")
+    opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
+    params, stats, loss1, aux1 = step(params, stats, opt, sb)
+    grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
+    torch.cuda.synchronize()
+
+    def run():
+        nonlocal params, stats
+        params, stats, loss, _ = step(params, stats, opt, sb)
+        return loss
+
+    losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES,
+                                                                    round_ops.LAUNCHES))
+    check_launches(what, launches, {"gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
+                                    **dict.fromkeys(round_ops.LAUNCHES, 0)})
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what} loss not finite: {losses}")
+    print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
+          f"ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; launches a step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; loss "
+          f"{float(loss1):.6g} -> {losses[-1]:.6g}")
+    profile = device_profile(torch, run, wall_ms / 1e3)
+
+    params_c = train_block.trainable(params0)
+    opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
+    t0 = time.perf_counter()
+    params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c,
+                                      train_step.schedule_to_device(ws, device="cpu"))
+    cpu_step_s = time.perf_counter() - t0
+    total = lambda aux: {**aux, **{k: aux[k].sum() for k in ("tp", "fp", "fn")}}
+    worst_grad, gscale = first_step_agrees(torch, train_block, loss1, total(aux1), grads1,
+                                           loss_c, total(aux_c), params_c, what)
+    print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn equal, worst "
+          f"grad diff {worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
+    return {"cap": cap, "rows": ws.n_rows, "t_cap": t_cap, "valid_steps": valid,
+            "hidden": HIDDEN, "edges_per_step": edges, "steps": TRAIN_STEPS,
+            "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
+            "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+            "loss_first": float(loss1), "loss_last": float(losses[-1]),
+            "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad,
+            "grad_scale": gscale, "cpu_step_s": cpu_step_s,
+            "device_busy_share_step": None if profile is None else profile["busy_share"],
+            "profile_step": profile}
+
+
+def live_rows(idxw):
+    return int((idxw[..., 2:] != 0).any(-1).sum())
+
+
+def packed_phase(torch, np, mp, round_ops, packed_wl):
+    """Phase 11: packed training with the fused round, then the unfused
+    packed step on the same batch.  Returns (summary, the round kernels'
+    inputs at their widest round)."""
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import optim
+    from trackmpnn_tpu_torch.train import packed
+
+    what = "packed training (fused round)"
+    schedules, cap, t_cap, edges = packed_wl
+    edges = sum(edges)
+    cfg, params0, stats0 = row_model(torch)
+    pb = packed.pack_schedules(schedules, cap, t_cap, device="cuda")
+    valid = int(pb.valid_host.any(1).sum())
+    print(f"{what} inputs: B {pb.n_windows}, cap {cap}, T {t_cap} ({valid} valid), H {HIDDEN}, "
+          f"rows {[ws.n_rows for ws in schedules]}, incidence entries {pb.inc_idx.numel()}, "
+          f"live edge rows summed over steps {edges}")
+
+    def fused_step(params, stats, opt, batch):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = packed.packed_window_forward(params, stats, cfg, batch, False,
+                                                 fused_round=True)
+        loss.backward()
+        opt.step()
+        return params, aux["batch_stats"], loss.detach(), aux
+
+    params = train_block.trainable(to_device(params0, "cuda"))
+    stats = to_device(stats0, "cuda")
+    opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
+    inputs = {}
+    widest = lambda i: (lambda a: live_rows(a[i]))
+    with contextlib.ExitStack() as rec:
+        for name, i in (("round_fwd", 1), ("round_bwd_gru", 1), ("round_bwd_dw", 1),
+                        ("round_bwd_dh", 0)):
+            rec.enter_context(record_widest(round_ops, f"_{name}_cuda", inputs,
+                                            lambda a, n=name: n, blocks=widest(i)))
+        params, stats, loss1, aux1 = fused_step(params, stats, opt, pb)
+    grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
+    torch.cuda.synchronize()
+
+    # the first step's forward against the unfused packed forward on the card
+    with torch.no_grad():
+        loss_u, aux_u = packed.packed_window_forward(to_device(params0, "cuda"),
+                                                     to_device(stats0, "cuda"), cfg, pb, False)
+    if not abs(float(loss1) - float(loss_u)) <= LOSS_RTOL * abs(float(loss_u)):
+        fail(f"{what}: loss {float(loss1)!r}, unfused forward {float(loss_u)!r}")
+    if not torch.allclose(aux1["hidden"], aux_u["hidden"], rtol=PACKED_HIDDEN_RTOL,
+                          atol=PACKED_HIDDEN_ATOL):
+        fail(f"{what}: final hidden state differs from the unfused forward's by "
+             f"{float((aux1['hidden'] - aux_u['hidden']).abs().max()):.3g}")
+    hidden_err = float((aux1["hidden"] - aux_u["hidden"]).abs().max())
+
+    def run():
+        nonlocal params, stats
+        params, stats, loss, _ = fused_step(params, stats, opt, pb)
+        return loss
+
+    counters = (mp.LAUNCHES, round_ops.LAUNCHES)
+    losses, events_ms, wall_ms, launches = timed_steps(torch, run, counters)
+    check_launches(what, launches, {**dict.fromkeys(round_ops.LAUNCHES, valid),
+                                    **dict.fromkeys(mp.LAUNCHES, 0)})
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what} loss not finite: {losses}")
+    print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
+          f"ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; launches a step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; loss "
+          f"{float(loss1):.6g} -> {losses[-1]:.6g}; unfused forward loss {float(loss_u):.6g}, "
+          f"hidden max diff {hidden_err:.3g}")
+    profile = device_profile(torch, run, wall_ms / 1e3)
+
+    # the first step again on the CPU (plain round), same weights and batch
+    pb_c = packed.pack_schedules(schedules, cap, t_cap, device="cpu")
+    params_c = train_block.trainable(params0)
+    opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
+    t0 = time.perf_counter()
+    params_c, _, loss_c, aux_c = fused_step(params_c, stats0, opt_c, pb_c)
+    cpu_step_s = time.perf_counter() - t0
+    worst_grad, gscale = first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c,
+                                           aux_c, params_c, what)
+    print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
+          f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
+          f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
+
+    # the TM_PACKED path: make_packed_train_step, unfused, on the same batch
+    step_u = packed.make_packed_train_step(cfg, tp_classifier=False)
+    params_u = train_block.trainable(to_device(params0, "cuda"))
+    stats_u = to_device(stats0, "cuda")
+    opt_u = optim.make_optimizer(train_block.param_leaves(params_u), TRAIN_LR, TRAIN_WD)
+
+    def run_u():
+        nonlocal params_u, stats_u
+        params_u, stats_u, loss, _ = step_u(params_u, stats_u, opt_u, pb)
+        return loss
+
+    losses_u, events_u, wall_u, launches_u = timed_steps(torch, run_u, counters)
+    check_launches("packed training (unfused)", launches_u,
+                   {**dict.fromkeys(round_ops.LAUNCHES, 0),
+                    **dict.fromkeys(mp.LAUNCHES, 2 * valid)})
+    if not np.all(np.isfinite(losses_u)):
+        fail(f"packed training (unfused) loss not finite: {losses_u}")
+    print(f"packed training (unfused, make_packed_train_step): {events_u:.3f} ms/step (CUDA "
+          f"events), {wall_u:.3f} ms/step (host wall), {edges / (wall_u / 1e3):.4g} edges/s; "
+          f"launches a step { {k: v / TRAIN_STEPS for k, v in launches_u.items() if v} }")
+    profile_u = device_profile(torch, run_u, wall_u / 1e3)
+    summary = {
+        "windows": pb.n_windows, "cap": cap, "t_cap": t_cap, "valid_steps": valid,
+        "hidden": HIDDEN, "edges_per_step": edges, "incidence_entries": pb.inc_idx.numel(),
+        "steps": TRAIN_STEPS, "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
+        "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "loss_first": float(loss1), "loss_last": float(losses[-1]),
+        "unfused_forward_loss": float(loss_u), "hidden_max_diff_vs_unfused": hidden_err,
+        "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad, "grad_scale": gscale,
+        "cpu_step_s": cpu_step_s,
+        "device_busy_share_step": None if profile is None else profile["busy_share"],
+        "profile_step": profile,
+        "unfused": {"ms_per_step_events": events_u, "ms_per_step_wall": wall_u,
+                    "edges_per_s": edges / (wall_u / 1e3), "launches": launches_u,
+                    "loss_last": float(losses_u[-1]),
+                    "device_busy_share_step": None if profile_u is None
+                    else profile_u["busy_share"], "profile_step": profile_u},
+    }
+    return summary, inputs
+
+
+def round_bounds(name, args, H):
+    """(bytes, f32 operations) a round kernel needs on these inputs, live
+    rows only: each input read once, each output written once.  A live row's
+    GRU is two [H, 3H] products (4*H*3H operations) and the gate arithmetic
+    (GATE_FLOPS_PER_UNIT a unit); each edge's two endpoint entries in the
+    incidence add a row of H."""
+    idxw = args[1] if name != "round_bwd_dh" else args[0]
+    edge = int(((idxw[..., 2] != 0) & (idxw[..., 3] == 0)).sum())
+    det = int((idxw[..., 3] != 0).sum())
+    rows = edge + det
+    row, w = 4 * H, 4 * (2 * H * 3 * H + 2 * 3 * H)  # a row of H floats; one GRU's tensors
+    gru = 4 * H * 3 * H + GATE_FLOPS_PER_UNIT * H
+    if name == "round_fwd":  # h, idxw, the live dets' incidence in; out, xin out
+        return (rows * (row + 16) + det * 4 + 2 * edge * 4 + 2 * w + 2 * rows * row,
+                rows * gru + edge * H + 2 * edge * H)
+    if name == "round_bwd_gru":  # h, xin, g, idxw, weights in; d4, dxin, ddir out
+        return (rows * (3 * row + 16) + 2 * w + rows * (4 * row + 2 * row),
+                rows * (2 * gru + 2 * 2 * H * 3 * H))
+    if name == "round_bwd_dw":  # h, xin, d4, idxw in; both GRUs' gradients out
+        return rows * (6 * row + 16) + 2 * w, rows * (2 * 2 * H * 3 * H + 2 * 3 * H)
+    # round_bwd_dh: idxw, dxin, ddir, incidence in; dh out
+    return rows * (3 * row + 16) + det * 4 + 2 * edge * 4 + rows * row, 4 * edge * H
+
+
+def round_kernel_phase(torch, round_ops, inputs, launches):
+    """Phase 12: the four round kernels on phase 11's widest round against
+    their plain versions, twice (bitwise), and timed."""
+    flat = lambda out: [v for part in out for v in (part.values() if isinstance(part, dict)
+                                                    else [part])]
+    kernels = {
+        "round_fwd": (round_ops._round_fwd_cuda,
+                      lambda h, idxw, ip, ii, we, wn: round_ops.round_fwd_reference(h, idxw, we,
+                                                                                    wn)),
+        "round_bwd_gru": (round_ops._round_bwd_gru_cuda, round_ops.round_bwd_gru_reference),
+        "round_bwd_dw": (round_ops._round_bwd_dw_cuda, round_ops.round_bwd_dw_reference),
+        "round_bwd_dh": (round_ops._round_bwd_dh_cuda,
+                         lambda idxw, ip, ii, dxin, ddir: (
+                             round_ops.round_bwd_dh_reference(idxw, dxin, ddir),)),
+    }
+    rows = []
+    for name, (kernel, plain) in kernels.items():
+        args = inputs[name]
+        as_list = lambda out: flat(out) if isinstance(out, (tuple, list)) else [out]
+        got, again, want = as_list(kernel(*args)), as_list(kernel(*args)), as_list(plain(*args))
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (a, w) in enumerate(zip(got, want)):
+            err = max(err, float((a - w).abs().max()))
+            if name == "round_fwd":
+                ok = float((a - w).abs().max()) <= ROUND_FWD_ATOL
+            else:
+                ok = torch.allclose(a, w, rtol=ROUND_BWD_RTOL,
+                                    atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30))
+            if not ok:
+                fail(f"{name} output {k} differs from its plain version by "
+                     f"{float((a - w).abs().max()):.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} is not bitwise the same on a second launch")
+        idxw = args[1] if name != "round_bwd_dh" else args[0]
+        B, cap, _ = idxw.shape
+        H = HIDDEN
+        if name == "round_fwd":
+            dead = (idxw[..., 2] == 0) & (idxw[..., 3] == 0)
+            if not (torch.all(got[0][dead] == 0) and torch.all(got[1][dead] == 0)):
+                fail("round_fwd wrote a nonzero out or xin at a dead row")
+        b, by = bound_ms(*round_bounds(name, args, H))
+        r = {"name": name, "route": "cuda",
+             "source": "trackmpnn_tpu_torch/csrc/round_kernels.cu",
+             "replaces": ROUND_REPLACES[name], "launches": launches[name], "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args)),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: plain(*args), iters=PLAIN_ITERS),
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"B {B}, cap {cap}, H {H}, live rows {live_rows(idxw)}"}
+        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
+        rows.append(r)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -915,6 +1283,7 @@ def main():
         from trackmpnn_tpu_torch.ops import _build, mp
         from trackmpnn_tpu_torch.ops import block as block_ops
         from trackmpnn_tpu_torch.ops import gat as gat_ops
+        from trackmpnn_tpu_torch.ops import round as round_ops
     except ImportError as e:
         fail(f"the trackmpnn_tpu_torch package is not beside this script ({e})")
 
@@ -958,6 +1327,11 @@ def main():
     gat_kernels, gat_wide = gat_kernel_phase(torch, gat_ops, gat_inputs, gat_training["launches"])
     kernels += gat_kernels
     gat_serving = gat_serving_phase(torch, np, mp)
+    # 10. batch-1 training, 11. packed training, 12. round kernels: the row layout
+    packed_wl = packed_workload(np)
+    batch1 = batch1_phase(torch, np, mp, round_ops, packed_wl)
+    packed_training, round_inputs = packed_phase(torch, np, mp, round_ops, packed_wl)
+    kernels += round_kernel_phase(torch, round_ops, round_inputs, packed_training["launches"])
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
@@ -965,7 +1339,8 @@ def main():
             json.dump({"card": card, "kernels": kernels, "window_scatter_es": scatter_es,
                        "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
-                       "gat_serving": gat_serving}, f, indent=1)
+                       "gat_serving": gat_serving, "row_batch1": batch1,
+                       "row_packed": packed_training}, f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

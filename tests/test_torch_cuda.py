@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import gat_inputs
+from torch_port_util import ROUND_KEYS, gat_inputs, round_inputs
 from trackmpnn_tpu_torch.ops import block, gat, mp
+from trackmpnn_tpu_torch.ops import round as rnd
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -92,8 +93,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mp.gather_diff(hid[:, :6], past, fut, edge)
     with pytest.raises(ValueError):
         mp.gather_diff(hid, past, fut.cpu(), edge)
-    with pytest.raises(NotImplementedError):
-        mp.gather_diff(hid.requires_grad_(), past, fut, edge)
+    # a gradient is no refusal: the ops are autograd Functions
+    assert mp.gather_diff(hid.requires_grad_(), past, fut, edge).requires_grad
 
 
 def round_problem(seed, P, na, nt, H, device):
@@ -333,3 +334,151 @@ def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         gat._gat_aggregate_bwd_cuda(e, mr, mc, zr, zc, he, m3, ka, kn, 0.5,
                                     pr["agg_cot"][0][:, :4], pr["agg_cot"][1])
+
+
+@pytest.mark.cuda
+def test_mp_autograd_launches_each_kernel_as_the_others_backward(cuda):
+    """gather_diff's backward is one signed_segment_sum launch and the other
+    way round; the gradients match the CPU's plain versions (d gather_diff
+    within atol 1e-5, the f64 atomics; d signed_segment_sum exact)."""
+    n, h = 512, 64
+    hid, past, fut, edge = problem(9, n, h, "cpu")
+    cot = torch.from_numpy(np.random.default_rng(1).normal(size=(n, h)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        x = hid.to(dev).requires_grad_(True)
+        idx = [t.to(dev) for t in (past, fut, edge)]
+        before = dict(mp.LAUNCHES)
+        (g_gd,) = torch.autograd.grad((mp.gather_diff(x, *idx) * cot.to(dev)).sum(), x)
+        (g_ss,) = torch.autograd.grad((mp.signed_segment_sum(x, *idx, n) * cot.to(dev)).sum(), x)
+        launched = {k: mp.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"gather_diff": 0, "signed_segment_sum": 0} if dev == "cpu" else
+                            {"gather_diff": 2, "signed_segment_sum": 2})
+        grads[str(dev)] = (g_gd.cpu(), g_ss.cpu())
+    torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=0, atol=1e-5)
+    assert torch.equal(grads["cuda"][1], grads["cpu"][1])
+
+
+def round_problem_on(seed, B, cap, H, device):
+    """torch_port_util.round_inputs as tensors on `device`, with the incidence."""
+    h, idxw, we, wn, cot = round_inputs(seed, B, cap, H)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    inc = [put(a) for a in rnd.round_incidence(idxw)]
+    return (put(h), put(idxw), inc, {k: put(v) for k, v in we.items()},
+            {k: put(v) for k, v in wn.items()}, put(cot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,cap,H", [(2, 64, 64), (3, 300, 32), (1, 129, 16), (8, 1024, 64)])
+def test_round_kernels_match_plain_versions(cuda, B, cap, H):
+    """The four kernels of the fused round against their plain versions:
+    the forward (out and xin) within atol 1e-5, dead rows exactly 0; the
+    backward stages within rtol 1e-4 and an atol of 1e-5 x each output's
+    scale; each bitwise the same on a second launch."""
+    h, idxw, (ip, ii), we, wn, g = round_problem_on(B * cap + H, B, cap, H, cuda)
+    before = dict(rnd.LAUNCHES)
+    runs = [
+        ("round_fwd", lambda: rnd._round_fwd_cuda(h, idxw, ip, ii, we, wn),
+         lambda: rnd.round_fwd_reference(h, idxw, we, wn), True),
+    ]
+    out, xin = rnd.round_fwd_reference(h, idxw, we, wn)
+    d4, dxin, ddir = rnd.round_bwd_gru_reference(h, idxw, xin, g, we, wn)
+    runs += [
+        ("round_bwd_gru", lambda: rnd._round_bwd_gru_cuda(h, idxw, xin, g, we, wn),
+         lambda: rnd.round_bwd_gru_reference(h, idxw, xin, g, we, wn), False),
+        ("round_bwd_dw",
+         lambda: [v for w in rnd._round_bwd_dw_cuda(h, idxw, xin, d4) for v in w.values()],
+         lambda: [v for w in rnd.round_bwd_dw_reference(h, idxw, xin, d4) for v in w.values()],
+         False),
+        ("round_bwd_dh", lambda: (rnd._round_bwd_dh_cuda(idxw, ip, ii, dxin, ddir),),
+         lambda: (rnd.round_bwd_dh_reference(idxw, dxin, ddir),), False),
+    ]
+    for name, kernel, plain, forward in runs:
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got, want)):
+            if forward:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=f"{name} {k}")
+            else:
+                atol = 1e-5 * max(float(b.abs().max()), 1.0)
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=f"{name} {k}")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    dead = (idxw[..., 2] == 0) & (idxw[..., 3] == 0)
+    got_out, got_xin = rnd._round_fwd_cuda(h, idxw, ip, ii, we, wn)
+    assert torch.all(got_out[dead] == 0) and torch.all(got_xin[dead] == 0)
+    assert {k: rnd.LAUNCHES[k] - before[k] for k in before} == {
+        "round_fwd": 3, "round_bwd_gru": 2, "round_bwd_dw": 2, "round_bwd_dh": 2}
+
+
+@pytest.mark.cuda
+def test_fused_round_autograd_on_the_card_matches_the_cpu(cuda):
+    """Through FusedRound, as the packed step calls it: one launch of each
+    kernel, and the CPU's gradients (rtol 1e-4, atol 1e-5 x scale)."""
+    grads = {}
+    for dev in ("cpu", cuda):
+        h, idxw, inc, we, wn, g = round_problem_on(3, 2, 256, 64, dev)
+        leaves = [h] + [we[k] for k in ROUND_KEYS] + [wn[k] for k in ROUND_KEYS]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        before = dict(rnd.LAUNCHES)
+        out = rnd.fused_round(h, idxw, we, wn, inc=inc)
+        grads[str(dev)] = [out.detach().cpu()] + [
+            t.cpu() for t in torch.autograd.grad(out, leaves, g)]
+        launched = {k: rnd.LAUNCHES[k] - before[k] for k in before}
+        assert set(launched.values()) == ({0} if dev == "cpu" else {1}), launched
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["idxw[0, 3] = torch.tensor([64, 0, 1, 0], dtype=torch.int32)",
+                                 "ii[0] = 64"])
+def test_round_kernels_trap_an_index_outside_the_window(cuda, bad):
+    """An edge's endpoint or an incidence entry outside the window is a CUDA
+    error at the next synchronisation (a process of its own: a trap leaves
+    the CUDA context unusable)."""
+    code = (
+        "import numpy as np, torch, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_port_util import round_inputs\n"
+        "from trackmpnn_tpu_torch.ops import round as rnd\n"
+        "h, idxw, we, wn, _ = round_inputs(0, 1, 64, 16)\n"
+        "ip, ii = (torch.from_numpy(a).cuda() for a in rnd.round_incidence(idxw))\n"
+        "h, idxw = torch.from_numpy(h).cuda(), torch.from_numpy(idxw).cuda()\n"
+        "we = {k: torch.from_numpy(v).cuda() for k, v in we.items()}\n"
+        "wn = {k: torch.from_numpy(v).cuda() for k, v in wn.items()}\n"
+        "idxw[:, :, 2:] = 0; idxw[0, :8, 3] = 1\n"
+        f"{bad}\n"
+        "rnd._round_fwd_cuda(h, idxw, ip, ii, we, wn)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no error" not in out.stdout, out.stdout
+    assert "CUDA error" in out.stderr or "AcceleratorError" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_round_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    h, idxw, (ip, ii), we, wn, g = round_problem_on(0, 2, 64, 16, cuda)
+    with pytest.raises(TypeError):
+        rnd._round_fwd_cuda(h.double(), idxw, ip, ii, we, wn)
+    with pytest.raises(TypeError):
+        rnd._round_fwd_cuda(h, idxw.long(), ip, ii, we, wn)
+    with pytest.raises(ValueError):
+        rnd._round_fwd_cuda(h, idxw.cpu(), ip, ii, we, wn)
+    with pytest.raises(ValueError):
+        rnd._round_fwd_cuda(h.transpose(0, 1), idxw, ip, ii, we, wn)
+    with pytest.raises(TypeError):
+        rnd._round_fwd_cuda(h, idxw, ip[:-1], ii, we, wn)
+    with pytest.raises(ValueError):  # a width the kernels are not built for
+        h48 = torch.zeros(2, 64, 48, device=cuda)
+        w48 = {k: torch.zeros(s, device=cuda) for k, s in
+               zip(ROUND_KEYS, [(48, 144), (48, 144), (144,), (144,)])}
+        rnd._round_fwd_cuda(h48, idxw, ip, ii, w48, w48)
+    with pytest.raises(TypeError):
+        rnd._round_bwd_gru_cuda(h, idxw, h, g[:, :8], we, wn)
+    with pytest.raises(TypeError):
+        rnd._round_bwd_dh_cuda(idxw, ip, ii, h, h[:, :, :8].contiguous())

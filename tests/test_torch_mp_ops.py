@@ -73,3 +73,30 @@ def test_unknown_device_raises():
     with pytest.raises(ValueError):
         mp.gather_diff(hid.to("meta"), past.to("meta"), fut.to("meta"), edge.to("meta"))
 
+
+
+@pytest.mark.parametrize("seed,n,h", [(5, 128, 32), (6, 256, 64)])
+def test_autograd_matches_jax_grad(seed, n, h):
+    """Each op's VJP is the other op (pallas_mp.py:233-284): the port's
+    gradients of both, on the CPU's plain versions, against jax.grad of
+    pallas_mp.gather_diff and pallas_mp.signed_segment_sum.  d gather_diff
+    is a signed sum (atol 1e-5, as above); d signed_segment_sum a gather
+    (exact)."""
+    import jax
+
+    hid, past, fut, edge = make_problem(seed, n, h)
+    cot = np.random.default_rng(seed + 1).normal(size=(n, h)).astype(np.float32)
+    jp, jf, je = map(jnp.asarray, (past, fut, edge))
+    want_gd = jax.grad(lambda x: jnp.sum(pallas_mp.gather_diff(x, jp, jf, je) * cot))(
+        jnp.asarray(hid))
+    want_ss = jax.grad(lambda x: jnp.sum(pallas_mp.signed_segment_sum(x, jp, jf, je, n) * cot))(
+        jnp.asarray(hid))
+    x = torch.from_numpy(hid).requires_grad_(True)
+    tp, tf, te = as_torch(past, fut, edge)
+    (g_gd,) = torch.autograd.grad((mp.gather_diff(x, tp, tf, te) * torch.from_numpy(cot)).sum(),
+                                  x)
+    (g_ss,) = torch.autograd.grad(
+        (mp.signed_segment_sum(x, tp, tf, te, n) * torch.from_numpy(cot)).sum(), x)
+    np.testing.assert_allclose(g_gd.numpy(), np.asarray(want_gd), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(g_ss.numpy(), np.asarray(want_ss))
+    assert np.abs(g_gd.numpy()).max() > 0 and np.abs(g_ss.numpy()).max() > 0

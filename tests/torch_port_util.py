@@ -90,3 +90,26 @@ def gat_inputs(seed, nh, keep=1.0, mask_heads=None, P=5, na=6, nt=7, H=8):
         "agg_cot": [rng.normal(size=(P, na, H)), rng.normal(size=(P, nt, H))],
     }
     return {k: [np.ascontiguousarray(a, np.float32) for a in v] for k, v in arrays.items()}
+
+
+ROUND_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def round_inputs(seed, B=2, cap=64, H=64):
+    """numpy inputs of the fused round (ops/round.py) as
+    tests/test_pallas_round.py makes them: h f32[B, cap, H], idxw
+    int32[B, cap, 4] with rows of kind 0 dead (h = 0), 1 edge, 2 detection
+    and endpoints anywhere in the window, the two GRUs' weight dicts, and a
+    cotangent of out."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, cap, H)).astype(np.float32) * 0.5
+    past = rng.integers(0, cap, (B, cap)).astype(np.int32)
+    fut = rng.integers(0, cap, (B, cap)).astype(np.int32)
+    kind = rng.integers(0, 3, (B, cap))
+    h[kind == 0] = 0.0
+    idxw = np.stack([past, fut, (kind == 1).astype(np.int32), (kind == 2).astype(np.int32)], -1)
+    shapes = [(H, 3 * H), (H, 3 * H), (3 * H,), (3 * H,)]
+    we, wn = ({k: (0.2 * rng.normal(size=s)).astype(np.float32) for k, s in zip(ROUND_KEYS, shapes)}
+              for _ in range(2))
+    cot = rng.normal(size=h.shape).astype(np.float32)
+    return h, idxw, we, wn, cot

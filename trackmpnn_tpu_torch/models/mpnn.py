@@ -118,14 +118,15 @@ def init_batch_stats(cfg: ModelConfig, device="cpu"):
                          for _ in cfg.branches]}
 
 
-def _gat_head(params, h, g: GraphView, generator):
+def _gat_head(params, h, g: GraphView, generator, keep=None):
     """One GraphAttentionLayer head (ref layers.py:7-46, mpnn.py:141-166).
 
     A scalar score per edge from |h_att[past] - h_att[fut]| @ a; a softmax
     per detection over its incident edges (each edge is in both endpoints'
-    sets, with sign +1 at its past end and -1 at its future end); with a
-    generator, dropout on the attention weights (train time).  The keep
-    draw differs from the JAX package's stream, not in distribution."""
+    sets, with sign +1 at its past end and -1 at its future end); at train
+    time dropout on the attention weights, with the keep mask `keep`
+    ([2N], as the JAX package draws it) or else one drawn from `generator`
+    (another stream than the JAX package's, the same distribution)."""
     n = g.capacity
     em = g.edge_mask()
     h_att = h @ params["W_att"]
@@ -135,20 +136,24 @@ def _gat_head(params, h, g: GraphView, generator):
     seg = torch.cat([g.past, g.fut])
     mask2 = torch.cat([em, em])
     att = segment_softmax(torch.cat([e_score, e_score]), seg, n, mask=mask2)
-    if generator is not None:
+    if keep is None and generator is not None:
         keep = torch.rand(att.shape, generator=generator, device=att.device) < 1.0 - ATT_DROPOUT
+    if keep is not None:
         att = att * keep / (1.0 - ATT_DROPOUT)
     sign = torch.cat([h.new_ones(n), -h.new_ones(n)])
     return segment_sum(torch.cat([h, h]) * (att * sign)[:, None], seg, n, mask=mask2)
 
 
-def _factor_graph_gru(params, h, g: GraphView, nattheads, generator):
-    """FactorGraphGRU round (ref layers.py:84-116): edge-GRU then node-GRU."""
+def _factor_graph_gru(params, h, g: GraphView, nattheads, generator, keeps=None):
+    """FactorGraphGRU round (ref layers.py:84-116): edge-GRU then node-GRU.
+    keeps: per head, the keep mask of its attention dropout, or None."""
     em = g.edge_mask()
     node_support = mp.gather_diff(h, g.past, g.fut, em)
     edge_out = nn.gru_cell(params["edge_gru"], node_support, h)
     if nattheads > 0:
-        edge_support = sum(_gat_head(hp, h, g, generator) for hp in params["gat"]) / nattheads
+        keeps = keeps if keeps is not None else [None] * nattheads
+        edge_support = sum(_gat_head(hp, h, g, generator, k)
+                           for hp, k in zip(params["gat"], keeps)) / nattheads
     else:
         edge_support = mp.signed_segment_sum(h, g.past, g.fut, em, g.capacity)
     node_out = nn.gru_cell(params["node_gru"], edge_support, h)
@@ -158,19 +163,22 @@ def _factor_graph_gru(params, h, g: GraphView, nattheads, generator):
 
 def forward(params, batch_stats, cfg: ModelConfig, g: GraphView,
             h_prev: Optional[torch.Tensor], *, train: bool = False,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, att_keep=None):
     """One message-passing round over the live window.
 
     h_prev: f32[N, nbranches*nhidden] hidden state from the previous round
     (rows for slots not yet live are ignored), or None on the first round.
-    generator: draws the attention dropout at train time (on the device of
-    g); training with attention heads needs one unless ATT_DROPOUT is 0.
+    At train time with attention heads, dropout on the attention weights:
+    att_keep[branch][head] is a keep mask (bool or 0/1 [2N], the shape the
+    JAX package draws with its keys, models/mpnn.py:161), or else
+    `generator` draws them on the device of g; one of the two is needed
+    unless ATT_DROPOUT is 0.
 
     Returns (ModelOutput, new_batch_stats).
     """
     check_supported(cfg)
     dropout = train and cfg.nattheads > 0 and ATT_DROPOUT > 0.0
-    if dropout and generator is None:
+    if dropout and generator is None and att_keep is None:
         raise ValueError("training with attention heads needs a generator for the "
                          "attention dropout (pass generator=...)")
     n = g.capacity
@@ -199,7 +207,8 @@ def forward(params, batch_stats, cfg: ModelConfig, g: GraphView,
         h_b = torch.where(new_det[:, None], xt, torch.where(g.new[:, None], 0.0, h_b))
         h_b = torch.where(g.live[:, None], h_b, 0.0)
         outs.append(_factor_graph_gru(bp, h_b, g, cfg.nattheads,
-                                      generator if dropout else None))
+                                      generator if dropout else None,
+                                      att_keep[bi] if dropout and att_keep is not None else None))
 
     h_out = torch.cat(outs, dim=-1)
     y_node = nn.linear(params["out_node"], h_out)[:, 0]

@@ -5,7 +5,8 @@ at the root of the checkout, on first use and again whenever the source is
 newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
 ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
 ops/block.py), csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the
-train step, ops/gat.py).  build() starts one nvcc per stale source, all at
+train step, ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused
+round of the packed row layout, ops/round.py).  build() starts one nvcc per stale source, all at
 once, and waits for them.  The sources include no PyTorch header, so a build takes
 seconds; ctypes loads the result.  Nothing here runs when the module is
 imported.
@@ -45,6 +46,13 @@ LIBRARIES = {
              "tm_gat_scores_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
              "tm_gat_aggregate_fwd": [_P] * 11 + [_I] * 6 + [_F, _P],
              "tm_gat_aggregate_bwd": [_P] * 17 + [_I] * 6 + [_F, _P]}),
+    "round": (os.path.join(_PKG, "csrc", "round_kernels.cu"),
+              os.path.join(BUILD_DIR, "libtm_round.so"),
+              {"tm_round_fwd": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 3 + [_P],
+               "tm_round_bwd_gru": [_P] * 16 + [_I] * 3 + [_P],
+               "tm_round_dw_chunks": [_I],
+               "tm_round_bwd_dw": [_P] * 6 + [_I] * 2 + [_P],
+               "tm_round_bwd_dh": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P]}),
 }
 
 _libs: dict = {}

@@ -10,9 +10,12 @@ Each op has
   * a launch counter, LAUNCHES[name], raised by one where the kernel is
     launched and nowhere else.
 
-The two ops are each other's backward (pallas_mp.py:233-284); that
-belongs to the training slice, so the wrappers refuse inputs that need a
-gradient instead of returning an output autograd cannot follow.
+The two ops are each other's backward (pallas_mp.py:233-284):
+gather_diff and signed_segment_sum are autograd Functions (GatherDiff,
+SignedSegmentSum) whose backward calls the other op's kernel on a CUDA
+tensor and its plain version on a CPU tensor.  Indices and masks get no
+gradient.  A forward launches its kernel once, a backward the other one
+once, so a served forward (no gradient) still counts one launch of each.
 """
 
 from __future__ import annotations
@@ -61,10 +64,6 @@ def _check_cuda_inputs(name, h, past, fut, edge_mask):
             raise ValueError(f"{name}: {label} is not contiguous")
     if not h.is_contiguous() or h.data_ptr() % 16 != 0:
         raise ValueError(f"{name}: h must be contiguous and 16-byte aligned")
-    if h.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; no trained path uses it "
-            "yet (ROADMAP.md queue 1, 'Training CLI')")
 
 
 def _dispatch(h):
@@ -76,8 +75,9 @@ def _dispatch(h):
     return True
 
 
-def gather_diff(h, past, fut, edge_mask):
-    """out[k] = edge_mask[k] ? h[past[k]] - h[fut[k]] : 0.
+def gather_diff_raw(h, past, fut, edge_mask):
+    """out[k] = edge_mask[k] ? h[past[k]] - h[fut[k]] : 0, without autograd:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor.
 
     past/fut of every edge row must lie in [0, N); on the card an index
     outside traps the kernel, and the next synchronisation raises."""
@@ -98,12 +98,13 @@ def gather_diff(h, past, fut, edge_mask):
     return out
 
 
-def signed_segment_sum(h, past, fut, edge_mask, n):
+def signed_segment_sum_raw(h, past, fut, edge_mask, n):
     """out[d] = sum over edges e with past(e)=d of h[e] minus the sum over
-    edges with fut(e)=d; out is f32[n, H].  On the card the sums run in f64
-    atomics into a scratch this wrapper allocates, rounded to f32 once.
-    past/fut of every edge row must lie in [0, n); on the card an index
-    outside traps the kernel, and the next synchronisation raises."""
+    edges with fut(e)=d; out is f32[n, H].  Without autograd: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor.  On the card the sums
+    run in f64 atomics into a scratch this wrapper allocates, rounded to f32
+    once.  past/fut of every edge row must lie in [0, n); on the card an
+    index outside traps the kernel, and the next synchronisation raises."""
     if not _dispatch(h):
         return signed_segment_sum_reference(h, past, fut, edge_mask, n)
     _check_cuda_inputs("signed_segment_sum", h, past, fut, edge_mask)
@@ -121,3 +122,45 @@ def signed_segment_sum(h, past, fut, edge_mask, n):
         raise RuntimeError(f"signed_segment_sum kernel launch failed: CUDA error {rc}")
     LAUNCHES["signed_segment_sum"] += 1
     return out
+
+
+class GatherDiff(torch.autograd.Function):
+    """gather_diff_raw; its VJP is the signed scatter of the cotangent back
+    to the endpoints (pallas_mp.py:247-253)."""
+
+    @staticmethod
+    def forward(ctx, h, past, fut, edge_mask):
+        ctx.save_for_backward(past, fut, edge_mask)
+        ctx.n = h.shape[0]
+        return gather_diff_raw(h, past, fut, edge_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        past, fut, edge_mask = ctx.saved_tensors
+        return signed_segment_sum_raw(g.contiguous(), past, fut, edge_mask, ctx.n), None, None, None
+
+
+class SignedSegmentSum(torch.autograd.Function):
+    """signed_segment_sum_raw; its VJP is the gather-diff of the cotangent
+    (pallas_mp.py:275-281).  On the card that backward needs n == N, as the
+    row layout has it (the kernel indexes the cotangent by edge row)."""
+
+    @staticmethod
+    def forward(ctx, h, past, fut, edge_mask, n):
+        ctx.save_for_backward(past, fut, edge_mask)
+        return signed_segment_sum_raw(h, past, fut, edge_mask, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        past, fut, edge_mask = ctx.saved_tensors
+        return gather_diff_raw(g.contiguous(), past, fut, edge_mask), None, None, None, None
+
+
+def gather_diff(h, past, fut, edge_mask):
+    """node_support, differentiable in h (GatherDiff)."""
+    return GatherDiff.apply(h, past, fut, edge_mask)
+
+
+def signed_segment_sum(h, past, fut, edge_mask, n):
+    """edge_support, differentiable in h (SignedSegmentSum)."""
+    return SignedSegmentSum.apply(h, past, fut, edge_mask, n)

@@ -1,5 +1,5 @@
-"""Masked segment reductions and the segment softmax (the counterpart of
-trackmpnn_tpu/ops/segment.py:22-52 and :84-108).
+"""Masked segment reductions, arg-reductions and the segment softmax (the
+counterpart of trackmpnn_tpu/ops/segment.py).
 
 Every function takes an optional validity mask: masked rows go to a scratch
 bucket at `num_segments`, so their ids never matter, and the scratch is
@@ -52,6 +52,35 @@ def segment_min(values, segment_ids, num_segments, mask=None, initial=_POS_LARGE
 
 def _clipped(segment_ids, num_segments):
     return segment_ids.long().clamp(0, num_segments - 1)
+
+
+def segment_argmax(values, segment_ids, num_segments, mask=None, tie="high"):
+    """Row index of the max element per segment; -1 if empty.
+
+    tie="high" breaks ties toward the largest index (the reference's "latest
+    positive" rule on 0/1 indicators), tie="low" toward the smallest."""
+    n = values.shape[0]
+    idx = torch.arange(n, device=values.device)
+    v = values.float()
+    m = segment_max(v, segment_ids, num_segments, mask=mask)
+    has = m > _NEG_LARGE / 2
+    winner = v == m[_clipped(segment_ids, num_segments)]
+    if mask is not None:
+        winner = winner & mask
+    if tie == "high":
+        out = segment_max(torch.where(winner, idx, -1), segment_ids, num_segments, mask=mask,
+                          initial=-1)
+    else:
+        out = segment_min(torch.where(winner, idx, n + 1), segment_ids, num_segments,
+                          mask=mask, initial=n + 1)
+        out = torch.where(out > n, -1, out)
+    return torch.where(has, out, -1).to(torch.int32)
+
+
+def segment_argmin(values, segment_ids, num_segments, mask=None, tie="low"):
+    """Row index of the min element per segment; -1 if empty.  Ties go to
+    the smallest index by default."""
+    return segment_argmax(-values, segment_ids, num_segments, mask=mask, tie=tie)
 
 
 def segment_logsumexp(logits, segment_ids, num_segments, mask=None):
