@@ -68,6 +68,9 @@ failure exits non-zero:
     before and read after: gather_diff and signed_segment_sum twice a valid
     step each (a forward, and the other's backward); one profiled step.
     The first step rerun on the CPU must agree to phase 5's tolerances.
+    The first step records both kernels' widest inputs as forwards and as
+    each other's backward (on a cotangent); each of the four is held
+    against its plain version at phase 2's tolerances and timed as there.
 11. Packed training with the fused round: all 8 windows packed
     (train/packed.py::pack_schedules); a step is packed_window_forward(
     fused_round=True), loss.backward() and the optimizer, as
@@ -78,7 +81,8 @@ failure exits non-zero:
     phase 5's tolerances.  3 warm-up and 20 timed steps: each of the four
     round kernels once a valid step; one profiled step.  Then
     make_packed_train_step (the unfused path, kernels 1 and 2 under
-    autograd) timed on the same batch.
+    autograd) timed on the same batch, its first step recording and then
+    checking both mp kernels' widest inputs as in phase 10.
 12. Round kernels: round_fwd (atol 1e-5) and round_bwd_gru, round_bwd_dw,
     round_bwd_dh (rtol 1e-4, atol 1e-5 x each output's scale) against their
     plain versions on phase 11's widest round, each bitwise the same on a
@@ -212,6 +216,62 @@ def peak_window(seed: int):
     return X, best[2], best[1]
 
 
+MP_REPLACES = {"gather_diff": "trackmpnn_tpu/ops/pallas_mp.py:184",
+               "signed_segment_sum": "trackmpnn_tpu/ops/pallas_mp.py:128"}
+
+
+def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
+    """One message-passing kernel on these inputs against its plain version
+    (gather_diff exact; signed_segment_sum within SCATTER_RTOL / ATOL, its
+    atomics add in no fixed order, in f64, rounded to f32 once), timed
+    beside its plain version, its memory/compute bound and, for the scatter,
+    torch's index_add_.  Prints and returns the kernel's row."""
+    N, H = h.shape
+    n_edges = int(em.sum())
+    if name == "gather_diff":
+        kernel = lambda: mp.gather_diff(h, past, fut, em)
+        plain = lambda: mp.gather_diff_reference(h, past, fut, em)
+    else:
+        kernel = lambda: mp.signed_segment_sum(h, past, fut, em, n)
+        plain = lambda: mp.signed_segment_sum_reference(h, past, fut, em, n)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    library_ms = None
+    if name == "gather_diff":
+        if err != 0.0:
+            fail(f"gather_diff ({where}) differs from its plain version by {err}")
+        endpoints = int(torch.unique(torch.cat([past[em], fut[em]])).numel())
+        b, by = bound_ms(9 * N + endpoints * H * 4 + N * H * 4, n_edges * H)
+    else:
+        if not torch.allclose(got, want, rtol=SCATTER_RTOL, atol=SCATTER_ATOL):
+            fail(f"signed_segment_sum ({where}) differs from its plain version by {err} "
+                 f"(atol {SCATTER_ATOL}, rtol {SCATTER_RTOL})")
+        # yardstick: one f32 index_add_ over the doubled incidence [past; fut] <- [h; -h].
+        # It sums in f32 in the atomics' order, whose rounding at these sizes
+        # (~135 terms a row) reaches 1e-5 by itself: checked at 1e-4 only, to
+        # show it computes the same function.
+        idx2 = torch.cat([torch.where(em, past, n), torch.where(em, fut, n)]).long()
+        vals2 = torch.cat([h, -h])
+        library = lambda: torch.zeros(n + 1, H, device="cuda").index_add_(0, idx2, vals2)
+        if not torch.allclose(library()[:n], want, rtol=1e-4, atol=1e-4):
+            fail(f"index_add_ yardstick ({where}) does not compute the same function")
+        library_ms = cuda_time_ms(library)
+        b, by = bound_ms(9 * N + n_edges * H * 4 + n * H * 4, 2 * n_edges * H)
+    r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
+         "replaces": MP_REPLACES[name], "max_abs_err": err,
+         "ms": cuda_time_ms(kernel), "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+         "plain_ms": cuda_time_ms(plain), "bound_ms": b, "bound_by": by,
+         "library_ms": library_ms, "where": where,
+         "shape": f"N {N}, n {n}, H {H}, edge rows {n_edges}"}
+    print(f"kernel {name} ({where}; {r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+          f"with the host's launch cost {r['call_ms'] * 1e3:.2f} us (plain "
+          f"{r['plain_ms'] * 1e3:.2f} us, bound {b * 1e3:.2f} us by {by}, library "
+          f"{'-' if library_ms is None else '%.2f us' % (library_ms * 1e3)}), "
+          f"max abs err {err:.3g}")
+    return r
+
+
 def kernel_phase(torch, mp, tracker_mod, view_mod):
     X, g, n_new = peak_window(SERVE_SEEDS[0])
     cap = tracker_mod._bucketed(g.n, tracker_mod.TrackerConfig().bucket)
@@ -219,68 +279,39 @@ def kernel_phase(torch, mp, tracker_mod, view_mod):
     h = torch.randn(cap, HIDDEN, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
     past, fut, em = view.past, view.fut, view.edge_mask()
-    n_edges = int(em.sum())
-    print(f"kernel inputs: live rows {g.n}, edge rows {n_edges}, capacity {cap}, H {HIDDEN}")
+    print(f"kernel inputs: live rows {g.n}, edge rows {int(em.sum())}, capacity {cap}, "
+          f"H {HIDDEN}")
+    return [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving")
+            for name in MP_REPLACES]
 
-    results = []
-    # gather_diff: exact
-    got = mp.gather_diff(h, past, fut, em)
-    want = mp.gather_diff_reference(h, past, fut, em)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if err != 0.0:
-        fail(f"gather_diff differs from its plain version by {err}")
-    endpoints = int(torch.unique(torch.cat([past[em], fut[em]])).numel())
-    b, by = bound_ms(9 * cap + endpoints * HIDDEN * 4 + cap * HIDDEN * 4, n_edges * HIDDEN)
-    results.append({
-        "name": "gather_diff", "route": "cuda",
-        "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
-        "replaces": "trackmpnn_tpu/ops/pallas_mp.py:184",
-        "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: mp.gather_diff(h, past, fut, em)),
-        "call_ms": cuda_time_ms(lambda: mp.gather_diff(h, past, fut, em), queue_ahead=False),
-        "plain_ms": cuda_time_ms(lambda: mp.gather_diff_reference(h, past, fut, em)),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-    })
 
-    # signed_segment_sum: atomics in no fixed order, so within the stated tolerance
-    got = mp.signed_segment_sum(h, past, fut, em, cap)
-    want = mp.signed_segment_sum_reference(h, past, fut, em, cap)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=SCATTER_RTOL, atol=SCATTER_ATOL):
-        fail(f"signed_segment_sum differs from its plain version by {err} "
-             f"(atol {SCATTER_ATOL}, rtol {SCATTER_RTOL})")
-    # yardstick: one f32 index_add_ over the doubled incidence [past; fut] <- [h; -h].
-    # It sums in f32 in the atomics' order, whose rounding at these sizes
-    # (~135 terms a row) reaches 1e-5 by itself: checked at 1e-4 only, to
-    # show it computes the same function.
-    idx2 = torch.cat([torch.where(em, past, cap), torch.where(em, fut, cap)]).long()
-    vals2 = torch.cat([h, -h])
-    lib_out = torch.zeros(cap + 1, HIDDEN, device="cuda").index_add_(0, idx2, vals2)[:cap]
-    if not torch.allclose(lib_out, want, rtol=1e-4, atol=1e-4):
-        fail("index_add_ yardstick does not compute the same function")
-    b, by = bound_ms(9 * cap + n_edges * HIDDEN * 4 + cap * HIDDEN * 4, 2 * n_edges * HIDDEN)
-    results.append({
-        "name": "signed_segment_sum", "route": "cuda",
-        "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
-        "replaces": "trackmpnn_tpu/ops/pallas_mp.py:128",
-        "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: mp.signed_segment_sum(h, past, fut, em, cap)),
-        "call_ms": cuda_time_ms(lambda: mp.signed_segment_sum(h, past, fut, em, cap),
-                                queue_ahead=False),
-        "plain_ms": cuda_time_ms(lambda: mp.signed_segment_sum_reference(h, past, fut, em, cap)),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_time_ms(
-            lambda: torch.zeros(cap + 1, HIDDEN, device="cuda").index_add_(0, idx2, vals2)),
-    })
-    for r in results:
-        print(f"kernel {r['name']}: device {r['ms'] * 1e3:.2f} us, per call with the host's "
-              f"launch cost {r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, "
-              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
-              f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}), "
-              f"max abs err {r['max_abs_err']:.3g}")
-    return results
+@contextlib.contextmanager
+def record_mp_widest(mp, keep: dict):
+    """While active, the widest inputs (most edge rows) of each message-passing
+    kernel's calls go into keep[(name, role)]: role "forward" where h requires
+    grad, "backward" for a cotangent, which the other op's autograd backward
+    passes in (GatherDiff / SignedSegmentSum)."""
+    role = lambda a: "forward" if a[0].requires_grad else "backward"
+    with contextlib.ExitStack() as rec:
+        for name in MP_REPLACES:
+            rec.enter_context(record_widest(mp, f"{name}_raw", keep,
+                                            lambda a, n=name: (n, role(a)),
+                                            blocks=lambda a: int(a[3].sum())))
+        yield
+
+
+def mp_path_rows(torch, mp, inputs, where):
+    """gather_diff and signed_segment_sum at the widest inputs a training
+    path gave them, as forwards and as each other's backward."""
+    rows = []
+    for name in MP_REPLACES:
+        for role in ("forward", "backward"):
+            if (name, role) not in inputs:
+                fail(f"{where}: no {role} call of {name} was recorded")
+            h, past, fut, em, *n = inputs[(name, role)]
+            rows.append(mp_kernel_row(torch, mp, name, h, past, fut, em,
+                                      n[0] if n else h.shape[0], f"{where}, {role}"))
+    return rows
 
 
 def serve(tracker, seqs, np):
@@ -1012,7 +1043,9 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
     params = train_block.trainable(to_device(params0, "cuda"))
     stats = to_device(stats0, "cuda")
     opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
-    params, stats, loss1, aux1 = step(params, stats, opt, sb)
+    mp_inputs = {}
+    with record_mp_widest(mp, mp_inputs):
+        params, stats, loss1, aux1 = step(params, stats, opt, sb)
     grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
     torch.cuda.synchronize()
 
@@ -1044,7 +1077,9 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
                                            loss_c, total(aux_c), params_c, what)
     print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn equal, worst "
           f"grad diff {worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
+    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, batch 1")
     return {"cap": cap, "rows": ws.n_rows, "t_cap": t_cap, "valid_steps": valid,
+            "mp_kernels": mp_rows,
             "hidden": HIDDEN, "edges_per_step": edges, "steps": TRAIN_STEPS,
             "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
             "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
@@ -1154,6 +1189,9 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
         params_u, stats_u, loss, _ = step_u(params_u, stats_u, opt_u, pb)
         return loss
 
+    mp_inputs = {}
+    with record_mp_widest(mp, mp_inputs):
+        run_u()
     losses_u, events_u, wall_u, launches_u = timed_steps(torch, run_u, counters)
     check_launches("packed training (unfused)", launches_u,
                    {**dict.fromkeys(round_ops.LAUNCHES, 0),
@@ -1164,6 +1202,7 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
           f"events), {wall_u:.3f} ms/step (host wall), {edges / (wall_u / 1e3):.4g} edges/s; "
           f"launches a step { {k: v / TRAIN_STEPS for k, v in launches_u.items() if v} }")
     profile_u = device_profile(torch, run_u, wall_u / 1e3)
+    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, packed unfused")
     summary = {
         "windows": pb.n_windows, "cap": cap, "t_cap": t_cap, "valid_steps": valid,
         "hidden": HIDDEN, "edges_per_step": edges, "incidence_entries": pb.inc_idx.numel(),
@@ -1176,7 +1215,8 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
         "cpu_step_s": cpu_step_s,
         "device_busy_share_step": None if profile is None else profile["busy_share"],
         "profile_step": profile,
-        "unfused": {"ms_per_step_events": events_u, "ms_per_step_wall": wall_u,
+        "unfused": {"mp_kernels": mp_rows,
+                    "ms_per_step_events": events_u, "ms_per_step_wall": wall_u,
                     "edges_per_s": edges / (wall_u / 1e3), "launches": launches_u,
                     "loss_last": float(losses_u[-1]),
                     "device_busy_share_step": None if profile_u is None
@@ -1189,8 +1229,10 @@ def round_bounds(name, args, H):
     """(bytes, f32 operations) a round kernel needs on these inputs, live
     rows only: each input read once, each output written once.  A live row's
     GRU is two [H, 3H] products (4*H*3H operations) and the gate arithmetic
-    (GATE_FLOPS_PER_UNIT a unit); each edge's two endpoint entries in the
-    incidence add a row of H."""
+    (GATE_FLOPS_PER_UNIT a unit); its backward twice that: the two products
+    that recompute the gates, the two transposed ones (d gi w_ih^T, d gh
+    w_hh^T) and the gates' arithmetic and its derivative.  Each edge's two
+    endpoint entries in the incidence add a row of H."""
     idxw = args[1] if name != "round_bwd_dh" else args[0]
     edge = int(((idxw[..., 2] != 0) & (idxw[..., 3] == 0)).sum())
     det = int((idxw[..., 3] != 0).sum())
@@ -1201,12 +1243,11 @@ def round_bounds(name, args, H):
         return (rows * (row + 16) + det * 4 + 2 * edge * 4 + 2 * w + 2 * rows * row,
                 rows * gru + edge * H + 2 * edge * H)
     if name == "round_bwd_gru":  # h, xin, g, idxw, weights in; d4, dxin, ddir out
-        return (rows * (3 * row + 16) + 2 * w + rows * (4 * row + 2 * row),
-                rows * (2 * gru + 2 * 2 * H * 3 * H))
+        return rows * (3 * row + 16) + 2 * w + rows * (4 * row + 2 * row), rows * 2 * gru
     if name == "round_bwd_dw":  # h, xin, d4, idxw in; both GRUs' gradients out
         return rows * (6 * row + 16) + 2 * w, rows * (2 * 2 * H * 3 * H + 2 * 3 * H)
     # round_bwd_dh: idxw, dxin, ddir, incidence in; dh out
-    return rows * (3 * row + 16) + det * 4 + 2 * edge * 4 + rows * row, 4 * edge * H
+    return rows * (2 * row + 16) + det * 4 + 2 * edge * 4 + rows * row, 4 * edge * H
 
 
 def round_kernel_phase(torch, round_ops, inputs, launches):

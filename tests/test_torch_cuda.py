@@ -357,6 +357,13 @@ def test_mp_autograd_launches_each_kernel_as_the_others_backward(cuda):
         grads[str(dev)] = (g_gd.cpu(), g_ss.cpu())
     torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=0, atol=1e-5)
     assert torch.equal(grads["cuda"][1], grads["cpu"][1])
+    # a gradient needs n == N on the card as on the CPU; without one any n runs
+    x = hid.to(cuda).requires_grad_(True)
+    idx = [t.to(cuda) for t in (past, fut, edge)]
+    with pytest.raises(ValueError, match="n == N"):
+        mp.signed_segment_sum(x, *idx, n + 1)
+    with torch.no_grad():
+        assert mp.signed_segment_sum(x, *idx, n + 1).shape == (n + 1, h)
 
 
 def round_problem_on(seed, B, cap, H, device):

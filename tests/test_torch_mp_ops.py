@@ -100,3 +100,17 @@ def test_autograd_matches_jax_grad(seed, n, h):
     np.testing.assert_allclose(g_gd.numpy(), np.asarray(want_gd), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(g_ss.numpy(), np.asarray(want_ss))
     assert np.abs(g_gd.numpy()).max() > 0 and np.abs(g_ss.numpy()).max() > 0
+
+
+def test_signed_segment_sum_refuses_a_gradient_for_n_other_than_rows():
+    """The backward gathers the cotangent by edge row, which the kernel
+    does only for n == N: the op raises for another n when a gradient is
+    wanted, on the CPU as on the card, and runs without one."""
+    hid, past, fut, edge = as_torch(*make_problem(7, 64, 16))
+    x = hid.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="n == N"):
+        mp.signed_segment_sum(x, past, fut, edge, 65)
+    with torch.no_grad():
+        out = mp.signed_segment_sum(x, past, fut, edge, 65)
+    assert out.shape == (65, 16)
+    assert torch.equal(out[:64], mp.signed_segment_sum(hid, past, fut, edge, 64))

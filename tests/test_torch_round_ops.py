@@ -35,6 +35,10 @@ def to_torch(h, idxw, we, wn):
     return t(h), t(idxw), {k: t(v) for k, v in we.items()}, {k: t(v) for k, v in wn.items()}
 
 
+def incidence(idxw):
+    return tuple(torch.from_numpy(a) for a in rnd.round_incidence(idxw))
+
+
 def test_fused_round_and_its_gradients_match_interpret_mode_pallas(interpret_mode):
     h, idxw, we, wn, cot = make_problem(0)
     jwe, jwn = (jax.tree_util.tree_map(jnp.asarray, w) for w in (we, wn))
@@ -46,7 +50,7 @@ def test_fused_round_and_its_gradients_match_interpret_mode_pallas(interpret_mod
     leaves = [th] + [twe[k] for k in KEYS] + [twn[k] for k in KEYS]
     for leaf in leaves:
         leaf.requires_grad_(True)
-    out = rnd.fused_round(th, tidx, twe, twn)
+    out = rnd.fused_round(th, tidx, twe, twn, incidence(idxw))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
     grads = torch.autograd.grad(out, leaves, torch.from_numpy(cot))
     wants = [wdh] + [wdwe[k] for k in KEYS] + [wdwn[k] for k in KEYS]
@@ -123,7 +127,7 @@ def test_cpu_path_leaves_launch_counters_alone(monkeypatch):
     h, idxw, we, wn, cot = make_problem(4, cap=32, H=16)
     th, tidx, twe, twn = to_torch(h, idxw, we, wn)
     th.requires_grad_(True)
-    rnd.fused_round(th, tidx, twe, twn).backward(torch.from_numpy(cot))
+    rnd.fused_round(th, tidx, twe, twn, incidence(idxw)).backward(torch.from_numpy(cot))
     assert set(rnd.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError):
         rnd.fused_round(th.detach().to("meta"), tidx.to("meta"), twe, twn,

@@ -96,8 +96,8 @@ def port_model(p_np, s_np, cfg):
 def test_batch1_step_matches_jax(schedules):
     """window_forward of one window (3 valid steps of 6): loss, aux, BN
     stats after the window, final hidden state and grads against
-    jax.value_and_grad(window_forward); make_train_step's return_grads and
-    make_eval_window on the same window."""
+    jax.value_and_grad(window_forward); make_train_step's grads (left on
+    each leaf's .grad) and make_eval_window on the same window."""
     (jw, _, _), (tw, _, _) = schedules
     jcfg, cfg = configs()
     p_np, s_np = spread_weights(cfg, 0)
@@ -119,12 +119,9 @@ def test_batch1_step_matches_jax(schedules):
     # the step returns the same grads before its update; eval mode runs
     params, stats = port_model(p_np, s_np, cfg)
     opt = optim.make_optimizer(block.param_leaves(params), 1e-4, 5e-4)
-    _, new_stats, loss, aux = step.make_train_step(cfg, True, return_grads=True)(
-        params, stats, opt, sb)
+    _, new_stats, loss, _ = step.make_train_step(cfg, True)(params, stats, opt, sb)
     np.testing.assert_allclose(float(loss), float(jl), rtol=LOSS_RTOL)
-    got = weights.map_shaped(lambda leaf, s, path: leaf, aux["grads"], weights.param_shapes(cfg))
-    for (path, a), (_, b) in zip(leaves_np(got, cfg), leaves_np(jg, cfg)):
-        np.testing.assert_allclose(a, b, err_msg=path, **GRAD)
+    assert_grads_match(params, jg, cfg)
     el, eaux = step.make_eval_window(cfg, True)(params, new_stats, sb)
     assert np.isfinite(float(el)) and eaux["batch_stats"]["branches"][0]["bn"]["mean"].equal(
         new_stats["branches"][0]["bn"]["mean"])

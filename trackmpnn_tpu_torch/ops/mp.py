@@ -142,8 +142,10 @@ class GatherDiff(torch.autograd.Function):
 
 class SignedSegmentSum(torch.autograd.Function):
     """signed_segment_sum_raw; its VJP is the gather-diff of the cotangent
-    (pallas_mp.py:275-281).  On the card that backward needs n == N, as the
-    row layout has it (the kernel indexes the cotangent by edge row)."""
+    (pallas_mp.py:275-281).  That backward needs n == N, as the row layout
+    has it (the kernel indexes the cotangent by edge row), so
+    signed_segment_sum refuses a gradient for any other n on every
+    device."""
 
     @staticmethod
     def forward(ctx, h, past, fut, edge_mask, n):
@@ -162,5 +164,9 @@ def gather_diff(h, past, fut, edge_mask):
 
 
 def signed_segment_sum(h, past, fut, edge_mask, n):
-    """edge_support, differentiable in h (SignedSegmentSum)."""
+    """edge_support, differentiable in h (SignedSegmentSum) where n equals
+    h's row count; for another n it raises if a gradient is wanted."""
+    if torch.is_grad_enabled() and h.requires_grad and n != h.shape[0]:
+        raise ValueError(f"signed_segment_sum: a gradient needs n == N, got n {n}, "
+                         f"N {h.shape[0]}")
     return SignedSegmentSum.apply(h, past, fut, edge_mask, n)

@@ -358,18 +358,14 @@ class FusedRound(torch.autograd.Function):
         return (dh, None, None, None, *(dwe[k] for k in _WEIGHTS), *(dwn[k] for k in _WEIGHTS))
 
 
-def fused_round(h, idxw, we, wn, inc=None):
+def fused_round(h, idxw, we, wn, inc):
     """One fused 'diff' FactorGraphGRU round over [B, cap, H] windows
     (fused_round, pallas_round.py:373), differentiable in h and both GRU
     weight dicts.
 
     idxw int32[B, cap, 4]: (past, fut, is_live_edge, is_live_det),
     window-local.  inc: the batch's (inc_ptr, inc_idx) from round_incidence
-    on the device of h, built once per batch (train/packed.py does); left
-    None, it is built here from idxw, which copies idxw to the host and so
-    waits for the card."""
-    if inc is None:
-        inc = tuple(torch.from_numpy(a).to(h.device)
-                    for a in round_incidence(idxw.detach().cpu().numpy()))
+    on the device of h, built once per batch on the host (train/packed.py
+    does)."""
     return FusedRound.apply(h, idxw, inc[0], inc[1], *(we[k] for k in _WEIGHTS),
                             *(wn[k] for k in _WEIGHTS))

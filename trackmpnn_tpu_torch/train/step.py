@@ -107,7 +107,7 @@ def window_forward(params, batch_stats, cfg: mpnn.ModelConfig, sb: ScheduleBatch
     return l_ce.sum() + l_f.sum(), aux
 
 
-def make_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, return_grads: bool = False):
+def make_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool):
     """The batch-1 train step (make_train_step, step.py:107):
 
         step(params, batch_stats, optimizer, sb, generator=None, att_keep=None)
@@ -116,9 +116,9 @@ def make_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, return_grads: bo
     params: the parameter tree with leaves that require grad
     (train/block.py::trainable); optimizer: train/optim.py::make_optimizer
     over param_leaves(params), which it updates in place.  aux: loss_ce,
-    loss_f, per-step tp/fp/fn and step_valid, and with return_grads=True
-    the gradient tree ("grads", for gradient-flow plots, ref
-    train.py:140-145)."""
+    loss_f, per-step tp/fp/fn and step_valid.  The step's gradients stay on
+    each leaf's .grad until the next step (for gradient-flow plots, ref
+    train.py:140-145; the JAX package returns them with return_grads)."""
     mpnn.check_supported(cfg)
 
     def step(params, batch_stats, optimizer, sb: ScheduleBatch, generator=None,
@@ -128,8 +128,6 @@ def make_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, return_grads: bo
                                    generator=generator, att_keep=att_keep)
         loss.backward()
         out_aux = {k: aux[k] for k in ("loss_ce", "loss_f", "tp", "fp", "fn", "step_valid")}
-        if return_grads:
-            out_aux["grads"] = tree_map(lambda p: p.grad.detach().clone(), params)
         optimizer.step()
         return params, aux["batch_stats"], loss.detach(), out_aux
 
