@@ -88,6 +88,23 @@ failure exits non-zero:
     plain versions on phase 11's widest round, each bitwise the same on a
     second launch, timed beside its plain version and its bound (live rows
     only); no single PyTorch call computes the round (library: none).
+13. The block step's two other compositions, at phase 5's workload and
+    weights: (a) es_kernel=True (the es round, kernel #7, in place of the
+    gather, block_round_fwd/bwd and the window scatter), (b) es_kernel and
+    fused_loss (the edge losses, kernel #13, inside the loop).  Each first
+    step records the new kernels' widest inputs and must agree with phase
+    5's first step on the card and with its own CPU rerun to phase 5's
+    tolerances; 3 warm-up and 20 timed steps with the counters set to 0
+    before and read after (T of block_round_es_fwd and _bwd a step, none of
+    block_round_fwd/bwd or window_scatter, in (b) T of each loss kernel);
+    one profiled step.
+14. The es round's and the edge losses' kernels: block_round_es_fwd,
+    edge_loss_l1 and edge_loss_l2 within atol 1e-5 (L2's counts exact),
+    block_round_es_bwd and edge_loss_bwd within rtol 1e-4 and atol 1e-5 x
+    each output's scale, against their plain versions on phase 13's widest
+    inputs; each bitwise the same on a second launch, timed beside its plain
+    version and its bound (live cells only); no single PyTorch call
+    computes them (library: none).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -544,39 +561,54 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, params_c, what):
-    """The card's first step against the CPU's rerun: loss terms within
-    rtol LOSS_RTOL, tp/fp/fn equal, grads within GRAD_RTOL with an atol of
-    GRAD_ATOL_SCALE x the largest |grad|.  Returns (worst grad diff, scale)."""
-    for name, a, b in (("loss", loss1, loss_c), ("loss_ce", aux1["loss_ce"], aux_c["loss_ce"]),
-                       ("loss_f", aux1["loss_f"], aux_c["loss_f"])):
+def steps_agree(torch, first, other, what, names=("card", "CPU")):
+    """Two first steps, each (loss, aux, grads): loss terms within rtol
+    LOSS_RTOL, tp/fp/fn equal, grads within GRAD_RTOL with an atol of
+    GRAD_ATOL_SCALE x the largest |grad| of `other`.  Returns (worst grad
+    diff, scale)."""
+    (loss1, aux1, grads1), (loss2, aux2, grads2) = first, other
+    for name, a, b in (("loss", loss1, loss2), ("loss_ce", aux1["loss_ce"], aux2["loss_ce"]),
+                       ("loss_f", aux1["loss_f"], aux2["loss_f"])):
         a, b = float(a), float(b)
         if not abs(a - b) <= LOSS_RTOL * abs(b):
-            fail(f"{what} first step {name}: card {a!r}, CPU {b!r} (rtol {LOSS_RTOL})")
+            fail(f"{what} first step {name}: {names[0]} {a!r}, {names[1]} {b!r} "
+                 f"(rtol {LOSS_RTOL})")
     for k in ("tp", "fp", "fn"):
-        if int(aux1[k]) != int(aux_c[k]):
-            fail(f"{what} first step {k}: card {int(aux1[k])}, CPU {int(aux_c[k])}")
-    grads_c = [p.grad for p in train_block.param_leaves(params_c)]
-    gscale = tree_max_abs(grads_c)
+        if int(aux1[k]) != int(aux2[k]):
+            fail(f"{what} first step {k}: {names[0]} {int(aux1[k])}, {names[1]} {int(aux2[k])}")
+    grads2 = [g.cpu() for g in grads2]
+    gscale = tree_max_abs(grads2)
     worst = 0.0
-    for i, (a, b) in enumerate(zip(grads1, grads_c)):
+    for i, (a, b) in enumerate(zip(grads1, grads2)):
         a = a.cpu()
         worst = max(worst, float((a - b).abs().max()))
         if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
-            fail(f"{what} first step grad of leaf {i} differs between card and CPU by "
-                 f"{float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
+            fail(f"{what} first step grad of leaf {i} differs between {names[0]} and "
+                 f"{names[1]} by {float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
                  f"atol {GRAD_ATOL_SCALE * gscale:.3g})")
     return worst, gscale
 
 
-def training_phase(torch, np, block_ops, gat_ops, heads):
-    """Phase 5 (heads = 0) or 7: the block train step on bench.py's
-    workload.  Returns (summary, the widest inputs of the path's kernels)."""
+def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, params_c, what):
+    """The card's first step against the CPU's rerun (steps_agree)."""
+    grads_c = [p.grad for p in train_block.param_leaves(params_c)]
+    return steps_agree(torch, (loss1, aux1, grads1), (loss_c, aux_c, grads_c), what)
+
+
+def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
+                   fused_loss=False):
+    """Phase 5 (heads = 0), 7, or 13 (es_kernel, with or without fused_loss):
+    the block train step on bench.py's workload.  Returns (summary, the
+    widest inputs of the path's kernels, the first step's (loss, aux,
+    grads))."""
     from trackmpnn_tpu_torch.models import mpnn
     from trackmpnn_tpu_torch.train import block as train_block
     from trackmpnn_tpu_torch.train import optim
 
     what = f"GAT training ({heads} head, dropout {mpnn.ATT_DROPOUT})" if heads else "training"
+    if es_kernel or fused_loss:
+        what += " (" + ", ".join(k for k, on in (("es_kernel", es_kernel),
+                                                 ("fused_loss", fused_loss)) if on) + ")"
     schedules, t_cap, edges = training_workload(np)
     bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
@@ -587,7 +619,8 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
                            nattheads=heads)
     params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
     stats0 = mpnn.init_batch_stats(cfg)
-    step = train_block.make_block_train_step(cfg, tp_classifier=False)
+    step = train_block.make_block_train_step(cfg, tp_classifier=False, es_kernel=es_kernel,
+                                             fused_loss=fused_loss)
     params = train_block.trainable(to_device(params0, "cuda"))
     stats = to_device(stats0, "cuda")
     opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
@@ -611,6 +644,10 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
                 rec.enter_context(record_widest(gat_ops, f"_{name}_cuda", inputs,
                                                 lambda a, n=name: n,
                                                 blocks=lambda a: a[5].shape[0]))
+        elif es_kernel:
+            for name in ("block_round_es_fwd", "block_round_es_bwd"):
+                rec.enter_context(record_widest(block_ops, f"_{name}_cuda", inputs,
+                                                lambda a, n=name: n))
         else:
             rec.enter_context(record_widest(block_ops, "_block_round_fwd_cuda", inputs,
                                             lambda a: "fwd"))
@@ -618,6 +655,10 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
                                             lambda a: "bwd"))
             rec.enter_context(record_widest(block_ops, "_window_scatter_cuda", inputs,
                                             lambda a: f"scatter_F{a[0].shape[2]}"))
+        if fused_loss:
+            for name in ("l1", "l2", "bwd"):
+                rec.enter_context(record_widest(loss_ops, f"_{name}_cuda", inputs,
+                                                lambda a, n=name: f"edge_loss_{n}"))
         params, stats, loss1, aux1 = step(params, stats, opt, bb, att_keep=keep1)
     grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
     torch.cuda.synchronize()
@@ -625,7 +666,7 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
         params, stats, _, _ = step(params, stats, opt, bb, generator=gen)
     torch.cuda.synchronize()
 
-    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES)
+    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES)
     for c in counters:
         for k in c:
             c[k] = 0
@@ -643,10 +684,14 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
     events_ms = start.elapsed_time(end) / TRAIN_STEPS
     wall_ms = wall_s * 1e3 / TRAIN_STEPS
     # window_scatter: the es sum and two launches for the backward of the
-    # gate gather, with heads two more for the attention projections' gather
-    expected = {"block_round_fwd": t_cap, "block_round_bwd": t_cap,
-                "window_scatter": (5 if heads else 3) * t_cap,
-                **{k: t_cap if heads else 0 for k in gat_ops.LAUNCHES}}
+    # gate gather, with heads two more for the attention projections' gather;
+    # the es round replaces all three and the round kernels
+    default = 0 if es_kernel else t_cap
+    expected = {"block_round_fwd": default, "block_round_bwd": default,
+                "window_scatter": 0 if es_kernel else (5 if heads else 3) * t_cap,
+                "block_round_es_fwd": t_cap - default, "block_round_es_bwd": t_cap - default,
+                **{k: t_cap if heads else 0 for k in gat_ops.LAUNCHES},
+                **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES}}
     for k, v in expected.items():
         if launches[k] != v * TRAIN_STEPS:
             fail(f"{what}: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
@@ -675,7 +720,8 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
           f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
           f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
     summary = {
-        "heads": heads, "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
+        "heads": heads, "es_kernel": es_kernel, "fused_loss": fused_loss,
+        "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
         "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
         "live_cells": live_cells, "steps": TRAIN_STEPS,
         "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
@@ -687,7 +733,7 @@ def training_phase(torch, np, block_ops, gat_ops, heads):
         "device_busy_share_step": None if profile is None else profile["busy_share"],
         "profile_step": profile,
     }
-    return summary, inputs
+    return summary, inputs, (loss1, aux1, grads1)
 
 
 def block_kernel_phase(torch, block_ops, inputs, launches):
@@ -963,6 +1009,114 @@ def gat_serving_phase(torch, np, mp):
     print("GAT serving: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
                                       for k, v in summary.items()) + "; tracks equal the CPU's")
     return summary
+
+
+# ------------------------------------------- es round and fused edge losses ----
+ES_LOSS_REPLACES = {"block_round_es_fwd": "trackmpnn_tpu/ops/pallas_block.py:333",
+                    "block_round_es_bwd": "trackmpnn_tpu/ops/pallas_block.py:382",
+                    "edge_loss_l1": "trackmpnn_tpu/ops/pallas_loss.py:88",
+                    "edge_loss_l2": "trackmpnn_tpu/ops/pallas_loss.py:126",
+                    "edge_loss_bwd": "trackmpnn_tpu/ops/pallas_loss.py:167"}
+EDGE_LOSS_COUNTS = [3, 4, 5, 6]  # bce_count, tp, fp, fn: exact
+# f32 operations a live cell takes in the loss terms (exps, logs, sigmoid,
+# divisions, compares) beyond the head's K-wide product
+LOSS_CELL_OPS = 20
+
+
+def es_loss_bounds(name, args):
+    """(bytes, f32 operations) the es round's and the edge losses' kernels
+    need on these inputs: each input read once (edge-sized inputs at the live
+    cells, the detection-layout rows at the live rows and columns), each
+    output written once; the round's products as rows 4-5 count them."""
+    f = lambda *ts: 4 * sum(t.numel() for t in ts)
+    if name.startswith("block_round_es"):
+        he, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, m3, _, B, capD, ip, islot = args[:15]
+        H = he.shape[3]
+        live = m3 != 0
+        cells = int(live.sum())
+        lines = int(live.any(2).sum()) + int(live.any(1).sum())  # live rows + columns
+        weights = f(b_ih, w_hh, b_hh, w_eb)
+        small = f(m3, act_l, new_l, ip, islot) + weights + 4 * lines * 3 * H
+        if name == "block_round_es_fwd":  # edge_out, lg, es written
+            return (small + 4 * cells * H + f(he, m3) + 4 * B * capD * H,
+                    cells * (2 * H * 3 * H + 4 * H + GATE_FLOPS_PER_UNIT * H) + lines * H)
+        g_eo, g_lg, _ = args[15:18]  # g_es read at the live rows and columns
+        return (small + 8 * cells * H + f(g_lg) + 4 * lines * H + f(he) + 8 * B * capD * 3 * H
+                + weights, cells * (3 * 2 * H * 3 * H + 2 * GATE_FLOPS_PER_UNIT * H)
+                + lines * 3 * H)
+    if name == "edge_loss_l2":
+        cells = int((args[2] != 0).sum())
+        return f(*args) + 4 * args[0].shape[0] * 8, cells * LOSS_CELL_OPS
+    h_eo = args[0]
+    P, na, nt, K = h_eo.shape
+    cells = int((args[4] != 0).sum())
+    if name == "edge_loss_l1":  # logits, r_min, m_r, s_r written
+        return (4 * cells * K + f(*args[1:]) + 4 * P * na * (nt + 3),
+                cells * (2 * K + LOSS_CELL_OPS))
+    # edge_loss_bwd: d h_eo and d w_e, d b_e written
+    return (4 * cells * K + f(*args[1:]) + f(h_eo) + 4 * (K + 1),
+            cells * (3 * K + LOSS_CELL_OPS))
+
+
+def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches):
+    """Phase 14: the es round's and the edge losses' kernels on phase 13's
+    widest inputs against their plain versions, twice (bitwise), and timed."""
+    kernels = {
+        "block_round_es_fwd": (block_ops._block_round_es_fwd_cuda,
+                               block_ops.block_round_es_reference),
+        "block_round_es_bwd": (block_ops._block_round_es_bwd_cuda,
+                               block_ops.block_round_es_backward_reference),
+        "edge_loss_l1": (loss_ops._l1_cuda, loss_ops.edge_loss_l1_reference),
+        "edge_loss_l2": (loss_ops._l2_cuda, loss_ops.edge_loss_l2_reference),
+        "edge_loss_bwd": (loss_ops._bwd_cuda, loss_ops.edge_loss_bwd_reference),
+    }
+    as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
+    rows = []
+    for name, (kernel, plain) in kernels.items():
+        args = inputs[name]
+        got, again, want = (as_list(fn(*args)) for fn in (kernel, kernel, plain))
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (a, w) in enumerate(zip(got, want)):
+            diff = float((a - w).abs().max())
+            err = max(err, diff)
+            if name.endswith("bwd"):
+                ok = torch.allclose(a, w, rtol=ROUND_BWD_RTOL,
+                                    atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30))
+            else:
+                ok = diff <= ROUND_FWD_ATOL
+            if not ok:
+                fail(f"{name} output {k} differs from its plain version by {diff:.3g}")
+        if name == "edge_loss_l2" and not torch.equal(got[0][:, EDGE_LOSS_COUNTS],
+                                                      want[0][:, EDGE_LOSS_COUNTS]):
+            fail("edge_loss_l2's counts (bce_count, tp, fp, fn) differ from its plain version's")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} is not bitwise the same on a second launch")
+        m3 = args[{"block_round_es_fwd": 9, "block_round_es_bwd": 9, "edge_loss_l2": 2}.get(
+            name, 4)]
+        if name == "block_round_es_fwd" and not (torch.all(got[0][m3 == 0] == 0)
+                                                 and torch.all(got[1][m3 == 0] == 0)):
+            fail("block_round_es_fwd wrote a nonzero edge_out or lg at a padded cell")
+        b, by = bound_ms(*es_loss_bounds(name, args))
+        r = {"name": name, "route": "cuda",
+             "source": ("trackmpnn_tpu_torch/csrc/block_kernels.cu" if name.startswith("block")
+                        else "trackmpnn_tpu_torch/csrc/loss_kernels.cu"),
+             "replaces": ES_LOSS_REPLACES[name], "launches": launches[name],
+             "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args)),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+             # the es round's plain backward launches ~100 ops a call: fewer
+             # calls, so that they fit the device's queue behind the sleep
+             "plain_ms": cuda_time_ms(lambda: plain(*args), iters=(
+                 PLAIN_ITERS // 3 if name == "block_round_es_bwd" else PLAIN_ITERS)),
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"P {m3.shape[0]}, na {m3.shape[1]}, nt {m3.shape[2]}, "
+                      f"live cells {int((m3 != 0).sum())}"}
+        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
+        rows.append(r)
+    return rows
 
 
 # ------------------------------------------------------ row-layout training ----
@@ -1324,6 +1478,7 @@ def main():
         from trackmpnn_tpu_torch.ops import _build, mp
         from trackmpnn_tpu_torch.ops import block as block_ops
         from trackmpnn_tpu_torch.ops import gat as gat_ops
+        from trackmpnn_tpu_torch.ops import loss as loss_ops
         from trackmpnn_tpu_torch.ops import round as round_ops
     except ImportError as e:
         fail(f"the trackmpnn_tpu_torch package is not beside this script ({e})")
@@ -1359,12 +1514,13 @@ def main():
         k["launches"] = serving["launches"][k["name"]]
     cli = cli_phase(model, np)
     # 5. training, 6. block kernels: the training path
-    training, inputs = training_phase(torch, np, block_ops, gat_ops, heads=0)
+    training, inputs, first5 = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0)
     block_kernels, scatter_es = block_kernel_phase(torch, block_ops, inputs,
                                                    training["launches"])
     kernels += block_kernels
     # 7. GAT training, 8. GAT kernels, 9. GAT serving: the attention path
-    gat_training, gat_inputs = training_phase(torch, np, block_ops, gat_ops, heads=GAT_HEADS)
+    gat_training, gat_inputs, _ = training_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                                 heads=GAT_HEADS)
     gat_kernels, gat_wide = gat_kernel_phase(torch, gat_ops, gat_inputs, gat_training["launches"])
     kernels += gat_kernels
     gat_serving = gat_serving_phase(torch, np, mp)
@@ -1373,6 +1529,21 @@ def main():
     batch1 = batch1_phase(torch, np, mp, round_ops, packed_wl)
     packed_training, round_inputs = packed_phase(torch, np, mp, round_ops, packed_wl)
     kernels += round_kernel_phase(torch, round_ops, round_inputs, packed_training["launches"])
+    # 13. the block step's other compositions, 14. their kernels
+    compositions = {}
+    for key, flags in (("es_kernel", dict(es_kernel=True)),
+                       ("es_kernel_fused_loss", dict(es_kernel=True, fused_loss=True))):
+        summary, es_inputs, first = training_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                                   heads=0, **flags)
+        worst, scale = steps_agree(torch, first, first5, f"training ({key})",
+                                   names=(key, "the default composition"))
+        summary["max_grad_err_vs_default"] = worst
+        print(f"training ({key}) vs the default composition on the card: loss "
+              f"{float(first[0])!r} / {float(first5[0])!r}, tp/fp/fn equal, worst grad diff "
+              f"{worst:.3g} (largest |grad| {scale:.3g})")
+        compositions[key] = summary
+    kernels += es_loss_kernel_phase(torch, block_ops, loss_ops, es_inputs,
+                                    compositions["es_kernel_fused_loss"]["launches"])
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
@@ -1381,7 +1552,8 @@ def main():
                        "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
-                       "row_packed": packed_training}, f, indent=1)
+                       "row_packed": packed_training, "block_compositions": compositions},
+                      f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import ROUND_KEYS, gat_inputs, round_inputs
-from trackmpnn_tpu_torch.ops import block, gat, mp
+from torch_port_util import (EDGE_LOSS_COUNTS, EDGE_LOSS_KEYS, ROUND_KEYS, edge_loss_inputs,
+                             es_inputs, gat_inputs, round_inputs)
+from trackmpnn_tpu_torch.ops import block, gat, loss, mp
 from trackmpnn_tpu_torch.ops import round as rnd
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -191,9 +192,9 @@ def test_block_ops_autograd_launch_their_kernels(cuda):
                                   B, capD)
         ((eo ** 2).sum() + lg.sum() + (es ** 2).sum()).backward()
         launched = {k: block.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0}
-                            if dev == "cpu" else
-                            {"block_round_fwd": 1, "block_round_bwd": 1, "window_scatter": 3})
+        assert launched == {**dict.fromkeys(block.LAUNCHES, 0), **(
+            {} if dev == "cpu" else
+            {"block_round_fwd": 1, "block_round_bwd": 1, "window_scatter": 3})}
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
@@ -489,3 +490,187 @@ def test_round_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rnd._round_bwd_gru_cuda(h, idxw, h, g[:, :8], we, wn)
     with pytest.raises(TypeError):
         rnd._round_bwd_dh_cuda(idxw, ip, ii, h, h[:, :, :8].contiguous())
+
+
+# ------------------------------------------------ es round and edge losses ----
+ES_SHAPES = [dict(B=3, T=3, capD=16, na=5, nt=6, H=8),
+             dict(B=8, T=15, capD=256, na=24, nt=24, H=64)]
+
+
+def es_problem(seed, sign, device, P=None, **shape):
+    """torch_port_util.es_inputs as the es round's arguments on `device`
+    (its first P blocks) and its cotangents."""
+    act, new, blk_na, blk_nt, w, cot = es_inputs(seed, sign, **shape)
+    B, capD = shape["B"], shape["capD"]
+    P = P or act.shape[0]
+    ip, islot = block.block_incidence(act, new, blk_na, blk_nt, B * capD)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ga_d = put(w["ga_d"])
+    gb_d = ga_d if sign < 0 else put(w["gb_d"])
+    args = (put(w["h_e"][:P] * w["mask3"][:P, :, :, None]), put((act % capD)[:P].astype(np.int32)),
+            put((new % capD)[:P].astype(np.int32)), ga_d, gb_d, put(w["b_ih"]), put(w["w_hh"]),
+            put(w["b_hh"]), put(w["w_eb"]), put(w["mask3"][:P]), sign, B, capD, put(ip),
+            put(islot))
+    return args, [put(cot["g_eo"][:P]), put(cot["g_lg"][:P]), put(cot["g_es"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+@pytest.mark.parametrize("shape", ES_SHAPES, ids=["small", "training"])
+def test_es_round_kernels_match_plain_versions(cuda, sign, shape):
+    """block_round_es_fwd within atol 1e-5 (padded cells exactly 0), the
+    backward within rtol 1e-4 and atol 1e-5 x each output's scale; both
+    bitwise the same on a second launch; a round over fewer blocks than the
+    incidence lists too."""
+    for P in (None, 2 * shape["B"]):
+        args, cots = es_problem(7, sign, cuda, P, **shape)
+        before = dict(block.LAUNCHES)
+        got = block._block_round_es_fwd_cuda(*args)
+        again = block._block_round_es_fwd_cuda(*args)
+        want = block.block_round_es_reference(*args)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, again):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+            assert torch.equal(a, c)
+        m = args[9]
+        assert torch.all(got[0][m == 0] == 0) and torch.all(got[1][m == 0] == 0)
+        gb = block._block_round_es_bwd_cuda(*args, *cots)
+        gb2 = block._block_round_es_bwd_cuda(*args, *cots)
+        wb = block.block_round_es_backward_reference(*args, *cots)
+        torch.cuda.synchronize()
+        assert_close_scaled(gb, wb, ["dhe", "dga_d", "dgb_d", "dbih", "dwhh", "dbhh", "dweb"])
+        assert all(torch.equal(a, b) for a, b in zip(gb, gb2))
+        assert block.LAUNCHES["block_round_es_fwd"] == before["block_round_es_fwd"] + 2
+        assert block.LAUNCHES["block_round_es_bwd"] == before["block_round_es_bwd"] + 2
+
+
+def edge_loss_problem(seed, device, **shape):
+    x, d_part = edge_loss_inputs(seed, **shape)
+    args = [torch.from_numpy(np.asarray(x[k])).to(device) if k != "nD" else x[k]
+            for k in EDGE_LOSS_KEYS]
+    return args, torch.from_numpy(d_part).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(P=11, na=8, nt=8, K=16, nD=32),
+                                   dict(P=120, na=24, nt=24, K=64, nD=2048)],
+                         ids=["small", "training"])
+def test_edge_loss_kernels_match_plain_versions(cuda, shape):
+    """L1 and L2 within atol 1e-5 (the counts exact), the backward within
+    rtol 1e-4 and atol 1e-5 x each output's scale; each bitwise the same on
+    a second launch, each launched once a call."""
+    (h_eo, w_e, b_e, lbl, m3, ebnt, bna, act, act_m, nD), d_part = edge_loss_problem(
+        3, cuda, **shape)
+    before = dict(loss.LAUNCHES)
+    l1 = [loss._l1_cuda(h_eo, w_e, b_e, lbl, m3, ebnt) for _ in range(2)]
+    want = loss.edge_loss_l1_reference(h_eo, w_e, b_e, lbl, m3, ebnt)
+    torch.cuda.synchronize()
+    for a, b, c in zip(l1[0], want, l1[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        assert torch.equal(a, c)
+    logits, r_min, m_r, s_r = want
+    glue = loss.edge_loss_glue(r_min, m_r, s_r, m3, ebnt, act, act_m, nD)
+    l2 = [loss._l2_cuda(logits, lbl, m3, ebnt, bna, *glue) for _ in range(2)]
+    want2 = loss.edge_loss_l2_reference(logits, lbl, m3, ebnt, bna, *glue)
+    torch.cuda.synchronize()
+    assert torch.equal(l2[0], l2[1])
+    assert torch.equal(l2[0][:, EDGE_LOSS_COUNTS], want2[:, EDGE_LOSS_COUNTS])
+    torch.testing.assert_close(l2[0], want2, rtol=0, atol=1e-5)
+    wg = loss.edge_loss_spread(r_min, glue[0], glue[2], d_part, act, act_m, nD)
+    bargs = (h_eo, w_e, logits, lbl, m3, ebnt, bna, *glue, wg, d_part)
+    gb = [loss._bwd_cuda(*bargs) for _ in range(2)]
+    wb = loss.edge_loss_bwd_reference(*bargs)
+    torch.cuda.synchronize()
+    assert_close_scaled(gb[0], wb, ["dheo", "dwe", "dbe"])
+    assert all(torch.equal(a, b) for a, b in zip(*gb))
+    assert {k: loss.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 2)
+
+
+@pytest.mark.cuda
+def test_es_round_and_edge_losses_autograd_on_the_card_match_the_cpu(cuda):
+    """Through autograd, as the block step with es_kernel and fused_loss
+    calls them: one launch of each kernel on the card, none on the CPU, and
+    the CPU's gradients (rtol 1e-4, atol 1e-5 x scale)."""
+    shape = dict(B=3, T=3, capD=16, na=5, nt=6, H=16)
+    grads = {}
+    for dev in ("cpu", cuda):
+        args, cots = es_problem(4, -1.0, dev, **shape)
+        (he, act_l, new_l, ga_d, _, b_ih, w_hh, b_hh, w_eb, m3, sign, B, capD, ip, islot) = args
+        leaves = [t.clone().requires_grad_(True) for t in (he, ga_d, b_ih, w_hh, b_hh, w_eb)]
+        h, gd, bi, wh, bh, we = leaves
+        before = {**block.LAUNCHES, **loss.LAUNCHES}
+        eo, lg, es = block.fused_block_round_es(h, act_l, new_l, gd, gd, bi, wh, bh, we, m3,
+                                                sign, B, capD, (ip, islot))
+        P, na, nt = m3.shape
+        act = (act_l.long() + (torch.arange(P, device=m3.device) % B)[:, None] * capD).int()
+        ebnt = torch.stack([torch.arange(P, device=m3.device).float() * na * nt,
+                            m3[:, 0].sum(1)], 1).contiguous()
+        lbl = (torch.arange(na * nt, device=m3.device).reshape(1, na, nt) % 3 == 0).float() * m3
+        part = loss.edge_losses(eo, we, torch.full((1, 1), -0.5, device=m3.device), lbl, m3,
+                                ebnt, m3[:, :, 0].sum(1, keepdim=True).contiguous(), act,
+                                (m3[:, :, 0] > 0.5).reshape(-1), B * capD)
+        total = ((part[:, :3] ** 2).sum() + (eo * cots[0]).sum() + (lg * cots[1]).sum()
+                 + (es * cots[2]).sum())
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+        launched = {k: v - before[k] for k, v in {**block.LAUNCHES, **loss.LAUNCHES}.items()}
+        want = {k: 0 for k in launched}
+        if dev != "cpu":
+            want.update(dict.fromkeys(["block_round_es_fwd", "block_round_es_bwd",
+                                       "edge_loss_l1", "edge_loss_l2", "edge_loss_bwd"], 1))
+        assert launched == want
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["args[1][2, 0] = 16", "args[2][3, 1] = -1"])
+def test_es_round_traps_an_id_outside_its_window(cuda, bad):
+    """A window-local row or column id outside [0, capD) is a CUDA error at
+    the next synchronisation (a process of its own: a trap leaves the CUDA
+    context unusable)."""
+    code = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from test_torch_cuda import es_problem\n"
+        "from trackmpnn_tpu_torch.ops import block\n"
+        "args, _ = es_problem(1, -1.0, 'cuda', B=3, T=3, capD=16, na=5, nt=6, H=8)\n"
+        "args = list(args); args[9].fill_(1.0)\n"
+        f"{bad}\n"
+        "block._block_round_es_fwd_cuda(*args)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "no error" not in out.stdout, out.stdout
+    assert "CUDA error" in out.stderr or "AcceleratorError" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_es_round_and_edge_loss_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    args, cots = es_problem(0, -1.0, cuda, B=3, T=3, capD=16, na=5, nt=6, H=8)
+    swap = lambda i, v: args[:i] + (v,) + args[i + 1:]
+    with pytest.raises(TypeError):
+        block._block_round_es_fwd_cuda(*swap(1, args[1].long()))
+    with pytest.raises(TypeError):
+        block._block_round_es_fwd_cuda(*swap(3, args[3][:-1]))
+    with pytest.raises(TypeError):
+        block._block_round_es_fwd_cuda(*swap(13, args[13][:-1]))
+    with pytest.raises(ValueError):
+        block._block_round_es_fwd_cuda(*swap(14, args[14].cpu()))
+    with pytest.raises(ValueError):
+        block._block_round_es_fwd_cuda(*swap(0, args[0].transpose(1, 2)))
+    with pytest.raises(TypeError):
+        block._block_round_es_bwd_cuda(*args, cots[0], cots[1], cots[2][:, :4])
+    (h_eo, w_e, b_e, lbl, m3, ebnt, bna, act, act_m, nD), d_part = edge_loss_problem(
+        0, cuda, K=48)
+    with pytest.raises(TypeError):
+        loss._l1_cuda(h_eo.double(), w_e, b_e, lbl, m3, ebnt)
+    with pytest.raises(ValueError):
+        loss._l1_cuda(h_eo, w_e, b_e, lbl, m3.cpu(), ebnt)
+    with pytest.raises(TypeError):
+        loss._l2_cuda(lbl, lbl, m3, ebnt, bna[:, 0], *(lbl[:, :, 0].contiguous(),) * 3)
+    with pytest.raises(ValueError):  # K = 48 does not divide 256
+        z = lbl[:, :, 0].contiguous()
+        loss._bwd_cuda(h_eo, w_e, lbl, lbl, m3, ebnt, bna, z, z, z, z, d_part)

@@ -113,3 +113,61 @@ def round_inputs(seed, B=2, cap=64, H=64):
               for _ in range(2))
     cot = rng.normal(size=h.shape).astype(np.float32)
     return h, idxw, we, wn, cot
+
+
+def es_inputs(seed, sign, B=3, T=3, capD=16, na=5, nt=6, H=8):
+    """numpy inputs and cotangents of the es round (ops/block.py::
+    fused_block_round_es) over B*T step-major blocks (block q of window
+    q % B): global detection ids act [P, na] / new [P, nt], distinct within
+    a block, with block 0 and block 4 (where T > 1) without cells; ga_d is
+    also gb_d at sign -1 ('diff').  Returns (act, new, blk_na, blk_nt,
+    weights, cotangents)."""
+    rng = np.random.default_rng(seed)
+    P = B * T
+    blk_na, blk_nt = rng.integers(1, na + 1, P), rng.integers(1, nt + 1, P)
+    blk_na[0], blk_nt[min(4, P - 1)] = 0, 0
+    act = np.zeros((P, na), np.int64)
+    new = np.zeros((P, nt), np.int64)
+    for q in range(P):
+        ids = rng.choice(capD, blk_na[q] + blk_nt[q], replace=False)
+        act[q, :blk_na[q]] = (q % B) * capD + ids[:blk_na[q]]
+        new[q, :blk_nt[q]] = (q % B) * capD + ids[blk_na[q]:]
+    m = ((np.arange(na)[None, :, None] < blk_na[:, None, None])
+         & (np.arange(nt)[None, None, :] < blk_nt[:, None, None])).astype(np.float32)
+    f = lambda *s, scale=1.0: (scale * rng.normal(size=s)).astype(np.float32)
+    ga_d = f(B * capD, 3 * H)
+    gb_d = ga_d if sign < 0 else f(B * capD, 3 * H)
+    weights = dict(h_e=f(P, na, nt, H), ga_d=ga_d, gb_d=gb_d, b_ih=f(3 * H),
+                   w_hh=f(H, 3 * H, scale=0.3), b_hh=f(3 * H), w_eb=f(H, 1), mask3=m)
+    cot = dict(g_eo=f(P, na, nt, H), g_lg=f(P, na, nt), g_es=f(B * capD, H))
+    return act, new, blk_na, blk_nt, weights, cot
+
+
+EDGE_LOSS_KEYS = ("h_eo", "w_e", "b_e", "lbl", "mask3", "ebnt", "bna", "active_idx", "act_m",
+                  "nD")
+EDGE_LOSS_COUNTS = [3, 4, 5, 6]  # bce_count, tp, fp, fn: no gradient
+
+
+def edge_loss_inputs(seed, P=11, na=8, nt=8, K=16, nD=32):
+    """numpy inputs of the fused edge losses (ops/loss.py::edge_losses),
+    keyed as EDGE_LOSS_KEYS, and a cotangent of the partials (0 at the
+    counts); some detections have live rows and no positive edge."""
+    rng = np.random.default_rng(seed)
+    blk_na, blk_nt = rng.integers(0, na + 1, P), rng.integers(0, nt + 1, P)
+    m3 = ((np.arange(na)[None, :, None] < blk_na[:, None, None])
+          & (np.arange(nt)[None, None, :] < blk_nt[:, None, None])).astype(np.float32)
+    lbl = (rng.random((P, na, nt)) < 0.25).astype(np.float32) * m3
+    eb = np.cumsum(blk_na * blk_nt) - blk_na * blk_nt
+    active_idx = rng.integers(0, nD, size=(P, na)).astype(np.int32)
+    act_m = (m3[:, :, 0] > 0.5).reshape(-1)
+    live_det = np.unique(active_idx.reshape(-1)[act_m])
+    pos_det = np.unique(active_idx[(lbl > 0).any(2)])
+    assert len(np.setdiff1d(live_det, pos_det)) > 0
+    d_part = rng.normal(size=(P, 8)).astype(np.float32)
+    d_part[:, EDGE_LOSS_COUNTS + [7]] = 0.0
+    return dict(h_eo=(0.5 * rng.normal(size=(P, na, nt, K))).astype(np.float32),
+                w_e=(0.3 * rng.normal(size=(K, 1))).astype(np.float32),
+                b_e=np.full((1, 1), -1.0, np.float32), lbl=lbl, mask3=m3,
+                ebnt=np.stack([eb, blk_nt], 1).astype(np.float32),
+                bna=blk_na[:, None].astype(np.float32), active_idx=active_idx,
+                act_m=act_m, nD=nD), d_part

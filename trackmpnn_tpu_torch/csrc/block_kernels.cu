@@ -61,6 +61,32 @@
 //   [0, capD) traps the kernel (a sticky CUDA error that the next
 //   synchronisation raises).
 //
+// block_round_es_fwd
+//   Replaces _es_fwd_kernel / fused_block_round_es in pallas_block.py:333,
+//   the round with the input-gate gather and the edge-support reduction
+//   inside.  Two launches: block_round_fwd_kernel<true>, which reads the
+//   gates of row i and column j by index, ga_d[w*capD + act[q, i]] + b_ih
+//   and gb_d[w*capD + new[q, j]] (w = q % B, step-major blocks), instead of
+//   per-block rows, and writes the block's row and column sums to scratch;
+//   then incidence_reduce_kernel, one thread per (detection, column): es[d]
+//   = the row sums of d's active rows minus the column sums of its new
+//   columns, walked in the order of the batch's incidence (block order),
+//   summed in f64 and rounded once, stopping at the first block >= P.  The
+//   TPU kernel gathers and scatters with one-hot matmuls over the window's
+//   capD rows (_onehot_t, :319), an MXU idiom; here a CTA loads its own
+//   indices, and an id outside [0, capD) traps the kernel.  Bound: f32
+//   operations, as block_round_fwd (the reduction moves P*(na+nt)*H floats).
+//
+// block_round_es_bwd
+//   Replaces _es_bwd_kernel (pallas_block.py:382).  block_round_bwd_kernel
+//   <true> recomputes the gates from the gathered rows, takes the
+//   cotangents of the row and column sums as d es[act_i] and -d es[new_j]
+//   read by index, and adds d b_ih (the sum of the block's d ga rows) to
+//   its per-block partials; sum_partials_kernel sums them in block order;
+//   incidence_reduce_kernel then sums the per-block d ga / d gb rows over
+//   the same incidence into d ga_d and d gb_d [B*capD, 3H], in f64, with
+//   no atomics.  Bound: f32 operations, as block_round_bwd.
+//
 // No kernel synchronises or allocates: the caller allocates every output
 // and scratch and every launch goes to the stream it is given.  Each entry
 // point returns cudaGetLastError() so the caller can raise on a refused
@@ -85,6 +111,44 @@ constexpr int kRoundSplits = 4;  // CTAs a block's forward is split over
 inline int round_groups(int H) { return H >= kThreadsTarget ? 1 : kThreadsTarget / H; }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Where a round kernel reads the input gates of row i and column j of block
+// q.  kGather false: per-block rows ga[P, na, 3H], gb[P, nt, 3H] (b_ih
+// already in ga).  kGather true: the detection layout ga_d / gb_d [B*capD,
+// 3H] at row (q % B)*capD + the window-local id act[q, i] / new[q, j], with
+// b_ih added to the ga side; an id outside [0, capD) traps.
+struct GateSrc {
+  const float *ga, *gb, *bih;
+  const int32_t *act, *nw;
+  int B, capD;
+};
+
+template <bool kGather>
+__device__ __forceinline__ void gate_rows(const GateSrc& g, int64_t q, int i, int j, int na,
+                                          int nt, int H3, const float*& gai,
+                                          const float*& gbj, int64_t& da, int64_t& dn) {
+  if constexpr (kGather) {
+    const int a = g.act[q * na + i], n = g.nw[q * nt + j];
+    if ((unsigned)a >= (unsigned)g.capD || (unsigned)n >= (unsigned)g.capD) __trap();
+    const int64_t base = (q % g.B) * (int64_t)g.capD;
+    da = base + a;
+    dn = base + n;
+    gai = g.ga + da * H3;
+    gbj = g.gb + dn * H3;
+  } else {
+    da = q * na + i;
+    dn = q * nt + j;
+    gai = g.ga + da * H3;
+    gbj = g.gb + dn * H3;
+  }
+}
+
+// ga's gate k of the row at gai: plus b_ih where the kernel gathers
+template <bool kGather>
+__device__ __forceinline__ float ga_at(const GateSrc& g, const float* gai, int k) {
+  if constexpr (kGather) return gai[k] + g.bih[k];
+  return gai[k];
+}
 
 struct RoundSmem {
   float *w, *b, *web, *he, *m;
@@ -176,9 +240,8 @@ __device__ void row_col_sums(const float* he, const float* mask, int64_t q, int 
   }
 }
 
-__global__ void block_round_fwd_kernel(const float* __restrict__ he,
-                                       const float* __restrict__ ga,
-                                       const float* __restrict__ gb,
+template <bool kGather>
+__global__ void block_round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc,
                                        const float* __restrict__ whh,
                                        const float* __restrict__ bhh,
                                        const float* __restrict__ web,
@@ -215,12 +278,15 @@ __global__ void block_round_fwd_kernel(const float* __restrict__ he,
       float out = 0.f;
       if (m != 0.f) {
         const int i = cell / nt, j = cell % nt;
-        const float* gai = ga + (q * na + i) * H3;
-        const float* gbj = gb + (q * nt + j) * H3;
+        const float *gai, *gbj;
+        int64_t da, dn;
+        gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
         const float hm = s.he[c * H + h];
-        const float r = sigmoid_f((gai[h] + sign * gbj[h]) + (ar[cc] + s.b[h]));
-        const float z = sigmoid_f((gai[H + h] + sign * gbj[H + h]) + (az[cc] + s.b[H + h]));
-        const float n = tanhf((gai[2 * H + h] + sign * gbj[2 * H + h])
+        const float r = sigmoid_f((ga_at<kGather>(gsrc, gai, h) + sign * gbj[h])
+                                  + (ar[cc] + s.b[h]));
+        const float z = sigmoid_f((ga_at<kGather>(gsrc, gai, H + h) + sign * gbj[H + h])
+                                  + (az[cc] + s.b[H + h]));
+        const float n = tanhf((ga_at<kGather>(gsrc, gai, 2 * H + h) + sign * gbj[2 * H + h])
                               + r * (an[cc] + s.b[2 * H + h]));
         out = m * ((1.f - z) * n + z * hm);
       }
@@ -241,9 +307,12 @@ __global__ void block_round_fwd_kernel(const float* __restrict__ he,
   row_col_sums(he, mask, q, na, nt, H, rs, cs, split, nsplit);
 }
 
-__global__ void block_round_bwd_kernel(const float* __restrict__ he,
-                                       const float* __restrict__ ga,
-                                       const float* __restrict__ gb,
+// kGather: the gates as block_round_fwd_kernel<true> reads them, the
+// cotangents of the row and column sums read as grs[da] and -gcs[dn] (grs =
+// gcs = d es on the detection layout), and d b_ih (the sum of the block's d
+// ga rows) appended to the partials row.
+template <bool kGather>
+__global__ void block_round_bwd_kernel(const float* __restrict__ he, const GateSrc gsrc,
                                        const float* __restrict__ whh,
                                        const float* __restrict__ bhh,
                                        const float* __restrict__ web,
@@ -295,13 +364,16 @@ __global__ void block_round_bwd_kernel(const float* __restrict__ he,
       direct[cc] = 0.f;
       if (m != 0.f) {
         const int i = cell / nt, j = cell % nt;
-        const float* gai = ga + (q * na + i) * H3;
-        const float* gbj = gb + (q * nt + j) * H3;
+        const float *gai, *gbj;
+        int64_t da, dn;
+        gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
         const float hm = s.he[c * H + h];
-        r = sigmoid_f((gai[h] + sign * gbj[h]) + (ar[cc] + s.b[h]));
-        const float z = sigmoid_f((gai[H + h] + sign * gbj[H + h]) + (az[cc] + s.b[H + h]));
+        r = sigmoid_f((ga_at<kGather>(gsrc, gai, h) + sign * gbj[h]) + (ar[cc] + s.b[h]));
+        const float z = sigmoid_f((ga_at<kGather>(gsrc, gai, H + h) + sign * gbj[H + h])
+                                  + (az[cc] + s.b[H + h]));
         const float ghn = an[cc] + s.b[2 * H + h];
-        const float n = tanhf((gai[2 * H + h] + sign * gbj[2 * H + h]) + r * ghn);
+        const float n = tanhf((ga_at<kGather>(gsrc, gai, 2 * H + h) + sign * gbj[2 * H + h])
+                              + r * ghn);
         const float gl = glg_s[c];
         const float go = (geo[(cell0 + cell) * H + h] + gl * s.web[h]) * m;
         const float out = m * ((1.f - z) * n + z * hm);
@@ -341,8 +413,14 @@ __global__ void block_round_bwd_kernel(const float* __restrict__ he,
         float v = 0.f;
         if (m != 0.f) {
           const int i = cell / nt, j = cell % nt;
-          v = m * (((direct[cc] + acc[cc]) + grs[(q * na + i) * H + h])
-                   + gcs[(q * nt + j) * H + h]);
+          const float *gai, *gbj;
+          int64_t da, dn;
+          gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
+          if constexpr (kGather) {
+            v = m * (((direct[cc] + acc[cc]) + grs[da * H + h]) + -gcs[dn * H + h]);
+          } else {
+            v = m * (((direct[cc] + acc[cc]) + grs[da * H + h]) + gcs[dn * H + h]);
+          }
         }
         dhe[(cell0 + cell) * H + h] = v;
       }
@@ -396,13 +474,21 @@ __global__ void block_round_bwd_kernel(const float* __restrict__ he,
   red_s[g * 4 * H + 2 * H + h] = db_n;
   red_s[g * 4 * H + 3 * H + h] = dweb_acc;
   __syncthreads();
-  const int width = H * H3 + 4 * H;
+  const int width = H * H3 + 4 * H + (kGather ? H3 : 0);
   float* prow = part + q * width;
   for (int o = threadIdx.x; o < H * H3; o += blockDim.x) prow[o] = dw_s[o];
   for (int k = threadIdx.x; k < 4 * H; k += blockDim.x) {
     float acc = 0.f;
     for (int gg = 0; gg < G; ++gg) acc += red_s[gg * 4 * H + k];
     prow[H * H3 + k] = acc;
+  }
+  if constexpr (kGather) {
+    // d b_ih: the block's d ga rows summed in row order
+    for (int k = threadIdx.x; k < H3; k += blockDim.x) {
+      float acc = 0.f;
+      for (int i = 0; i < na; ++i) acc += dga_s[i * H3 + k];
+      prow[H * H3 + 4 * H + k] = acc;
+    }
   }
 }
 
@@ -414,6 +500,41 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
   float acc = 0.f;
   for (int q = 0; q < P; ++q) acc += part[(int64_t)q * width + k];
   out[k] = acc;
+}
+
+// Per detection row d of nrows and column c of F: the sum of src_a rows
+// (block q, row i) and of src_b rows (block q, column j) over d's incidence
+// entries inc_slot[inc_ptr[d] .. inc_ptr[d+1]), slot = q*(na + nt) + i or
+// q*(na + nt) + na + j, in list order (increasing blocks) up to the first
+// block >= P; f64, rounded to f32 once.  out_b null: out_a = rows - columns
+// (edge support); else out_a = rows, out_b = columns (the gate cotangents).
+__global__ void incidence_reduce_kernel(const float* __restrict__ src_a,
+                                        const float* __restrict__ src_b,
+                                        const int32_t* __restrict__ inc_ptr,
+                                        const int32_t* __restrict__ inc_slot, int na, int nt,
+                                        int P, int nrows, int F, float* __restrict__ out_a,
+                                        float* __restrict__ out_b) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)nrows * F) return;
+  const int d = (int)(t / F), c = (int)(t % F);
+  const int W = na + nt;
+  const int64_t limit = (int64_t)P * W;
+  double acc_a = 0.0, acc_b = 0.0;
+  const int e1 = inc_ptr[d + 1];
+  for (int e = inc_ptr[d]; e < e1; ++e) {
+    const int slot = inc_slot[e];
+    if (slot >= limit) break;
+    if (slot < 0) __trap();
+    const int q = slot / W, r = slot % W;
+    if (r < na) acc_a += (double)src_a[((int64_t)q * na + r) * F + c];
+    else acc_b += (double)src_b[((int64_t)q * nt + (r - na)) * F + c];
+  }
+  if (out_b == nullptr) {
+    out_a[t] = (float)(acc_a - acc_b);
+  } else {
+    out_a[t] = (float)acc_a;
+    out_b[t] = (float)acc_b;
+  }
 }
 
 __global__ void window_scatter_kernel(const float* __restrict__ vals,
@@ -534,13 +655,13 @@ extern "C" int tm_block_round_fwd(const void* he, const void* ga, const void* gb
                                   int P, int na, int nt, int H, float sign, void* stream) {
   if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
   const size_t smem = round_smem_bytes(na, nt, H, false);
-  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel, smem);
+  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  block_round_fwd_kernel<<<dim3(P, kRoundSplits), H * round_groups(H), smem,
-                           (cudaStream_t)stream>>>(
-      (const float*)he, (const float*)ga, (const float*)gb, (const float*)whh,
-      (const float*)bhh, (const float*)web, (const float*)mask, (float*)eo, (float*)rs,
-      (float*)cs, (float*)lg, na, nt, H, sign);
+  const GateSrc g{(const float*)ga, (const float*)gb, nullptr, nullptr, nullptr, 1, 0};
+  block_round_fwd_kernel<false><<<dim3(P, kRoundSplits), H * round_groups(H), smem,
+                                  (cudaStream_t)stream>>>(
+      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
+      (const float*)mask, (float*)eo, (float*)rs, (float*)cs, (float*)lg, na, nt, H, sign);
   return (int)cudaGetLastError();
 }
 
@@ -557,18 +678,90 @@ extern "C" int tm_block_round_bwd(const void* he, const void* ga, const void* gb
   if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = round_smem_bytes(na, nt, H, true);
-  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel, smem);
+  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  block_round_bwd_kernel<<<P, H * round_groups(H), smem, s>>>(
-      (const float*)he, (const float*)ga, (const float*)gb, (const float*)whh,
-      (const float*)bhh, (const float*)web, (const float*)mask, (const float*)geo,
-      (const float*)grs, (const float*)gcs, (const float*)glg, (float*)dhe, (float*)dga,
-      (float*)dgb, (float*)partials, na, nt, H, sign);
+  const GateSrc g{(const float*)ga, (const float*)gb, nullptr, nullptr, nullptr, 1, 0};
+  block_round_bwd_kernel<false><<<P, H * round_groups(H), smem, s>>>(
+      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
+      (const float*)mask, (const float*)geo, (const float*)grs, (const float*)gcs,
+      (const float*)glg, (float*)dhe, (float*)dga, (float*)dgb, (float*)partials, na, nt, H,
+      sign);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int width = 3 * H * H + 4 * H;
   sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials,
                                                           (float*)dw, P, width);
+  return (int)cudaGetLastError();
+}
+
+// The es round's forward.  h_e, w_hh, b_hh, w_eb, mask as tm_block_round_fwd;
+// act int32[P, na], nw int32[P, nt] window-local ids in [0, capD) (else the
+// kernel traps); gad, gbd f32[B*capD, 3H]; bih f32[3H]; the batch's
+// incidence inc_ptr int32[nrows + 1], inc_slot int32[n] (slots as
+// incidence_reduce_kernel reads them, increasing within a row).  Writes
+// edge_out, lg, the scratch rs f32[P, na, H], cs f32[P, nt, H] and es
+// f32[nrows, H], nrows = B*capD.  P, na, nt > 0.
+extern "C" int tm_block_round_es_fwd(const void* he, const void* act, const void* nw,
+                                     const void* gad, const void* gbd, const void* bih,
+                                     const void* whh, const void* bhh, const void* web,
+                                     const void* mask, const void* inc_ptr,
+                                     const void* inc_slot, void* eo, void* rs, void* cs,
+                                     void* lg, void* es, int P, int na, int nt, int H, int B,
+                                     int capD, float sign, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = round_smem_bytes(na, nt, H, false);
+  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const GateSrc g{(const float*)gad, (const float*)gbd, (const float*)bih,
+                  (const int32_t*)act, (const int32_t*)nw, B, capD};
+  block_round_fwd_kernel<true><<<dim3(P, kRoundSplits), H * round_groups(H), smem, s>>>(
+      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
+      (const float*)mask, (float*)eo, (float*)rs, (float*)cs, (float*)lg, na, nt, H, sign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)B * capD * H;
+  incidence_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      (const float*)rs, (const float*)cs, (const int32_t*)inc_ptr, (const int32_t*)inc_slot,
+      na, nt, P, B * capD, H, (float*)es, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The es round's backward.  Inputs as tm_block_round_es_fwd plus the
+// cotangents geo (of edge_out), glg (of lg) and ges f32[B*capD, H] (of es).
+// Writes d h_e, the scratch d ga f32[P, na, 3H], d gb f32[P, nt, 3H] and
+// partials f32[P, H*3H + 7H], dw f32[H*3H + 7H] = [d w_hh | d b_hh | d w_eb
+// | d b_ih], and d ga_d, d gb_d f32[B*capD, 3H].  P, na, nt > 0.
+extern "C" int tm_block_round_es_bwd(const void* he, const void* act, const void* nw,
+                                     const void* gad, const void* gbd, const void* bih,
+                                     const void* whh, const void* bhh, const void* web,
+                                     const void* mask, const void* inc_ptr,
+                                     const void* inc_slot, const void* geo, const void* glg,
+                                     const void* ges, void* dhe, void* dga, void* dgb,
+                                     void* partials, void* dw, void* dgad, void* dgbd, int P,
+                                     int na, int nt, int H, int B, int capD, float sign,
+                                     void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = round_smem_bytes(na, nt, H, true);
+  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const GateSrc g{(const float*)gad, (const float*)gbd, (const float*)bih,
+                  (const int32_t*)act, (const int32_t*)nw, B, capD};
+  block_round_bwd_kernel<true><<<P, H * round_groups(H), smem, s>>>(
+      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
+      (const float*)mask, (const float*)geo, (const float*)ges, (const float*)ges,
+      (const float*)glg, (float*)dhe, (float*)dga, (float*)dgb, (float*)partials, na, nt, H,
+      sign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int width = 3 * H * H + 7 * H;
+  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials,
+                                                          (float*)dw, P, width);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)B * capD * 3 * H;
+  incidence_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      (const float*)dga, (const float*)dgb, (const int32_t*)inc_ptr, (const int32_t*)inc_slot,
+      na, nt, P, B * capD, 3 * H, (float*)dgad, (float*)dgbd);
   return (int)cudaGetLastError();
 }
 

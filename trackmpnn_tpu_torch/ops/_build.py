@@ -6,8 +6,9 @@ newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
 ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
 ops/block.py), csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the
 train step, ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused
-round of the packed row layout, ops/round.py).  build() starts one nvcc per stale source, all at
-once, and waits for them.  The sources include no PyTorch header, so a build takes
+round of the packed row layout, ops/round.py), csrc/loss_kernels.cu -> libtm_loss.so (the
+fused edge losses of the block step, ops/loss.py).  build() starts one nvcc per stale source,
+all at once, and waits for them.  The sources include no PyTorch header, so a build takes
 seconds; ctypes loads the result.  Nothing here runs when the module is
 imported.
 """
@@ -37,6 +38,8 @@ LIBRARIES = {
               {"tm_block_round_smem_bytes": [_I, _I, _I, _I],
                "tm_block_round_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
                "tm_block_round_bwd": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+               "tm_block_round_es_fwd": [_P] * 17 + [_I] * 6 + [_F, _P],
+               "tm_block_round_es_bwd": [_P] * 22 + [_I] * 6 + [_F, _P],
                "tm_window_scatter_smem_bytes": [_I, _I],
                "tm_window_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}),
     "gat": (os.path.join(_PKG, "csrc", "gat_kernels.cu"),
@@ -53,6 +56,11 @@ LIBRARIES = {
                "tm_round_dw_chunks": [_I],
                "tm_round_bwd_dw": [_P] * 6 + [_I] * 2 + [_P],
                "tm_round_bwd_dh": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P]}),
+    "loss": (os.path.join(_PKG, "csrc", "loss_kernels.cu"),
+             os.path.join(BUILD_DIR, "libtm_loss.so"),
+             {"tm_edge_loss_l1": [_P] * 10 + [_I] * 4 + [_P],
+              "tm_edge_loss_l2": [_P] * 9 + [_I] * 3 + [_P],
+              "tm_edge_loss_bwd": [_P] * 15 + [_I] * 4 + [_P]}),
 }
 
 _libs: dict = {}

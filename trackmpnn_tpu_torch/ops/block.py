@@ -1,6 +1,6 @@
 """Ops of the block train step (the counterpart of
-trackmpnn_tpu/ops/pallas_block.py's fused_block_round, window_scatter and
-window_gather2).
+trackmpnn_tpu/ops/pallas_block.py's fused_block_round, fused_block_round_es,
+window_scatter and window_gather2).
 
 Each op has
   * a plain PyTorch version (`*_reference`), the semantics the tests hold
@@ -17,15 +17,24 @@ p % B, and a detection's row in the [B*capD, F] detection layout is
 (p % B) * capD + its window-local id.  Window-local ids are int32 here; the
 JAX package carries them as f32 only so that its custom VJP has float
 cotangent slots.
+
+The es round (fused_block_round_es) finds a detection's incident rows and
+columns in the batch's detection incidence (block_incidence), built once per
+batch on the host: for detection d, the slots q*(na + nt) + i of the rows i
+of blocks q where d is active and q*(na + nt) + na + j of the columns j of
+blocks q where d is new, in increasing order, so that a round over the first
+P blocks reads each list up to its first slot >= P*(na + nt).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from trackmpnn_tpu_torch.ops import _build
 
-LAUNCHES = {"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0}
+LAUNCHES = {"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0,
+            "block_round_es_fwd": 0, "block_round_es_bwd": 0}
 
 
 # -------------------------------------------------------------- references ----
@@ -116,6 +125,86 @@ def window_gather2_reference(ga_d, gb_d, act_l, new_l, B, capD):
     return ga_d[global_idx(act_l, B, capD)], gb_d[global_idx(new_l, B, capD)]
 
 
+def block_incidence(act, new, blk_na, blk_nt, n_rows):
+    """The detection incidence of a batch's blocks, numpy (see the module
+    note).  act int[P, na] / new int[P, nt] global detection ids of each
+    block's rows and columns, in the order the rounds see the blocks;
+    blk_na / blk_nt int[P].  Only rows and columns of blocks with at least
+    one cell are listed; the rest carry no edge.  Returns (inc_ptr
+    int32[n_rows + 1], inc_slot int32[n]): detection d's slots are
+    inc_slot[inc_ptr[d]:inc_ptr[d+1]], increasing."""
+    act, new = np.asarray(act), np.asarray(new)
+    blk_na, blk_nt = np.asarray(blk_na), np.asarray(blk_nt)
+    na, nt = act.shape[1], new.shape[1]
+    width = na + nt
+    cells = (blk_na > 0) & (blk_nt > 0)
+    qa, ia = np.nonzero((np.arange(na)[None, :] < blk_na[:, None]) & cells[:, None])
+    qc, jc = np.nonzero((np.arange(nt)[None, :] < blk_nt[:, None]) & cells[:, None])
+    dets = np.concatenate([act[qa, ia], new[qc, jc]]).astype(np.int64)
+    slots = np.concatenate([qa * width + ia, qc * width + na + jc]).astype(np.int64)
+    if np.any((dets < 0) | (dets >= n_rows)):
+        raise ValueError("a block names a detection outside the batch")
+    order = np.lexsort((slots, dets))
+    ptr = np.zeros(n_rows + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(dets, minlength=n_rows))
+    return ptr.astype(np.int32), slots[order].astype(np.int32)
+
+
+def incidence_sum_reference(src_a, src_b, inc_ptr, inc_slot, n_rows):
+    """Per detection row d, the f64 sums of its incidence entries of the
+    first P = src_a.shape[0] blocks: (rows, columns) = (sum of src_a[q, i],
+    sum of src_b[q, j]), as two f64 [n_rows, F] tensors.  src_a [P, na, F],
+    src_b [P, nt, F]."""
+    P, na, F = src_a.shape
+    nt = src_b.shape[1]
+    dev = src_a.device
+    slot = inc_slot.long()
+    owner = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                    (inc_ptr[1:] - inc_ptr[:-1]).long(),
+                                    output_size=slot.numel())
+    q, r = slot // (na + nt), slot % (na + nt)
+    live = q < P
+    is_row = r < na
+    qc = torch.where(live, q, 0)
+    va = src_a[qc, torch.where(is_row, r, 0)].double()
+    vb = src_b[qc, torch.where(is_row, 0, r - na)].double()
+    zero = va.new_zeros(())
+    va = torch.where((live & is_row)[:, None], va, zero)
+    vb = torch.where((live & ~is_row)[:, None], vb, zero)
+    out = torch.zeros(2, n_rows, F, dtype=torch.float64, device=dev)
+    return out[0].index_add_(0, owner, va), out[1].index_add_(0, owner, vb)
+
+
+def block_round_es_reference(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3,
+                             sign, B, capD, inc_ptr, inc_slot):
+    """(edge_out, lg, es) of the es round (fused_block_round_es,
+    pallas_block.py:485): the round of block_round_reference on the gathered
+    gates ga = ga_d[act] + b_ih, gb = gb_d[new], and es [B*capD, H] = the
+    row sums of each detection's active rows minus the column sums of its
+    new columns, summed over the incidence in f64 and rounded once."""
+    ga, gb = window_gather2_reference(ga_d, gb_d, act_l, new_l, B, capD)
+    eo, rs, cs, lg = block_round_reference(h_e, ga + b_ih, gb, w_hh, b_hh, w_eb, mask3, sign)
+    rows, cols = incidence_sum_reference(rs, cs, inc_ptr, inc_slot, B * capD)
+    return eo, lg, (rows - cols).to(torch.float32)
+
+
+def block_round_es_backward_reference(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb,
+                                      mask3, sign, B, capD, inc_ptr, inc_slot, g_eo, g_lg,
+                                      g_es):
+    """The hand-derived backward of the es round (_es_bwd_kernel,
+    pallas_block.py:382-481): the round's backward with the cotangents of
+    the row and column sums d es[act_i] and -d es[new_j], then the per-block
+    gate cotangents summed into the detection layout over the incidence.
+    Returns (d h_e, d ga_d, d gb_d, d b_ih, d w_hh, d b_hh, d w_eb)."""
+    ga, gb = window_gather2_reference(ga_d, gb_d, act_l, new_l, B, capD)
+    des_act, des_new = window_gather2_reference(g_es, g_es, act_l, new_l, B, capD)
+    dhe, dga, dgb, dwhh, dbhh, dweb = block_round_backward_reference(
+        h_e, ga + b_ih, gb, w_hh, b_hh, w_eb, mask3, sign, g_eo, des_act, -des_new, g_lg)
+    dga_d, dgb_d = incidence_sum_reference(dga, dgb, inc_ptr, inc_slot, B * capD)
+    return (dhe, dga_d.to(torch.float32), dgb_d.to(torch.float32), dga.sum((0, 1)), dwhh, dbhh,
+            dweb)
+
+
 # ---------------------------------------------------------------- wrappers ----
 def _on_cuda(t):
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor."""
@@ -142,6 +231,19 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _round_library(name, device, na, nt, H):
+    """The block library, once the round kernels' shared memory at these
+    widths is known to fit a block of the card."""
+    lib = _build.load("block")
+    for backward in (False, True):
+        need = lib.tm_block_round_smem_bytes(na, nt, H, int(backward))
+        have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+        if need < 0 or need > have:
+            raise ValueError(f"{name}: na={na}, nt={nt}, H={H} needs {need} B of shared "
+                             f"memory a block, the card has {have}")
+    return lib
+
+
 def _round_inputs(name, h_e, ga, gb, w_hh, b_hh, w_eb, mask3):
     if h_e.dim() != 4:
         raise TypeError(f"{name}: h_e must be [P, na, nt, H], got {list(h_e.shape)}")
@@ -151,14 +253,7 @@ def _round_inputs(name, h_e, ga, gb, w_hh, b_hh, w_eb, mask3):
            gb=(gb, f32, (P, nt, 3 * H)), w_hh=(w_hh, f32, (H, 3 * H)),
            b_hh=(b_hh, f32, (3 * H,)), w_eb=(w_eb, f32, (H, 1)),
            mask3=(mask3, f32, (P, na, nt)))
-    lib = _build.load("block")
-    for backward in (False, True):
-        need = lib.tm_block_round_smem_bytes(na, nt, H, int(backward))
-        have = torch.cuda.get_device_properties(h_e.device).shared_memory_per_block_optin
-        if need < 0 or need > have:
-            raise ValueError(f"{name}: na={na}, nt={nt}, H={H} needs {need} B of shared "
-                             f"memory a block, the card has {have}")
-    return lib, P, na, nt, H
+    return _round_library(name, h_e.device, na, nt, H), P, na, nt, H
 
 
 def _block_round_fwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
@@ -211,6 +306,86 @@ def _block_round_bwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign, g_eo, g_rs
     dbhh = dw[3 * H * H:3 * H * H + 3 * H]
     dweb = dw[3 * H * H + 3 * H:].view(H, 1)
     return dhe, dga, dgb, dwhh, dbhh, dweb
+
+
+def _es_inputs(name, h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, B, capD,
+               inc_ptr, inc_slot):
+    if h_e.dim() != 4:
+        raise TypeError(f"{name}: h_e must be [P, na, nt, H], got {list(h_e.shape)}")
+    P, na, nt, H = h_e.shape
+    f32, i32 = torch.float32, torch.int32
+    if inc_slot.dim() != 1:
+        raise TypeError(f"{name}: inc_slot must be int32[n], got {list(inc_slot.shape)}")
+    _check(name, h_e.device, h_e=(h_e, f32, (P, na, nt, H)), act_l=(act_l, i32, (P, na)),
+           new_l=(new_l, i32, (P, nt)), ga_d=(ga_d, f32, (B * capD, 3 * H)),
+           gb_d=(gb_d, f32, (B * capD, 3 * H)), b_ih=(b_ih, f32, (3 * H,)),
+           w_hh=(w_hh, f32, (H, 3 * H)), b_hh=(b_hh, f32, (3 * H,)), w_eb=(w_eb, f32, (H, 1)),
+           mask3=(mask3, f32, (P, na, nt)), inc_ptr=(inc_ptr, i32, (B * capD + 1,)),
+           inc_slot=(inc_slot, i32, tuple(inc_slot.shape)))
+    if P * (na + nt) >= 2 ** 31:
+        raise ValueError(f"{name}: P * (na + nt) = {P * (na + nt)} overflows the int32 slots")
+    return _round_library(name, h_e.device, na, nt, H), P, na, nt, H
+
+
+def _block_round_es_fwd_cuda(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3,
+                             sign, B, capD, inc_ptr, inc_slot):
+    lib, P, na, nt, H = _es_inputs("block_round_es_fwd", h_e, act_l, new_l, ga_d, gb_d, b_ih,
+                                   w_hh, b_hh, w_eb, mask3, B, capD, inc_ptr, inc_slot)
+    dev, f32 = h_e.device, torch.float32
+    eo = torch.empty_like(h_e)
+    lg = torch.empty(P, na, nt, dtype=f32, device=dev)
+    es = torch.empty(B * capD, H, dtype=f32, device=dev)
+    if P == 0 or na == 0 or nt == 0 or B * capD == 0:
+        return eo.zero_(), lg.zero_(), es.zero_()
+    rs = torch.empty(P, na, H, dtype=f32, device=dev)
+    cs = torch.empty(P, nt, H, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.tm_block_round_es_fwd(
+            h_e.data_ptr(), act_l.data_ptr(), new_l.data_ptr(), ga_d.data_ptr(),
+            gb_d.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), w_eb.data_ptr(),
+            mask3.data_ptr(), inc_ptr.data_ptr(), inc_slot.data_ptr(), eo.data_ptr(),
+            rs.data_ptr(), cs.data_ptr(), lg.data_ptr(), es.data_ptr(), P, na, nt, H, B, capD,
+            float(sign), _stream())
+    if rc != 0:
+        raise RuntimeError(f"block_round_es_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["block_round_es_fwd"] += 1
+    return eo, lg, es
+
+
+def _block_round_es_bwd_cuda(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3,
+                             sign, B, capD, inc_ptr, inc_slot, g_eo, g_lg, g_es):
+    lib, P, na, nt, H = _es_inputs("block_round_es_bwd", h_e, act_l, new_l, ga_d, gb_d, b_ih,
+                                   w_hh, b_hh, w_eb, mask3, B, capD, inc_ptr, inc_slot)
+    dev, f32 = h_e.device, torch.float32
+    _check("block_round_es_bwd", dev, g_eo=(g_eo, f32, h_e.shape),
+           g_lg=(g_lg, f32, (P, na, nt)), g_es=(g_es, f32, (B * capD, H)))
+    dhe = torch.empty_like(h_e)
+    dgad = torch.empty(B * capD, 3 * H, dtype=f32, device=dev)
+    dgbd = torch.empty(B * capD, 3 * H, dtype=f32, device=dev)
+    width = H * 3 * H + 7 * H  # d w_hh | d b_hh | d w_eb | d b_ih
+    dw = torch.empty(width, dtype=f32, device=dev)
+    if P == 0 or na == 0 or nt == 0 or B * capD == 0:
+        for t in (dhe, dgad, dgbd, dw):
+            t.zero_()
+    else:
+        dga = torch.empty(P, na, 3 * H, dtype=f32, device=dev)
+        dgb = torch.empty(P, nt, 3 * H, dtype=f32, device=dev)
+        partials = torch.empty(P, width, dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.tm_block_round_es_bwd(
+                h_e.data_ptr(), act_l.data_ptr(), new_l.data_ptr(), ga_d.data_ptr(),
+                gb_d.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                w_eb.data_ptr(), mask3.data_ptr(), inc_ptr.data_ptr(), inc_slot.data_ptr(),
+                g_eo.data_ptr(), g_lg.data_ptr(), g_es.data_ptr(), dhe.data_ptr(),
+                dga.data_ptr(), dgb.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+                dgad.data_ptr(), dgbd.data_ptr(), P, na, nt, H, B, capD, float(sign),
+                _stream())
+        if rc != 0:
+            raise RuntimeError(f"block_round_es_bwd kernel launch failed: CUDA error {rc}")
+        LAUNCHES["block_round_es_bwd"] += 1
+    n = 3 * H * H
+    return (dhe, dgad, dgbd, dw[n + 4 * H:], dw[:n].view(H, 3 * H), dw[n:n + 3 * H],
+            dw[n + 3 * H:n + 4 * H].view(H, 1))
 
 
 def _window_scatter_cuda(vals, idx_l, B, capD):
@@ -319,6 +494,41 @@ class WindowGather2(torch.autograd.Function):
                 window_scatter_raw(dgb, new_l, ctx.B, ctx.capD), None, None, None, None)
 
 
+class FusedBlockRoundEs(torch.autograd.Function):
+    """(edge_out, lg, es) = block_round_es_reference(...), with the
+    hand-derived backward; the forward saves only its inputs and the
+    backward recomputes the gates.  With msg 'diff' the caller passes one
+    tensor as ga_d and gb_d, and autograd sums the two cotangents."""
+
+    @staticmethod
+    def forward(ctx, h_e, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, act_l, new_l, mask3, inc_ptr,
+                inc_slot, sign, B, capD):
+        ctx.save_for_backward(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3,
+                              inc_ptr, inc_slot)
+        ctx.rest = (float(sign), B, capD)
+        args = (h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, sign, B, capD,
+                inc_ptr, inc_slot)
+        if _on_cuda(h_e):
+            return _block_round_es_fwd_cuda(*args)
+        return block_round_es_reference(*args)
+
+    @staticmethod
+    def backward(ctx, g_eo, g_lg, g_es):
+        h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, inc_ptr, inc_slot = \
+            ctx.saved_tensors
+        sign, B, capD = ctx.rest
+        P, na, nt, H = h_e.shape
+        g_eo = _zeros_if_none(g_eo, h_e.shape, h_e.device)
+        g_lg = _zeros_if_none(g_lg, (P, na, nt), h_e.device)
+        g_es = _zeros_if_none(g_es, (B * capD, H), h_e.device)
+        bwd = (_block_round_es_bwd_cuda if _on_cuda(h_e)
+               else block_round_es_backward_reference)
+        dhe, dga_d, dgb_d, dbih, dwhh, dbhh, dweb = bwd(
+            h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, sign, B, capD,
+            inc_ptr, inc_slot, g_eo, g_lg, g_es)
+        return (dhe, dga_d, dgb_d, dbih, dwhh, dbhh, dweb) + (None,) * 8
+
+
 def fused_block_round(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
     return FusedBlockRound.apply(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign)
 
@@ -329,3 +539,19 @@ def window_scatter(vals, idx_l, B, capD):
 
 def window_gather2(ga_d, gb_d, act_l, new_l, B, capD):
     return WindowGather2.apply(ga_d, gb_d, act_l, new_l, B, capD)
+
+
+def fused_block_round_es(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, sign, B,
+                         capD, inc):
+    """(edge_out, lg, es) of one round with the input-gate gather and the
+    edge-support reduction inside (fused_block_round_es,
+    pallas_block.py:485), differentiable in h_e, ga_d, gb_d and the weights.
+
+    h_e [P, na, nt, H] (step-major blocks, block q of window q % B); act_l /
+    new_l int32 [P, na] / [P, nt] window-local detection ids; ga_d / gb_d
+    [B*capD, 3H] the detection-layout input-gate products (one tensor twice
+    for msg 'diff'); mask3 [P, na, nt] f32 0/1; sign +-1 ('diff' = -1);
+    inc = (inc_ptr, inc_slot), the batch's block_incidence on the device of
+    h_e.  es [B*capD, H] f32."""
+    return FusedBlockRoundEs.apply(h_e, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, act_l, new_l, mask3,
+                                   inc[0], inc[1], sign, B, capD)

@@ -20,13 +20,24 @@ over heads of attention-weighted signed sums (_block_gat_support): the
 stacked-head score and aggregation kernels (ops.gat), a segment max and sum
 for the per-detection softmax, and the same window scatter.
 
-This is the one composition the JAX package runs on the TPU by default
-(fused round, defer_loss, hoisted BN, window scatter/gather, the stacked
-attention kernels), for features '2d', msg 'diff', f32.  Blocks are
-step-major (block q = s*B + w), so at step s the live blocks are exactly
-the first (s+1)*B: each step runs on that prefix and never touches a
-future block.  The loss of every step runs after the loop over steps,
-batched over a leading step axis.
+By default this is the composition the JAX package runs on the TPU (fused
+round, defer_loss, hoisted BN, window scatter/gather, the stacked attention
+kernels), for features '2d', msg 'diff', f32.  Two keyword arguments select
+its two other block-step compositions (TM_ES_KERNEL=1 and TM_FUSED_LOSS=1
+there):
+
+  * es_kernel: one kernel gathers the input gates and reduces edge_support
+    itself (ops.block.fused_block_round_es), over the batch's detection
+    incidence (BlockBatch.det_inc_ptr / det_inc_slot), in place of the
+    gather, the round and the scatter; no attention heads;
+  * fused_loss: every step computes its edge-side targets, CE, BCE and F1
+    counts inside the loop through the fused loss kernels
+    (ops.loss.edge_losses), the detection side in plain tensor ops.
+
+Blocks are step-major (block q = s*B + w), so at step s the live blocks are
+exactly the first (s+1)*B: each step runs on that prefix and never touches
+a future block.  Without fused_loss the loss of every step runs after the
+loop over steps, batched over a leading step axis.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ import torch
 from trackmpnn_tpu_torch.graph.schedule import round_up
 from trackmpnn_tpu_torch.losses.losses import EPS
 from trackmpnn_tpu_torch.models import mpnn, nn
-from trackmpnn_tpu_torch.ops.block import fused_block_round, window_gather2, window_scatter
+from trackmpnn_tpu_torch.ops.block import (block_incidence, fused_block_round,
+                                           fused_block_round_es, window_gather2, window_scatter)
 from trackmpnn_tpu_torch.ops.gat import gat_aggregate, gat_scores_stats
+from trackmpnn_tpu_torch.ops.loss import edge_losses
 from trackmpnn_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 
 _BIG = float(1 << 30)  # larger than any slot row id (exact in f32)
@@ -64,6 +77,10 @@ class BlockBatch(NamedTuple):
     blk_edge_base: torch.Tensor  # i32[B*T] original slot row of edge (0, 0)
     edge_label: torch.Tensor  # i32[B*T, na_cap, nt_cap]
     step_valid: torch.Tensor  # bool[t_cap, B]
+    # the detection incidence of the step-major blocks (ops/block.py::
+    # block_incidence), for the es round: i32[B*capD + 1], i32[n]
+    det_inc_ptr: torch.Tensor
+    det_inc_slot: torch.Tensor
 
     @property
     def t_cap(self) -> int:
@@ -153,12 +170,16 @@ def build_block_batch(schedules: List, t_cap: int, capD=None, na_cap=None,
             ].reshape(blk.na, blk.nt)
             edge_label[bid, : blk.na, : blk.nt] = lbl
 
+    perm = np.arange(B * t_cap).reshape(B, t_cap).T.reshape(-1)  # step-major order
+    inc_ptr, inc_slot = block_incidence(active_idx[perm], newdet_idx[perm], blk_na[perm],
+                                        blk_nt[perm], B * capD)
     put = lambda a: torch.from_numpy(a).to(device)
     return BlockBatch(
         det_feat=put(det_feat), det_label=put(det_label), det_step=put(det_step),
         active_idx=put(active_idx), newdet_idx=put(newdet_idx),
         blk_na=put(blk_na), blk_nt=put(blk_nt), blk_edge_base=put(blk_edge_base),
         edge_label=put(edge_label), step_valid=put(step_valid),
+        det_inc_ptr=put(inc_ptr), det_inc_slot=put(inc_slot),
     )
 
 
@@ -405,10 +426,43 @@ def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_l
                           B, capD) / nh
 
 
+def _fused_step_losses(partials, logits_d, det_label, det_live, B, tp_classifier):
+    """One step's (CE, BCE, tp, fp, fn) from the fused edge-loss partials
+    [P, 8] and the masked detection logits (block.py:983-1009): the edge
+    side's per-window BCE means from the partials (block q belongs to window
+    q mod B), the detection side in plain tensor ops."""
+    l_ce = (partials[:, 0] + partials[:, 1]).sum()
+    e_sum = partials[:, 2].reshape(-1, B).sum(0)
+    e_cnt = partials[:, 3].reshape(-1, B).sum(0)
+    l_f = -(e_sum / torch.clamp(e_cnt, min=1.0)).sum()
+    tp, fp, fn = (partials[:, k].sum().to(torch.int64) for k in (4, 5, 6))
+    if tp_classifier:
+        t_d = (det_label == 1) & det_live
+        scores_d = torch.where(det_live, torch.sigmoid(logits_d), 0.0)
+        pt_d = torch.where(t_d, scores_d, 1.0 - scores_d)
+        lp_d = torch.where(det_live, torch.log(pt_d + EPS), 0.0)
+        s_dw = lp_d.reshape(B, -1).sum(1)
+        c_dw = det_live.reshape(B, -1).sum(1).to(lp_d.dtype)
+        l_f = l_f - (s_dw / torch.clamp(c_dw, min=1.0)).sum()
+        pred_d = scores_d >= 0.5
+        tp = tp + (det_live & pred_d & t_d).sum()
+        fp = fp + (det_live & pred_d & ~t_d).sum()
+        fn = fn + (det_live & ~pred_d & t_d).sum()
+    return l_ce, l_f, tp, fp, fn
+
+
+def _check_composition(cfg, es_kernel):
+    mpnn.check_supported(cfg)
+    if es_kernel and cfg.nattheads > 0:
+        raise ValueError("es_kernel computes edge_support without attention: it takes no "
+                         "attention heads (nattheads > 0)")
+
+
 def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBatch,
                          tp_classifier: bool, train: bool = True,
                          generator: Optional[torch.Generator] = None,
-                         att_keep: Optional[Sequence] = None):
+                         att_keep: Optional[Sequence] = None, es_kernel: bool = False,
+                         fused_loss: bool = False):
     """(loss, aux) of a batch of windows (block_window_forward, block.py:533,
     as the TPU runs it: fused round, defer_loss, hoisted BN, window
     scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
@@ -419,8 +473,18 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     With attention heads, training applies dropout to the attention weights:
     att_keep[s] is round s's pair of keep masks (draw_att_keep's shapes,
     P = (s+1)*B), or else `generator` draws them, two per round; one of the
-    two is required.  With ATT_DROPOUT 0 or train=False there is none."""
-    mpnn.check_supported(cfg)
+    two is required.  With ATT_DROPOUT 0 or train=False there is none.
+
+    es_kernel: each round is one fused_block_round_es (the JAX package's
+    TM_ES_KERNEL=1), which gathers the input gates and reduces edge_support
+    itself; refused with attention heads, whose edge_support the kernel does
+    not compute (the JAX package drops the kernel there silently).
+    fused_loss: each round computes its losses in the loop, the edge side
+    through edge_losses (TM_FUSED_LOSS=1 with defer_loss=False there); the
+    round kernels' head partials go unused.  BN stays hoisted out of the
+    loop: the JAX package's in-loop BN of that composition gives the same
+    numbers up to rounding."""
+    _check_composition(cfg, es_kernel)
     if train and cfg.nattheads > 0 and generator is None and att_keep is None:
         raise ValueError("training with attention heads needs a generator for the "
                          "attention dropout (pass generator=...)")
@@ -432,10 +496,8 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     H = cfg.nhidden
     det_window = torch.arange(nD, device=dev) // capD
 
-    # static targets are built window-major (they need blk_edge_base)
     row_m_w = torch.arange(na_cap, device=dev)[None, :] < bb.blk_na[:, None]
     col_m_w = torch.arange(nt_cap, device=dev)[None, :] < bb.blk_nt[:, None]
-    st_w = build_static_targets(bb, row_m_w, col_m_w)
 
     # step-major reorder: block q = s*B + w; the blocks live at step s are
     # the first (s+1)*B
@@ -444,12 +506,17 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     new = bb.newdet_idx[perm]
     bna, bnt = bb.blk_na[perm], bb.blk_nt[perm]
     row_m, col_m = row_m_w[perm], col_m_w[perm]
-    st = StaticTargets(*(a[perm] for a in st_w))
     blk_window = torch.arange(BT, device=dev) % B
     blk_step = torch.arange(BT, device=dev) // B
     act_l = (act % capD).to(torch.int32)     # window-local ids for the kernels
     new_l = (new % capD).to(torch.int32)
     es_idx = torch.cat([act_l, new_l], dim=1)
+    inc = (bb.det_inc_ptr, bb.det_inc_slot)
+    if fused_loss:
+        # per-batch inputs of the fused edge losses (block.py:652-657)
+        lbl_pos = (bb.edge_label == 1).to(torch.float32)[perm]
+        ebnt = torch.stack([bb.blk_edge_base.float(), bb.blk_nt.float()], 1)[perm]
+        bna_f = bna.float()[:, None]
 
     bp = params["branches"][0]
     width = cfg.branches[0][1]
@@ -476,6 +543,11 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     cell_m = row_m[:, :, None] & col_m[:, None, :]                       # [BT, na, nt]
     em3 = blk_live[:, :, None, None] & cell_m[None]                      # [T, BT, na, nt]
     m3 = em3.float()
+    if fused_loss:
+        any_valid = valid.any(1)                                         # [T]
+        zero = xt.new_zeros(())
+        l_ce = l_f = zero
+        tp = fp = fn = torch.zeros((), dtype=torch.int64, device=dev)
 
     h_d = xt.new_zeros(nD, H)
     h_e = xt.new_zeros(0, na_cap, nt_cap, H)
@@ -489,33 +561,55 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
         # edge GRU input gates factorise over the rectangle:
         # gi[i, j] = ga_d[act_i] - ga_d[new_j] + b_ih
         ga_d = h_d_b @ eg["w_ih"]
-        ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
-        edge_out, rs, cs, lg = fused_block_round(h_e, ga_g + eg["b_ih"], gb, eg["w_hh"],
-                                                 eg["b_hh"], w_eb, m3[s, :P], -1.0)
-        if cfg.nattheads > 0:
-            # the round's rs / cs go unused: attention weighs the edges
-            keep_s = None
-            if dropout:
-                keep_s = (att_keep[s] if att_keep is not None else
-                          draw_att_keep(generator, cfg.nattheads, (P, na_cap, nt_cap), dev))
-            es = _block_gat_support(bp["gat"], h_d_b, h_e, act[:P], new[:P], act_l[:P],
-                                    new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
-                                    blk_live[s, :P, None] & col_m[:P], B, capD, keep_s)
+        if es_kernel:
+            edge_out, lg, es = fused_block_round_es(
+                h_e, act_l[:P], new_l[:P], ga_d, ga_d, eg["b_ih"], eg["w_hh"], eg["b_hh"],
+                w_eb, m3[s, :P], -1.0, B, capD, inc)
         else:
-            es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
+            ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
+            edge_out, rs, cs, lg = fused_block_round(h_e, ga_g + eg["b_ih"], gb, eg["w_hh"],
+                                                     eg["b_hh"], w_eb, m3[s, :P], -1.0)
+            if cfg.nattheads > 0:
+                # the round's rs / cs go unused: attention weighs the edges
+                keep_s = None
+                if dropout:
+                    keep_s = (att_keep[s] if att_keep is not None else
+                              draw_att_keep(generator, cfg.nattheads, (P, na_cap, nt_cap), dev))
+                es = _block_gat_support(bp["gat"], h_d_b, h_e, act[:P], new[:P], act_l[:P],
+                                        new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
+                                        blk_live[s, :P, None] & col_m[:P], B, capD, keep_s)
+            else:
+                es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
         node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
         h_d_out = torch.where(det_live[s][:, None], node_out, 0.0)
-        hd_steps.append(h_d_out)
-        lg_steps.append(torch.cat([lg, lg.new_zeros(BT - P, na_cap, nt_cap)]))
+        if fused_loss:
+            # this step's losses in the loop (block.py:980-1031)
+            logits_d = torch.where(det_live[s],
+                                   nn.linear(params["out_node"], h_d_out)[:, 0], 0.0)
+            act_m = (blk_live[s, :P, None] & row_m[:P]).reshape(-1)
+            partials = edge_losses(edge_out, params["out_edge"]["w"],
+                                   params["out_edge"]["b"].reshape(1, 1), lbl_pos[:P],
+                                   m3[s, :P], ebnt[:P], bna_f[:P], act[:P], act_m, nD)
+            ce_s, f_s, tp_s, fp_s, fn_s = _fused_step_losses(partials, logits_d, bb.det_label,
+                                                             det_live[s], B, tp_classifier)
+            l_ce = l_ce + torch.where(any_valid[s], ce_s, zero)
+            l_f = l_f + torch.where(any_valid[s], f_s, zero)
+            tp, fp, fn = tp + tp_s, fp + fp_s, fn + fn_s
+        else:
+            hd_steps.append(h_d_out)
+            lg_steps.append(torch.cat([lg, lg.new_zeros(BT - P, na_cap, nt_cap)]))
         h_d = torch.where(det_valid[s][:, None], h_d_out, h_d)
         h_e = torch.where(blk_valid[s, :P, None, None, None], edge_out, h_e)
 
-    # the loss side of every step at once, after the loop
-    logits_d = torch.where(det_live, nn.linear(params["out_node"],
-                                               torch.stack(hd_steps))[..., 0], 0.0)
-    logits_e = torch.where(em3, torch.stack(lg_steps) + params["out_edge"]["b"][0], 0.0)
-    l_ce, l_f, tp, fp, fn = _step_losses(logits_d, logits_e, bb, st, act, bna, bnt, row_m,
-                                         det_live, blk_live, em3, tp_classifier, B)
+    if not fused_loss:
+        # the loss side of every step at once, after the loop; the static
+        # targets are built window-major (they need blk_edge_base)
+        st = StaticTargets(*(a[perm] for a in build_static_targets(bb, row_m_w, col_m_w)))
+        logits_d = torch.where(det_live, nn.linear(params["out_node"],
+                                                   torch.stack(hd_steps))[..., 0], 0.0)
+        logits_e = torch.where(em3, torch.stack(lg_steps) + params["out_edge"]["b"][0], 0.0)
+        l_ce, l_f, tp, fp, fn = _step_losses(logits_d, logits_e, bb, st, act, bna, bnt, row_m,
+                                             det_live, blk_live, em3, tp_classifier, B)
     total = (l_ce + l_f) / B
     aux = {"loss_ce": (l_ce / B).detach(), "loss_f": (l_f / B).detach(),
            "tp": tp, "fp": fp, "fn": fn, "batch_stats": {"branches": [{"bn": new_stats}]}}
@@ -541,11 +635,14 @@ def trainable(params):
     return params.detach().clone().requires_grad_(True)
 
 
-def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool):
+def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel: bool = False,
+                          fused_loss: bool = False):
     """A train step over a BlockBatch (make_block_train_step, block.py:1129):
 
         step(params, batch_stats, optimizer, bb, generator=None, att_keep=None)
             -> (params, batch_stats, loss, aux)
+
+    es_kernel / fused_loss select block_window_forward's composition.
 
     params: the parameter tree with leaves that require grad (`trainable`);
     optimizer: train/optim.py::make_optimizer over param_leaves(params);
@@ -554,13 +651,20 @@ def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool):
     batch_stats are new tensors; loss and aux (loss_ce, loss_f, tp, fp, fn)
     are detached tensors on the batch's device, so the step never waits for
     the card."""
-    mpnn.check_supported(cfg)
+    _check_composition(cfg, es_kernel)
 
     def step(params, batch_stats, optimizer, bb: BlockBatch, generator=None, att_keep=None):
         optimizer.zero_grad(set_to_none=True)
         loss, aux = block_window_forward(params, batch_stats, cfg, bb, tp_classifier,
-                                         generator=generator, att_keep=att_keep)
+                                         generator=generator, att_keep=att_keep,
+                                         es_kernel=es_kernel, fused_loss=fused_loss)
         loss.backward()
+        if fused_loss and not tp_classifier:
+            # out_node feeds no loss term here, and autograd leaves its
+            # gradient None where JAX's is 0: Adam's L2 still decays it
+            for leaf in param_leaves(params):
+                if leaf.grad is None:
+                    leaf.grad = torch.zeros_like(leaf)
         optimizer.step()
         return params, aux["batch_stats"], loss.detach(), {
             k: aux[k] for k in ("loss_ce", "loss_f", "tp", "fp", "fn")}
