@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and embedding paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -105,6 +105,30 @@ failure exits non-zero:
     inputs; each bitwise the same on a second launch, timed beside its plain
     version and its bound (live cells only); no single PyTorch call
     computes them (library: none).
+15. The embedding path (train/embed.py's EmbedTrainer, whose step and infer
+    take packed arrays) at KITTI's input, 384 x 1280, for espv2, dla34 with
+    dcn_max_offset 2.0 (every deform block through the DCN kernels) and
+    dla34 on the exact gather: a chunk of 4 seeded frames with 8-16
+    detections each (about one in six a false positive), feature-map
+    centres; seeded weights, DLA-34's offset / mask convs calibrated
+    (tests/torch_port_util.py: fractional offsets, about half beyond the
+    bound, clear of the bilinear derivative's kinks).  A first step (the
+    bounded route records the DCN kernels' widest inputs), 2 warm-up steps,
+    10 steps timed by CUDA events with the DCN launch counters set to 0
+    before and read after (16 of each kernel a step on the bounded route,
+    one frame chunk; none elsewhere), one infer call and one profiled step;
+    ms/step, frames/s, busy share and peak memory.  Each first step again
+    at 96 x 320 (reduced) on the card and on the CPU from the same weights:
+    loss rtol 1e-4, features rtol 1e-4 with atol 1e-4 x the largest, grads
+    rtol 1e-3 with atol 1e-4 x the largest |grad|, BN buffers unchanged
+    (frozen BN).
+16. The DCN kernels: dcn_fwd (atol 1e-5 x the output's scale),
+    dcn_bwd_sample and dcn_bwd_dx (rtol 1e-4, atol 1e-5 x each output's
+    scale) against their plain versions on phase 15's widest deform block
+    (4 x 96 x 320, 64 channels) and on seeded inputs of that shape with
+    fractional, integer and beyond-bound offsets; each bitwise the same on
+    a second launch, timed beside its plain version and its bound; no
+    PyTorch call computes a deformable convolution (library: none).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -356,29 +380,37 @@ def serve(tracker, seqs, np):
 
 def device_profile(torch, run, wall_s):
     """Device time by kernel over one profiled call of `run`, and the busy
-    share of `wall_s`, the same work's wall time without the profiler."""
+    share of `wall_s`, the same work's wall time without the profiler: the
+    union of the device-side intervals (kernels, copies, memsets; not the
+    user annotations such as Optimizer.step, whose device span covers
+    kernels counted already) over the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies, memsets): the host ops that
-    # launched them carry the same time again
+    on_device = lambda e: (e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False))
+    # the host ops that launched the device events carry the same time again
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0),
+                   for e in prof.key_averages() if on_device(e) and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if on_device(e) and e.time_range.end > e.time_range.start)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms, kernel_ms = busy_us / 1e3, sum(r[1] for r in rows)
     if busy_ms == 0:
         print("profile: the profiler recorded no device time (busy share not measured)")
         return None
     share = busy_ms / (wall_s * 1e3)
-    print(f"profile: device busy {busy_ms:.1f} ms of {wall_s * 1e3:.1f} ms wall "
-          f"(busy share {share:.4f}); top device time:")
+    print(f"profile: device busy {busy_ms:.1f} ms (device events summed {kernel_ms:.1f} ms) of "
+          f"{wall_s * 1e3:.1f} ms wall (busy share {share:.4f}); top device time:")
     for key, ms, count in rows[:10]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    return {"device_busy_ms": busy_ms, "busy_share": share,
+    return {"device_busy_ms": busy_ms, "device_events_ms": kernel_ms, "busy_share": share,
             "top": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
 
 
@@ -1461,6 +1493,282 @@ def round_kernel_phase(torch, round_ops, inputs, launches):
     return rows
 
 
+# ------------------------------------------------------ the embedding path ----
+EMBED_HW = (384, 1280)      # KITTI's embedding input (trackmpnn_tpu/cli/train.py:38)
+EMBED_HW_CHECK = (96, 320)  # the card-vs-CPU first step, reduced
+EMBED_T, EMBED_DETS = 4, (8, 16)
+EMBED_WARMUP, EMBED_STEPS = 2, 10
+EMBED_MAX_OFFSET = 2.0
+EMBED_CONFIGS = {"espv2": dict(arch="espv2"),
+                 "dla34_bounded": dict(arch="dla34", dcn_max_offset=EMBED_MAX_OFFSET),
+                 "dla34_exact": dict(arch="dla34")}
+DCN_BLOCKS = 16  # deform blocks of DLA-34: 12 in DLAUp, 4 in the final IDAUp
+FEAT_RTOL, FEAT_ATOL_SCALE = 1e-4, 1e-4
+DCN_REPLACES = {"dcn_fwd": "trackmpnn_tpu/ops/pallas_dcn.py:45",
+                "dcn_bwd_sample": "trackmpnn_tpu/backbones/deform_conv.py:208",
+                "dcn_bwd_dx": "trackmpnn_tpu/backbones/deform_conv.py:208"}
+
+
+def embed_chunk(np, hw, down_ratio, seed, max_dets=256):
+    """A chunk packed as EmbedTrainer._pack packs one: EMBED_T frames of
+    seeded normalised-image noise [T, H, W, 3], 8-16 detections a frame at
+    seeded feature-map centres, about one in six a false positive (track id
+    -1), padded to the trainer's max_dets.  (images, fr_of, cy, cx,
+    track_ids, valid)."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(EMBED_T, *hw, 3)).astype(np.float32)
+    counts = rng.integers(EMBED_DETS[0], EMBED_DETS[1] + 1, EMBED_T)
+    n = int(counts.sum())
+    pad = lambda a: np.concatenate([a, np.zeros(max_dets - n, a.dtype)])
+    fr_of = np.repeat(np.arange(EMBED_T), counts).astype(np.int32)
+    cy = rng.integers(0, hw[0] // down_ratio, n).astype(np.int32)
+    cx = rng.integers(0, hw[1] // down_ratio, n).astype(np.int32)
+    tids = rng.integers(0, 40, n).astype(np.int32)
+    tids[rng.random(n) < 1 / 6] = -1
+    return (images, pad(fr_of), pad(cy), pad(cx),
+            np.concatenate([tids, -np.ones(max_dets - n, np.int32)]), np.arange(max_dets) < n)
+
+
+def offset_stats(off, bound):
+    """(share beyond the bound, share at an integer) of DCN offsets."""
+    return float((off.abs() > bound).double().mean()), float((off == off.round()).double().mean())
+
+
+def embedding_phase(torch, np, dcn_ops):
+    """Phase 15: EmbedTrainer's step and infer on the card for the three
+    configurations, then each first step at EMBED_HW_CHECK on the card and
+    on the CPU.  Returns (summaries, the DCN kernels' widest inputs)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import calibrate_dcn_offsets
+    from trackmpnn_tpu_torch.train.embed import RECIPES, EmbedTrainer
+
+    summaries, inputs = {}, {}
+    for name, cfg in EMBED_CONFIGS.items():
+        what = f"embedding ({name})"
+        down = RECIPES[cfg["arch"]][0]
+        small = embed_chunk(np, EMBED_HW_CHECK, down, seed=1)
+        cpu = EmbedTrainer(input_hw=EMBED_HW_CHECK, device="cpu", **cfg)
+        if cfg["arch"] == "dla34":
+            # fractional offsets, about half beyond the bound, clear of the
+            # bilinear derivative's kinks (integers and the bound)
+            calibrate_dcn_offsets(cpu.net, torch.from_numpy(small[0]).permute(0, 3, 1, 2), 0)
+        state = copy.deepcopy(cpu.net.state_dict())
+
+        # the step at KITTI's input on the card; the first one records the
+        # DCN kernels' widest inputs
+        tr = EmbedTrainer(input_hw=EMBED_HW, device="cuda", **cfg)
+        tr.net.load_state_dict(state)
+        chunk = embed_chunk(np, EMBED_HW, down, seed=0)
+        n = int(chunk[5].sum())
+        chunk = [torch.from_numpy(a).cuda() for a in chunk]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as rec:
+            if cfg.get("dcn_max_offset") is not None:
+                # widest: the most input elements (4 x 96 x 320 x 64 at KITTI's size)
+                rec.enter_context(record_widest(dcn_ops, "_fwd_cuda", inputs, lambda a: "dcn_fwd",
+                                                blocks=lambda a: a[0].numel()))
+                rec.enter_context(record_widest(dcn_ops, "_sample_cuda", inputs,
+                                                lambda a: "dcn_bwd_sample",
+                                                blocks=lambda a: a[3].numel()))
+                rec.enter_context(record_widest(dcn_ops, "_dx_cuda", inputs,
+                                                lambda a: "dcn_bwd_dx",
+                                                blocks=lambda a: a[2].numel()))
+            loss1, feats1 = tr.step(*chunk)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(loss1) and bool(torch.isfinite(feats1).all())
+                and tuple(feats1.shape) == (256, tr.num_vis_feats)):
+            fail(f"{what}: first step gave loss {float(loss1)}, features {tuple(feats1.shape)}")
+        for _ in range(EMBED_WARMUP):
+            tr.step(*chunk)
+        torch.cuda.synchronize()
+        for k in dcn_ops.LAUNCHES:
+            dcn_ops.LAUNCHES[k] = 0
+        losses = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(EMBED_STEPS):
+            losses.append(tr.step(*chunk)[0])
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / EMBED_STEPS
+        events_ms = start.elapsed_time(end) / EMBED_STEPS
+        launches = dict(dcn_ops.LAUNCHES)
+        per_step = DCN_BLOCKS if cfg.get("dcn_max_offset") is not None else 0
+        for k, v in launches.items():
+            if v != per_step * EMBED_STEPS:
+                fail(f"{what}: {k} launched {v} times in {EMBED_STEPS} steps, expected "
+                     f"{per_step} a step ({DCN_BLOCKS} deform blocks, one frame chunk)")
+        peak_bytes = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"{what}: loss not finite: {losses}")
+        feats = tr.infer(*chunk[:4])
+        if not (bool(torch.isfinite(feats).all()) and feats.shape == feats1.shape):
+            fail(f"{what}: infer gave non-finite or misshapen features")
+        profile = device_profile(torch, lambda: tr.step(*chunk), wall_ms / 1e3)
+        print(f"{what}: {EMBED_T} x {EMBED_HW[0]} x {EMBED_HW[1]} frames, {n} detections, "
+              f"{EMBED_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
+              f"ms/step (host wall), {EMBED_T / (wall_ms / 1e3):.4g} frames/s, peak memory "
+              f"{peak_bytes / 2**30:.3f} GiB; DCN launches a step "
+              f"{ {k: v / EMBED_STEPS for k, v in launches.items()} }; loss "
+              f"{float(loss1):.6g} -> {losses[-1]:.6g}")
+        del tr, chunk
+
+        # the first step at EMBED_HW_CHECK on the card and on the CPU, same weights
+        card = EmbedTrainer(input_hw=EMBED_HW_CHECK, device="cuda", **cfg)
+        card.net.load_state_dict(state)
+        loss_g, feats_g = card.step(*small)
+        t0 = time.perf_counter()
+        loss_c, feats_c = cpu.step(*small)
+        cpu_step_s = time.perf_counter() - t0
+        if not abs(float(loss_g) - float(loss_c)) <= LOSS_RTOL * abs(float(loss_c)):
+            fail(f"{what} first step loss: card {float(loss_g)!r}, CPU {float(loss_c)!r}")
+        feats_g = feats_g.cpu()
+        feat_scale = float(feats_c.abs().max())
+        if not torch.allclose(feats_g, feats_c, rtol=FEAT_RTOL, atol=FEAT_ATOL_SCALE * feat_scale):
+            fail(f"{what} first step features differ between card and CPU by "
+                 f"{float((feats_g - feats_c).abs().max()):.3g}")
+        grads_g = [q.grad.cpu() for q in card.net.parameters()]
+        grads_c = [q.grad for q in cpu.net.parameters()]
+        gscale = tree_max_abs(grads_c)
+        worst = 0.0
+        for (pname, _), a, b in zip(cpu.net.named_parameters(), grads_g, grads_c):
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
+                fail(f"{what} first step grad of {pname} differs between card and CPU by "
+                     f"{float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, atol "
+                     f"{GRAD_ATOL_SCALE * gscale:.3g})")
+        for net in (card.net, cpu.net):
+            for bname, buf in net.named_buffers():
+                if ".running_" in bname and not torch.equal(buf.cpu(), state[bname]):
+                    fail(f"{what}: frozen BN changed its buffer {bname}")
+        print(f"{what} at {EMBED_HW_CHECK[0]} x {EMBED_HW_CHECK[1]} (reduced), card vs CPU: "
+              f"loss {float(loss_g)!r} / {float(loss_c)!r}, worst feature diff "
+              f"{float((feats_g - feats_c).abs().max()):.3g} (largest {feat_scale:.3g}), worst "
+              f"grad diff {worst:.3g} (largest |grad| {gscale:.3g}), BN buffers unchanged; "
+              f"CPU step {cpu_step_s:.2f} s")
+        summaries[name] = {
+            "input_hw": list(EMBED_HW), "frames": EMBED_T, "detections": n,
+            "steps": EMBED_STEPS, "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
+            "frames_per_s": EMBED_T / (wall_ms / 1e3), "peak_memory_bytes": peak_bytes,
+            "launches": launches, "loss_first": float(loss1), "loss_last": float(losses[-1]),
+            "check_input_hw": list(EMBED_HW_CHECK), "check_loss_card": float(loss_g),
+            "check_loss_cpu": float(loss_c), "max_grad_err_vs_cpu": worst, "grad_scale": gscale,
+            "cpu_step_s": cpu_step_s,
+            "device_busy_share_step": None if profile is None else profile["busy_share"],
+            "profile_step": profile}
+        del card, cpu
+        torch.cuda.empty_cache()
+    off = inputs["dcn_fwd"][3]
+    beyond, integer = offset_stats(off, EMBED_MAX_OFFSET)
+    if not (beyond > 0 and integer == 0):
+        fail(f"the widest deform block's offsets: {beyond:.3f} beyond the bound, {integer:.3f} "
+             "at an integer; the kernels' checks need fractional offsets, some beyond it")
+    return summaries, inputs
+
+
+def dcn_bounds(torch, name, args):
+    """(bytes, f32 operations) a DCN kernel needs on these inputs: each input
+    read once and each output written once; the contraction 2 x 9 x C x O and
+    the sampling (four neighbours' multiply-adds) 8 x 9 x C a pixel in
+    dcn_fwd; dcn_bwd_sample 17 x 9 x C a pixel (the sample, the columns and
+    four dot products); dcn_bwd_dx one multiply-add a channel for each
+    non-zero (pixel, tap, neighbour) weight that lands in the image."""
+    f = lambda *ts: 4 * sum(t.numel() for t in ts if t is not None)
+    if name == "dcn_fwd":
+        x, w, b, off, m, _ = args
+        P, C, O = x.numel() // x.shape[3], x.shape[3], w.shape[1]
+        return f(x, w, b, off, m) + 4 * P * O, P * (2 * 9 * C * O + 8 * 9 * C)
+    if name == "dcn_bwd_sample":
+        x, off, m, dcols, _ = args
+        P, C = x.numel() // x.shape[3], x.shape[3]
+        return f(x, off, m, dcols) + f(dcols, off, m), P * 17 * 9 * C
+    off, m, dcols, bound = args
+    N, H, W, C9 = dcols.shape
+    d = off.reshape(N, H, W, 9, 2).clamp(-bound, bound)
+    base = torch.floor(d)
+    frac = d - base
+    k = torch.arange(9, device=off.device)
+    ys = torch.arange(H, device=off.device)[None, :, None, None] - 1 + (k // 3) + base[..., 0]
+    xs = torch.arange(W, device=off.device)[None, None, :, None] - 1 + (k % 3) + base[..., 1]
+    hits = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            wy = 1 - frac[..., 0] if a == 0 else frac[..., 0]
+            wx = 1 - frac[..., 1] if b == 0 else frac[..., 1]
+            inside = ((ys + a >= 0) & (ys + a < H) & (xs + b >= 0) & (xs + b < W)
+                      & (wy * wx * m != 0))
+            hits += int(inside.sum())
+    return f(off, m, dcols) + 4 * N * H * W * (C9 // 9), 2 * (C9 // 9) * hits
+
+
+def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
+    """Phase 16: the three DCN kernels on phase 15's widest deform block and
+    on seeded inputs of the same shape with mixed fractional, integer and
+    beyond-bound offsets, against their plain versions, twice (bitwise), and
+    timed on the recorded inputs."""
+    from torch_port_util import DCN_KEYS, dcn_inputs
+
+    x, w, b, off, m, bound = inputs["dcn_fwd"]
+    N, H, W, C = x.shape
+    seeded = dict(zip(DCN_KEYS, (torch.from_numpy(a).cuda() for a in dcn_inputs(
+        0, N=N, H=H, W=W, C=C, O=w.shape[1], kind="mixed", max_offset=bound).values())))
+    dcols = (seeded["g"].reshape(-1, w.shape[1]) @ seeded["weight"].t()).reshape(N, H, W, 9 * C)
+    cases = {
+        "dcn_fwd": (dcn_ops._fwd_cuda, dcn_ops.dcn_forward_reference,
+                    [seeded[k] for k in DCN_KEYS[:5]] + [bound]),
+        "dcn_bwd_sample": (dcn_ops._sample_cuda, dcn_ops.dcn_sample_backward_reference,
+                           [seeded["x"], seeded["offset"], seeded["mask"], dcols, bound]),
+        "dcn_bwd_dx": (dcn_ops._dx_cuda, dcn_ops.dcn_dx_reference,
+                       [seeded["offset"], seeded["mask"], dcols, bound]),
+    }
+    as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
+    beyond, integer = offset_stats(seeded["offset"], bound)
+    print(f"DCN kernel inputs: the widest deform block of the bounded DLA-34 step (N {N}, "
+          f"{H} x {W}, C {C}, O {w.shape[1]}, max_offset {bound}), offsets "
+          f"{offset_stats(off, bound)[0]:.3f} beyond the bound; seeded: {beyond:.3f} "
+          f"beyond, {integer:.3f} at an integer")
+    rows = []
+    for name, (kernel, plain, seeded_args) in cases.items():
+        err = 0.0
+        for which, args in (("recorded", inputs[name]), ("seeded", seeded_args)):
+            got, again, want = (as_list(fn(*args)) for fn in (kernel, kernel, plain))
+            torch.cuda.synchronize()
+            for k, (a, v) in enumerate(zip(got, want)):
+                diff = float((a - v).abs().max())
+                scale = max(float(v.abs().max()), 1e-30)
+                err = max(err, diff)
+                ok = (diff <= ROUND_FWD_ATOL * scale if name == "dcn_fwd" else
+                      torch.allclose(a, v, rtol=ROUND_BWD_RTOL, atol=ROUND_BWD_ATOL_SCALE * scale))
+                if not ok:
+                    fail(f"{name} ({which} inputs) output {k} differs from its plain version "
+                         f"by {diff:.3g} (scale {scale:.3g})")
+            if not all(torch.equal(a, v) for a, v in zip(got, again)):
+                fail(f"{name} ({which} inputs) is not bitwise the same on a second launch")
+        args = inputs[name]
+        bnd, by = bound_ms(*dcn_bounds(torch, name, args))
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/dcn_kernels.cu",
+             "replaces": DCN_REPLACES[name], "launches": launches[name], "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args), iters=32, warmup=5),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), iters=32, warmup=5,
+                                     queue_ahead=False),
+             # the plain versions launch 60-1,300 ops a call: timed a few calls at a
+             # time without the queued sleep (each op moves ~30 MB, so the device,
+             # not the host, sets their pace)
+             "plain_ms": cuda_time_ms(lambda: plain(*args), iters=3, warmup=1,
+                                      queue_ahead=False),
+             "bound_ms": bnd, "bound_by": by, "library_ms": None,
+             "shape": f"N {N}, H {H}, W {W}, C {C}, O {w.shape[1]}"}
+        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library none), max abs err "
+              f"{err:.3g}")
+        rows.append(r)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -1477,6 +1785,7 @@ def main():
         from trackmpnn_tpu_torch.graph import view as view_mod
         from trackmpnn_tpu_torch.ops import _build, mp
         from trackmpnn_tpu_torch.ops import block as block_ops
+        from trackmpnn_tpu_torch.ops import dcn as dcn_ops
         from trackmpnn_tpu_torch.ops import gat as gat_ops
         from trackmpnn_tpu_torch.ops import loss as loss_ops
         from trackmpnn_tpu_torch.ops import round as round_ops
@@ -1544,6 +1853,10 @@ def main():
         compositions[key] = summary
     kernels += es_loss_kernel_phase(torch, block_ops, loss_ops, es_inputs,
                                     compositions["es_kernel_fused_loss"]["launches"])
+    # 15. the embedding path, 16. its DCN kernels
+    embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
+    kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
+                                embedding["dla34_bounded"]["launches"])
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
@@ -1552,7 +1865,8 @@ def main():
                        "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
-                       "row_packed": packed_training, "block_compositions": compositions},
+                       "row_packed": packed_training, "block_compositions": compositions,
+                       "embedding": embedding},
                       f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",

@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (EDGE_LOSS_COUNTS, EDGE_LOSS_KEYS, ROUND_KEYS, edge_loss_inputs,
-                             es_inputs, gat_inputs, round_inputs)
-from trackmpnn_tpu_torch.ops import block, gat, loss, mp
+from torch_port_util import (DCN_KEYS, EDGE_LOSS_COUNTS, EDGE_LOSS_KEYS, ROUND_KEYS,
+                             dcn_inputs, edge_loss_inputs, es_inputs, gat_inputs, round_inputs)
+from trackmpnn_tpu_torch.ops import block, dcn, gat, loss, mp
 from trackmpnn_tpu_torch.ops import round as rnd
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -674,3 +674,108 @@ def test_es_round_and_edge_loss_wrappers_refuse_what_the_kernels_do_not_take(cud
     with pytest.raises(ValueError):  # K = 48 does not divide 256
         z = lbl[:, :, 0].contiguous()
         loss._bwd_cuda(h_eo, w_e, lbl, lbl, m3, ebnt, bna, z, z, z, z, d_part)
+
+
+# ------------------------------------------------ bounded deformable conv ----
+DCN_SHAPES = [dict(N=2, H=7, W=9, C=5, O=4), dict(N=2, H=13, W=21, C=64, O=64),
+              dict(N=1, H=12, W=40, C=512, O=256), dict(N=4, H=24, W=80, C=128, O=64)]
+
+
+def dcn_problem(seed, device, kind="mixed", max_offset=2.0, **shape):
+    x = dcn_inputs(seed, kind=kind, max_offset=max_offset, **shape)
+    return [torch.from_numpy(x[k]).to(device) for k in DCN_KEYS]
+
+
+def dcn_kernel_outputs(xs, w, b, off, m, g, max_offset, plain):
+    N, H, W, C = xs.shape
+    dcols = (g.reshape(-1, w.shape[1]) @ w.t()).reshape(N, H, W, 9 * C)
+    if plain:
+        return ([dcn.dcn_forward_reference(xs, w, b, off, m, max_offset)]
+                + list(dcn.dcn_sample_backward_reference(xs, off, m, dcols, max_offset))
+                + [dcn.dcn_dx_reference(off, m, dcols, max_offset)])
+    return ([dcn._fwd_cuda(xs, w, b, off, m, max_offset)]
+            + list(dcn._sample_cuda(xs, off, m, dcols, max_offset))
+            + [dcn._dx_cuda(off, m, dcols, max_offset)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,max_offset", [("mixed", 2.0), ("int", 2.0), ("beyond", 1.5),
+                                             ("frac", 0.0)])
+@pytest.mark.parametrize("shape", DCN_SHAPES, ids=["tiny", "c64", "c512", "c128"])
+def test_dcn_kernels_match_plain_versions(cuda, shape, kind, max_offset):
+    """dcn_fwd within atol 1e-5 x the output's scale; the columns, d offset,
+    d mask and d x within rtol 1e-4, atol 1e-5 x each output's scale; each
+    bitwise the same on a second launch; d offset exactly 0 at integer
+    offsets."""
+    args = dcn_problem(3, cuda, kind, max_offset, **shape)
+    before = dict(dcn.LAUNCHES)
+    got = dcn_kernel_outputs(*args, max_offset, plain=False)
+    again = dcn_kernel_outputs(*args, max_offset, plain=False)
+    want = dcn_kernel_outputs(*args, max_offset, plain=True)
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 2)
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = max(float(b.abs().max()), 1e-30)
+        if i == 0:
+            assert float((a - b).abs().max()) <= 1e-5 * scale
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if kind == "int" or max_offset == 0.0:
+        assert not got[2].any()
+
+
+@pytest.mark.cuda
+def test_dcn_autograd_on_the_card_matches_the_cpu(cuda):
+    """deform_conv_shift forward and every gradient, card against CPU (the
+    plain versions): rtol 1e-4, atol 1e-5 x each gradient's scale."""
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs, w, b, off, m, g = (t.requires_grad_(i < 5)
+                               for i, t in enumerate(dcn_problem(4, dev, **DCN_SHAPES[1])))
+        before = dict(dcn.LAUNCHES)
+        out = dcn.deform_conv_shift(xs, w, b, off, m, 2.0)
+        out.backward(g)
+        launched = {k: dcn.LAUNCHES[k] - before[k] for k in before}
+        assert launched == dict.fromkeys(before, 1 if dev == "cuda" else 0)
+        grads[dev] = [out.detach()] + [t.grad for t in (xs, w, b, off, m)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_dcn(cuda, monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("a plain DCN version ran on the card")
+
+    for name in ("dcn_forward_reference", "dcn_sample_backward_reference", "dcn_dx_reference"):
+        monkeypatch.setattr(dcn, name, refuse)
+    xs, w, b, off, m, g = (t.requires_grad_(i < 5)
+                           for i, t in enumerate(dcn_problem(5, cuda, **DCN_SHAPES[0])))
+    dcn.deform_conv_shift(xs, w, b, off, m, 2.0).backward(g)
+    torch.cuda.synchronize()
+    assert all(t.grad is not None for t in (xs, w, b, off, m))
+
+
+@pytest.mark.cuda
+def test_dcn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    xs, w, b, off, m, g = dcn_problem(6, cuda, **DCN_SHAPES[0])
+    with pytest.raises(TypeError):
+        dcn._fwd_cuda(xs.double(), w, b, off, m, 2.0)
+    with pytest.raises(TypeError):
+        dcn._fwd_cuda(xs, w[:-1], b, off, m, 2.0)
+    with pytest.raises(TypeError):
+        dcn._fwd_cuda(xs, w, b, off[..., :-1], m, 2.0)
+    with pytest.raises(ValueError):
+        dcn._fwd_cuda(xs, w, b, off, m.cpu(), 2.0)
+    with pytest.raises(ValueError):
+        dcn._fwd_cuda(xs.transpose(1, 2).contiguous().transpose(1, 2), w, b, off, m, 2.0)
+    with pytest.raises(ValueError, match="max_offset"):
+        dcn._fwd_cuda(xs, w, b, off, m, dcn.MAX_REACH + 1.0)
+    with pytest.raises(ValueError, match="max_offset"):
+        dcn._dx_cuda(off, m, torch.zeros(2, 7, 9, 45, device=cuda), -1.0)
+    with pytest.raises(TypeError):
+        dcn._sample_cuda(xs, off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)
+    with pytest.raises(TypeError):
+        dcn._dx_cuda(off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)

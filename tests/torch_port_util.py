@@ -171,3 +171,100 @@ def edge_loss_inputs(seed, P=11, na=8, nt=8, K=16, nD=32):
                 ebnt=np.stack([eb, blk_nt], 1).astype(np.float32),
                 bna=blk_na[:, None].astype(np.float32), active_idx=active_idx,
                 act_m=act_m, nD=nD), d_part
+
+
+DCN_KEYS = ("x", "weight", "bias", "offset", "mask", "g")
+
+
+def dcn_inputs(seed, N=2, H=7, W=9, C=5, O=4, kind="frac", max_offset=2.0, lo=None):
+    """numpy f32 inputs of the bounded deformable conv (ops/dcn.py), keyed
+    by DCN_KEYS: x [N, H, W, C], weight [9*C, O], bias [O], offset [N, H,
+    W, 18], mask [N, H, W, 9] in (0, 1) and a cotangent g [N, H, W, O].
+    Offsets by kind: "frac" inside the bound (within +-0.5 for a bound
+    below 0.6) and at least 0.05 off every integer; "int" integers in [-R, R]; "beyond" up to 1.5 past the bound
+    (some clamped); "mixed" each of the three at random per element."""
+    rng = np.random.default_rng(seed)
+    R = int(np.ceil(max_offset))
+    hi = max(max_offset - 0.1, 0.5)
+    frac = rng.uniform(-hi, hi, (N, H, W, 18))
+    frac = np.where(np.abs(frac - np.round(frac)) < 0.05, frac + 0.1, frac)
+    ints = rng.integers(-R, R + 1, (N, H, W, 18)).astype(np.float64)
+    beyond = rng.uniform(-max_offset - 1.5, max_offset + 1.5, (N, H, W, 18))
+    pick = {"frac": frac, "int": ints, "beyond": beyond}
+    off = (pick[kind] if kind in pick
+           else np.choose(rng.integers(0, 3, (N, H, W, 18)), [frac, ints, beyond]))
+    arrays = [rng.normal(size=(N, H, W, C)), rng.normal(size=(9 * C, O)) / np.sqrt(9 * C),
+              rng.normal(size=(O,)), off, rng.uniform(0.05, 1.0, (N, H, W, 9)),
+              rng.normal(size=(N, H, W, O))]
+    return {k: np.ascontiguousarray(a, np.float32) for k, a in zip(DCN_KEYS, arrays)}
+
+
+OFFSET_BIASES = (-3.5, -0.5, 0.5, 3.5)  # the DCN offsets' centres (2 of 4 beyond the bound 2)
+
+
+def calibrate_dcn_offsets(net, x, seed, spread=0.05):
+    """Give every DCN block of `net` random offset / mask conv weights,
+    scaled on the input x [N, 3, H, W] so that each block's offsets spread
+    `spread` (std) around per-channel centres drawn from OFFSET_BIASES:
+    every offset fractional, about half of them beyond a bound of 2, and
+    all a margin away from an integer and from the bound, where the
+    bilinear derivative jumps (two f32 sums in another order could land on
+    two sides of such a kink).  In forward order, so that each block is
+    scaled on calibrated inputs; BN on its running statistics."""
+    import torch
+    import torch.nn.functional as F
+
+    from trackmpnn_tpu_torch.backbones.deform_conv import DCN
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+    def scale(conv, inputs):
+        with torch.no_grad():
+            conv.weight.copy_(f32(rng.normal(size=conv.weight.shape)))
+            conv.bias.copy_(f32(np.concatenate([rng.choice(OFFSET_BIASES, 18),
+                                                rng.normal(0, 0.5, 9)])))
+            raw = F.conv2d(inputs[0], conv.weight[:18], padding=1)
+            conv.weight.mul_(spread / float(raw.std()))
+
+    hooks = [m.conv_offset_mask.register_forward_pre_hook(scale)
+             for m in net.modules() if isinstance(m, DCN)]
+    training = net.training
+    with torch.no_grad():
+        net.eval()(x)
+    net.train(training)
+    for h in hooks:
+        h.remove()
+    return net
+
+
+def backbone_params(arch, seed, num_vis_feats=16, dcn_max_offset=None, probe_hw=(32, 64)):
+    """A JAX-layout flat dict (numpy) for `arch` ("espv2" / "dla34"): the
+    port's seeded initialisation, then every leaf moved off its default so
+    that a transposed, flipped or misplaced tensor shows: BN running stats
+    away from (0, 1), per-channel leaves (BN affine, PReLU, biases) and the
+    bilinear up-convs perturbed, and the DCN offset / mask convs (zero at
+    init) calibrated on a seeded probe image of probe_hw
+    (calibrate_dcn_offsets)."""
+    import torch
+
+    from trackmpnn_tpu_torch.backbones import weights as bw
+
+    rng = np.random.default_rng(seed)
+    net = bw.make_backbone(arch, num_vis_feats, dcn_max_offset,
+                           torch.Generator().manual_seed(seed))
+    out = {}
+    for k, v in bw.backbone_to_jax_params(net).items():
+        if k.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, v.shape)
+        elif k.endswith("running_mean"):
+            v = rng.normal(0, 0.3, v.shape)
+        elif (v.ndim == 1 or ".up_" in k) and "conv_offset_mask" not in k:
+            v = v + rng.normal(0, 0.1 if v.ndim == 1 else 0.05, v.shape)
+        out[k] = np.ascontiguousarray(v, np.float32)
+    if arch == "dla34":
+        net.load_state_dict(bw.state_dict_from_jax(out, net.state_dict()))
+        probe = rng.normal(size=(2, 3, *probe_hw)).astype(np.float32)
+        calibrate_dcn_offsets(net, torch.from_numpy(probe), seed)
+        out = bw.backbone_to_jax_params(net)
+    return out

@@ -6,11 +6,13 @@ newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
 ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
 ops/block.py), csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the
 train step, ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused
-round of the packed row layout, ops/round.py), csrc/loss_kernels.cu -> libtm_loss.so (the
-fused edge losses of the block step, ops/loss.py).  build() starts one nvcc per stale source,
-all at once, and waits for them.  The sources include no PyTorch header, so a build takes
-seconds; ctypes loads the result.  Nothing here runs when the module is
-imported.
+round of the packed row layout, ops/round.py), csrc/loss_kernels.cu ->
+libtm_loss.so (the fused edge losses of the block step, ops/loss.py),
+csrc/dcn_kernels.cu -> libtm_dcn.so (the bounded deformable convolution of
+the DLA-34 embedding backbone, ops/dcn.py).  build() starts one nvcc per
+stale source, all at once, and waits for them.  The sources include no
+PyTorch header, so a build takes seconds; ctypes loads the result.  Nothing
+here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -61,6 +63,11 @@ LIBRARIES = {
              {"tm_edge_loss_l1": [_P] * 10 + [_I] * 4 + [_P],
               "tm_edge_loss_l2": [_P] * 9 + [_I] * 3 + [_P],
               "tm_edge_loss_bwd": [_P] * 15 + [_I] * 4 + [_P]}),
+    "dcn": (os.path.join(_PKG, "csrc", "dcn_kernels.cu"),
+            os.path.join(BUILD_DIR, "libtm_dcn.so"),
+            {"tm_dcn_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+             "tm_dcn_bwd_sample": [_P] * 7 + [_I] * 4 + [_F, _P],
+             "tm_dcn_bwd_dx": [_P] * 4 + [_I] * 5 + [_F, _P]}),
 }
 
 _libs: dict = {}
