@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It imports nothing of JAX or of the JAX package.  Phases, in order; any
 failure exits non-zero:
 
- 1. Card and settings: the card's name and power limit (nvidia-smi), TF32
-    off for matmuls and convolutions, the CUDA kernels built from
+ 1. Card and settings: the card's name and power limit (nvidia-smi),
+    PyTorch's own TF32 flags (left as they are), the CUDA kernels built from
     trackmpnn_tpu_torch/csrc/ (one nvcc per source, run concurrently;
     set-up time).
  2. Kernels: each kernel against its plain PyTorch version on the card, on
@@ -108,16 +108,22 @@ failure exits non-zero:
 15. The embedding path (train/embed.py's EmbedTrainer, whose step and infer
     take packed arrays) at KITTI's input, 384 x 1280, for espv2, dla34 with
     dcn_max_offset 2.0 (every deform block through the DCN kernels) and
-    dla34 on the exact gather: a chunk of 4 seeded frames with 8-16
+    dla34 on the exact gather: a chunk of 8 seeded frames (the training
+    CLI's: cur_win_size 5 plus the skip pair, cycled to 8) with 8-16
     detections each (about one in six a false positive), feature-map
     centres; seeded weights, DLA-34's offset / mask convs calibrated
     (tests/torch_port_util.py: fractional offsets, about half beyond the
     bound, clear of the bilinear derivative's kinks).  A first step (the
     bounded route records the DCN kernels' widest inputs), 2 warm-up steps,
     10 steps timed by CUDA events with the DCN launch counters set to 0
-    before and read after (16 of each kernel a step on the bounded route,
-    one frame chunk; none elsewhere), one infer call and one profiled step;
-    ms/step, frames/s, busy share and peak memory.  Each first step again
+    before and read after (16 of each kernel a step on the bounded route;
+    none elsewhere), one profiled step; ms/step, frames/s, busy share and
+    peak memory.  The first step must see TF32 off (the trainer pins full
+    f32 whatever the process's flags) and leave the flags as they were.
+    Then infer on a 32-frame sequence (the chunk four times; eval runs whole
+    sequences), timed, with its peak memory: every slice's features equal
+    the 8-frame infer's (rtol 1e-4), 4 x 16 dcn_fwd launches on the bounded
+    route.  Each first step again
     at 96 x 320 (reduced) on the card and on the CPU from the same weights:
     loss rtol 1e-4, features rtol 1e-4 with atol 1e-4 x the largest, grads
     rtol 1e-3 with atol 1e-4 x the largest |grad|, BN buffers unchanged
@@ -1496,7 +1502,10 @@ def round_kernel_phase(torch, round_ops, inputs, launches):
 # ------------------------------------------------------ the embedding path ----
 EMBED_HW = (384, 1280)      # KITTI's embedding input (trackmpnn_tpu/cli/train.py:38)
 EMBED_HW_CHECK = (96, 320)  # the card-vs-CPU first step, reduced
-EMBED_T, EMBED_DETS = 4, (8, 16)
+# the training CLI's chunk: cur_win_size 5 (utils/config.py:40) plus the
+# skip pair (data/common.py:136-139), cycled to a multiple of 4 by _pack
+EMBED_T, EMBED_DETS = 8, (8, 16)
+EMBED_INFER_REPEATS = 4  # infer's sequence: the chunk's frames four times
 EMBED_WARMUP, EMBED_STEPS = 2, 10
 EMBED_MAX_OFFSET = 2.0
 EMBED_CONFIGS = {"espv2": dict(arch="espv2"),
@@ -1527,6 +1536,45 @@ def embed_chunk(np, hw, down_ratio, seed, max_dets=256):
     tids[rng.random(n) < 1 / 6] = -1
     return (images, pad(fr_of), pad(cy), pad(cx),
             np.concatenate([tids, -np.ones(max_dets - n, np.int32)]), np.arange(max_dets) < n)
+
+
+def infer_sequence(torch, tr, chunk, what, dcn_ops, blocks):
+    """EmbedTrainer.infer on a sequence of EMBED_INFER_REPEATS copies of the
+    chunk's frames, detections in every copy: each copy's features must
+    equal the chunk's own infer (rtol FEAT_RTOL), and the bounded route
+    launch dcn_fwd `blocks` times a backbone call of INFER_FRAMES frames."""
+    from trackmpnn_tpu_torch.train.embed import INFER_FRAMES
+
+    images, fr_of, cy, cx = chunk[:4]
+    want = tr.infer(images, fr_of, cy, cx)
+    reps = EMBED_INFER_REPEATS
+    seq = (images.repeat(reps, 1, 1, 1),
+           torch.cat([fr_of + EMBED_T * r for r in range(reps)]), cy.repeat(reps), cx.repeat(reps))
+    frames = EMBED_T * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in dcn_ops.LAUNCHES:
+        dcn_ops.LAUNCHES[k] = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = tr.infer(*seq)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    calls = -(-frames // INFER_FRAMES)
+    if dcn_ops.LAUNCHES["dcn_fwd"] != blocks * calls or dcn_ops.LAUNCHES["dcn_bwd_dx"]:
+        fail(f"{what} infer: DCN launches {dict(dcn_ops.LAUNCHES)} over {frames} frames, "
+             f"expected {blocks} dcn_fwd a backbone call of {INFER_FRAMES} frames")
+    got = got.reshape(reps, *want.shape)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want.expand_as(got), rtol=FEAT_RTOL, atol=FEAT_ATOL_SCALE * scale)):
+        fail(f"{what} infer: the {frames}-frame sequence's features differ from the "
+             f"chunk's by {err:.3g} (largest {scale:.3g})")
+    return {"frames": frames, "ms_events": ms, "frames_per_s": frames / (ms / 1e3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "dcn_fwd_launches": dcn_ops.LAUNCHES["dcn_fwd"], "max_err": err}
 
 
 def offset_stats(off, bound):
@@ -1574,8 +1622,16 @@ def embedding_phase(torch, np, dcn_ops):
                 rec.enter_context(record_widest(dcn_ops, "_dx_cuda", inputs,
                                                 lambda a: "dcn_bwd_dx",
                                                 blocks=lambda a: a[2].numel()))
+            flags = lambda: (torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32)
+            before, seen = flags(), []
+            rec.callback(tr.net.register_forward_hook(
+                lambda mod, a, out: seen.append(flags())).remove)
             loss1, feats1 = tr.step(*chunk)
         torch.cuda.synchronize()
+        if seen != [(False, False)] or flags() != before:
+            fail(f"{what}: the step ran with TF32 flags {seen} (cuDNN, matmul), "
+                 f"then left {flags()} where the caller had {before}")
         if not (torch.isfinite(loss1) and bool(torch.isfinite(feats1).all())
                 and tuple(feats1.shape) == (256, tr.num_vis_feats)):
             fail(f"{what}: first step gave loss {float(loss1)}, features {tuple(feats1.shape)}")
@@ -1599,21 +1655,24 @@ def embedding_phase(torch, np, dcn_ops):
         for k, v in launches.items():
             if v != per_step * EMBED_STEPS:
                 fail(f"{what}: {k} launched {v} times in {EMBED_STEPS} steps, expected "
-                     f"{per_step} a step ({DCN_BLOCKS} deform blocks, one frame chunk)")
+                     f"{per_step} a step ({DCN_BLOCKS} deform blocks)")
         peak_bytes = torch.cuda.max_memory_allocated()
         losses = torch.stack(losses).cpu().numpy()
         if not np.all(np.isfinite(losses)):
             fail(f"{what}: loss not finite: {losses}")
-        feats = tr.infer(*chunk[:4])
-        if not (bool(torch.isfinite(feats).all()) and feats.shape == feats1.shape):
-            fail(f"{what}: infer gave non-finite or misshapen features")
         profile = device_profile(torch, lambda: tr.step(*chunk), wall_ms / 1e3)
+        infer = infer_sequence(torch, tr, chunk, what, dcn_ops, per_step)
         print(f"{what}: {EMBED_T} x {EMBED_HW[0]} x {EMBED_HW[1]} frames, {n} detections, "
               f"{EMBED_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
               f"ms/step (host wall), {EMBED_T / (wall_ms / 1e3):.4g} frames/s, peak memory "
               f"{peak_bytes / 2**30:.3f} GiB; DCN launches a step "
               f"{ {k: v / EMBED_STEPS for k, v in launches.items()} }; loss "
-              f"{float(loss1):.6g} -> {losses[-1]:.6g}")
+              f"{float(loss1):.6g} -> {losses[-1]:.6g}; the step saw TF32 off (process "
+              f"flags {before})")
+        print(f"{what} infer: {infer['frames']} frames in {infer['ms_events']:.3f} ms (CUDA "
+              f"events), {infer['frames_per_s']:.4g} frames/s, peak memory "
+              f"{infer['peak_memory_bytes'] / 2**30:.3f} GiB, dcn_fwd launches "
+              f"{infer['dcn_fwd_launches']}, slices agree to {infer['max_err']:.3g}")
         del tr, chunk
 
         # the first step at EMBED_HW_CHECK on the card and on the CPU, same weights
@@ -1656,7 +1715,7 @@ def embedding_phase(torch, np, dcn_ops):
             "launches": launches, "loss_first": float(loss1), "loss_last": float(losses[-1]),
             "check_input_hw": list(EMBED_HW_CHECK), "check_loss_card": float(loss_g),
             "check_loss_cpu": float(loss_c), "max_grad_err_vs_cpu": worst, "grad_scale": gscale,
-            "cpu_step_s": cpu_step_s,
+            "cpu_step_s": cpu_step_s, "tf32_flags_before": list(before), "infer": infer,
             "device_busy_share_step": None if profile is None else profile["busy_share"],
             "profile_step": profile}
         del card, cpu
@@ -1801,9 +1860,9 @@ def main():
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("settings: TF32 off for matmuls and cuDNN (full f32)")
+    print(f"settings: PyTorch's own flags, TF32 for cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, for matmuls "
+          f"{torch.backends.cuda.matmul.allow_tf32}; EmbedTrainer pins full f32 in its calls")
     t0 = time.perf_counter()
     build = _build.build()
     for name in _build.LIBRARIES:

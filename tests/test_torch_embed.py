@@ -285,28 +285,64 @@ def test_trainer_options():
         embed.EmbedTrainer(train_bn=True, frame_chunk=1, input_hw=HW, device="cpu")
     with pytest.raises(ValueError, match="unknown embed arch"):
         embed.EmbedTrainer(arch="resnet", input_hw=HW, device="cpu")
-    assert embed.EmbedTrainer(train_bn=True, input_hw=HW, device="cpu").frame_chunk is None
+    # "auto" never chunks under train_bn, as in the JAX trainer
+    embed.EmbedTrainer(train_bn=True, frame_chunk="auto", input_hw=HW, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             embed.EmbedTrainer(input_hw=HW)
 
 
-def test_frame_chunks_change_no_number(tmp_path):
-    """frame_chunk=1 (per-frame checkpointing) against the whole chunk:
-    the same loss, features and weights after the step."""
+def test_frame_chunks_change_no_number(tmp_path, monkeypatch):
+    """frame_chunk=1 against the whole chunk: the same loss, features and
+    weights after the step (the port trains a chunk whole); and infer over a
+    10-frame chunk (cycled to 12) the same, rtol 1e-5 / atol 1e-5 x the
+    largest, in backbone calls of 1, INFER_FRAMES and all 12 frames."""
     vis_meta, tids = write_chunk(tmp_path, 1, 4)
     runs = []
     for fc in (None, 1):
         tt = embed.EmbedTrainer(input_hw=HW, max_dets=MAX_DETS, device="cpu", frame_chunk=fc)
-        p0 = bw.backbone_to_jax_params(tt.net)
         feats, loss = tt.train_chunk(vis_meta, tids)
-        named = dict(tt.net.named_parameters())
-        mu = bw.state_dict_to_jax({k: tt.opt.state[q]["exp_avg"] for k, q in named.items()})
-        runs.append((loss, feats, mu, bw.backbone_to_jax_params(tt.net)))
-    (l0, f0, mu0, a0), (l1, f1, mu1, a1) = runs
-    assert abs(l0 - l1) <= 1e-6 * abs(l0)
-    np.testing.assert_allclose(f1, f0, rtol=1e-5, atol=1e-5)
-    check_adam_step(p0, tt.opt.param_groups[0]["lr"], mu1, mu0, a1, a0)
+        runs.append((loss, feats, bw.backbone_to_jax_params(tt.net)))
+    (l0, f0, a0), (l1, f1, a1) = runs
+    assert l0 == l1
+    np.testing.assert_array_equal(f1, f0)
+    for k in a0:
+        np.testing.assert_array_equal(a1[k], a0[k], err_msg=k)
+
+    long_meta, _ = write_chunk(tmp_path, 1, 5, frames=10, dets=4)
+    got = {}
+    for frames in (1, embed.INFER_FRAMES, 12):
+        monkeypatch.setattr(embed, "INFER_FRAMES", frames)
+        got[frames] = tt.infer_chunk(long_meta)
+    want = got.pop(12)
+    assert want.shape == (40, CLASSES)
+    for frames, f in got.items():
+        np.testing.assert_allclose(f, want, rtol=1e-5, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=f"{frames} frames a call")
+
+
+def test_trainer_runs_in_full_f32_and_restores_the_flags(tmp_path, monkeypatch):
+    """PyTorch lets cuDNN convolve in TF32 by default: the step's forward and
+    backward and infer's forward see TF32 off for cuDNN and cuBLAS, and the
+    caller's flags come back afterwards."""
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = []
+
+    def hook(module, args, out):
+        seen.append(("forward",) + flags())
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.append(("backward",) + flags()))
+
+    tt = embed.EmbedTrainer(input_hw=HW, max_dets=MAX_DETS, device="cpu")
+    tt.net.register_forward_hook(hook)
+    vis_meta, tids = write_chunk(tmp_path, 1, 6)
+    tt.train_chunk(vis_meta, tids)
+    tt.infer_chunk(vis_meta)
+    assert seen == [("forward", False, False), ("backward", False, False),
+                    ("forward", False, False)]
+    assert flags() == (True, True)
 
 
 def test_normalized_vis_features_match_jax():

@@ -18,18 +18,23 @@ take the momentum update, and ESPNetv2's two Dropout2d sites drop, drawing
 from the trainer's torch.Generator unless the caller gives keep masks.
 
 `frame_chunk` is a TPU memory workaround in the JAX package (embed.py:70-
-89) that changes no number.  The port runs a chunk's frames as one batch
-("auto" and None; the card has 80 GB) or, given an int, the backbone
-`frame_chunk` frames at a time under torch.utils.checkpoint.
+89) that changes no number.  The port runs a training chunk's frames as
+one batch whatever it is given (the card has 80 GB); the argument stays
+for the JAX trainer's signature and its train_bn check.  `infer` runs the
+backbone INFER_FRAMES frames at a time, so that a whole eval sequence
+(hundreds of frames) needs no more memory than a training chunk.
+
+Both run their convolutions and products in full f32 (`full_f32`):
+PyTorch lets cuDNN convolve in TF32 by default, a 10-bit mantissa.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from trackmpnn_tpu_torch.backbones.weights import make_backbone
 from trackmpnn_tpu_torch.decode.tracker import resolve_device
@@ -39,6 +44,20 @@ from trackmpnn_tpu_torch.train.optim import make_optimizer
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 RECIPES = {"espv2": (1, 5e-4, 5e-4), "dla34": (4, 1.25e-4, 0.0)}  # down ratio, lr, L2
+INFER_FRAMES = 8  # a training chunk: cur_win_size 5 and the skip pair, padded to 8
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convolutions and cuBLAS products in f32, not TF32, inside the
+    block, whatever the process's flags; the flags are put back on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def load_image(path: str, hflip: bool, input_hw: Tuple[int, int]) -> np.ndarray:
@@ -80,13 +99,11 @@ class EmbedTrainer:
                                       "in f32 (ROADMAP.md queue 1, 'bf16 rectangles')")
         if arch not in RECIPES:
             raise ValueError(f"unknown embed arch {arch!r}")
-        if frame_chunk == "auto":
-            frame_chunk = None
-        if frame_chunk is not None and train_bn:
+        if frame_chunk not in (None, "auto") and train_bn:
             raise ValueError("frame_chunk is incompatible with train_bn "
                              "(batch statistics would be per-chunk)")
         self.arch, self.num_vis_feats, self.input_hw = arch, num_vis_feats, input_hw
-        self.max_dets, self.train_bn, self.frame_chunk = max_dets, train_bn, frame_chunk
+        self.max_dets, self.train_bn = max_dets, train_bn
         self.device = resolve_device(device)
         self.down_ratio, lr, wd = RECIPES[arch]
         # weights drawn on the CPU: the same seed gives the same net anywhere
@@ -100,15 +117,6 @@ class EmbedTrainer:
         if self.arch == "espv2":
             return self.net(images, keep=keep, generator=self._drop_gen)
         return self.net(images)["trk"]
-
-    def feature_map(self, images, keep=None):
-        """[T, C, Hm, Wm] for images [T, 3, H, W], in chunks of frame_chunk
-        frames (each recomputed in the backward) when it is set."""
-        fc = self.frame_chunk
-        if fc is None:
-            return self._apply(images, keep)
-        return torch.cat([checkpoint(self._apply, images[i:i + fc], use_reentrant=False)
-                          for i in range(0, images.shape[0], fc)])
 
     def _tensors(self, images, *ints):
         dev = self.device
@@ -126,10 +134,10 @@ class EmbedTrainer:
         valid = torch.as_tensor(valid, device=self.device).bool()
         self.net.train(self.train_bn)
         self.opt.zero_grad(set_to_none=False)
-        fmap = self.feature_map(x, keep)
-        feats = fmap[fr_of, :, cy, cx]
-        loss = fairmot_id_loss(feats, track_ids, valid, self.num_vis_feats)
-        loss.backward()
+        with full_f32():
+            feats = self._apply(x, keep)[fr_of, :, cy, cx]
+            loss = fairmot_id_loss(feats, track_ids, valid, self.num_vis_feats)
+            loss.backward()
         # a parameter off the loss's path (a tree's unused projection) gets
         # a zero gradient, so that Adam's L2 decays it as optax's does
         for p in self.net.parameters():
@@ -141,10 +149,19 @@ class EmbedTrainer:
     @torch.no_grad()
     def infer(self, images, fr_of, cy, cx):
         """Features [Nmax, C] at the centres, BN on its running statistics and
-        no dropout (the JAX trainer's _infer)."""
+        no dropout (the JAX trainer's _infer), INFER_FRAMES frames a backbone
+        call."""
         x, fr_of, cy, cx = self._tensors(images, fr_of, cy, cx)
         self.net.eval()
-        return self.feature_map(x)[fr_of, :, cy, cx]
+        feats = None
+        with full_f32():
+            for t0 in range(0, x.shape[0], INFER_FRAMES):
+                fmap = self._apply(x[t0:t0 + INFER_FRAMES])
+                t = fr_of - t0
+                got = fmap[t.clamp(0, fmap.shape[0] - 1), :, cy, cx]
+                here = ((t >= 0) & (t < fmap.shape[0]))[:, None]
+                feats = got if feats is None else torch.where(here, got, feats)
+        return feats
 
     def _pack(self, vis_meta):
         """Frames, centres and validity as fixed-shape numpy arrays
