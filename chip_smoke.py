@@ -16,17 +16,23 @@ failure exits non-zero:
     the GraphView of the largest window of a 30-track sequence (capacity
     16384, H = 64, f32) and a random h: gather_diff exact,
     signed_segment_sum within atol 1e-5, rtol 1e-5 (its atomics add in no
-    fixed order, in f64, rounded to f32 once).  Each is timed with CUDA
-    events beside its plain version, its memory/compute bound and, for the
-    scatter, torch's index_add_.
+    fixed order, in f64, rounded to f32 once), fused_edge_gru (with seeded
+    GRU weights) within atol 1e-5 and bitwise on a second launch.  Each is
+    timed with CUDA events beside its plain version, its memory/compute
+    bound, for the scatter torch's index_add_ and for fused_edge_gru the
+    route it replaces (gather_diff, then the GRU cell's two matmuls).
  3. Serving: the Tracker on cuda with random weights from a fixed seed (BN
-    in eval mode) serves three 30-track x 100-frame sequences.  Both launch
-    counters must equal the number of forwards.  The same sequences rerun
-    on the CPU, where the plain versions run, must decode identical tracks
-    with per-step scores within 1e-4.
- 4. CLI: a JAX-format snapshot and a small synthetic KITTI test tree go
-    through `python -m trackmpnn_tpu_torch.cli.infer` on the card, which must
-    write one result file per sequence, identical to the CLI's CPU run.
+    in eval mode) serves three 30-track x 100-frame sequences (features
+    2d).  A served forward records no gradient, so it launches
+    fused_edge_gru and signed_segment_sum once a forward and gather_diff
+    never.  The same sequences rerun on the CPU, where the plain versions
+    run, must decode identical tracks with per-step scores within 1e-4.
+ 4. CLI: the default features (2d+temp+vis, espv2 at 384 x 1280): a
+    tracker and a vis-net snapshot the port writes in the JAX format and a
+    small synthetic KITTI test tree of real PNGs (2 sequences of 12 frames)
+    go through `python -m trackmpnn_tpu_torch.cli.infer` on the card, which
+    must write one result file per sequence, identical to the CLI's CPU
+    run.
  5. Training: the block train step (f32, nhidden 64, Adam 1e-4 with L2
     5e-4, tp_classifier off) on bench.py's workload: 8 windows of
     make_sequence(16 tracks, 16 frames, miss 0.05, fp 0.1, seeds 100+),
@@ -57,9 +63,9 @@ failure exits non-zero:
     each bitwise the same on a second launch, timed beside its plain
     version and its bound.
  9. GAT serving: one 30-track x 100-frame sequence served by a random
-    one-head model on the card (gather_diff once a forward; the attention
-    replaces signed_segment_sum) and on the CPU: identical tracks, scores
-    within 1e-4.
+    one-head model on the card (fused_edge_gru once a forward; the
+    attention replaces signed_segment_sum) and on the CPU: identical
+    tracks, scores within 1e-4.
 10. Row-layout training, batch 1: train/step.py's make_train_step on the
     first window of phase 5's workload (seed 100; packed at bench.py's
     capacity, the largest window's rows rounded up to 1024), H 64, f32, Adam
@@ -135,8 +141,20 @@ failure exits non-zero:
     fractional, integer and beyond-bound offsets; each bitwise the same on
     a second launch, timed beside its plain version and its bound; no
     PyTorch call computes a deformable convolution (library: none).
+17. The default configuration served at full width: features 2d+temp+vis,
+    nhidden 64, 128 vis features from ESPNetv2 at 384 x 1280, random
+    weights from fixed seeds, on phase 3's three sequences.  Each
+    sequence's embeddings come from EmbedTrainer.infer on 100 seeded noise
+    frames at the boxes' centres (timed by CUDA events), its temp columns
+    from the frame ids.  Exactly 3 fused_edge_gru and 3 signed_segment_sum
+    launches a forward, no gather_diff; the same feature matrices served
+    on the CPU decode identical tracks with per-step scores within 1e-4.
+    Frames/s and forwards/s, ms a forward, the embedding's ms and frames/s
+    a sequence, the busy share, peak memory.
 
-The line before the last is {"kernels": [...]}; the last is
+The kernels line gives each serving kernel the launches of the path it
+runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
+fused_edge_gru phase 17's.  The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -162,6 +180,12 @@ PEAK_F32_PER_S = 67e12
 SERVE_TRACKS, SERVE_FRAMES, SERVE_SEEDS, WIN = 30, 100, (0, 1, 2), 5
 HIDDEN = 64
 SCATTER_RTOL = SCATTER_ATOL = 1e-5
+EDGE_GRU_ATOL = 1e-5  # fused_edge_gru: 64-term f32 sums in another order, then sigmoid/tanh
+# the CLIs' default features (trackmpnn_tpu/utils/config.py:37), with espv2.
+# The machine with the card has PIL, so phase 4 reads real PNGs through the
+# embedding net; its frames are cut (not the input size) to keep the CLI's
+# CPU rerun short.
+DEFAULT_FEATS, CLI_FRAMES = "2d+temp+vis", 12
 STEP_SCORE_ATOL = 1e-4
 
 # training: bench.py's workload and hyper-parameters
@@ -319,6 +343,56 @@ def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
     return r
 
 
+def edge_gru_row(torch, mp, h, past, fut, em, live, where):
+    """Kernel #3, fused_edge_gru, on these inputs and seeded GRU weights
+    against its plain version (atol EDGE_GRU_ATOL: H-term f32 sums in
+    another order, then sigmoid / tanh), bitwise on a second launch; timed
+    beside its plain version, its bound and the route it replaces in the
+    served forward (the gather_diff kernel, then models/nn.gru_cell's two
+    torch.matmuls and gate ops).  No single PyTorch call gathers and runs
+    the GRU cell (library: none).  The bound counts the `live` rows."""
+    from trackmpnn_tpu_torch.models import nn
+
+    N, H = h.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = [torch.randn(H, 3 * H, device="cuda", generator=gen) * H ** -0.5 for _ in range(2)]
+    b = [torch.randn(3 * H, device="cuda", generator=gen) * 0.3 for _ in range(2)]
+    args = (h, past, fut, em, *w, *b)
+    eg = {"w_ih": w[0], "w_hh": w[1], "b_ih": b[0], "b_hh": b[1]}
+    with torch.inference_mode():
+        kernel = lambda: mp.fused_edge_gru(*args)
+        plain = lambda: mp.edge_gru_reference(*args)
+        replaced = lambda: nn.gru_cell(eg, mp.gather_diff(h, past, fut, em), h)
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > EDGE_GRU_ATOL:
+            fail(f"fused_edge_gru ({where}) differs from its plain version by {err} "
+                 f"(atol {EDGE_GRU_ATOL})")
+        if not torch.equal(got, again):
+            fail(f"fused_edge_gru ({where}) is not bitwise the same on a second launch")
+        if float((replaced() - want).abs().max()) > EDGE_GRU_ATOL:
+            fail(f"the replaced route ({where}) does not compute the same function")
+        # each input read once (live rows of h, 9 B of index a row, the
+        # weights), each output row written once; the products and gates
+        b_ms, by = bound_ms(live * (2 * H * 4 + 9) + 2 * (H + 1) * 3 * H * 4,
+                            live * (2 * 2 * H * 3 * H + GATE_FLOPS_PER_UNIT * H))
+        r = {"name": "fused_edge_gru", "route": "cuda",
+             "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
+             "replaces": "trackmpnn_tpu/ops/pallas_mp.py:84", "max_abs_err": err,
+             "ms": cuda_time_ms(kernel), "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+             "plain_ms": cuda_time_ms(plain, iters=PLAIN_ITERS), "bound_ms": b_ms,
+             "bound_by": by, "library_ms": None,
+             "replaced_route_ms": cuda_time_ms(replaced, iters=PLAIN_ITERS), "where": where,
+             "shape": f"N {N}, H {H}, live rows {live}, edge rows {int(em.sum())}"}
+    print(f"kernel fused_edge_gru ({where}; {r['shape']}): device {r['ms'] * 1e3:.2f} us, per "
+          f"call with the host's launch cost {r['call_ms'] * 1e3:.2f} us (plain "
+          f"{r['plain_ms'] * 1e3:.2f} us, the replaced gather_diff + gru_cell "
+          f"{r['replaced_route_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {by}, library "
+          f"none), max abs err {err:.3g}, bitwise on a second launch")
+    return r
+
+
 def kernel_phase(torch, mp, tracker_mod, view_mod):
     X, g, n_new = peak_window(SERVE_SEEDS[0])
     cap = tracker_mod._bucketed(g.n, tracker_mod.TrackerConfig().bucket)
@@ -329,7 +403,8 @@ def kernel_phase(torch, mp, tracker_mod, view_mod):
     print(f"kernel inputs: live rows {g.n}, edge rows {int(em.sum())}, capacity {cap}, "
           f"H {HIDDEN}")
     return [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving")
-            for name in MP_REPLACES]
+            for name in MP_REPLACES] + [edge_gru_row(torch, mp, h, past, fut, em, g.n,
+                                                     "serving")]
 
 
 @contextlib.contextmanager
@@ -420,24 +495,19 @@ def device_profile(torch, run, wall_s):
             "top": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
 
 
-def serving_phase(torch, np, mp):
-    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what):
+    """Serve `seqs` with the Tracker on the card, the launch counters set to
+    0 just before and read just after: each feature branch launches
+    fused_edge_gru and signed_segment_sum once a forward (no gradient is
+    recorded) and gather_diff never.  Profile the first sequence, then rerun
+    all on the CPU, where the plain versions run: identical tracks and
+    per-step scores within STEP_SCORE_ATOL.  `warm` (X, y) runs first
+    (cuBLAS handles, the allocator).  Returns the summary."""
     from trackmpnn_tpu_torch.decode.tracker import Tracker, TrackerConfig, _bucketed
-    from trackmpnn_tpu_torch.models import mpnn
 
-    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
-    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
-    stats = mpnn.init_batch_stats(cfg)
     tcfg = TrackerConfig(cur_win_size=WIN, hungarian=True)
-    seqs = []
-    for s in SERVE_SEEDS:
-        X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=SERVE_FRAMES,
-                                        ncategories=3, seed=s)
-        seqs.append((X, bbox_pred[:, :2].astype(np.int64)))
-
     gpu = Tracker(params, stats, cfg, tcfg, device="cuda")
-    X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=12, seed=99)
-    gpu.run(X, bbox_pred[:, :2].astype(np.int64))  # warm-up: cuBLAS handles, allocator
+    gpu.run(*warm)
     torch.cuda.synchronize()
 
     for k in mp.LAUNCHES:
@@ -445,10 +515,13 @@ def serving_phase(torch, np, mp):
     runs, fwd_ms, walls = serve(gpu, seqs, np)
     launches = dict(mp.LAUNCHES)
     forwards = sum(len(steps) for steps, _ in runs)
-    for k, v in launches.items():
-        if v != forwards:
-            fail(f"{k} launched {v} times in {forwards} forwards")
-    print(f"serving: launches {launches} over {forwards} forwards")
+    nb = len(cfg.branches)
+    expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
+                "fused_edge_gru": nb * forwards}
+    if launches != expected:
+        fail(f"{what}: launches {launches} in {forwards} forwards of {nb} branches, "
+             f"expected {expected}")
+    print(f"{what}: launches {launches} over {forwards} forwards of {nb} branches")
     wall = sum(walls)
     profile = device_profile(torch, lambda: gpu.run(*seqs[0]), walls[0])
 
@@ -457,24 +530,26 @@ def serving_phase(torch, np, mp):
     worst = 0.0
     for si, ((steps, y_out), (c_steps, c_y_out)) in enumerate(zip(runs, cpu_runs)):
         if len(steps) != len(c_steps):
-            fail(f"sequence {si}: {len(steps)} steps on the card, {len(c_steps)} on the CPU")
+            fail(f"{what}, sequence {si}: {len(steps)} steps on the card, {len(c_steps)} on "
+                 "the CPU")
         for k, ((n, s), (cn, cs)) in enumerate(zip(steps, c_steps)):
             if n != cn:
-                fail(f"sequence {si} step {k}: {n} rows on the card, {cn} on the CPU")
+                fail(f"{what}, sequence {si} step {k}: {n} rows on the card, {cn} on the CPU")
             worst = max(worst, float(np.abs(s - cs).max()))
         if not np.array_equal(y_out, c_y_out):
             margin = min(float(np.abs(s[:, 1] - 0.5).min()) for _, s in steps)
-            fail(f"sequence {si}: decoded tracks differ between card and CPU "
+            fail(f"{what}, sequence {si}: decoded tracks differ between card and CPU "
                  f"(smallest |score - 0.5| on the card: {margin:.3g})")
     if worst > STEP_SCORE_ATOL:
-        fail(f"per-step scores differ between card and CPU by {worst:.3g} > {STEP_SCORE_ATOL}")
+        fail(f"{what}: per-step scores differ between card and CPU by {worst:.3g} > "
+             f"{STEP_SCORE_ATOL}")
 
     peak_n = max(n for steps, _ in runs for n, _ in steps)
     frames = sum(len(np.unique(y[:, 0])) for _, y in seqs)
     f = np.array(fwd_ms)
     summary = {
-        "sequences": len(seqs), "frames": frames, "forwards": forwards,
-        "wall_s": wall, "cpu_rerun_wall_s": cpu_wall,
+        "features": cfg.features, "sequences": len(seqs), "frames": frames,
+        "forwards": forwards, "wall_s": wall, "cpu_rerun_wall_s": cpu_wall,
         "forwards_per_s": forwards / wall, "frames_per_s": frames / wall,
         "forward_ms_mean": float(f.mean()), "forward_ms_p50": float(np.percentile(f, 50)),
         "forward_ms_p99": float(np.percentile(f, 99)),
@@ -483,27 +558,56 @@ def serving_phase(torch, np, mp):
         "max_step_score_err_vs_cpu": worst, "launches": launches,
         "device_busy_share_seq0": None if profile is None else profile["busy_share"],
     }
-    print("serving: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+    print(f"{what}: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
                                   for k, v in summary.items() if k != "launches"))
     summary["profile_seq0"] = profile
-    return summary, (params, stats, cfg)
+    return summary
 
 
-def cli_phase(model, np):
+def serving_phase(torch, np, mp):
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.models import mpnn
+
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
+    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
+    stats = mpnn.init_batch_stats(cfg)
+    seqs = []
+    for s in SERVE_SEEDS:
+        X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=SERVE_FRAMES,
+                                        ncategories=3, seed=s)
+        seqs.append((X, bbox_pred[:, :2].astype(np.int64)))
+    X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=12, seed=99)
+    return serve_and_check(torch, np, mp, cfg, params, stats, seqs,
+                           (X, bbox_pred[:, :2].astype(np.int64)), "serving")
+
+
+def cli_phase(torch, np):
+    """Phase 4: the infer CLI with the default features (espv2 at KITTI's
+    input) on a small tree of real PNGs, from a tracker and a
+    vis-net snapshot the port writes in the JAX format: on the card as a
+    user runs it, then in this process on the CPU; the result files must be
+    identical."""
     from trackmpnn_tpu_torch.cli import infer
     from trackmpnn_tpu_torch.data.synthetic import write_kitti_tree
+    from trackmpnn_tpu_torch.models import mpnn
     from trackmpnn_tpu_torch.train import checkpoint
+    from trackmpnn_tpu_torch.train.embed import EmbedTrainer
 
-    params, stats, cfg = model
+    cfg = mpnn.ModelConfig(features=DEFAULT_FEATS, ncategories=3, nhidden=HIDDEN)
+    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
     shutil.rmtree(WORK, ignore_errors=True)
     root = os.path.join(WORK, "kitti")
-    write_kitti_tree(root, num_seqs=2, num_frames=20, num_tracks=10, split_dir="testing", seed=3)
+    write_kitti_tree(root, num_seqs=2, num_frames=CLI_FRAMES, num_tracks=10,
+                     split_dir="testing", seed=3, real_images=True)
     snapshot = os.path.join(WORK, "snap", "track-mpnn_best.npz")
-    checkpoint.save_model(snapshot, params, stats, cfg)
+    checkpoint.save_model(snapshot, params, mpnn.init_batch_stats(cfg), cfg)
+    checkpoint.save_embed(os.path.join(WORK, "snap", "vis-net_best.npz"),
+                          EmbedTrainer(arch="espv2", input_hw=EMBED_HW, seed=5, device="cpu"))
     with open(os.path.join(WORK, "snap", "config.json"), "w") as f:
-        json.dump({"dataset": "kitti", "category": "All", "detections": "rrc", "feats": "2d",
-                   "cur_win_size": WIN, "ret_win_size": 0, "no_tp_classifier": False,
-                   "num_hidden_feats": cfg.nhidden, "num_att_heads": 0, "msg_type": "diff"}, f)
+        json.dump({"dataset": "kitti", "category": "All", "detections": "rrc",
+                   "feats": DEFAULT_FEATS, "embed_arch": "espv2", "cur_win_size": WIN,
+                   "ret_win_size": 0, "no_tp_classifier": False, "num_hidden_feats": cfg.nhidden,
+                   "num_att_heads": 0, "msg_type": "diff"}, f)
     out_gpu, out_cpu = os.path.join(WORK, "out_cuda"), os.path.join(WORK, "out_cpu")
     t0 = time.perf_counter()
     res = subprocess.run(
@@ -514,18 +618,28 @@ def cli_phase(model, np):
     if res.returncode != 0:
         fail(f"infer CLI exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
     cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
         infer.main(["--snapshot", snapshot, "--dataset-root-path", root,
                     "--output-dir", out_cpu, "--hungarian", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
     files = sorted(f for f in os.listdir(out_gpu) if f.endswith(".txt"))
     if files != ["0000.txt", "0001.txt"]:
         fail(f"infer CLI wrote {files}, expected one result file per sequence")
+    lines = 0
     for name in files:
         with open(os.path.join(out_gpu, name)) as a, open(os.path.join(out_cpu, name)) as b:
-            if a.read() != b.read():
+            text = a.read()
+            if text != b.read():
                 fail(f"infer CLI result {name} differs between cuda and cpu")
-    print(f"cli: {len(files)} result files on cuda in {cli_s:.2f} s, identical to the CPU run")
-    return {"result_files": len(files), "cli_s": cli_s}
+            lines += len(text.splitlines())
+    if lines == 0:
+        fail("infer CLI wrote empty result files")
+    print(f"cli ({DEFAULT_FEATS}, espv2 at {EMBED_HW[0]} x {EMBED_HW[1]}, 2 sequences of "
+          f"{CLI_FRAMES} real PNG frames): {len(files)} result files ({lines} lines) on cuda in "
+          f"{cli_s:.2f} s, identical to the CPU run ({cpu_s:.2f} s)")
+    return {"features": DEFAULT_FEATS, "frames": 2 * CLI_FRAMES, "result_files": len(files),
+            "result_lines": lines, "cli_s": cli_s, "cpu_s": cpu_s}
 
 
 def training_chunks(np):
@@ -1026,9 +1140,9 @@ def gat_serving_phase(torch, np, mp):
     runs, fwd_ms, walls = serve(gpu, seq, np)
     launches = dict(mp.LAUNCHES)
     forwards = len(runs[0][0])
-    if launches != {"gather_diff": forwards, "signed_segment_sum": 0}:
-        fail(f"GAT serving: launches {launches} over {forwards} forwards, expected gather_diff "
-             "once a forward and no signed_segment_sum")
+    if launches != {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": forwards}:
+        fail(f"GAT serving: launches {launches} over {forwards} forwards, expected "
+             "fused_edge_gru once a forward, no gather_diff and no signed_segment_sum")
     cpu_runs, _, _ = serve(Tracker(params, stats, cfg, tcfg, device="cpu"), seq, np)
     (steps, y_out), (c_steps, c_y_out) = runs[0], cpu_runs[0]
     if [n for n, _ in steps] != [n for n, _ in c_steps]:
@@ -1249,7 +1363,7 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
     losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES,
                                                                     round_ops.LAUNCHES))
     check_launches(what, launches, {"gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
-                                    **dict.fromkeys(round_ops.LAUNCHES, 0)})
+                                    "fused_edge_gru": 0, **dict.fromkeys(round_ops.LAUNCHES, 0)})
     if not np.all(np.isfinite(losses)):
         fail(f"{what} loss not finite: {losses}")
     print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
@@ -1387,7 +1501,8 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
     losses_u, events_u, wall_u, launches_u = timed_steps(torch, run_u, counters)
     check_launches("packed training (unfused)", launches_u,
                    {**dict.fromkeys(round_ops.LAUNCHES, 0),
-                    **dict.fromkeys(mp.LAUNCHES, 2 * valid)})
+                    "gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
+                    "fused_edge_gru": 0})
     if not np.all(np.isfinite(losses_u)):
         fail(f"packed training (unfused) loss not finite: {losses_u}")
     print(f"packed training (unfused, make_packed_train_step): {events_u:.3f} ms/step (CUDA "
@@ -1828,6 +1943,80 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
     return rows
 
 
+# ----------------------------------------- the default configuration, served ----
+FULL_IM_HW = (375, 1242)    # a KITTI frame's (h, w): the boxes' pixel space
+
+
+def full_serving_phase(torch, np, mp):
+    """Phase 17: the default configuration served at full width: features
+    2d+temp+vis, nhidden 64, 128 vis features from ESPNetv2 at 384 x 1280
+    (random weights from fixed seeds, BN on its running statistics), on
+    phase 3's three sequences.  Per sequence, EmbedTrainer.infer runs on its
+    100 seeded noise frames (made on the card) at the detections' centres
+    (data/common.center_indices from the boxes in a 375 x 1242 frame),
+    timed by CUDA events; normalized_vis_features gives the vis columns,
+    data/common.assemble_features the 2d and temp ones (the rrc detector's
+    constants).  Then serve_and_check: three launches each of
+    fused_edge_gru and signed_segment_sum a forward, none of gather_diff,
+    the CPU rerun of the same feature matrices within phase 3's limits."""
+    from trackmpnn_tpu_torch.data import common
+    from trackmpnn_tpu_torch.data.kitti import NORM_2D
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train.embed import EmbedTrainer, normalized_vis_features
+
+    cfg = mpnn.ModelConfig(features=DEFAULT_FEATS, ncategories=3, nhidden=HIDDEN)
+    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
+    stats = mpnn.init_batch_stats(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    embed = EmbedTrainer(arch="espv2", input_hw=EMBED_HW, seed=5, device="cuda")
+    no_vis = DEFAULT_FEATS.replace("vis", "")  # the trainer standardises the vis block
+    mean, std = common.feature_norm_table(no_vis, 3, *NORM_2D["rrc"])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    warm = torch.randn(EMBED_T, *EMBED_HW, 3, device="cuda", generator=gen)
+    embed.infer(warm, np.arange(EMBED_T), np.zeros(EMBED_T), np.zeros(EMBED_T))  # cuDNN set-up
+    del warm
+    seqs, embeds = [], []
+    for s in SERVE_SEEDS:
+        _, bp, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=SERVE_FRAMES,
+                                 ncategories=3, seed=s)
+        frames = torch.randn(SERVE_FRAMES, *EMBED_HW, 3, device="cuda", generator=gen)
+        cy, cx = common.center_indices(bp[:, 4:8], FULL_IM_HW, EMBED_HW, embed.down_ratio)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        raw = embed.infer(frames, bp[:, 0].astype(np.int64), cy, cx)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        raw = raw.cpu().numpy()
+        if raw.shape != (len(bp), embed.num_vis_feats) or not np.all(np.isfinite(raw)):
+            fail(f"full-width serving: embeddings of shape {raw.shape}, finite "
+                 f"{bool(np.all(np.isfinite(raw)))}; expected ({len(bp)}, "
+                 f"{embed.num_vis_feats}) finite")
+        X = np.concatenate([common.assemble_features(bp, no_vis, 3, mean, std),
+                            normalized_vis_features(raw)], 1)
+        if X.shape[1] != cfg.nfeatures:
+            fail(f"full-width serving: {X.shape[1]} feature columns, the model takes "
+                 f"{cfg.nfeatures}")
+        seqs.append((X, bp[:, :2].astype(np.int64)))
+        embeds.append({"frames": SERVE_FRAMES, "detections": len(bp), "ms_events": ms,
+                       "frames_per_s": SERVE_FRAMES / (ms / 1e3)})
+        print(f"full-width serving, sequence {s}: embeddings of {len(bp)} detections over "
+              f"{SERVE_FRAMES} frames of {EMBED_HW[0]} x {EMBED_HW[1]} in {ms:.3f} ms "
+              f"({SERVE_FRAMES / (ms / 1e3):.2f} frames/s)")
+        del frames
+    summary = serve_and_check(torch, np, mp, cfg, params, stats, seqs,
+                              (seqs[0][0][:200], seqs[0][1][:200]), "full-width serving")
+    summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    summary["embedding"] = embeds
+    embed_s = sum(e["ms_events"] for e in embeds) / 1e3
+    summary["frames_per_s_with_embedding"] = summary["frames"] / (summary["wall_s"] + embed_s)
+    print(f"full-width serving: peak memory {summary['peak_memory_bytes'] / 2**30:.3f} GiB, "
+          f"frames/s with the embedding {summary['frames_per_s_with_embedding']:.4g}")
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -1877,10 +2066,8 @@ def main():
 
     # 2. kernels, 3. serving, 4. CLI: the serving path
     kernels = kernel_phase(torch, mp, tracker_mod, view_mod)
-    serving, model = serving_phase(torch, np, mp)
-    for k in kernels:
-        k["launches"] = serving["launches"][k["name"]]
-    cli = cli_phase(model, np)
+    serving = serving_phase(torch, np, mp)
+    cli = cli_phase(torch, np)
     # 5. training, 6. block kernels: the training path
     training, inputs, first5 = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0)
     block_kernels, scatter_es = block_kernel_phase(torch, block_ops, inputs,
@@ -1916,6 +2103,18 @@ def main():
     embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
     kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
                                 embedding["dla34_bounded"]["launches"])
+    # 17. the default configuration served at full width
+    full = full_serving_phase(torch, np, mp)
+    # each serving kernel's launches on the path it runs on: gather_diff in
+    # row-layout training (phase 10; a served forward takes fused_edge_gru),
+    # signed_segment_sum serving (phase 3), fused_edge_gru the default
+    # configuration's serving (phase 17)
+    mp_launches = {"gather_diff": batch1["launches"]["gather_diff"],
+                   "signed_segment_sum": serving["launches"]["signed_segment_sum"],
+                   "fused_edge_gru": full["launches"]["fused_edge_gru"]}
+    for k in kernels:
+        if k["name"] in mp_launches:
+            k["launches"] = mp_launches[k["name"]]
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
@@ -1925,7 +2124,7 @@ def main():
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
                        "row_packed": packed_training, "block_compositions": compositions,
-                       "embedding": embedding},
+                       "embedding": embedding, "full_serving": full},
                       f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",

@@ -60,6 +60,7 @@ def test_kernels_match_plain_versions(cuda, n, h):
 @pytest.mark.parametrize("call", [
     "mp.gather_diff(h, bad, idx, mask)",
     "mp.signed_segment_sum(h, idx, bad, mask, 8)",
+    "mp.fused_edge_gru(h16, idx, bad, mask, w, w, b, b)",
 ])
 def test_out_of_range_endpoint_traps_the_kernel(cuda, call):
     """An endpoint outside the rows is a CUDA error at the next
@@ -72,6 +73,8 @@ def test_out_of_range_endpoint_traps_the_kernel(cuda, call):
         "idx = torch.arange(8, dtype=torch.int32, device='cuda')\n"
         "bad = idx.clone(); bad[3] = 8\n"
         "mask = torch.ones(8, dtype=torch.bool, device='cuda')\n"
+        "h16, w = torch.zeros(8, 16, device='cuda'), torch.zeros(16, 48, device='cuda')\n"
+        "b = torch.zeros(48, device='cuda')\n"
         f"{call}\n"
         "torch.cuda.synchronize()\n"
         "print('no error')\n"
@@ -96,6 +99,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mp.gather_diff(hid, past, fut.cpu(), edge)
     # a gradient is no refusal: the ops are autograd Functions
     assert mp.gather_diff(hid.requires_grad_(), past, fut, edge).requires_grad
+
+
+def gru_problem(seed, n, h, device):
+    """problem()'s rows and masks plus edge-GRU weights [H, 3H] and biases
+    [3H] scaled so that the gates spread."""
+    rng = np.random.default_rng(seed + 1)
+    put = lambda *shape, s: torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32)
+                                             ).to(device)
+    return (*problem(seed, n, h, device), put(h, 3 * h, s=h ** -0.5), put(h, 3 * h, s=h ** -0.5),
+            put(3 * h, s=0.3), put(3 * h, s=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(16384, 64), (300, 16), (1000, 32)])
+def test_fused_edge_gru_matches_plain_version(cuda, n, h):
+    """Kernel #3 against its plain version within atol 1e-5 (H-term f32 sums
+    in another order, then sigmoid / tanh), bitwise on a second launch,
+    one launch counted a call."""
+    args = gru_problem(n, n, h, cuda)
+    before = mp.LAUNCHES["fused_edge_gru"]
+    with torch.no_grad():
+        got, again = mp.fused_edge_gru(*args), mp.fused_edge_gru(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mp.edge_gru_reference(*args), rtol=0, atol=1e-5)
+    assert torch.equal(got, again)
+    assert mp.LAUNCHES["fused_edge_gru"] == before + 2
+
+
+@pytest.mark.cuda
+def test_fused_edge_gru_refuses_what_the_kernel_does_not_take(cuda):
+    hid, past, fut, edge, w_ih, w_hh, b_ih, b_hh = gru_problem(0, 64, 16, cuda)
+    call = lambda **kw: mp.fused_edge_gru(*{**dict(h=hid, past=past, fut=fut, edge_mask=edge,
+                                                   w_ih=w_ih, w_hh=w_hh, b_ih=b_ih,
+                                                   b_hh=b_hh), **kw}.values())
+    with pytest.raises(TypeError):
+        call(h=hid.double())
+    with pytest.raises(TypeError):
+        call(past=past.long())
+    with pytest.raises(TypeError):
+        call(w_ih=w_ih[:, :32].contiguous())
+    with pytest.raises(ValueError):
+        call(w_hh=w_hh.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        call(b_ih=b_ih.cpu())
+    with pytest.raises(ValueError):
+        h8 = hid[:, :8].contiguous()
+        mp.fused_edge_gru(h8, past, fut, edge, w_ih[:8, :24].contiguous(),
+                          w_hh[:8, :24].contiguous(), b_ih[:24], b_hh[:24])
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(w_ih=w_ih.clone().requires_grad_())
 
 
 def round_problem(seed, P, na, nt, H, device):
@@ -353,8 +406,9 @@ def test_mp_autograd_launches_each_kernel_as_the_others_backward(cuda):
         (g_gd,) = torch.autograd.grad((mp.gather_diff(x, *idx) * cot.to(dev)).sum(), x)
         (g_ss,) = torch.autograd.grad((mp.signed_segment_sum(x, *idx, n) * cot.to(dev)).sum(), x)
         launched = {k: mp.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"gather_diff": 0, "signed_segment_sum": 0} if dev == "cpu" else
-                            {"gather_diff": 2, "signed_segment_sum": 2})
+        assert launched == ({"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
+                            if dev == "cpu" else
+                            {"gather_diff": 2, "signed_segment_sum": 2, "fused_edge_gru": 0})
         grads[str(dev)] = (g_gd.cpu(), g_ss.cpu())
     torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=0, atol=1e-5)
     assert torch.equal(grads["cuda"][1], grads["cpu"][1])

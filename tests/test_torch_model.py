@@ -21,6 +21,7 @@ from trackmpnn_tpu_torch.models import weights
 torch.set_num_threads(1)
 
 ATOL = 1e-5
+NUM_VIS = 16
 CFG_J = jmpnn.ModelConfig(features="2d", ncategories=3, nhidden=16, msg_type="diff")
 CFG_T = tmpnn.ModelConfig(features="2d", ncategories=3, nhidden=16, msg_type="diff")
 
@@ -139,41 +140,67 @@ def views(g, X, n_new, cap):
     return jv, tv
 
 
-@pytest.mark.parametrize("weights_kind,train,with_hidden", [
-    ("jax_init", False, False),
-    ("spread", False, True),
-    ("spread", True, True),
-])
-def test_forward_matches_jax(weights_kind, train, with_hidden):
+FEATURE_CASES = [
+    pytest.param("2d", "jax_init", False, False, id="jax_init-False-False"),
+    pytest.param("2d", "spread", False, True, id="spread-False-True"),
+    pytest.param("2d", "spread", True, True, id="spread-True-True"),
+] + [pytest.param(f, "spread", train, True, id=f"{f}-{'train' if train else 'eval'}")
+     for f in ("2d+temp", "2d+vis", "vis", "2d+temp+vis") for train in (False, True)]
+
+
+def branch_inputs(X, features, rows, seed):
+    """The window's 2d columns and, per other branch, numpy-seeded columns of
+    its width (temp: [sin, cos] of a frame phase; vis: 16 standardised
+    softmax-like values), in the concatenation order of the branches."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for name, width in tmpnn.branch_widths(features, 3, NUM_VIS):
+        if name == "2d":
+            cols.append(X)
+        elif name == "temp":
+            phase = rng.integers(0, 30, (rows, 1)) * np.pi / 30
+            cols.append(np.concatenate([np.sin(phase), np.cos(phase)], 1))
+        else:
+            cols.append(rng.normal(0, 0.5, (rows, width)))
+    return np.concatenate(cols, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("features,weights_kind,train,with_hidden", FEATURE_CASES)
+def test_forward_matches_jax(features, weights_kind, train, with_hidden):
+    """One forward of both packages on the same window, weights and h_prev:
+    hidden, logits, scores and every branch's BN stats.  The '2d' cases
+    also take JAX's own init; the others run 2 or 3 feature branches
+    (vis with num_vis_feats 16)."""
     g, X, n_new = window_graph(num_tracks=6, num_frames=8, steps=3, seed=4)
     cap = 512
     assert g.n <= cap and np.any(g.ts == -1)
+    X = branch_inputs(X, features, X.shape[0], seed=4)
+    cfg_j = CFG_J._replace(features=features, num_vis_feats=NUM_VIS)
+    cfg_t = CFG_T._replace(features=features, num_vis_feats=NUM_VIS)
     jv, tv = views(g, X, n_new, cap)
-    p_np, s_np = jax_init_weights() if weights_kind == "jax_init" else spread_weights(CFG_T, 4)
-    p, s = weights.from_jax_params(p_np, s_np, CFG_T)
-    h_prev = (np.random.default_rng(4).normal(size=(cap, 16)).astype(np.float32)
+    p_np, s_np = jax_init_weights() if weights_kind == "jax_init" else spread_weights(cfg_t, 4)
+    p, s = weights.from_jax_params(p_np, s_np, cfg_t)
+    nb = len(cfg_t.branches)
+    h_prev = (np.random.default_rng(4).normal(size=(cap, nb * 16)).astype(np.float32)
               if with_hidden else None)
-    want, want_s = jmpnn.forward(p_np, s_np, CFG_J, jv,
+    want, want_s = jmpnn.forward(p_np, s_np, cfg_j, jv,
                                  None if h_prev is None else jnp.asarray(h_prev), train=train)
-    got, got_s = tmpnn.forward(p, s, CFG_T, tv,
+    got, got_s = tmpnn.forward(p, s, cfg_t, tv,
                                None if h_prev is None else torch.from_numpy(h_prev), train=train)
     close(got.hidden, want.hidden)
     close(got.logits, want.logits)
     close(got.scores, want.scores)
-    for k in ("mean", "var"):
-        close(got_s["branches"][0]["bn"][k], want_s["branches"][0]["bn"][k])
+    assert len(got_s["branches"]) == nb
+    for b in range(nb):
+        for k in ("mean", "var"):
+            close(got_s["branches"][b]["bn"][k], want_s["branches"][b]["bn"][k])
     # spread weights put scores on both sides of 0.5, so decisions are tested
     if weights_kind == "spread":
         live = got.scores[: g.n].numpy()
         assert (live > 0.5).any() and (live < 0.5).any()
 
 
-@pytest.mark.parametrize("cfg", [
-    tmpnn.ModelConfig(msg_type="concat"),
-    tmpnn.ModelConfig(features="vis"),
-    tmpnn.ModelConfig(features="2d+temp"),
-    tmpnn.ModelConfig(features="2d+vis"),
-])
+@pytest.mark.parametrize("cfg", [tmpnn.ModelConfig(msg_type="concat")])
 def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmpnn.init_params(torch.Generator().manual_seed(0), cfg)

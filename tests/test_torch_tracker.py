@@ -46,15 +46,28 @@ CASES = {
     "reinit_after_gap": dict(seq=gap_sequence, cfg=dict(cur_win_size=3, hungarian=True)),
     "gat_heads": dict(seq=lambda: synthetic(3), cfg=dict(cur_win_size=5, hungarian=True),
                       nattheads=2),
+    "temp_vis": dict(seq=lambda: with_temp_vis(*synthetic(4)),
+                     cfg=dict(cur_win_size=5, hungarian=True), features="2d+temp+vis"),
 }
+NUM_VIS = 16
+
+
+def with_temp_vis(X, y):
+    """X with the temp columns of each row's frame and NUM_VIS vis columns of
+    seeded numbers in the normalised vis block's range [-1, 1]."""
+    phase = np.mod(y[:, :1], 30) * np.pi / 30
+    vis = np.random.default_rng(4).uniform(-1, 1, (len(y), NUM_VIS))
+    return np.concatenate([X, np.sin(phase), np.cos(phase), vis], 1).astype(np.float32), y
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tracker_matches_jax(case):
     X, y = CASES[case]["seq"]()
     tcfg = CASES[case]["cfg"]
-    heads = CASES[case].get("nattheads", 0)
-    cfg_j, cfg_t = CFG_J._replace(nattheads=heads), CFG_T._replace(nattheads=heads)
+    kw = dict(nattheads=CASES[case].get("nattheads", 0),
+              features=CASES[case].get("features", "2d"), num_vis_feats=NUM_VIS)
+    cfg_j, cfg_t = CFG_J._replace(**kw), CFG_T._replace(**kw)
+    assert X.shape[1] == cfg_t.nfeatures
     p_np, s_np = spread_weights(cfg_t, seed=0, std=0.3)
     p, s = weights.from_jax_params(p_np, s_np, cfg_t)
 

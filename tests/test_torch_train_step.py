@@ -256,3 +256,60 @@ def test_fused_round_refuses_heads(packed_case):
     with pytest.raises(ValueError, match="fused round"):
         packed.packed_window_forward(params, mpnn.init_batch_stats(cfg), cfg, tpb, True,
                                      fused_round=True)
+
+
+# ------------------------------------------------- two feature branches ----
+@pytest.fixture(scope="module")
+def temp_case():
+    """The schedules' windows with the temp columns (each row's frame, as
+    data/common.py::temporal_features gives them) beside the 2d ones, for
+    features '2d+temp', and JAX's loss, aux and grads of its batch-1 and
+    packed forwards on them."""
+    from trackmpnn_tpu_torch.data.common import temporal_features
+
+    chunks, seed = [], 0
+    for frames in (4, 5, 4):
+        while True:
+            X, bp, _ = make_sequence(num_tracks=3, num_frames=frames, seed=seed)
+            seed += 1
+            y = bp[:, :2].astype(np.int64)
+            if schedule.build_window_schedule(X, y) is not None:
+                X = np.concatenate([X, temporal_features(bp[:, :1])], 1).astype(np.float32)
+                chunks.append((X, y))
+                break
+    jw = [jschedule.build_window_schedule(X, y, cap=CAP, t_cap=TCAP) for X, y in chunks]
+    tw = [schedule.build_window_schedule(X, y, cap=CAP, t_cap=TCAP) for X, y in chunks]
+    jcfg, cfg = (c._replace(features="2d+temp") for c in configs())
+    p_np, s_np = spread_weights(cfg, 3)
+    jp = jax.tree_util.tree_map(jnp.asarray, p_np)
+    jsb = jstep.schedule_to_device(jw[0])
+    jpb = jpacked.pack_schedules(jw, CAP, TCAP)
+    batch1 = jax.jit(jax.value_and_grad(
+        lambda p: jstep.window_forward(p, s_np, jcfg, jsb, True), has_aux=True))(jp)
+    pk = jax.jit(jax.value_and_grad(
+        lambda p: jpacked.packed_window_forward(p, s_np, jcfg, jpb, True), has_aux=True))(jp)
+    return tw, cfg, p_np, s_np, {"batch1": batch1, "packed": pk}
+
+
+@pytest.mark.parametrize("path", ["batch1", "packed", "packed_fused"])
+def test_row_layout_with_two_feature_branches_matches_jax(temp_case, path):
+    """The batch-1 and packed (unfused and fused-round) forwards train both
+    branches of a '2d+temp' model: loss, aux, every branch's BN stats, the
+    final hidden state and every gradient against the JAX package's."""
+    tw, cfg, p_np, s_np, jax_out = temp_case
+    (jl, jaux), jg = jax_out["batch1" if path == "batch1" else "packed"]
+    params, stats = port_model(p_np, s_np, cfg)
+    assert len(cfg.branches) == 2
+    if path == "batch1":
+        tl, taux = step.window_forward(params, stats, cfg,
+                                       step.schedule_to_device(tw[0], device="cpu"), True)
+    else:
+        tl, taux = packed.packed_window_forward(params, stats, cfg,
+                                                packed.pack_schedules(tw, CAP, TCAP, "cpu"),
+                                                True, fused_round=path == "packed_fused")
+    tl.backward()
+    assert_losses_match(tl.detach(), taux, jl, jaux)
+    pairs = assert_grads_match(params, jg, cfg)
+    assert any(path.startswith("branches/1/") and np.abs(a).max() > 0 for (path, a), _ in pairs)
+    assert_stats_match(taux["batch_stats"], jaux["batch_stats"], cfg)
+    np.testing.assert_allclose(taux["hidden"].numpy(), np.asarray(jaux["hidden"]), **GRAD)

@@ -32,6 +32,27 @@
 //   within f64 rounding (~1e-14) of an f32 rounding boundary.  The cost is
 //   the scratch's traffic (8 B a value, in L2 at serving sizes).
 //
+// fused_edge_gru
+//   Replaces _edge_gru_kernel / fused_edge_gru in
+//   trackmpnn_tpu/ops/pallas_mp.py (forward only, as there).  Per row i:
+//     ns  = edge_i ? h[past_i] - h[fut_i] : 0
+//     gi  = ns . w_ih + b_ih,  gh = h_i . w_hh + b_hh   ([H, 3H], blocks r|z|n)
+//     r, z = sigmoid(gi + gh) of their blocks,  n = tanh(gi_n + r * gh_n)
+//     out_i = (1 - z) * n + z * h_i
+//   Bound: f32 operations.  The two products take 2 * 2 * H * 3H a row
+//   (49,152 at H = 64) against ~4 * (3H + 3) bytes of traffic a row, ~60
+//   operations a byte, three times the card's f32 ridge (67 TFLOP/s over
+//   3.35 TB/s).  The TPU kernel holds all of h in VMEM and feeds 512-row
+//   tiles to the MXU; here both weight matrices (96 KiB at H = 64) are
+//   staged once per CTA in opted-in dynamic shared memory, and a persistent
+//   grid of CTAs (as many as fit on the SMs) walks tiles of kGruTileRows
+//   rows.  A tile's own rows and its gathered differences go to shared
+//   memory; then each thread owns one hidden unit u (the r, z and n columns
+//   of both products: six dot products) for kGruTileRows / (256 / H) rows,
+//   so each weight read from shared memory feeds that many FMAs and each row
+//   value read is a broadcast.  Products on the CUDA cores in f32, every sum
+//   in k order inside one thread: bitwise repeatable, no atomics.  Any N.
+//
 // An endpoint index of an edge row outside the rows it addresses traps the
 // kernel (a sticky CUDA error that the next synchronisation raises) rather
 // than reading or writing out of bounds; the check is two compares a thread.
@@ -108,6 +129,126 @@ inline unsigned int blocks_for(int64_t total) {
   return (unsigned int)((total + kThreads - 1) / kThreads);
 }
 
+constexpr int kGruThreads = 256;
+constexpr int kGruTileRows = 32;
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <int H>
+constexpr size_t gru_smem_bytes() {
+  return (size_t)(2 * H * 3 * H + 2 * kGruTileRows * H) * sizeof(float);
+}
+
+template <int H>
+__global__ void __launch_bounds__(kGruThreads)
+fused_edge_gru_kernel(const float* __restrict__ h, const int32_t* __restrict__ past,
+                      const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ w_ih, const float* __restrict__ w_hh,
+                      const float* __restrict__ b_ih, const float* __restrict__ b_hh,
+                      float* __restrict__ out, int n_rows) {
+  constexpr int G = 3 * H;                  // columns of a weight matrix
+  constexpr int H4 = H / 4;
+  constexpr int RG = kGruThreads / H;       // row groups: threads that share a unit
+  constexpr int RPT = kGruTileRows / RG;    // rows a thread
+  static_assert(kGruThreads % H == 0 && kGruTileRows % RG == 0, "tile shape");
+  extern __shared__ float4 smem4[];
+  float* s_wih = reinterpret_cast<float*>(smem4);  // [H][3H]
+  float* s_whh = s_wih + H * G;                    // [H][3H]
+  float* s_h = s_whh + H * G;                      // [kGruTileRows][H]: the tile's rows
+  float* s_ns = s_h + kGruTileRows * H;            // [kGruTileRows][H]: their differences
+
+  for (int i = threadIdx.x; i < H * G / 4; i += kGruThreads) {
+    reinterpret_cast<float4*>(s_wih)[i] = __ldg(reinterpret_cast<const float4*>(w_ih) + i);
+    reinterpret_cast<float4*>(s_whh)[i] = __ldg(reinterpret_cast<const float4*>(w_hh) + i);
+  }
+  const int u = threadIdx.x % H;
+  const int rg = threadIdx.x / H;
+  const float bir = b_ih[u], biz = b_ih[H + u], bin = b_ih[2 * H + u];
+  const float bhr = b_hh[u], bhz = b_hh[H + u], bhn = b_hh[2 * H + u];
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+  const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * kGruTileRows;
+    __syncthreads();  // weights staged; the previous tile's rows no longer read
+    for (int i = threadIdx.x; i < kGruTileRows * H4; i += kGruThreads) {
+      const int r = i / H4, c = i - r * H4;
+      const int row = row0 + r;
+      float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), nv = hv;
+      if (row < n_rows) {
+        hv = __ldg(h4 + (int64_t)row * H4 + c);
+        if (mask[row]) {
+          const int32_t p = past[row], f = fut[row];
+          if ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows) __trap();
+          const float4 a = __ldg(h4 + (int64_t)p * H4 + c);
+          const float4 b = __ldg(h4 + (int64_t)f * H4 + c);
+          nv = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+        }
+      }
+      reinterpret_cast<float4*>(s_h)[i] = hv;
+      reinterpret_cast<float4*>(s_ns)[i] = nv;
+    }
+    __syncthreads();
+
+    float ir[RPT], iz[RPT], in_[RPT], hr[RPT], hz[RPT], hn[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) ir[j] = iz[j] = in_[j] = hr[j] = hz[j] = hn[j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float* wi = s_wih + k * G;
+      const float* wh = s_whh + k * G;
+      const float wir = wi[u], wiz = wi[H + u], win = wi[2 * H + u];
+      const float whr = wh[u], whz = wh[H + u], whn = wh[2 * H + u];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = rg + j * RG;
+        const float x = s_ns[r * H + k], y = s_h[r * H + k];
+        ir[j] = fmaf(x, wir, ir[j]);
+        iz[j] = fmaf(x, wiz, iz[j]);
+        in_[j] = fmaf(x, win, in_[j]);
+        hr[j] = fmaf(y, whr, hr[j]);
+        hz[j] = fmaf(y, whz, hz[j]);
+        hn[j] = fmaf(y, whn, hn[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int r = rg + j * RG;
+      const int row = row0 + r;
+      if (row >= n_rows) continue;
+      const float rv = sigmoidf((ir[j] + bir) + (hr[j] + bhr));
+      const float zv = sigmoidf((iz[j] + biz) + (hz[j] + bhz));
+      const float nv = tanhf((in_[j] + bin) + rv * (hn[j] + bhn));
+      out[(int64_t)row * H + u] = (1.f - zv) * nv + zv * s_h[r * H + u];
+    }
+  }
+}
+
+template <int H>
+int launch_fused_edge_gru(const void* h, const void* past, const void* fut, const void* mask,
+                          const void* w_ih, const void* w_hh, const void* b_ih,
+                          const void* b_hh, void* out, int n_rows, cudaStream_t s) {
+  const size_t smem = gru_smem_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(fused_edge_gru_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_gru_kernel<H>,
+                                                           kGruThreads, smem)) != cudaSuccess)
+    return (int)err;
+  const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
+  const int grid = n_tiles < sms * (per_sm > 0 ? per_sm : 1) ? n_tiles
+                                                             : sms * (per_sm > 0 ? per_sm : 1);
+  fused_edge_gru_kernel<H><<<grid, kGruThreads, smem, s>>>(
+      (const float*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
+      (const float*)w_ih, (const float*)w_hh, (const float*)b_ih, (const float*)b_hh,
+      (float*)out, n_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
@@ -150,4 +291,23 @@ extern "C" int tm_signed_segment_sum(const void* h, const void* past,
   round_to_f32_kernel<<<blocks_for(total4), kThreads, 0, s>>>(
       (const double2*)scratch, (float4*)out, total4);
   return (int)cudaGetLastError();
+}
+
+// h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
+// w_ih, w_hh: f32[hidden, 3 * hidden]; b_ih, b_hh: f32[3 * hidden]; out:
+// f32[n_rows, hidden].  hidden is 16, 32 or 64 (else cudaErrorInvalidValue);
+// h, out and the weights 16-byte aligned; past/fut of every masked-in row lie
+// in [0, n_rows), or the kernel traps.
+extern "C" int tm_fused_edge_gru(const void* h, const void* past, const void* fut,
+                                 const void* mask, const void* w_ih, const void* w_hh,
+                                 const void* b_ih, const void* b_hh, void* out, int n_rows,
+                                 int hidden, void* stream) {
+  if (n_rows == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (hidden) {
+    case 16: return launch_fused_edge_gru<16>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
+    case 32: return launch_fused_edge_gru<32>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
+    case 64: return launch_fused_edge_gru<64>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,8 @@
-"""KITTI MOT test split for serving: detection parsing, 2d features and the
-result writer (the counterpart of trackmpnn_tpu/data/kitti.py).  Layout:
+"""KITTI MOT test split for serving: detection parsing, features (2d,
+temp, and vis through a deferred embedding) and the result writer (the
+counterpart of trackmpnn_tpu/data/kitti.py).  Layout:
 
-  <root>/testing/image_02/<seq>/*.png                 (frame counting only)
+  <root>/testing/image_02/<seq>/%06d.png              (frame count; vis input)
   <root>/testing/<detections>_detections/<seq>/%04d.txt
       CSV rows: category,x1,y1,x2,y2,score            (kitti_mot.py:342-364)
 
@@ -9,7 +10,8 @@ bbox rows (kitti_mot.py:360-364):
   [fr, trk_id, cat_id, alpha, x1, y1, x2, y2, h, w, l, x, y, z, rot_y, score]
 
 Each sample is a whole sequence.  The training and validation splits, with
-their labels, chunks and augmentations, come with the training slice.
+their labels, chunks and augmentations, come with the training CLI
+(ROADMAP.md queue 1, 'Training CLI').
 """
 
 from __future__ import annotations
@@ -33,10 +35,26 @@ NORM_2D = {
 
 
 class KittiMOTDataset:
-    """The test split: (features, bbox_pred) per sequence."""
+    """The test split: (features, bbox_pred, bbox_gt, vis) per sequence, as
+    the JAX dataset gives them (bbox_gt is empty: the split has no labels).
 
-    def __init__(self, root: str, cat: str = "All", detections: str = "centertrack",
-                 feats: str = "2d"):
+    With "vis" in feats the embedding net belongs to the caller
+    (train/embed.py::EmbedTrainer), so defer_vis must be on: features then
+    hold every other column and `vis` is the sequence's vis_meta (frame
+    paths, the detections' feature-map centres, detections a frame), which
+    cli/train.py::attach_vis turns into the vis columns.  Otherwise vis is
+    None."""
+
+    def __init__(self, root: str, split: str = "test", cat: str = "All",
+                 detections: str = "centertrack", feats: str = "2d", *, down_ratio: int = 1,
+                 input_hw=(384, 1280), default_im_hw=(375, 1242), defer_vis: bool = False):
+        if split != "test":
+            raise NotImplementedError(
+                f"split {split!r}: only the test split is ported (ROADMAP.md queue 1, "
+                "'Training CLI')")
+        if "vis" in feats and not defer_vis:
+            raise ValueError("feats includes 'vis': the port computes the vis columns "
+                             "through the embedding trainer, pass defer_vis=True")
         self.class_dict = dict(CLASS_DICT)
         if cat == "All":
             self.cats = list(CLASS_DICT) + ["Van", "DontCare"]
@@ -45,14 +63,37 @@ class KittiMOTDataset:
         else:
             self.cats = [cat, "DontCare"]
         self.feats = feats
-        im_path = os.path.join(root, "testing", "image_02")
+        self.down_ratio = down_ratio
+        self.input_hw = input_hw
+        self.default_im_hw = default_im_hw
+        self.fr_range = 30
+        self._im_hw_cache: dict = {}
+        self.im_path = os.path.join(root, "testing", "image_02")
         self.det_path = os.path.join(root, "testing", detections + "_detections")
-        self.chunks = [(s, list(range(len(glob.glob(os.path.join(im_path, s, "*.png"))))))
-                       for s in sorted(os.listdir(im_path))]
-        self.mean, self.std = common.feature_norm_table(len(self.class_dict), *NORM_2D[detections])
+        self.chunks = [(s, list(range(len(glob.glob(os.path.join(self.im_path, s, "*.png"))))))
+                       for s in sorted(os.listdir(self.im_path))]
+        # the vis block is standardised by the trainer (normalized_vis_features)
+        self.mean, self.std = common.feature_norm_table(
+            feats.replace("vis", ""), len(self.class_dict), *NORM_2D[detections])
 
     def __len__(self):
         return len(self.chunks)
+
+    def _im_size(self, seq, fr):
+        """(h, w) of a sequence's frames, read from its first frame asked
+        for and cached; default_im_hw where the file is no image (the
+        placeholders of synthetic trees).  PIL is imported outside the
+        fallback: without it the vis path cannot load frames at all
+        (train/embed.py::load_image raises too)."""
+        if seq not in self._im_hw_cache:
+            import PIL.Image
+
+            try:
+                with PIL.Image.open(os.path.join(self.im_path, seq, "%.6d.png" % fr)) as im:
+                    self._im_hw_cache[seq] = (im.size[1], im.size[0])
+            except OSError:
+                self._im_hw_cache[seq] = self.default_im_hw
+        return self._im_hw_cache[seq]
 
     def load_detections(self, seq, fr):
         path = os.path.join(self.det_path, seq, "%.4d.txt" % fr)
@@ -70,13 +111,25 @@ class KittiMOTDataset:
         return np.array(rows, np.float32) if rows else np.zeros((0, 16), np.float32)
 
     def __getitem__(self, index):
-        """(features, bbox_pred) of one whole sequence."""
+        """(features, bbox_pred, bbox_gt, vis_meta or None) of one whole sequence."""
         seq, fr_list = self.chunks[index]
-        preds = [self.load_detections(seq, fr) for fr in fr_list]
+        vis_meta = {"images": [], "centers": [], "counts": []} if "vis" in self.feats else None
+        preds = []
+        for fr in fr_list:
+            pred = self.load_detections(seq, fr)
+            if vis_meta is not None:
+                cy, cx = common.center_indices(pred[:, 4:8], self._im_size(seq, fr),
+                                               self.input_hw, self.down_ratio)
+                vis_meta["images"].append((os.path.join(self.im_path, seq, "%.6d.png" % fr),
+                                           False))
+                vis_meta["centers"].append((cy, cx))
+                vis_meta["counts"].append(pred.shape[0])
+            preds.append(pred)
         bbox_pred = np.concatenate(preds, 0) if preds else np.zeros((0, 16), np.float32)
-        features = common.assemble_features(bbox_pred, self.feats, len(self.class_dict),
-                                            self.mean, self.std)
-        return features, bbox_pred
+        features = common.assemble_features(bbox_pred, self.feats.replace("vis", ""),
+                                            len(self.class_dict), self.mean, self.std, None,
+                                            self.fr_range)
+        return features, bbox_pred, np.zeros((0, 16), np.float32), vis_meta
 
 
 def store_kitti_results(bbox_pred, y_out, class_dict, output_path):

@@ -91,12 +91,27 @@ def write_kitti_tree(
     split_dir: str = "training",
     detections: str = "rrc",
     seed: int = 0,
+    real_images: bool = False,
     **seq_kwargs,
 ):
-    """Render synthetic sequences into a KITTI MOT file tree (empty image
+    """Render synthetic sequences into a KITTI MOT file tree (image
     placeholders for frame counting, per-frame detection CSVs, 17-column
     label files) so the dataset pipeline - parsing, IoU track-id
-    assignment, chunking - runs end-to-end without real data."""
+    assignment, chunking - runs end-to-end without real data.
+
+    With `real_images=True` every frame is a decodable IM_W x IM_H grey PNG
+    (one encode, its bytes written for every frame; needs PIL), so the vis
+    path, which opens the images, runs on the same tree."""
+    png_bytes = None
+    if real_images:
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.new("RGB", (IM_W, IM_H), (96, 96, 96)).save(buf, format="PNG")
+        png_bytes = buf.getvalue()
+
     for s in range(num_seqs):
         seq = "%04d" % s
         imdir = os.path.join(root, split_dir, "image_02", seq)
@@ -109,7 +124,11 @@ def write_kitti_tree(
         )
         label_lines = []
         for fr in range(num_frames):
-            open(os.path.join(imdir, "%.6d.png" % fr), "ab").close()
+            if png_bytes is not None:
+                with open(os.path.join(imdir, "%.6d.png" % fr), "wb") as imf:
+                    imf.write(png_bytes)
+            else:
+                open(os.path.join(imdir, "%.6d.png" % fr), "ab").close()
             with open(os.path.join(detdir, "%.4d.txt" % fr), "w") as f:
                 for b in bbox_pred[bbox_pred[:, 0] == fr]:
                     name = CAT_NAMES[int(b[2])]

@@ -1,13 +1,14 @@
 """TrackMPNN forward on a GraphView (the counterpart of
 trackmpnn_tpu/models/mpnn.py), for msg_type 'diff', with or without GAT
-attention heads.
+attention heads, for any of the feature branches 2d, temp and vis.
 
   * per-feature-branch input MLP (Linear-BN-ReLU-Linear) applied to the rows
     introduced this step - including zero-feature edge rows, which therefore
     take part in BatchNorm statistics (ref track_mpnn.py:58-61);
   * new edge rows start with zero hidden state;
   * one FactorGraphGRU round per step: edge rows update from the difference
-    of their endpoints' hiddens (ops.mp.gather_diff) through the edge GRU;
+    of their endpoints' hiddens (ops.mp.gather_diff) through the edge GRU,
+    both in one ops.mp.fused_edge_gru where no gradient is recorded;
     detection rows update from the signed sum of incident edge hiddens
     (ops.mp.signed_segment_sum), or with attention heads from the mean over
     heads of the attention-weighted signed sums, through the node GRU (ref
@@ -73,11 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"msg_type={cfg.msg_type!r} is not ported yet "
             "(ROADMAP.md queue 1, 'msg concat and the row-layout train paths')")
-    other = [name for name, _ in cfg.branches if name != "2d"]
-    if other:
-        raise NotImplementedError(
-            f"feature branches {other} are not ported yet "
-            "(ROADMAP.md queue 1, 'Feature branches temp and vis')")
 
 
 class ModelOutput(NamedTuple):
@@ -148,8 +144,12 @@ def _factor_graph_gru(params, h, g: GraphView, nattheads, generator, keeps=None)
     """FactorGraphGRU round (ref layers.py:84-116): edge-GRU then node-GRU.
     keeps: per head, the keep mask of its attention dropout, or None."""
     em = g.edge_mask()
-    node_support = mp.gather_diff(h, g.past, g.fut, em)
-    edge_out = nn.gru_cell(params["edge_gru"], node_support, h)
+    eg = params["edge_gru"]
+    if torch.is_grad_enabled():
+        edge_out = nn.gru_cell(eg, mp.gather_diff(h, g.past, g.fut, em), h)
+    else:  # the same function in one launch, which has no backward
+        edge_out = mp.fused_edge_gru(h, g.past, g.fut, em, eg["w_ih"], eg["w_hh"],
+                                     eg["b_ih"], eg["b_hh"])
     if nattheads > 0:
         keeps = keeps if keeps is not None else [None] * nattheads
         edge_support = sum(_gat_head(hp, h, g, generator, k)

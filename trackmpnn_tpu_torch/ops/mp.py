@@ -1,5 +1,6 @@
 """Message-passing ops of the serving path (the counterpart of
-trackmpnn_tpu/ops/pallas_mp.py's gather_diff and signed_segment_sum).
+trackmpnn_tpu/ops/pallas_mp.py's gather_diff, signed_segment_sum and
+fused_edge_gru).
 
 Each op has
   * a plain PyTorch version (`*_reference`), the semantics the tests hold
@@ -15,7 +16,13 @@ gather_diff and signed_segment_sum are autograd Functions (GatherDiff,
 SignedSegmentSum) whose backward calls the other op's kernel on a CUDA
 tensor and its plain version on a CPU tensor.  Indices and masks get no
 gradient.  A forward launches its kernel once, a backward the other one
-once, so a served forward (no gradient) still counts one launch of each.
+once.
+
+fused_edge_gru (pallas_mp.py:84) is gather_diff and the edge GRU in one
+launch, forward only as on the TPU: it refuses to run where autograd would
+need its gradient.  The served forward (no gradient recorded) takes it in
+place of gather_diff + models/nn.gru_cell, so a served forward launches
+fused_edge_gru and signed_segment_sum once a feature branch each.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 
 from trackmpnn_tpu_torch.ops import _build
 
-LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0}
+LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
+EDGE_GRU_WIDTHS = (16, 32, 64)  # the hidden widths csrc/mp_kernels.cu is built for
 
 
 # -------------------------------------------------------------- references ----
@@ -45,6 +53,20 @@ def signed_segment_sum_reference(h, past, fut, edge_mask, n):
     acc.index_add_(0, torch.where(m, past, n), hm)
     acc.index_add_(0, torch.where(m, fut, n), -hm)
     return acc[:n].to(h.dtype)
+
+
+def edge_gru_reference(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh):
+    """ns = h[past] - h[fut] on edge rows (0 elsewhere), then the
+    torch-order GRU cell on every row (pallas_mp.py:41-51): weights [H, 3H]
+    with column blocks [r | z | n]."""
+    ns = gather_diff_reference(h, past, fut, edge_mask)
+    H = h.shape[1]
+    gi = ns @ w_ih + b_ih
+    gh = h @ w_hh + b_hh
+    r = torch.sigmoid(gi[:, :H] + gh[:, :H])
+    z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
+    n = torch.tanh(gi[:, 2 * H:] + r * gh[:, 2 * H:])
+    return (1.0 - z) * n + z * h
 
 
 # ---------------------------------------------------------------- wrappers ----
@@ -170,3 +192,49 @@ def signed_segment_sum(h, past, fut, edge_mask, n):
         raise ValueError(f"signed_segment_sum: a gradient needs n == N, got n {n}, "
                          f"N {h.shape[0]}")
     return SignedSegmentSum.apply(h, past, fut, edge_mask, n)
+
+
+def _check_gru_weights(h, w_ih, w_hh, b_ih, b_hh):
+    H = h.shape[1]
+    if H not in EDGE_GRU_WIDTHS:
+        raise ValueError(f"fused_edge_gru: hidden width {H} is not one of {EDGE_GRU_WIDTHS}")
+    for label, t, shape in (("w_ih", w_ih, (H, 3 * H)), ("w_hh", w_hh, (H, 3 * H)),
+                            ("b_ih", b_ih, (3 * H,)), ("b_hh", b_hh, (3 * H,))):
+        if t.device != h.device:
+            raise ValueError(f"fused_edge_gru: {label} is on {t.device}, h on {h.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise TypeError(f"fused_edge_gru: {label} must be f32{list(shape)}, got "
+                            f"{t.dtype}{list(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+            raise ValueError(f"fused_edge_gru: {label} must be contiguous and 16-byte aligned")
+
+
+def fused_edge_gru(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh):
+    """edge_gru_reference's function in one launch of the kernel on a CUDA
+    tensor, the plain version on a CPU tensor.  Forward only, as the TPU
+    kernel: it raises where autograd would need a gradient (grad enabled and
+    an input requiring grad) on every device.  h f32[N, H] with H in
+    EDGE_GRU_WIDTHS on the card; any N.  past/fut of every edge row must lie
+    in [0, N); on the card an index outside traps the kernel, and the next
+    synchronisation raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, w_ih, w_hh, b_ih, b_hh)):
+        raise RuntimeError("fused_edge_gru has no backward (as pallas_mp.fused_edge_gru); "
+                           "run it under torch.no_grad() / inference_mode, or take "
+                           "gather_diff + models.nn.gru_cell where a gradient is needed")
+    if not _dispatch(h):
+        return edge_gru_reference(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh)
+    _check_cuda_inputs("fused_edge_gru", h, past, fut, edge_mask)
+    _check_gru_weights(h, w_ih, w_hh, b_ih, b_hh)
+    N, H = h.shape
+    out = torch.empty_like(h)
+    if N == 0:
+        return out
+    with torch.cuda.device(h.device):
+        rc = _build.load().tm_fused_edge_gru(
+            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(),
+            w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
+            out.data_ptr(), N, H, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_edge_gru kernel launch failed: CUDA error {rc}")
+    LAUNCHES["fused_edge_gru"] += 1
+    return out

@@ -453,6 +453,10 @@ def _fused_step_losses(partials, logits_d, det_label, det_live, B, tp_classifier
 
 def _check_composition(cfg, es_kernel):
     mpnn.check_supported(cfg)
+    if len(cfg.branches) > 1:  # the step reads branch 0 only
+        raise NotImplementedError(
+            f"the block step trains one feature branch; features={cfg.features!r} has "
+            f"{len(cfg.branches)} (ROADMAP.md queue 1, 'Feature branches temp and vis')")
     if es_kernel and cfg.nattheads > 0:
         raise ValueError("es_kernel computes edge_support without attention: it takes no "
                          "attention heads (nattheads > 0)")
@@ -467,8 +471,8 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     as the TPU runs it: fused round, defer_loss, hoisted BN, window
     scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
     aux holds loss_ce, loss_f, tp, fp, fn (detached) and the new BN running
-    stats (`batch_stats`).  Features '2d', msg 'diff'; mpnn.check_supported
-    raises for the rest, naming its ROADMAP item.
+    stats (`batch_stats`).  One feature branch, msg 'diff'; it raises
+    NotImplementedError for the rest, naming its ROADMAP item.
 
     With attention heads, training applies dropout to the attention weights:
     att_keep[s] is round s's pair of keep masks (draw_att_keep's shapes,

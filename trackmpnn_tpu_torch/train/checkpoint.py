@@ -6,6 +6,12 @@ is a JSON dict of the Python scalars (epoch, best_mota, ...).  None
 subtrees (an absent optimizer state) write nothing.  So a snapshot trained
 by the JAX package serves in the port as it is, and one the port writes
 loads in the JAX package.
+
+The embedding net's snapshot (vis-net_*.npz beside track-mpnn_*.npz) is
+the JAX package's checkpoint.save({"params", "opt_state"}) of its
+EmbedTrainer: the backbone's flat dict under params/ (backbones/weights.py
+maps it) and optax's inject_hyperparams(masked(adam with L2)) state under
+opt_state/ (save_embed, load_embed).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from trackmpnn_tpu_torch.backbones.weights import (backbone_to_jax_params, state_dict_from_jax,
+                                                  state_dict_to_jax)
 from trackmpnn_tpu_torch.models import weights
 from trackmpnn_tpu_torch.models.mpnn import ModelConfig
 
@@ -70,3 +78,39 @@ def load(path: str, cfg: ModelConfig, device="cpu"):
         params_np = weights.map_shaped(read("params"), shapes, shapes)
         stats_np = weights.map_shaped(read("batch_stats"), stat_shapes, stat_shapes)
     return weights.from_jax_params(params_np, stats_np, cfg, device)
+
+
+def save_embed(path: str, trainer) -> None:
+    """An EmbedTrainer's net and Adam state as the JAX package's vis-net
+    snapshot, which its cli/train.py::load_vis_net restores: params/<key>
+    the backbone's flat dict; opt_state/count and .../inner_state/1/count
+    the step count, opt_state/hyperparams the lr and L2, .../1/mu/<key> and
+    .../1/nu/<key> Adam's moments of each trained parameter (the BN running
+    statistics are masked out there and have none), zero before a step."""
+    group = trainer.opt.param_groups[0]
+    moments = {"mu": {}, "nu": {}}
+    count = 0
+    for name, p in trainer.net.named_parameters():
+        st = trainer.opt.state.get(p, {})
+        count = max(count, int(st["step"]) if "step" in st else 0)
+        moments["mu"][name] = st.get("exp_avg", torch.zeros_like(p))
+        moments["nu"][name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    adam = {"count": np.int32(count),
+            **{k: state_dict_to_jax(v) for k, v in moments.items()}}
+    save(path, {"params": backbone_to_jax_params(trainer.net),
+                "opt_state": {"count": np.int32(count),
+                              "hyperparams": {"learning_rate": np.float32(group["lr"]),
+                                              "weight_decay": np.float32(group["weight_decay"])},
+                              "inner_state": {"inner_state": [None, adam]}}})
+
+
+def load_embed(path: str, trainer) -> None:
+    """Set an EmbedTrainer's net (weights and BN running statistics) from a
+    JAX-format vis-net snapshot.  Its optimizer state is not read: it
+    matters only to a trainer that goes on training, and the port's
+    trainer serves from a snapshot (the training CLI that would resume one
+    is ROADMAP.md queue 1, 'Training CLI')."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {name[len("arr:params/"):]: data[name] for name in data.files
+                if name.startswith("arr:params/")}
+    trainer.net.load_state_dict(state_dict_from_jax(flat, trainer.net.state_dict()))
