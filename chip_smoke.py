@@ -21,6 +21,8 @@ failure exits non-zero:
     timed with CUDA events beside its plain version, its memory/compute
     bound, for the scatter torch's index_add_ and for fused_edge_gru the
     route it replaces (gather_diff, then the GRU cell's two matmuls).
+    fused_edge_gru is held and timed once more at H = 128 (two unit blocks
+    and two k chunks of the weights), outside the kernels line.
  3. Serving: the Tracker on cuda with random weights from a fixed seed (BN
     in eval mode) serves three 30-track x 100-frame sequences (features
     2d).  A served forward records no gradient, so it launches
@@ -181,6 +183,7 @@ SERVE_TRACKS, SERVE_FRAMES, SERVE_SEEDS, WIN = 30, 100, (0, 1, 2), 5
 HIDDEN = 64
 SCATTER_RTOL = SCATTER_ATOL = 1e-5
 EDGE_GRU_ATOL = 1e-5  # fused_edge_gru: 64-term f32 sums in another order, then sigmoid/tanh
+EDGE_GRU_WIDE = 128  # fused_edge_gru's second check: a width wider than one k chunk
 # the CLIs' default features (trackmpnn_tpu/utils/config.py:37), with espv2.
 # The machine with the card has PIL, so phase 4 reads real PNGs through the
 # embedding net; its frames are cut (not the input size) to keep the CLI's
@@ -402,9 +405,14 @@ def kernel_phase(torch, mp, tracker_mod, view_mod):
     past, fut, em = view.past, view.fut, view.edge_mask()
     print(f"kernel inputs: live rows {g.n}, edge rows {int(em.sum())}, capacity {cap}, "
           f"H {HIDDEN}")
-    return [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving")
+    rows = [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving")
             for name in MP_REPLACES] + [edge_gru_row(torch, mp, h, past, fut, em, g.n,
                                                      "serving")]
+    # a width of two unit blocks and two k chunks of the weights
+    h_wide = torch.randn(cap, EDGE_GRU_WIDE, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    wide = edge_gru_row(torch, mp, h_wide, past, fut, em, g.n, f"serving, H {EDGE_GRU_WIDE}")
+    return rows, wide
 
 
 @contextlib.contextmanager
@@ -2065,7 +2073,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     # 2. kernels, 3. serving, 4. CLI: the serving path
-    kernels = kernel_phase(torch, mp, tracker_mod, view_mod)
+    kernels, edge_gru_wide = kernel_phase(torch, mp, tracker_mod, view_mod)
     serving = serving_phase(torch, np, mp)
     cli = cli_phase(torch, np)
     # 5. training, 6. block kernels: the training path
@@ -2119,7 +2127,8 @@ def main():
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "window_scatter_es": scatter_es,
+            json.dump({"card": card, "kernels": kernels, "fused_edge_gru_wide": edge_gru_wide,
+                       "window_scatter_es": scatter_es,
                        "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,

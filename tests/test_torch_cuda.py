@@ -112,11 +112,13 @@ def gru_problem(seed, n, h, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h", [(16384, 64), (300, 16), (1000, 32)])
+@pytest.mark.parametrize("n,h", [(16384, 64), (300, 16), (1000, 32), (2000, 48), (777, 100),
+                                 (3000, 128)])
 def test_fused_edge_gru_matches_plain_version(cuda, n, h):
     """Kernel #3 against its plain version within atol 1e-5 (H-term f32 sums
     in another order, then sigmoid / tanh), bitwise on a second launch,
-    one launch counted a call."""
+    one launch counted a call.  H 48 leaves a CTA's units part idle; H 100
+    and 128 take two unit blocks and two k chunks of the weights."""
     args = gru_problem(n, n, h, cuda)
     before = mp.LAUNCHES["fused_edge_gru"]
     with torch.no_grad():
@@ -143,10 +145,10 @@ def test_fused_edge_gru_refuses_what_the_kernel_does_not_take(cuda):
         call(w_hh=w_hh.t().contiguous().t())  # not contiguous
     with pytest.raises(ValueError):
         call(b_ih=b_ih.cpu())
-    with pytest.raises(ValueError):
-        h8 = hid[:, :8].contiguous()
-        mp.fused_edge_gru(h8, past, fut, edge, w_ih[:8, :24].contiguous(),
-                          w_hh[:8, :24].contiguous(), b_ih[:24], b_hh[:24])
+    with pytest.raises(ValueError):  # H not a multiple of 4
+        h6 = hid[:, :6].contiguous()
+        mp.fused_edge_gru(h6, past, fut, edge, w_ih[:6, :18].contiguous(),
+                          w_hh[:6, :18].contiguous(), b_ih[:18].clone(), b_hh[:18].clone())
     with pytest.raises(RuntimeError, match="no backward"):
         call(w_ih=w_ih.clone().requires_grad_())
 

@@ -87,7 +87,7 @@ def test_test_split_matches_jax(trees, feats, real, arch):
     features, bbox_pred, bbox_gt and vis_meta of every sequence."""
     down, hw = (1 if arch == "espv2" else 4), (64, 192)
     kw = dict(down_ratio=down, input_hw=hw, defer_vis=True)
-    got_ds = kitti.KittiMOTDataset(trees[real], "test", "All", "rrc", feats, **kw)
+    got_ds = kitti.KittiMOTDataset(trees[real], "All", "rrc", feats, **kw)
     want_ds = jkitti.KittiMOTDataset(trees[real], "test", "All", "rrc", feats, 5, 0, **kw)
     assert len(got_ds) == len(want_ds) == 2
     np.testing.assert_array_equal(got_ds.mean, want_ds.mean)
@@ -106,11 +106,9 @@ def test_test_split_matches_jax(trees, feats, real, arch):
             np.testing.assert_array_equal(gy, wy)
             np.testing.assert_array_equal(gx, wx)
     im_hw = got_ds._im_size("0000", 0)
-    assert im_hw == ((375, 1242) if real else got_ds.default_im_hw)
+    assert im_hw == ((375, 1242) if real else kitti.DEFAULT_IM_HW)
 
 
 def test_test_split_refusals(trees):
     with pytest.raises(ValueError, match="defer_vis"):
-        kitti.KittiMOTDataset(trees[False], "test", "All", "rrc", "2d+vis")
-    with pytest.raises(NotImplementedError, match="Training CLI"):
-        kitti.KittiMOTDataset(trees[False], "train", "All", "rrc", "2d")
+        kitti.KittiMOTDataset(trees[False], "All", "rrc", "2d+vis")

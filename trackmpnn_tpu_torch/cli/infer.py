@@ -34,7 +34,7 @@ def main(argv: Optional[List[str]] = None):
         raise NotImplementedError(
             f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue 1, 'BDD100K data')")
     # the trainer owns the embedding net (trackmpnn_tpu/cli/train.py:41-61)
-    infer_ds = KittiMOTDataset(args.dataset_root_path, "test", args.category, args.detections,
+    infer_ds = KittiMOTDataset(args.dataset_root_path, args.category, args.detections,
                                args.feats, down_ratio=1 if args.embed_arch == "espv2" else 4,
                                input_hw=default_input_hw(args), defer_vis=True)
     embed = make_embed_trainer(args)
@@ -56,8 +56,7 @@ def main(argv: Optional[List[str]] = None):
         if feats.shape[0] == 0:
             print("No detections available for sequence...")
             continue
-        feats, _ = attach_vis(feats, vis_meta, embed, bbox_pred[:, 1].astype(np.int32),
-                              train=False)
+        feats = attach_vis(feats, vis_meta, embed)
         y_seq = bbox_pred[:, :2].astype(np.int64)
         y_out = tracker.run(
             feats, y_seq,

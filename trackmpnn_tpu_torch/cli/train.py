@@ -32,7 +32,7 @@ def make_embed_trainer(args):
                         device=args.device)
 
 
-def load_vis_net(embed, snapshot_path: str, require: bool = True):
+def load_vis_net(embed, snapshot_path: str):
     """Restore the embedding net saved beside a tracker snapshot, found by
     the reference's naming (track-mpnn_X -> vis-net_X, ref infer.py:15-16).
     An entry point that attaches vis features to a loaded tracker must call
@@ -45,26 +45,22 @@ def load_vis_net(embed, snapshot_path: str, require: bool = True):
     vis_path = os.path.join(os.path.dirname(snapshot_path),
                             os.path.basename(snapshot_path).replace("track-mpnn", "vis-net"))
     if not os.path.exists(vis_path):
-        if require:
-            raise FileNotFoundError(
-                f"feats include 'vis' but no embedding checkpoint at {vis_path} "
-                "(saved alongside the tracker snapshot)")
-        return
+        raise FileNotFoundError(
+            f"feats include 'vis' but no embedding checkpoint at {vis_path} "
+            "(saved alongside the tracker snapshot)")
     checkpoint.load_embed(vis_path, embed)
 
 
-def attach_vis(features, vis_meta, embed, track_ids, train: bool):
-    """The chunk's vis features appended to `features` as the normalised vis
-    block.  Returns (features, embed_loss)."""
+def attach_vis(features, vis_meta, embed):
+    """The sequence's vis features, inferred by the embedding net, appended
+    to `features` as the normalised vis block.  (The training CLI's form,
+    which trains the net on the chunk, comes with it.)"""
     from trackmpnn_tpu_torch.train.embed import normalized_vis_features
 
     if embed is None or vis_meta is None:
-        return features, 0.0
-    if train:
-        raw, loss = embed.train_chunk(vis_meta, track_ids)
-    else:
-        raw, loss = embed.infer_chunk(vis_meta), 0.0
+        return features
+    raw = embed.infer_chunk(vis_meta)
     if raw.shape[0] != features.shape[0]:
         raise RuntimeError(
             f"vis feature rows {raw.shape[0]} != detection rows {features.shape[0]}")
-    return np.concatenate([features, normalized_vis_features(raw)], axis=1), loss
+    return np.concatenate([features, normalized_vis_features(raw)], axis=1)

@@ -43,15 +43,21 @@
 //   (49,152 at H = 64) against ~4 * (3H + 3) bytes of traffic a row, ~60
 //   operations a byte, three times the card's f32 ridge (67 TFLOP/s over
 //   3.35 TB/s).  The TPU kernel holds all of h in VMEM and feeds 512-row
-//   tiles to the MXU; here both weight matrices (96 KiB at H = 64) are
-//   staged once per CTA in opted-in dynamic shared memory, and a persistent
-//   grid of CTAs (as many as fit on the SMs) walks tiles of kGruTileRows
-//   rows.  A tile's own rows and its gathered differences go to shared
-//   memory; then each thread owns one hidden unit u (the r, z and n columns
-//   of both products: six dot products) for kGruTileRows / (256 / H) rows,
-//   so each weight read from shared memory feeds that many FMAs and each row
-//   value read is a broadcast.  Products on the CUDA cores in f32, every sum
-//   in k order inside one thread: bitwise repeatable, no atomics.  Any N.
+//   tiles to the MXU.  Here a CTA owns UC hidden units (16, 32 or 64: the
+//   smallest that covers H, else 64; gridDim.y = ceil(H / UC)) and walks
+//   tiles of kGruTileRows rows in a persistent grid (as many CTAs as fit on
+//   the SMs).  The k loop runs in chunks of kGruKChunk: the chunk's rows of
+//   both weight matrices (their UC columns of each gate block) and the
+//   tile's h and gathered-difference columns go to opted-in dynamic shared
+//   memory.  Where H <= kGruKChunk there is one chunk and the weights are
+//   staged once a CTA (96 KiB at H = 64); wider widths (H = 128 would need
+//   384 KiB) restage each chunk a tile.  Each thread owns one unit u (the r,
+//   z and n columns of both products: six dot products) for kGruTileRows /
+//   (256 / UC) rows, so each weight read from shared memory feeds that many
+//   FMAs and each row value read is a broadcast.  Products on the CUDA
+//   cores in f32, every sum in k order inside one thread whatever the
+//   chunking: bitwise repeatable, no atomics.  Any N, any H % 4 == 0;
+//   H 16, 32 and 64 get instances with H known to the compiler.
 //
 // An endpoint index of an edge row outside the rows it addresses traps the
 // kernel (a sticky CUDA error that the next synchronisation raises) rather
@@ -131,121 +137,169 @@ inline unsigned int blocks_for(int64_t total) {
 
 constexpr int kGruThreads = 256;
 constexpr int kGruTileRows = 32;
+constexpr int kGruKChunk = 64;  // rows k of the weights staged at once
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <int H>
-constexpr size_t gru_smem_bytes() {
-  return (size_t)(2 * H * 3 * H + 2 * kGruTileRows * H) * sizeof(float);
+// Units a CTA owns: the smallest of 16, 32, 64 that covers H, else 64.
+inline int gru_units(int hidden) { return hidden <= 16 ? 16 : hidden <= 32 ? 32 : 64; }
+
+// Shared memory of a CTA: two weight chunks [ks][3][UC] and the tile's h and
+// ns columns [kGruTileRows][ks], ks = min(H, kGruKChunk).
+inline size_t gru_smem_bytes(int units, int hidden) {
+  const int ks = hidden < kGruKChunk ? hidden : kGruKChunk;
+  return (size_t)(2 * ks * 3 * units + 2 * kGruTileRows * ks) * sizeof(float);
 }
 
-template <int H>
+// Grid (tile CTAs, ceil(H / UC)): blockIdx.y picks the units [u0, u0 + UC),
+// blockIdx.x walks tiles of kGruTileRows rows.  Each thread owns unit u of
+// its CTA and RPT rows of a tile; the k loop runs in chunks of kGruKChunk
+// (the chunk's weight rows, the tile's h and ns columns in shared memory).
+// HF is H where H == UC (16, 32, 64: strides and loop bounds known to the
+// compiler), else 0 (H from `hidden`).
+template <int UC, int HF>
 __global__ void __launch_bounds__(kGruThreads)
 fused_edge_gru_kernel(const float* __restrict__ h, const int32_t* __restrict__ past,
                       const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
                       const float* __restrict__ w_ih, const float* __restrict__ w_hh,
                       const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-                      float* __restrict__ out, int n_rows) {
-  constexpr int G = 3 * H;                  // columns of a weight matrix
-  constexpr int H4 = H / 4;
-  constexpr int RG = kGruThreads / H;       // row groups: threads that share a unit
+                      float* __restrict__ out, int n_rows, int hidden) {
+  const int H = HF ? HF : hidden;
+  constexpr int RG = kGruThreads / UC;      // row groups: threads that share a unit
   constexpr int RPT = kGruTileRows / RG;    // rows a thread
-  static_assert(kGruThreads % H == 0 && kGruTileRows % RG == 0, "tile shape");
+  constexpr int UC4 = UC / 4;
+  static_assert(kGruThreads % UC == 0 && kGruTileRows % RG == 0, "tile shape");
   extern __shared__ float4 smem4[];
-  float* s_wih = reinterpret_cast<float*>(smem4);  // [H][3H]
-  float* s_whh = s_wih + H * G;                    // [H][3H]
-  float* s_h = s_whh + H * G;                      // [kGruTileRows][H]: the tile's rows
-  float* s_ns = s_h + kGruTileRows * H;            // [kGruTileRows][H]: their differences
-
-  for (int i = threadIdx.x; i < H * G / 4; i += kGruThreads) {
-    reinterpret_cast<float4*>(s_wih)[i] = __ldg(reinterpret_cast<const float4*>(w_ih) + i);
-    reinterpret_cast<float4*>(s_whh)[i] = __ldg(reinterpret_cast<const float4*>(w_hh) + i);
-  }
-  const int u = threadIdx.x % H;
-  const int rg = threadIdx.x / H;
-  const float bir = b_ih[u], biz = b_ih[H + u], bin = b_ih[2 * H + u];
-  const float bhr = b_hh[u], bhz = b_hh[H + u], bhn = b_hh[2 * H + u];
+  const int H4 = H / 4;
+  const int ks = H < kGruKChunk ? H : kGruKChunk;  // k values a chunk holds
+  float* s_wih = reinterpret_cast<float*>(smem4);  // [ks][3][UC]: the chunk's rows, gate blocks
+  float* s_whh = s_wih + ks * 3 * UC;              // [ks][3][UC]
+  float* s_h = s_whh + ks * 3 * UC;                // [kGruTileRows][ks]: the tile's rows
+  float* s_ns = s_h + kGruTileRows * ks;           // [kGruTileRows][ks]: their differences
+  const int u0 = blockIdx.y * UC;
+  const int uw4 = (H - u0 < UC ? H - u0 : UC) / 4;  // live float4s of a gate block here
+  const int lu = threadIdx.x % UC, rg = threadIdx.x / UC;
+  const int u = u0 + lu;
+  const bool live = lu < uw4 * 4;
+  const float bir = live ? b_ih[u] : 0.f, biz = live ? b_ih[H + u] : 0.f;
+  const float bin = live ? b_ih[2 * H + u] : 0.f, bhr = live ? b_hh[u] : 0.f;
+  const float bhz = live ? b_hh[H + u] : 0.f, bhn = live ? b_hh[2 * H + u] : 0.f;
   const float4* h4 = reinterpret_cast<const float4*>(h);
+  const float4* wih4 = reinterpret_cast<const float4*>(w_ih);
+  const float4* whh4 = reinterpret_cast<const float4*>(w_hh);
   const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
+  const bool one_chunk = H <= kGruKChunk;
+
+  // Weight rows [k0, k0 + kc), columns [u0, u0 + UC) of each gate block;
+  // zero beyond H.  Offsets are multiples of 4 floats (H % 4 == 0, u0 % 16 == 0).
+  auto stage_weights = [&](int k0, int kc) {
+    for (int i = threadIdx.x; i < kc * 3 * UC4; i += kGruThreads) {
+      const int kk = i / (3 * UC4), rest = i - kk * 3 * UC4;
+      const int g = rest / UC4, c = rest - g * UC4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (c < uw4) {
+        const int64_t off = ((int64_t)(k0 + kk) * 3 * H + g * H + u0) / 4 + c;
+        a = __ldg(wih4 + off);
+        b = __ldg(whh4 + off);
+      }
+      reinterpret_cast<float4*>(s_wih)[i] = a;
+      reinterpret_cast<float4*>(s_whh)[i] = b;
+    }
+  };
+  if (one_chunk) stage_weights(0, H);  // once a CTA: every tile reads the same weights
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * kGruTileRows;
-    __syncthreads();  // weights staged; the previous tile's rows no longer read
-    for (int i = threadIdx.x; i < kGruTileRows * H4; i += kGruThreads) {
-      const int r = i / H4, c = i - r * H4;
-      const int row = row0 + r;
-      float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), nv = hv;
-      if (row < n_rows) {
-        hv = __ldg(h4 + (int64_t)row * H4 + c);
-        if (mask[row]) {
-          const int32_t p = past[row], f = fut[row];
-          if ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows) __trap();
-          const float4 a = __ldg(h4 + (int64_t)p * H4 + c);
-          const float4 b = __ldg(h4 + (int64_t)f * H4 + c);
-          nv = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-        }
-      }
-      reinterpret_cast<float4*>(s_h)[i] = hv;
-      reinterpret_cast<float4*>(s_ns)[i] = nv;
-    }
-    __syncthreads();
-
     float ir[RPT], iz[RPT], in_[RPT], hr[RPT], hz[RPT], hn[RPT];
 #pragma unroll
     for (int j = 0; j < RPT; ++j) ir[j] = iz[j] = in_[j] = hr[j] = hz[j] = hn[j] = 0.f;
+    for (int k0 = 0; k0 < H; k0 += kGruKChunk) {
+      const int kc = H - k0 < kGruKChunk ? H - k0 : kGruKChunk, kc4 = kc / 4;
+      __syncthreads();  // weights staged; the previous chunk no longer read
+      if (!one_chunk) stage_weights(k0, kc);
+      for (int i = threadIdx.x; i < kGruTileRows * kc4; i += kGruThreads) {
+        const int r = i / kc4, c = i - r * kc4;
+        const int row = row0 + r;
+        float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), nv = hv;
+        if (row < n_rows) {
+          hv = __ldg(h4 + (int64_t)row * H4 + k0 / 4 + c);
+          if (mask[row]) {
+            const int32_t p = past[row], f = fut[row];
+            if ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows) __trap();
+            const float4 a = __ldg(h4 + (int64_t)p * H4 + k0 / 4 + c);
+            const float4 b = __ldg(h4 + (int64_t)f * H4 + k0 / 4 + c);
+            nv = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+          }
+        }
+        reinterpret_cast<float4*>(s_h)[r * (ks / 4) + c] = hv;
+        reinterpret_cast<float4*>(s_ns)[r * (ks / 4) + c] = nv;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float* wi = s_wih + k * G;
-      const float* wh = s_whh + k * G;
-      const float wir = wi[u], wiz = wi[H + u], win = wi[2 * H + u];
-      const float whr = wh[u], whz = wh[H + u], whn = wh[2 * H + u];
+      for (int kk = 0; kk < kc; ++kk) {
+        const float* wi = s_wih + kk * 3 * UC;
+        const float* wh = s_whh + kk * 3 * UC;
+        const float wir = wi[lu], wiz = wi[UC + lu], win = wi[2 * UC + lu];
+        const float whr = wh[lu], whz = wh[UC + lu], whn = wh[2 * UC + lu];
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = rg + j * RG;
-        const float x = s_ns[r * H + k], y = s_h[r * H + k];
-        ir[j] = fmaf(x, wir, ir[j]);
-        iz[j] = fmaf(x, wiz, iz[j]);
-        in_[j] = fmaf(x, win, in_[j]);
-        hr[j] = fmaf(y, whr, hr[j]);
-        hz[j] = fmaf(y, whz, hz[j]);
-        hn[j] = fmaf(y, whn, hn[j]);
+        for (int j = 0; j < RPT; ++j) {
+          const int r = rg + j * RG;
+          const float x = s_ns[r * ks + kk], y = s_h[r * ks + kk];
+          ir[j] = fmaf(x, wir, ir[j]);
+          iz[j] = fmaf(x, wiz, iz[j]);
+          in_[j] = fmaf(x, win, in_[j]);
+          hr[j] = fmaf(y, whr, hr[j]);
+          hz[j] = fmaf(y, whz, hz[j]);
+          hn[j] = fmaf(y, whn, hn[j]);
+        }
       }
     }
+    if (!live) continue;
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
-      const int r = rg + j * RG;
-      const int row = row0 + r;
+      const int row = row0 + rg + j * RG;
       if (row >= n_rows) continue;
       const float rv = sigmoidf((ir[j] + bir) + (hr[j] + bhr));
       const float zv = sigmoidf((iz[j] + biz) + (hz[j] + bhz));
       const float nv = tanhf((in_[j] + bin) + rv * (hn[j] + bhn));
-      out[(int64_t)row * H + u] = (1.f - zv) * nv + zv * s_h[r * H + u];
+      out[(int64_t)row * H + u] = (1.f - zv) * nv + zv * __ldg(h + (int64_t)row * H + u);
     }
   }
 }
 
-template <int H>
-int launch_fused_edge_gru(const void* h, const void* past, const void* fut, const void* mask,
-                          const void* w_ih, const void* w_hh, const void* b_ih,
-                          const void* b_hh, void* out, int n_rows, cudaStream_t s) {
-  const size_t smem = gru_smem_bytes<H>();
-  cudaError_t err = cudaFuncSetAttribute(fused_edge_gru_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Opt in to the kernel's shared memory on the current device (the most any
+// width of this instance takes); the most CTAs of this width resident at once.
+template <int UC, int HF>
+int setup_fused_edge_gru(int hidden, int* max_ctas) {
+  const size_t smem = gru_smem_bytes(UC, hidden);
+  cudaError_t err = cudaFuncSetAttribute(fused_edge_gru_kernel<UC, HF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)gru_smem_bytes(UC, HF ? HF : kGruKChunk));
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_gru_kernel<H>,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_gru_kernel<UC, HF>,
                                                            kGruThreads, smem)) != cudaSuccess)
     return (int)err;
+  *max_ctas = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)cudaSuccess;
+}
+
+template <int UC, int HF>
+int launch_fused_edge_gru(const void* h, const void* past, const void* fut, const void* mask,
+                          const void* w_ih, const void* w_hh, const void* b_ih,
+                          const void* b_hh, void* out, int n_rows, int hidden, int max_ctas,
+                          cudaStream_t s) {
+  const int n_uc = (hidden + UC - 1) / UC;
   const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
-  const int grid = n_tiles < sms * (per_sm > 0 ? per_sm : 1) ? n_tiles
-                                                             : sms * (per_sm > 0 ? per_sm : 1);
-  fused_edge_gru_kernel<H><<<grid, kGruThreads, smem, s>>>(
+  const int per_uc = max_ctas / n_uc > 0 ? max_ctas / n_uc : 1;
+  const dim3 grid(n_tiles < per_uc ? n_tiles : per_uc, n_uc);
+  fused_edge_gru_kernel<UC, HF><<<grid, kGruThreads, gru_smem_bytes(UC, hidden), s>>>(
       (const float*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
       (const float*)w_ih, (const float*)w_hh, (const float*)b_ih, (const float*)b_hh,
-      (float*)out, n_rows);
+      (float*)out, n_rows, hidden);
   return (int)cudaGetLastError();
 }
 
@@ -293,21 +347,48 @@ extern "C" int tm_signed_segment_sum(const void* h, const void* past,
   return (int)cudaGetLastError();
 }
 
+// Once a device and hidden width, before tm_fused_edge_gru on that device:
+// opts the kernel in to its shared memory and writes the grid's CTA cap to
+// *max_ctas.  hidden % 4 == 0 and > 0 (else cudaErrorInvalidValue).
+extern "C" int tm_fused_edge_gru_setup(int hidden, void* max_ctas) {
+  if (hidden <= 0 || hidden % 4 != 0) return (int)cudaErrorInvalidValue;
+  int* cap = (int*)max_ctas;
+  switch (hidden) {
+    case 16: return setup_fused_edge_gru<16, 16>(hidden, cap);
+    case 32: return setup_fused_edge_gru<32, 32>(hidden, cap);
+    case 64: return setup_fused_edge_gru<64, 64>(hidden, cap);
+  }
+  switch (gru_units(hidden)) {
+    case 16: return setup_fused_edge_gru<16, 0>(hidden, cap);
+    case 32: return setup_fused_edge_gru<32, 0>(hidden, cap);
+    default: return setup_fused_edge_gru<64, 0>(hidden, cap);
+  }
+}
+
 // h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
 // w_ih, w_hh: f32[hidden, 3 * hidden]; b_ih, b_hh: f32[3 * hidden]; out:
-// f32[n_rows, hidden].  hidden is 16, 32 or 64 (else cudaErrorInvalidValue);
-// h, out and the weights 16-byte aligned; past/fut of every masked-in row lie
-// in [0, n_rows), or the kernel traps.
+// f32[n_rows, hidden].  hidden % 4 == 0 (else cudaErrorInvalidValue); h, out
+// and the weights 16-byte aligned; max_ctas from tm_fused_edge_gru_setup;
+// past/fut of every masked-in row lie in [0, n_rows), or the kernel traps.
 extern "C" int tm_fused_edge_gru(const void* h, const void* past, const void* fut,
                                  const void* mask, const void* w_ih, const void* w_hh,
                                  const void* b_ih, const void* b_hh, void* out, int n_rows,
-                                 int hidden, void* stream) {
+                                 int hidden, int max_ctas, void* stream) {
+  if (hidden <= 0 || hidden % 4 != 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
+#define TM_EDGE_GRU(UC, HF)                                                            \
+  launch_fused_edge_gru<UC, HF>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, \
+                                hidden, max_ctas, s)
   switch (hidden) {
-    case 16: return launch_fused_edge_gru<16>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
-    case 32: return launch_fused_edge_gru<32>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
-    case 64: return launch_fused_edge_gru<64>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return TM_EDGE_GRU(16, 16);
+    case 32: return TM_EDGE_GRU(32, 32);
+    case 64: return TM_EDGE_GRU(64, 64);
   }
+  switch (gru_units(hidden)) {
+    case 16: return TM_EDGE_GRU(16, 0);
+    case 32: return TM_EDGE_GRU(32, 0);
+    default: return TM_EDGE_GRU(64, 0);
+  }
+#undef TM_EDGE_GRU
 }

@@ -26,6 +26,7 @@ from trackmpnn_tpu_torch.data import common
 CLASS_DICT = {"Pedestrian": 1, "Car": 2, "Cyclist": 3}
 ALL_CATS = ["Pedestrian", "Car", "Cyclist", "Van", "Truck", "Person", "Tram", "Misc", "DontCare"]
 CAT_IDS = {c: i + 1 for i, c in enumerate(ALL_CATS)}
+DEFAULT_IM_HW = (375, 1242)  # KITTI's frame (h, w), where a frame is no image
 
 # standardization constants per detector (ref kitti_mot.py:154-177)
 NORM_2D = {
@@ -45,13 +46,9 @@ class KittiMOTDataset:
     cli/train.py::attach_vis turns into the vis columns.  Otherwise vis is
     None."""
 
-    def __init__(self, root: str, split: str = "test", cat: str = "All",
-                 detections: str = "centertrack", feats: str = "2d", *, down_ratio: int = 1,
-                 input_hw=(384, 1280), default_im_hw=(375, 1242), defer_vis: bool = False):
-        if split != "test":
-            raise NotImplementedError(
-                f"split {split!r}: only the test split is ported (ROADMAP.md queue 1, "
-                "'Training CLI')")
+    def __init__(self, root: str, cat: str = "All", detections: str = "centertrack",
+                 feats: str = "2d", *, down_ratio: int = 1, input_hw=(384, 1280),
+                 defer_vis: bool = False):
         if "vis" in feats and not defer_vis:
             raise ValueError("feats includes 'vis': the port computes the vis columns "
                              "through the embedding trainer, pass defer_vis=True")
@@ -65,7 +62,6 @@ class KittiMOTDataset:
         self.feats = feats
         self.down_ratio = down_ratio
         self.input_hw = input_hw
-        self.default_im_hw = default_im_hw
         self.fr_range = 30
         self._im_hw_cache: dict = {}
         self.im_path = os.path.join(root, "testing", "image_02")
@@ -81,7 +77,7 @@ class KittiMOTDataset:
 
     def _im_size(self, seq, fr):
         """(h, w) of a sequence's frames, read from its first frame asked
-        for and cached; default_im_hw where the file is no image (the
+        for and cached; DEFAULT_IM_HW where the file is no image (the
         placeholders of synthetic trees).  PIL is imported outside the
         fallback: without it the vis path cannot load frames at all
         (train/embed.py::load_image raises too)."""
@@ -92,7 +88,7 @@ class KittiMOTDataset:
                 with PIL.Image.open(os.path.join(self.im_path, seq, "%.6d.png" % fr)) as im:
                     self._im_hw_cache[seq] = (im.size[1], im.size[0])
             except OSError:
-                self._im_hw_cache[seq] = self.default_im_hw
+                self._im_hw_cache[seq] = DEFAULT_IM_HW
         return self._im_hw_cache[seq]
 
     def load_detections(self, seq, fr):

@@ -35,7 +35,8 @@ LIBRARIES = {
            os.path.join(BUILD_DIR, "libtm_mp.so"),
            {"tm_gather_diff": [_P, _P, _P, _P, _P, _I, _I, _P],
             "tm_signed_segment_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-            "tm_fused_edge_gru": [_P] * 9 + [_I, _I, _P]}),
+            "tm_fused_edge_gru_setup": [_I, _P],
+            "tm_fused_edge_gru": [_P] * 9 + [_I, _I, _I, _P]}),
     "block": (os.path.join(_PKG, "csrc", "block_kernels.cu"),
               os.path.join(BUILD_DIR, "libtm_block.so"),
               {"tm_block_round_smem_bytes": [_I, _I, _I, _I],

@@ -27,12 +27,14 @@ fused_edge_gru and signed_segment_sum once a feature branch each.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from trackmpnn_tpu_torch.ops import _build
 
 LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
-EDGE_GRU_WIDTHS = (16, 32, 64)  # the hidden widths csrc/mp_kernels.cu is built for
+_EDGE_GRU_CTAS: dict = {}  # (device index, H) -> the kernel's grid cap, set up once
 
 
 # -------------------------------------------------------------- references ----
@@ -196,8 +198,6 @@ def signed_segment_sum(h, past, fut, edge_mask, n):
 
 def _check_gru_weights(h, w_ih, w_hh, b_ih, b_hh):
     H = h.shape[1]
-    if H not in EDGE_GRU_WIDTHS:
-        raise ValueError(f"fused_edge_gru: hidden width {H} is not one of {EDGE_GRU_WIDTHS}")
     for label, t, shape in (("w_ih", w_ih, (H, 3 * H)), ("w_hh", w_hh, (H, 3 * H)),
                             ("b_ih", b_ih, (3 * H,)), ("b_hh", b_hh, (3 * H,))):
         if t.device != h.device:
@@ -213,8 +213,8 @@ def fused_edge_gru(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh):
     """edge_gru_reference's function in one launch of the kernel on a CUDA
     tensor, the plain version on a CPU tensor.  Forward only, as the TPU
     kernel: it raises where autograd would need a gradient (grad enabled and
-    an input requiring grad) on every device.  h f32[N, H] with H in
-    EDGE_GRU_WIDTHS on the card; any N.  past/fut of every edge row must lie
+    an input requiring grad) on every device.  h f32[N, H] with H a
+    multiple of 4 on the card; any N.  past/fut of every edge row must lie
     in [0, N); on the card an index outside traps the kernel, and the next
     synchronisation raises."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (h, w_ih, w_hh, b_ih, b_hh)):
@@ -229,11 +229,19 @@ def fused_edge_gru(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh):
     out = torch.empty_like(h)
     if N == 0:
         return out
+    lib = _build.load()
     with torch.cuda.device(h.device):
-        rc = _build.load().tm_fused_edge_gru(
+        key = (h.device.index, H)
+        if key not in _EDGE_GRU_CTAS:
+            cap = ctypes.c_int(0)
+            rc = lib.tm_fused_edge_gru_setup(H, ctypes.addressof(cap))
+            if rc != 0:
+                raise RuntimeError(f"fused_edge_gru kernel setup failed: CUDA error {rc}")
+            _EDGE_GRU_CTAS[key] = cap.value
+        rc = lib.tm_fused_edge_gru(
             h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-            out.data_ptr(), N, H, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), N, H, _EDGE_GRU_CTAS[key], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_edge_gru kernel launch failed: CUDA error {rc}")
     LAUNCHES["fused_edge_gru"] += 1
