@@ -110,9 +110,11 @@ failure exits non-zero:
     edge_loss_l1 and edge_loss_l2 within atol 1e-5 (L2's counts exact),
     block_round_es_bwd and edge_loss_bwd within rtol 1e-4 and atol 1e-5 x
     each output's scale, against their plain versions on phase 13's widest
-    inputs; each bitwise the same on a second launch, timed beside its plain
-    version and its bound (live cells only); no single PyTorch call
-    computes them (library: none).
+    inputs (one branch, head width K = 64), the three loss kernels also on
+    phase 18's fused_loss step's (three branches side by side, K = 192; it
+    runs after phase 18); each bitwise the same on a second launch, timed
+    beside its plain version and its bound (live cells only); no single
+    PyTorch call computes them (library: none).
 15. The embedding path (train/embed.py's EmbedTrainer, whose step and infer
     take packed arrays) at KITTI's input, 384 x 1280, for espv2, dla34 with
     dcn_max_offset 2.0 (every deform block through the DCN kernels) and
@@ -153,11 +155,38 @@ failure exits non-zero:
     on the CPU decode identical tracks with per-step scores within 1e-4.
     Frames/s and forwards/s, ms a forward, the embedding's ms and frames/s
     a sequence, the busy share, peak memory.
+18. The default features trained (they run right after phase 13): phase
+    5's windows, step and weights with features 2d+temp+vis (three
+    branches, nhidden 64 each): the temp columns of the frames and 128 vis
+    columns from ESPNetv2 at 384 x 1280 over 16 seeded noise frames a
+    window at the boxes' centres, as phase 17 makes them (set-up, once).
+    The default composition: a first step, 3 warm-up steps and 20 timed
+    by CUDA events and host wall, the launch counters set to 0 before and
+    read after (T x 3 of each block kernel and 3T x 3 window_scatter a
+    step), a profiled step, the first step rerun on the CPU.  es_kernel and
+    fused_loss (the edge losses over the three branches' edge hiddens side
+    by side, K = 192): a first step each, its launches counted, against
+    its CPU rerun and against the default composition's first step on the
+    card, to phase 5's tolerances.
+19. The same step with 3 attention heads a branch and real dropout, on
+    the stacked route and on the per-head route (gat_fused=False, the
+    single-head kernels #9 and #10): both first steps take the same keep
+    masks drawn on the card and must agree with each other and each with
+    its CPU rerun to phase 5's tolerances; each route timed as in phase 18
+    (a step: T x 3 of each stacked attention kernel and no single-head one,
+    or T x 3 x 3 of each single-head kernel and no stacked one).
+20. The single-head kernels (gat1_scores_fwd / _bwd, gat1_aggregate_fwd /
+    _bwd) on phase 19's per-head widest inputs against their plain
+    versions (forwards rtol and atol 1e-5, backwards rtol 1e-4 with atol
+    1e-5 x each output's scale) and against the stacked kernels at nh = 1
+    on the same inputs, bitwise on a second launch, each timed beside its
+    plain version, that stacked kernel and its bound.
 
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
-fused_edge_gru phase 17's.  The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+fused_edge_gru phase 17's; the single-head attention kernels phase 19's
+per-head route.  The line before the last is {"kernels": [...]}; the last
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -650,33 +679,71 @@ def cli_phase(torch, np):
             "result_lines": lines, "cli_s": cli_s, "cpu_s": cpu_s}
 
 
-def training_chunks(np):
-    """bench.py's chunks: the first B of make_sequence(16 tracks, 16 frames,
-    miss 0.05, fp 0.1) from seeds 100, 101, ... that seed a graph."""
+def training_sequences(np):
+    """bench.py's sequences: the first B of make_sequence(16 tracks, 16
+    frames, miss 0.05, fp 0.1) from seeds 100, 101, ... that seed a graph,
+    as (2d features, labels, boxes)."""
     from trackmpnn_tpu_torch.data.synthetic import make_sequence
     from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
 
-    chunks, s = [], 0
-    while len(chunks) < TRAIN_B:
+    seqs, s = [], 0
+    while len(seqs) < TRAIN_B:
         X, bp, _ = make_sequence(num_tracks=TRAIN_TRACKS, num_frames=TRAIN_FRAMES,
                                  seed=TRAIN_SEED0 + s, miss_rate=0.05, fp_rate=0.1)
         y = bp[:, :2].astype(np.int64)
         if build_window_schedule(X, y) is not None:
-            chunks.append((X, y))
+            seqs.append((X, y, bp))
         s += 1
-    return chunks
+    return seqs
 
 
-def training_workload(np):
-    """bench.py's workload: training_chunks' schedules, every one padded to
-    the longest's step count."""
+def training_chunks(np):
+    """bench.py's chunks: training_sequences' (features, labels)."""
+    return [(X, y) for X, y, _ in training_sequences(np)]
+
+
+def training_workload(np, chunks=None):
+    """bench.py's workload: the chunks' schedules (training_chunks' by
+    default), every one padded to the longest's step count."""
     from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
 
-    chunks = training_chunks(np)
+    chunks = training_chunks(np) if chunks is None else chunks
     raw = [build_window_schedule(X, y) for X, y in chunks]
     t_cap = max(ws.n_steps for ws in raw)
     schedules = [build_window_schedule(X, y, t_cap=t_cap) for X, y in chunks]
     return schedules, t_cap, sum(live_edges(np, ws) for ws in schedules)
+
+
+def default_training_workload(torch, np):
+    """Phases 18-19's workload: bench.py's windows (training_sequences) with
+    the default features: their 2d columns, the temp columns of their frames
+    (data/common.py::temporal_features) and 128 vis columns that
+    EmbedTrainer.infer (espv2, seeded weights) computes at the boxes'
+    centres over seeded noise frames of 384 x 1280, as phase 17 makes them.
+    Set-up, done once."""
+    from trackmpnn_tpu_torch.data import common
+    from trackmpnn_tpu_torch.train.embed import EmbedTrainer, normalized_vis_features
+
+    t0 = time.perf_counter()
+    embed = EmbedTrainer(arch="espv2", input_hw=EMBED_HW, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    chunks = []
+    for X, y, bp in training_sequences(np):
+        frames = torch.randn(TRAIN_FRAMES, *EMBED_HW, 3, device="cuda", generator=gen)
+        cy, cx = common.center_indices(bp[:, 4:8], FULL_IM_HW, EMBED_HW, embed.down_ratio)
+        raw = embed.infer(frames, bp[:, 0].astype(np.int64), cy, cx).cpu().numpy()
+        if raw.shape != (len(bp), embed.num_vis_feats) or not np.all(np.isfinite(raw)):
+            fail(f"default-feature training: embeddings of shape {raw.shape}, expected "
+                 f"({len(bp)}, {embed.num_vis_feats}) finite")
+        chunks.append((np.concatenate([X, common.temporal_features(bp[:, :1]),
+                                       normalized_vis_features(raw)], 1).astype(np.float32), y))
+        del frames
+    del embed
+    torch.cuda.empty_cache()
+    print(f"default-feature training set-up: {TRAIN_B} windows of {chunks[0][0].shape[1]} "
+          f"feature columns ({DEFAULT_FEATS}; vis from espv2 at {EMBED_HW[0]} x {EMBED_HW[1]} "
+          f"over {TRAIN_FRAMES} frames a window) in {time.perf_counter() - t0:.2f} s")
+    return training_workload(np, chunks)
 
 
 def live_edges(np, ws):
@@ -755,52 +822,109 @@ def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, pa
     return steps_agree(torch, (loss1, aux1, grads1), (loss_c, aux_c, grads_c), what)
 
 
+def draw_keep_masks(train_block, gen, heads, nb, bb):
+    """One step's attention keep masks drawn on the card: for each round s,
+    one (rows, columns) pair a branch of [heads, (s+1)*B, na_cap, nt_cap]."""
+    return [[train_block.draw_att_keep(gen, heads, ((s + 1) * bb.n_windows, bb.na_cap,
+                                                    bb.nt_cap), "cuda") for _ in range(nb)]
+            for s in range(bb.t_cap)]
+
+
+def zero_counters(counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
 def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
-                   fused_loss=False):
-    """Phase 5 (heads = 0), 7, or 13 (es_kernel, with or without fused_loss):
-    the block train step on bench.py's workload.  Returns (summary, the
-    widest inputs of the path's kernels, the first step's (loss, aux,
-    grads))."""
+                   fused_loss=False, features="2d", workload=None, gat_fused=True, timed=True,
+                   keep1=None):
+    """Phase 5 (heads = 0), 7, 13 (es_kernel, with or without fused_loss),
+    18 (features 2d+temp+vis on `workload`: the default composition timed,
+    es_kernel and fused_loss a first step) or 19 (the same with 3 heads on
+    either attention route): the block train step on bench.py's workload.
+    The first step's launches are counted (the counters set to 0 just
+    before, read just after) and must be one step's expected launches; with
+    `timed`, 3 warm-up steps, 20 timed steps counted the same way and a
+    profiled step.  keep1: the first step's keep masks (drawn here when
+    None).  Returns (summary, the widest inputs of the path's kernels, the
+    first step's (loss, aux, grads))."""
     from trackmpnn_tpu_torch.models import mpnn
     from trackmpnn_tpu_torch.train import block as train_block
     from trackmpnn_tpu_torch.train import optim
 
-    what = f"GAT training ({heads} head, dropout {mpnn.ATT_DROPOUT})" if heads else "training"
-    if es_kernel or fused_loss:
-        what += " (" + ", ".join(k for k, on in (("es_kernel", es_kernel),
-                                                 ("fused_loss", fused_loss)) if on) + ")"
-    schedules, t_cap, edges = training_workload(np)
+    what = "training"
+    if heads:
+        what = f"GAT training ({heads} head{'s' if heads > 1 else ''}, dropout {mpnn.ATT_DROPOUT})"
+    if features != "2d":
+        what = f"{what}, {features}"
+    flags = [k for k, on in (("es_kernel", es_kernel), ("fused_loss", fused_loss),
+                             ("per-head route", heads and not gat_fused)) if on]
+    if flags:
+        what += " (" + ", ".join(flags) + ")"
+    schedules, t_cap, edges = workload or training_workload(np)
     bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
-    print(f"{what} inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
-          f"nt_cap {bb.nt_cap}, H {HIDDEN}, P at the last step {bb.n_windows * t_cap}, "
-          f"live edge rows a step {edges}, live cells in all blocks {live_cells}")
-    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff",
+    cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=HIDDEN, msg_type="diff",
                            nattheads=heads)
+    nb = len(cfg.branches)
+    print(f"{what} inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
+          f"nt_cap {bb.nt_cap}, H {HIDDEN}, branches {nb}, feature columns "
+          f"{bb.det_feat.shape[1]}, P at the last step {bb.n_windows * t_cap}, "
+          f"live edge rows a step {edges}, live cells in all blocks {live_cells}")
     params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
     stats0 = mpnn.init_batch_stats(cfg)
     step = train_block.make_block_train_step(cfg, tp_classifier=False, es_kernel=es_kernel,
-                                             fused_loss=fused_loss)
+                                             fused_loss=fused_loss, gat_fused=gat_fused)
     params = train_block.trainable(to_device(params0, "cuda"))
     stats = to_device(stats0, "cuda")
     opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
-    gen = keep1 = None
+    gen = None
     if heads:
         # attention dropout: the first step's keep masks are drawn on the
-        # card and shared with its CPU rerun, later steps draw from gen
+        # card (or given) and shared with its CPU rerun, later steps draw
+        # from gen
         gen = torch.Generator(device="cuda").manual_seed(1)
-        keep1 = [train_block.draw_att_keep(gen, heads, ((s + 1) * bb.n_windows, bb.na_cap,
-                                                         bb.nt_cap), "cuda")
-                 for s in range(t_cap)]
+        if keep1 is None:
+            keep1 = draw_keep_masks(train_block, gen, heads, nb, bb)
+
+    # one step's launches: the block kernels T a branch (the es round in
+    # their place with es_kernel); window_scatter the es sum and two
+    # launches for the backward of the gate gather, with stacked heads two
+    # more for the attention projections' gather, on the per-head route
+    # three a head (its projection's gather, its own es sum); the stacked
+    # attention kernels T a branch, the single-head ones T a branch and
+    # head; the loss kernels T with fused_loss
+    per_head = bool(heads) and not gat_fused
+    rounds = t_cap * nb
+    default = 0 if es_kernel else rounds
+    scatters = 0 if es_kernel else (2 + 3 * heads if per_head else 5 if heads else 3)
+    expected = {"block_round_fwd": default, "block_round_bwd": default,
+                "window_scatter": scatters * rounds,
+                "block_round_es_fwd": rounds - default, "block_round_es_bwd": rounds - default,
+                **{k: 0 for k in gat_ops.LAUNCHES},
+                **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES}}
+    if heads:
+        expected.update({k: rounds * heads if per_head else rounds for k in gat_ops.LAUNCHES
+                         if k.startswith("gat1_") == per_head})
+    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES)
+
+    def check_launches(launches, steps):
+        for k, v in expected.items():
+            if launches[k] != v * steps:
+                fail(f"{what}: {k} launched {launches[k]} times in {steps} steps, "
+                     f"expected {v} a step")
 
     # first step, recording the widest inputs of every kernel of the path
     inputs = {}
+    zero_counters(counters)
     with contextlib.ExitStack() as rec:
         if heads:
-            for name in ("gat_scores_fwd", "gat_scores_bwd"):
+            prefix = "gat1" if per_head else "gat"
+            for name in (f"{prefix}_scores_fwd", f"{prefix}_scores_bwd"):
                 rec.enter_context(record_widest(gat_ops, f"_{name}_cuda", inputs,
                                                 lambda a, n=name: n))
-            for name in ("gat_aggregate_fwd", "gat_aggregate_bwd"):
+            for name in (f"{prefix}_aggregate_fwd", f"{prefix}_aggregate_bwd"):
                 rec.enter_context(record_widest(gat_ops, f"_{name}_cuda", inputs,
                                                 lambda a, n=name: n,
                                                 blocks=lambda a: a[5].shape[0]))
@@ -822,55 +946,63 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         params, stats, loss1, aux1 = step(params, stats, opt, bb, att_keep=keep1)
     grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
     torch.cuda.synchronize()
-    for _ in range(TRAIN_WARMUP):
-        params, stats, _, _ = step(params, stats, opt, bb, generator=gen)
-    torch.cuda.synchronize()
-
-    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES)
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    losses = []
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(TRAIN_STEPS):
-        params, stats, loss, _ = step(params, stats, opt, bb, generator=gen)
-        losses.append(loss)
-    end.record()
-    end.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {k: v for c in counters for k, v in c.items()}
-    events_ms = start.elapsed_time(end) / TRAIN_STEPS
-    wall_ms = wall_s * 1e3 / TRAIN_STEPS
-    # window_scatter: the es sum and two launches for the backward of the
-    # gate gather, with heads two more for the attention projections' gather;
-    # the es round replaces all three and the round kernels
-    default = 0 if es_kernel else t_cap
-    expected = {"block_round_fwd": default, "block_round_bwd": default,
-                "window_scatter": 0 if es_kernel else (5 if heads else 3) * t_cap,
-                "block_round_es_fwd": t_cap - default, "block_round_es_bwd": t_cap - default,
-                **{k: t_cap if heads else 0 for k in gat_ops.LAUNCHES},
-                **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES}}
-    for k, v in expected.items():
-        if launches[k] != v * TRAIN_STEPS:
-            fail(f"{what}: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
-                 f"expected {v} a step")
-    losses = torch.stack(losses).cpu().numpy()
-    if not np.all(np.isfinite(losses)):
-        fail(f"{what} loss not finite: {losses}")
-    print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), "
-          f"{wall_ms:.3f} ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; "
-          f"launches a step { {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; "
-          f"loss {float(loss1):.6g} -> {losses[-1]:.6g}")
-    profile = device_profile(torch, lambda: step(params, stats, opt, bb, generator=gen),
-                             wall_ms / 1e3)
+    first_launches = {k: v for c in counters for k, v in c.items()}
+    check_launches(first_launches, 1)
+    if not np.isfinite(float(loss1)):
+        fail(f"{what} first step loss not finite: {float(loss1)}")
+    summary = {
+        "features": features, "branches": nb, "heads": heads, "gat_fused": gat_fused,
+        "es_kernel": es_kernel, "fused_loss": fused_loss,
+        "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
+        "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
+        "live_cells": live_cells, "loss_first": float(loss1),
+        "launches_first_step": first_launches,
+    }
+    if timed:
+        for _ in range(TRAIN_WARMUP):
+            params, stats, _, _ = step(params, stats, opt, bb, generator=gen)
+        torch.cuda.synchronize()
+        zero_counters(counters)
+        losses = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            params, stats, loss, _ = step(params, stats, opt, bb, generator=gen)
+            losses.append(loss)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items()}
+        events_ms = start.elapsed_time(end) / TRAIN_STEPS
+        wall_ms = wall_s * 1e3 / TRAIN_STEPS
+        check_launches(launches, TRAIN_STEPS)
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"{what} loss not finite: {losses}")
+        print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), "
+              f"{wall_ms:.3f} ms/step (host wall), {edges / (wall_ms / 1e3):.4g} edges/s; "
+              f"launches a step { {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; "
+              f"loss {float(loss1):.6g} -> {losses[-1]:.6g}")
+        profile = device_profile(torch, lambda: step(params, stats, opt, bb, generator=gen),
+                                 wall_ms / 1e3)
+        summary.update({
+            "steps": TRAIN_STEPS, "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
+            "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+            "loss_last": float(losses[-1]),
+            "device_busy_share_step": None if profile is None else profile["busy_share"],
+            "profile_step": profile})
+    else:
+        print(f"{what}: first step, loss {float(loss1):.6g}; launches "
+              f"{ {k: v for k, v in first_launches.items() if v} }")
 
     # the first step again on the CPU, from the same weights, batch and masks
     bb_cpu = type(bb)(*(t.cpu() for t in bb))
     params_c = train_block.trainable(params0)
     opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
-    keep_c = None if keep1 is None else [tuple(k.cpu() for k in ks) for ks in keep1]
+    keep_c = None if keep1 is None else [[tuple(k.cpu() for k in pair) for pair in ks]
+                                         for ks in keep1]
     t0 = time.perf_counter()
     params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c, bb_cpu, att_keep=keep_c)
     cpu_step_s = time.perf_counter() - t0
@@ -879,20 +1011,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
     print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
           f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
           f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
-    summary = {
-        "heads": heads, "es_kernel": es_kernel, "fused_loss": fused_loss,
-        "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
-        "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
-        "live_cells": live_cells, "steps": TRAIN_STEPS,
-        "ms_per_step_events": events_ms, "ms_per_step_wall": wall_ms,
-        "edges_per_s": edges / (wall_ms / 1e3), "launches": launches,
-        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
-        "loss_first": float(loss1), "loss_last": float(losses[-1]),
-        "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad,
-        "grad_scale": gscale, "cpu_step_s": cpu_step_s,
-        "device_busy_share_step": None if profile is None else profile["busy_share"],
-        "profile_step": profile,
-    }
+    summary.update({"cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad,
+                    "grad_scale": gscale, "cpu_step_s": cpu_step_s})
     return summary, inputs, (loss1, aux1, grads1)
 
 
@@ -1218,9 +1338,12 @@ def es_loss_bounds(name, args):
             cells * (3 * K + LOSS_CELL_OPS))
 
 
-def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches):
+def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches, wide):
     """Phase 14: the es round's and the edge losses' kernels on phase 13's
-    widest inputs against their plain versions, twice (bitwise), and timed."""
+    widest inputs (one branch: K = 64) and the edge losses' also on phase
+    18's (three branches side by side: K = 192) against their plain
+    versions, twice (bitwise), and timed.  Returns the kernels line's rows
+    (the losses at K = 192) and the K = 64 loss rows."""
     kernels = {
         "block_round_es_fwd": (block_ops._block_round_es_fwd_cuda,
                                block_ops.block_round_es_reference),
@@ -1231,9 +1354,11 @@ def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches):
         "edge_loss_bwd": (loss_ops._bwd_cuda, loss_ops.edge_loss_bwd_reference),
     }
     as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
-    rows = []
-    for name, (kernel, plain) in kernels.items():
-        args = inputs[name]
+    rows, narrow = [], {}
+    runs = [(name, inputs[name]) for name in kernels]
+    runs += [(name, wide[name]) for name in kernels if name.startswith("edge_loss")]
+    for name, args in runs:
+        kernel, plain = kernels[name]
         got, again, want = (as_list(fn(*args)) for fn in (kernel, kernel, plain))
         torch.cuda.synchronize()
         err = 0.0
@@ -1272,11 +1397,16 @@ def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches):
              "bound_ms": b, "bound_by": by, "library_ms": None,
              "shape": f"P {m3.shape[0]}, na {m3.shape[1]}, nt {m3.shape[2]}, "
                       f"live cells {int((m3 != 0).sum())}"}
+        if name.startswith("edge_loss"):
+            r["shape"] += f", K {args[0].shape[-1] if name != 'edge_loss_l2' else '-'}"
         print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
               f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
-        rows.append(r)
-    return rows
+        if name.startswith("edge_loss") and name not in narrow:
+            narrow[name] = r  # the one-branch width; the kernels line takes K = 192
+        else:
+            rows.append(r)
+    return rows, narrow
 
 
 # ------------------------------------------------------ row-layout training ----
@@ -2025,6 +2155,147 @@ def full_serving_phase(torch, np, mp):
     return summary
 
 
+# ---------------------------------------- the default features, trained ----
+GAT1_REPLACES = {"gat1_scores_fwd": "trackmpnn_tpu/ops/pallas_gat.py:167",
+                 "gat1_scores_bwd": "trackmpnn_tpu/ops/pallas_gat.py:187",
+                 "gat1_aggregate_fwd": "trackmpnn_tpu/ops/pallas_gat.py:306",
+                 "gat1_aggregate_bwd": "trackmpnn_tpu/ops/pallas_gat.py:317"}
+
+
+def default_training_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
+    """Phase 18: the block train step with the default features
+    (2d+temp+vis, three branches) on phase 5's windows: the default
+    composition timed (launches T x 3 of each block kernel a step), then
+    es_kernel and fused_loss a first step each, each against its CPU rerun
+    and against the default composition's first step on the card.  Returns
+    (summaries, the fused_loss step's edge-loss inputs at K = 3H)."""
+    runs, firsts, wide = {}, {}, {}
+    for key, flags in (("default", {}), ("es_kernel", dict(es_kernel=True)),
+                       ("fused_loss", dict(fused_loss=True))):
+        summary, inputs, first = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0,
+                                                features=DEFAULT_FEATS, workload=workload,
+                                                timed=key == "default", **flags)
+        if key != "default":
+            worst, scale = steps_agree(torch, first, firsts["default"],
+                                       f"training ({DEFAULT_FEATS}, {key})",
+                                       names=(key, "the default composition"))
+            summary["max_grad_err_vs_default"] = worst
+            print(f"training ({DEFAULT_FEATS}, {key}) vs the default composition on the card: "
+                  f"loss {float(first[0])!r} / {float(firsts['default'][0])!r}, tp/fp/fn equal, "
+                  f"worst grad diff {worst:.3g} (largest |grad| {scale:.3g})")
+        if key == "fused_loss":
+            wide = {k: v for k, v in inputs.items() if k.startswith("edge_loss")}
+            if wide["edge_loss_l1"][0].shape[-1] != 3 * HIDDEN:
+                fail(f"default-feature fused_loss: the edge losses saw K = "
+                     f"{wide['edge_loss_l1'][0].shape[-1]}, expected {3 * HIDDEN}")
+        runs[key], firsts[key] = summary, first
+    return runs, wide
+
+
+def default_heads_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
+    """Phase 19: phase 18's step with GAT_HEADS_WIDE heads a branch and real
+    dropout, on the stacked route and on the per-head route (gat_fused=False,
+    the single-head kernels #9 and #10), both first steps on the same keep
+    masks drawn on the card.  Each route timed (T x 3 launches of each
+    stacked attention kernel and none of the single-head ones a step, or T x
+    3 x 3 of each single-head kernel and no stacked one), each first step
+    against its CPU rerun, and the two routes' first steps against each
+    other.  Returns (summaries, the per-head route's widest single-head
+    kernel inputs)."""
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+
+    schedules, t_cap, _ = workload
+    bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
+    nb = len(mpnn.ModelConfig(features=DEFAULT_FEATS).branches)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    keep1 = draw_keep_masks(train_block, gen, GAT_HEADS_WIDE, nb, bb)
+    runs, firsts, inputs = {}, {}, {}
+    for key, gat_fused in (("stacked", True), ("per_head", False)):
+        summary, rec, first = training_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                             heads=GAT_HEADS_WIDE, features=DEFAULT_FEATS,
+                                             workload=workload, gat_fused=gat_fused, keep1=keep1)
+        runs[key], firsts[key] = summary, first
+        if not gat_fused:
+            inputs = rec
+    worst, scale = steps_agree(torch, firsts["per_head"], firsts["stacked"],
+                               f"GAT training ({DEFAULT_FEATS}, {GAT_HEADS_WIDE} heads)",
+                               names=("the per-head route", "the stacked route"))
+    runs["per_head"]["max_grad_err_vs_stacked"] = worst
+    print(f"GAT training ({DEFAULT_FEATS}, {GAT_HEADS_WIDE} heads): the per-head route vs the "
+          f"stacked route on the card, same masks: loss {float(firsts['per_head'][0])!r} / "
+          f"{float(firsts['stacked'][0])!r}, tp/fp/fn equal, worst grad diff {worst:.3g} "
+          f"(largest |grad| {scale:.3g})")
+    return runs, inputs
+
+
+def gat1_kernel_phase(torch, gat_ops, inputs, launches):
+    """Phase 20: the four single-head kernels (#9, #10) on the per-head
+    route's widest inputs of phase 19 against their plain versions (forwards
+    rtol and atol GAT_FWD_*, backwards rtol 1e-4 with atol 1e-5 x each
+    output's scale), twice (bitwise), and against the stacked kernel at nh =
+    1 on the same inputs (the same function); each timed beside its plain
+    version, that stacked kernel and its bound."""
+    plain = {"gat1_scores_fwd": gat_ops.gat_scores_stats_1h_reference,
+             "gat1_scores_bwd": gat_ops.gat_scores_stats_1h_backward_reference,
+             "gat1_aggregate_fwd": gat_ops.gat_aggregate_1h_reference,
+             "gat1_aggregate_bwd": gat_ops.gat_aggregate_1h_backward_reference}
+
+    def stacked_form(name, args):
+        """The same call's arguments for the stacked kernel at nh = 1."""
+        if name.startswith("gat1_scores"):
+            return args[:5] + (1,) + tuple(t[None] for t in args[5:])
+        head = tuple(t[None] for t in args[:5])
+        return head + args[5:7] + (args[7][None], args[8][None]) + args[9:]
+
+    rows = []
+    for name, ref in plain.items():
+        args = inputs[name]
+        kernel = getattr(gat_ops, f"_{name}_cuda")
+        stacked = getattr(gat_ops, f"_{name.replace('gat1_', 'gat_')}_cuda")
+        st_args = stacked_form(name, args)
+        got, again, want, st = kernel(*args), kernel(*args), ref(*args), stacked(*st_args)
+        torch.cuda.synchronize()
+        forward = name.endswith("fwd")
+        err = 0.0
+        for k, (x, w, y) in enumerate(zip(got, want, st)):
+            err = max(err, float((x - w).abs().max()))
+            y = y.reshape(x.shape)
+            if forward:
+                ok = (torch.allclose(x, w, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL)
+                      and torch.allclose(x, y, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL))
+            else:
+                atol = ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)
+                ok = (torch.allclose(x, w, rtol=ROUND_BWD_RTOL, atol=atol)
+                      and torch.allclose(x, y, rtol=ROUND_BWD_RTOL, atol=atol))
+            if not ok:
+                fail(f"{name} output {k} differs from its plain version by "
+                     f"{float((x - w).abs().max()):.3g}, from the stacked kernel at nh 1 by "
+                     f"{float((x - y).abs().max()):.3g}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} is not bitwise the same on a second launch")
+        same_as_stacked = all(torch.equal(x, y.reshape(x.shape)) for x, y in zip(got, st))
+        m3 = args[3] if name.startswith("gat1_scores") else args[6]
+        P, na, nt = m3.shape
+        b, by = bound_ms(*gat_bounds(st_args, name.replace("gat1_", "gat_"), 1))
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/gat_kernels.cu",
+             "replaces": GAT1_REPLACES[name], "launches": launches[name], "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args)),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: ref(*args), iters=PLAIN_ITERS),
+             "stacked_nh1_ms": cuda_time_ms(lambda: stacked(*st_args)),
+             "bitwise_equal_to_stacked": same_as_stacked,
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"P {P}, na {na}, nt {nt}, H {HIDDEN}, live cells {int((m3 != 0).sum())}"}
+        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, the stacked "
+              f"kernel at nh 1 {r['stacked_nh1_ms'] * 1e3:.2f} us, bitwise equal to it "
+              f"{same_as_stacked}, bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), "
+              f"max abs err {err:.3g}")
+        rows.append(r)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -2092,7 +2363,7 @@ def main():
     batch1 = batch1_phase(torch, np, mp, round_ops, packed_wl)
     packed_training, round_inputs = packed_phase(torch, np, mp, round_ops, packed_wl)
     kernels += round_kernel_phase(torch, round_ops, round_inputs, packed_training["launches"])
-    # 13. the block step's other compositions, 14. their kernels
+    # 13. the block step's other compositions, 14. their kernels (after 18)
     compositions = {}
     for key, flags in (("es_kernel", dict(es_kernel=True)),
                        ("es_kernel_fused_loss", dict(es_kernel=True, fused_loss=True))):
@@ -2105,8 +2376,20 @@ def main():
               f"{float(first[0])!r} / {float(first5[0])!r}, tp/fp/fn equal, worst grad diff "
               f"{worst:.3g} (largest |grad| {scale:.3g})")
         compositions[key] = summary
-    kernels += es_loss_kernel_phase(torch, block_ops, loss_ops, es_inputs,
-                                    compositions["es_kernel_fused_loss"]["launches"])
+    # 18. the default features trained, 14. the es and loss kernels (the
+    # losses also at phase 18's width), 19. with three heads on both
+    # attention routes, 20. the single-head kernels
+    default_wl = default_training_workload(torch, np)
+    default_training, loss_wide = default_training_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                                         default_wl)
+    es_loss_rows, loss_narrow = es_loss_kernel_phase(
+        torch, block_ops, loss_ops, es_inputs, compositions["es_kernel_fused_loss"]["launches"],
+        loss_wide)
+    kernels += es_loss_rows
+    default_heads, gat1_inputs = default_heads_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                                     default_wl)
+    kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
+                                 default_heads["per_head"]["launches"])
     # 15. the embedding path, 16. its DCN kernels
     embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
     kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
@@ -2133,6 +2416,8 @@ def main():
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
                        "row_packed": packed_training, "block_compositions": compositions,
+                       "edge_losses_one_branch": loss_narrow,
+                       "default_training": default_training, "default_heads": default_heads,
                        "embedding": embedding, "full_serving": full},
                       f, indent=1)
     print(f"card: {card}")

@@ -157,27 +157,15 @@ def test_train_steps_lower_the_loss():
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("kw", [{"msg_type": "concat"}, {"features": "2d vis"},
-                                {"features": "2d temp"}])
+@pytest.mark.parametrize("kw", [{"msg_type": "concat"},
+                                {"msg_type": "concat", "features": "2d vis"},
+                                {"msg_type": "concat", "features": "2d temp"}])
 def test_unported_configs_raise(kw):
+    """msg 'concat' is not ported, with one feature branch or more (the
+    branches themselves train: tests/test_torch_block_branches.py)."""
     cfg = mpnn.ModelConfig(nhidden=HIDDEN)._replace(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         block.make_block_train_step(cfg, tp_classifier=True)
-
-
-@pytest.mark.parametrize("features", ["2d+temp", "2d+temp+vis"])
-def test_block_paths_refuse_more_than_one_branch(features):
-    """The block step reads the first branch only: with more, the step in
-    every composition and block_window_forward itself refuse, rather than
-    train branch 0 of a multi-branch model."""
-    cfg = mpnn.ModelConfig(nhidden=HIDDEN, features=features)
-    match = "Feature branches temp and vis"
-    for kw in ({}, {"es_kernel": True}, {"es_kernel": True, "fused_loss": True}):
-        with pytest.raises(NotImplementedError, match=match):
-            block.make_block_train_step(cfg, tp_classifier=True, **kw)
-    params = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        block.block_window_forward(params, mpnn.init_batch_stats(cfg), cfg, None, True)
 
 
 # ------------------------------------------------------------ attention heads ----

@@ -344,7 +344,7 @@ def test_gat_kernels_match_plain_versions(cuda, nh, P, na, nt, H, keep):
     assert torch.all(rs[~live.any(2)] == 0) and torch.all(cs[~live.any(1)] == 0)
     assert {k: gat.LAUNCHES[k] - before[k] for k in before} == {
         "gat_scores_fwd": 2, "gat_scores_bwd": 2, "gat_aggregate_fwd": 3,
-        "gat_aggregate_bwd": 2}
+        "gat_aggregate_bwd": 2, **dict.fromkeys(GAT1_KERNELS, 0)}
 
 
 @pytest.mark.cuda
@@ -363,10 +363,116 @@ def test_gat_autograd_launches_its_kernels(cuda):
         rs, cs = gat.gat_aggregate(*a_args, keep)
         ((e ** 2).sum() + sal.sum() + sbl.sum() + (rs ** 2).sum() + cs.sum()).backward()
         launched = {k: gat.LAUNCHES[k] - before[k] for k in before}
-        assert set(launched.values()) == ({0} if dev == "cpu" else {1}), launched
+        assert launched == {k: int(dev != "cpu" and k not in GAT1_KERNELS)
+                            for k in launched}, launched
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+GAT1_KERNELS = ("gat1_scores_fwd", "gat1_scores_bwd", "gat1_aggregate_fwd", "gat1_aggregate_bwd")
+
+
+def gat1_problem(seed, P, na, nt, H, keep, device):
+    """One head's inputs (gat_problem at nh = 1 without the head axis)."""
+    pr = gat_problem(seed, 1, P, na, nt, H, keep, device)
+    e, mr, mc, zr, zc, he, m3, ka, kn = pr["agg"]
+    g_e, g_sal, g_sbl = pr["scores_cot"]
+    return {"scores": pr["scores"], "scores_cot": [g_e[0], g_sal[0], g_sbl[0]],
+            "agg": [e[0], mr[0], mc[0], zr[0], zc[0], he, m3, ka[0], kn[0]],
+            "agg_cot": pr["agg_cot"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,na,nt,H,keep", [(17, 8, 16, 16, 0.5), (120, 24, 24, 64, 1.0),
+                                            (120, 24, 24, 64, 0.5), (3, 5, 40, 32, 0.5)])
+def test_gat1_kernels_match_plain_versions_and_the_stacked_kernels(cuda, P, na, nt, H, keep):
+    """The four single-head kernels (#9 and #10) against their plain
+    versions (forwards rtol and atol 1e-5, backwards rtol 1e-4 with atol
+    1e-5 x each output's scale), bitwise the same on a second launch, and
+    bitwise equal to the stacked kernels at nh = 1, which compute the same
+    function; one launch of each a call."""
+    pr = gat1_problem(P, P, na, nt, H, keep, cuda)
+    s_args, a_args = pr["scores"], pr["agg"]
+    stacked_agg = [t[None] for t in a_args[:5]] + a_args[5:7] + [t[None] for t in a_args[7:]]
+    before = dict(gat.LAUNCHES)
+    runs = [  # (kernel, plain, arguments, stacked kernel, its arguments, names, is a forward)
+        (gat._gat1_scores_fwd_cuda, gat.gat_scores_stats_1h_reference, (*s_args, 0.2),
+         gat._gat_scores_fwd_cuda, (*s_args, 0.2, 1), ["e", "rmax", "cmax", "sa_l", "sb_l"],
+         True),
+        (gat._gat1_scores_bwd_cuda, gat.gat_scores_stats_1h_backward_reference,
+         (*s_args, 0.2, *pr["scores_cot"]), gat._gat_scores_bwd_cuda,
+         (*s_args, 0.2, 1, *(t[None] for t in pr["scores_cot"])), ["dha", "dhn", "da"], False),
+        (gat._gat1_aggregate_fwd_cuda, gat.gat_aggregate_1h_reference, (*a_args, keep),
+         gat._gat_aggregate_fwd_cuda, (*stacked_agg, keep), ["rs", "cs"], True),
+        (gat._gat1_aggregate_bwd_cuda, gat.gat_aggregate_1h_backward_reference,
+         (*a_args, keep, *pr["agg_cot"]), gat._gat_aggregate_bwd_cuda,
+         (*stacked_agg, keep, *pr["agg_cot"]),
+         ["de", "dm_row", "dm_col", "dz_row", "dz_col", "dhe"], False),
+    ]
+    for kernel, plain, args, stacked, st_args, names, forward in runs:
+        got, again, want, st = kernel(*args), kernel(*args), plain(*args), stacked(*st_args)
+        torch.cuda.synchronize()
+        if forward:
+            for name, a, b in zip(names, got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+        else:
+            assert_close_scaled(got, want, names)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.equal(a, b.reshape(a.shape)) for a, b in zip(got, st))
+    rs, cs = gat._gat1_aggregate_fwd_cuda(*a_args, keep)
+    live = a_args[6] > 0
+    assert torch.all(rs[~live.any(2)] == 0) and torch.all(cs[~live.any(1)] == 0)
+    assert {k: gat.LAUNCHES[k] - before[k] for k in GAT1_KERNELS} == {
+        "gat1_scores_fwd": 2, "gat1_scores_bwd": 2, "gat1_aggregate_fwd": 3,
+        "gat1_aggregate_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_gat1_autograd_launches_its_kernels(cuda):
+    """Through the single-head autograd Functions, as the per-head route
+    calls them: one launch of each single-head kernel and none of the
+    stacked ones on the card, none on the CPU, and the CPU's gradients."""
+    keep = 0.5
+    pr = gat1_problem(6, 6, 8, 8, 16, keep, "cpu")
+    grads = {}
+    for dev in ("cpu", cuda):
+        s_args = [t.detach().to(dev) for t in pr["scores"]]
+        a_args = [t.detach().to(dev) for t in pr["agg"]]
+        leaves = [t.requires_grad_(True) for t in s_args[:3] + a_args[:6]]
+        before = dict(gat.LAUNCHES)
+        e, _, _, sal, sbl = gat.gat_scores_stats_1h(*s_args, 0.2)
+        rs, cs = gat.gat_aggregate_1h(*a_args, keep)
+        ((e ** 2).sum() + sal.sum() + sbl.sum() + (rs ** 2).sum() + cs.sum()).backward()
+        launched = {k: gat.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {k: int(dev != "cpu" and k in GAT1_KERNELS) for k in launched}
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+def test_gat1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    pr = gat1_problem(0, 4, 8, 8, 16, 0.5, cuda)
+    ha, hn, a, m = pr["scores"]
+    e, mr, mc, zr, zc, he, m3, ka, kn = pr["agg"]
+    with pytest.raises(TypeError):
+        gat._gat1_scores_fwd_cuda(ha.double(), hn, a, m, 0.2)
+    with pytest.raises(ValueError):
+        gat._gat1_scores_fwd_cuda(ha, hn.cpu(), a, m, 0.2)
+    with pytest.raises(TypeError):
+        gat._gat1_scores_fwd_cuda(ha, hn, a[:8], m, 0.2)  # a of another width
+    with pytest.raises(TypeError):
+        gat._gat1_scores_bwd_cuda(ha, hn, a, m, 0.2, e[:, :, :4], mr, mc)
+    with pytest.raises(TypeError):
+        gat._gat1_aggregate_fwd_cuda(e[None], mr, mc, zr, zc, he, m3, ka, kn, 0.5)  # a head axis
+    with pytest.raises(TypeError):
+        gat._gat1_aggregate_fwd_cuda(e, mr, mc, zr, zc, he, m3, ka[None], kn, 0.5)
+    with pytest.raises(ValueError):
+        gat._gat1_aggregate_fwd_cuda(e, mr, mc, zr, zc, he.transpose(1, 2), m3, ka, kn, 0.5)
+    with pytest.raises(TypeError):
+        gat._gat1_aggregate_bwd_cuda(e, mr, mc, zr, zc, he, m3, ka, kn, 0.5,
+                                     pr["agg_cot"][0][:, :4], pr["agg_cot"][1])
 
 
 @pytest.mark.cuda
@@ -609,12 +715,17 @@ def edge_loss_problem(seed, device, **shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [dict(P=11, na=8, nt=8, K=16, nD=32),
-                                   dict(P=120, na=24, nt=24, K=64, nD=2048)],
-                         ids=["small", "training"])
+                                   dict(P=120, na=24, nt=24, K=64, nD=2048),
+                                   dict(P=120, na=24, nt=24, K=192, nD=2048),
+                                   dict(P=13, na=8, nt=8, K=48, nD=32),
+                                   dict(P=11, na=8, nt=8, K=384, nD=32)],
+                         ids=["small", "training", "three_branches", "k48", "k384"])
 def test_edge_loss_kernels_match_plain_versions(cuda, shape):
     """L1 and L2 within atol 1e-5 (the counts exact), the backward within
     rtol 1e-4 and atol 1e-5 x each output's scale; each bitwise the same on
-    a second launch, each launched once a call."""
+    a second launch, each launched once a call.  The head width K = nb*H:
+    one branch at H 16 and 64, three at H 64 (192), and widths that do not
+    divide the backward's 256 threads (48) or exceed them (384)."""
     (h_eo, w_e, b_e, lbl, m3, ebnt, bna, act, act_m, nD), d_part = edge_loss_problem(
         3, cuda, **shape)
     before = dict(loss.LAUNCHES)
@@ -727,9 +838,9 @@ def test_es_round_and_edge_loss_wrappers_refuse_what_the_kernels_do_not_take(cud
         loss._l1_cuda(h_eo, w_e, b_e, lbl, m3.cpu(), ebnt)
     with pytest.raises(TypeError):
         loss._l2_cuda(lbl, lbl, m3, ebnt, bna[:, 0], *(lbl[:, :, 0].contiguous(),) * 3)
-    with pytest.raises(ValueError):  # K = 48 does not divide 256
-        z = lbl[:, :, 0].contiguous()
-        loss._bwd_cuda(h_eo, w_e, lbl, lbl, m3, ebnt, bna, z, z, z, z, d_part)
+    z = lbl[:, :, 0].contiguous()
+    with pytest.raises(TypeError):  # a cotangent of the partials of another shape
+        loss._bwd_cuda(h_eo, w_e, lbl, lbl, m3, ebnt, bna, z, z, z, z, d_part[:, :7].contiguous())
 
 
 # ------------------------------------------------ bounded deformable conv ----

@@ -64,6 +64,21 @@
 //   block keeps every head's attention weights of the block in shared
 //   memory.
 //
+// gat1_scores_fwd / gat1_scores_bwd / gat1_aggregate_fwd / gat1_aggregate_bwd
+//   Replace the single-head kernels of the same file: _stats_fwd_kernel
+//   (:167) and _stats_bwd_kernel (:187) of gat_scores_stats (:224), and
+//   _agg_fwd_kernel (:306) and _agg_bwd_kernel (:317) of gat_aggregate
+//   (:350), whose VJP took datt from an XLA einsum (_datt, :398) only
+//   because of a TPU toolchain crash (:321-328); here datt is computed
+//   inside the backward kernel, as in gat_aggregate_bwd.  The four bodies
+//   above take the head count as a template parameter; these entry points
+//   instantiate them at one head, so the head loops, the nh*H strides and
+//   the head axis of the keep masks vanish at compile time: ha / hn [P, n,
+//   H], a [H], e / keep masks [P, na, nt], statistics [P, na] / [P, nt], rs
+//   / cs the head's own sums.  Same bounds and the same CTA layout as their
+//   stacked forms at nh = 1: the per-head route of the block step
+//   (train/block.py, gat_fused=False) launches each once per head.
+//
 // No kernel synchronises or allocates: the caller allocates every output
 // and scratch and every launch goes to the stream it is given.  Each entry
 // point returns cudaGetLastError() so the caller can raise on a refused
@@ -86,7 +101,7 @@ struct ScoreSmem {
 
 // ha / hn rows of head h of block p (padded to H + 1), the head's a, the
 // block's mask; leaves pm for the caller.
-__device__ ScoreSmem load_score_inputs(float* smem, const float* ha, const float* hn,
+__device__ __forceinline__ ScoreSmem load_score_inputs(float* smem, const float* ha, const float* hn,
                                        const float* a, const float* mask, int p, int h,
                                        int na, int nt, int nh, int H) {
   const int ld = H + 1, HH = nh * H, ncell = na * nt;
@@ -146,14 +161,18 @@ __device__ void row_or_col_stats(const ScoreSmem& s, int r, int na, int nt, floa
   *sum_out = sum;
 }
 
+// kNH: the head count when the compiler knows it (1: the single-head entry
+// points), 0 for the runtime nh of the stacked ones; one CTA per (block, head)
+template <int kNH>
 __global__ void gat_scores_fwd_kernel(const float* __restrict__ ha, const float* __restrict__ hn,
                                       const float* __restrict__ a, const float* __restrict__ mask,
                                       float* __restrict__ e, float* __restrict__ rmax,
                                       float* __restrict__ cmax, float* __restrict__ sal,
-                                      float* __restrict__ sbl, int P, int na, int nt, int nh,
+                                      float* __restrict__ sbl, int P, int na, int nt, int nh_arg,
                                       int H, float alpha) {
   extern __shared__ float smem[];
-  const int p = blockIdx.x, h = blockIdx.y, ncell = na * nt;
+  const int nh = kNH > 0 ? kNH : nh_arg;
+  const int p = blockIdx.x, h = kNH == 1 ? 0 : blockIdx.y, ncell = na * nt;
   const ScoreSmem s = load_score_inputs(smem, ha, hn, a, mask, p, h, na, nt, nh, H);
   masked_scores(s, na, nt, H);
   const int64_t hp = (int64_t)h * P + p;
@@ -171,14 +190,17 @@ __global__ void gat_scores_fwd_kernel(const float* __restrict__ ha, const float*
   }
 }
 
+template <int kNH>
 __global__ void gat_scores_bwd_kernel(const float* __restrict__ ha, const float* __restrict__ hn,
                                       const float* __restrict__ a, const float* __restrict__ mask,
                                       const float* __restrict__ ge, const float* __restrict__ gsal,
                                       const float* __restrict__ gsbl, float* __restrict__ dha,
                                       float* __restrict__ dhn, float* __restrict__ part, int P,
-                                      int na, int nt, int nh, int H, float alpha) {
+                                      int na, int nt, int nh_arg, int H, float alpha) {
   extern __shared__ float smem[];
-  const int p = blockIdx.x, h = blockIdx.y, ncell = na * nt, ld = H + 1, HH = nh * H;
+  const int nh = kNH > 0 ? kNH : nh_arg;
+  const int p = blockIdx.x, h = kNH == 1 ? 0 : blockIdx.y, ncell = na * nt, ld = H + 1,
+            HH = nh * H;
   const ScoreSmem s = load_score_inputs(smem, ha, hn, a, mask, p, h, na, nt, nh, H);
   float* mx_s = s.pm + ncell;    // [na + nt]  rmax | cmax
   float* dpre_s = mx_s + na + nt;  // [ncell]
@@ -247,7 +269,9 @@ struct AggArgs {
   float keep;
 };
 
-// att_a (rows) or att_n (columns) of head h at cell c of block p
+// att_a (rows) or att_n (columns) of head h at cell c of block p; with one
+// head known to the compiler (kNH == 1) the keep masks have no head axis
+template <int kNH>
 __device__ __forceinline__ float attention(const AggArgs& g, bool rows, int h, int p, int c,
                                            float m) {
   if (m == 0.f) return 0.f;
@@ -258,21 +282,23 @@ __device__ __forceinline__ float attention(const AggArgs& g, bool rows, int h, i
   float att = m * expf(g.e[hp * ncell + c] - shift) / fmaxf(z, kZFloor);
   if (g.keep < 1.f) {
     const float* k = rows ? g.ka : g.kn;
-    att = att * k[((int64_t)(g.nk > 1 ? h : 0) * g.P + p) * ncell + c] / g.keep;
+    const int kh = (kNH != 1 && g.nk > 1) ? h : 0;
+    att = att * k[((int64_t)kh * g.P + p) * ncell + c] / g.keep;
   }
   return att;
 }
 
+template <int kNH>
 __global__ void gat_aggregate_fwd_kernel(AggArgs g, const float* __restrict__ he,
                                          float* __restrict__ rs, float* __restrict__ cs, int H) {
   extern __shared__ float smem[];
   float* w_s = smem;  // [na][nt]  head-summed attention of this CTA's side
-  const int p = blockIdx.x, ncell = g.na * g.nt;
+  const int p = blockIdx.x, ncell = g.na * g.nt, nh = kNH > 0 ? kNH : g.nh;
   const bool rows = blockIdx.y == 0;
   for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
     const float m = g.m[(int64_t)p * ncell + c];
     float w = 0.f;
-    for (int h = 0; h < g.nh; ++h) w += attention(g, rows, h, p, c, m);
+    for (int h = 0; h < nh; ++h) w += attention<kNH>(g, rows, h, p, c, m);
     w_s[c] = w;
   }
   __syncthreads();
@@ -294,6 +320,7 @@ __global__ void gat_aggregate_fwd_kernel(AggArgs g, const float* __restrict__ he
   }
 }
 
+template <int kNH>
 __global__ void gat_aggregate_bwd_kernel(AggArgs g, const float* __restrict__ he,
                                          const float* __restrict__ grs,
                                          const float* __restrict__ gcs, float* __restrict__ de,
@@ -301,7 +328,7 @@ __global__ void gat_aggregate_bwd_kernel(AggArgs g, const float* __restrict__ he
                                          float* __restrict__ dzr, float* __restrict__ dzc,
                                          float* __restrict__ dhe, int H) {
   extern __shared__ float smem[];
-  const int p = blockIdx.x, na = g.na, nt = g.nt, nh = g.nh, ncell = na * nt;
+  const int p = blockIdx.x, na = g.na, nt = g.nt, nh = kNH > 0 ? kNH : g.nh, ncell = na * nt;
   float* grs_s = smem;              // [na][H]
   float* gcs_s = grs_s + na * H;    // [nt][H]
   float* datt_a = gcs_s + nt * H;   // [ncell]
@@ -314,8 +341,8 @@ __global__ void gat_aggregate_bwd_kernel(AggArgs g, const float* __restrict__ he
   for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
     const float m = g.m[(int64_t)p * ncell + c];
     for (int h = 0; h < nh; ++h) {
-      att_a[h * ncell + c] = attention(g, true, h, p, c, m);
-      att_n[h * ncell + c] = attention(g, false, h, p, c, m);
+      att_a[h * ncell + c] = attention<kNH>(g, true, h, p, c, m);
+      att_n[h * ncell + c] = attention<kNH>(g, false, h, p, c, m);
     }
   }
   __syncthreads();
@@ -416,6 +443,76 @@ AggArgs agg_args(const void* e, const void* mr, const void* mc, const void* zr, 
   return g;
 }
 
+// The launches, for the stacked (kNH = 0, nh heads at run time) and the
+// single-head (kNH = 1) instances of each body.
+template <int kNH>
+int launch_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask, void* e,
+                      void* rmax, void* cmax, void* sal, void* sbl, int P, int na, int nt, int nh,
+                      int H, float alpha, void* stream) {
+  if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
+  const size_t smem = score_smem_floats(na, nt, H, false) * sizeof(float);
+  cudaError_t err = opt_in_smem((const void*)gat_scores_fwd_kernel<kNH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  gat_scores_fwd_kernel<kNH><<<dim3(P, nh), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (float*)e,
+      (float*)rmax, (float*)cmax, (float*)sal, (float*)sbl, P, na, nt, nh, H, alpha);
+  return (int)cudaGetLastError();
+}
+
+template <int kNH>
+int launch_scores_bwd(const void* ha, const void* hn, const void* a, const void* mask,
+                      const void* ge, const void* gsal, const void* gsbl, void* dha, void* dhn,
+                      void* partials, void* da, int P, int na, int nt, int nh, int H, float alpha,
+                      void* stream) {
+  if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = score_smem_floats(na, nt, H, true) * sizeof(float);
+  cudaError_t err = opt_in_smem((const void*)gat_scores_bwd_kernel<kNH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  gat_scores_bwd_kernel<kNH><<<dim3(P, nh), kThreads, smem, s>>>(
+      (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (const float*)ge,
+      (const float*)gsal, (const float*)gsbl, (float*)dha, (float*)dhn, (float*)partials, P, na,
+      nt, nh, H, alpha);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int width = nh * H;
+  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials, (float*)da, P,
+                                                          width);
+  return (int)cudaGetLastError();
+}
+
+template <int kNH>
+int launch_aggregate_fwd(const void* e, const void* mr, const void* mc, const void* zr,
+                         const void* zc, const void* he, const void* mask, const void* ka,
+                         const void* kn, void* rs, void* cs, int P, int na, int nt, int nh, int H,
+                         int nk, float keep, void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  const size_t smem = agg_smem_floats(na, nt, nh, H, false) * sizeof(float);
+  cudaError_t err = opt_in_smem((const void*)gat_aggregate_fwd_kernel<kNH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  gat_aggregate_fwd_kernel<kNH><<<dim3(P, 2), kThreads, smem, (cudaStream_t)stream>>>(
+      agg_args(e, mr, mc, zr, zc, mask, ka, kn, P, na, nt, nh, nk, keep), (const float*)he,
+      (float*)rs, (float*)cs, H);
+  return (int)cudaGetLastError();
+}
+
+template <int kNH>
+int launch_aggregate_bwd(const void* e, const void* mr, const void* mc, const void* zr,
+                         const void* zc, const void* he, const void* mask, const void* ka,
+                         const void* kn, const void* grs, const void* gcs, void* de, void* dmr,
+                         void* dmc, void* dzr, void* dzc, void* dhe, int P, int na, int nt, int nh,
+                         int H, int nk, float keep, void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  const size_t smem = agg_smem_floats(na, nt, nh, H, true) * sizeof(float);
+  cudaError_t err = opt_in_smem((const void*)gat_aggregate_bwd_kernel<kNH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  gat_aggregate_bwd_kernel<kNH><<<P, kThreads, smem, (cudaStream_t)stream>>>(
+      agg_args(e, mr, mc, zr, zc, mask, ka, kn, P, na, nt, nh, nk, keep), (const float*)he,
+      (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr, (float*)dmc, (float*)dzr,
+      (float*)dzc, (float*)dhe, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of shared memory a CTA of the score (kind 0) or aggregate (kind 1)
@@ -431,14 +528,8 @@ extern "C" int tm_gat_smem_bytes(int kind, int na, int nt, int nh, int H, int ba
 extern "C" int tm_gat_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask,
                                  void* e, void* rmax, void* cmax, void* sal, void* sbl, int P,
                                  int na, int nt, int nh, int H, float alpha, void* stream) {
-  if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
-  const size_t smem = score_smem_floats(na, nt, H, false) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_scores_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gat_scores_fwd_kernel<<<dim3(P, nh), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (float*)e,
-      (float*)rmax, (float*)cmax, (float*)sal, (float*)sbl, P, na, nt, nh, H, alpha);
-  return (int)cudaGetLastError();
+  return launch_scores_fwd<0>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, nh, H, alpha,
+                              stream);
 }
 
 // Inputs as tm_gat_scores_fwd plus the cotangents ge (shape of e), gsal
@@ -448,21 +539,8 @@ extern "C" int tm_gat_scores_bwd(const void* ha, const void* hn, const void* a, 
                                  const void* ge, const void* gsal, const void* gsbl, void* dha,
                                  void* dhn, void* partials, void* da, int P, int na, int nt,
                                  int nh, int H, float alpha, void* stream) {
-  if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = score_smem_floats(na, nt, H, true) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_scores_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gat_scores_bwd_kernel<<<dim3(P, nh), kThreads, smem, s>>>(
-      (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (const float*)ge,
-      (const float*)gsal, (const float*)gsbl, (float*)dha, (float*)dhn, (float*)partials, P, na,
-      nt, nh, H, alpha);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int width = nh * H;
-  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials, (float*)da, P,
-                                                          width);
-  return (int)cudaGetLastError();
+  return launch_scores_bwd<0>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
+                              nh, H, alpha, stream);
 }
 
 // e: f32[nh, P, na, nt]; m_row / z_row: f32[nh, P, na]; m_col / z_col:
@@ -474,14 +552,8 @@ extern "C" int tm_gat_aggregate_fwd(const void* e, const void* mr, const void* m
                                     const void* ka, const void* kn, void* rs, void* cs, int P,
                                     int na, int nt, int nh, int H, int nk, float keep,
                                     void* stream) {
-  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
-  const size_t smem = agg_smem_floats(na, nt, nh, H, false) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_aggregate_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gat_aggregate_fwd_kernel<<<dim3(P, 2), kThreads, smem, (cudaStream_t)stream>>>(
-      agg_args(e, mr, mc, zr, zc, mask, ka, kn, P, na, nt, nh, nk, keep), (const float*)he,
-      (float*)rs, (float*)cs, H);
-  return (int)cudaGetLastError();
+  return launch_aggregate_fwd<0>(e, mr, mc, zr, zc, he, mask, ka, kn, rs, cs, P, na, nt, nh, H,
+                                 nk, keep, stream);
 }
 
 // Inputs as tm_gat_aggregate_fwd plus the cotangents g_rs f32[P, na, H] and
@@ -493,13 +565,54 @@ extern "C" int tm_gat_aggregate_bwd(const void* e, const void* mr, const void* m
                                     const void* gcs, void* de, void* dmr, void* dmc, void* dzr,
                                     void* dzc, void* dhe, int P, int na, int nt, int nh, int H,
                                     int nk, float keep, void* stream) {
-  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
-  const size_t smem = agg_smem_floats(na, nt, nh, H, true) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_aggregate_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gat_aggregate_bwd_kernel<<<P, kThreads, smem, (cudaStream_t)stream>>>(
-      agg_args(e, mr, mc, zr, zc, mask, ka, kn, P, na, nt, nh, nk, keep), (const float*)he,
-      (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr, (float*)dmc, (float*)dzr,
-      (float*)dzc, (float*)dhe, H);
-  return (int)cudaGetLastError();
+  return launch_aggregate_bwd<0>(e, mr, mc, zr, zc, he, mask, ka, kn, grs, gcs, de, dmr, dmc,
+                                 dzr, dzc, dhe, P, na, nt, nh, H, nk, keep, stream);
+}
+
+// One head (gat_scores_stats, pallas_gat.py:224): ha f32[P, na, H], hn
+// f32[P, nt, H], a f32[H], mask f32[P, na, nt].  out: e f32[P, na, nt], rmax /
+// sa_l f32[P, na], cmax / sb_l f32[P, nt].
+extern "C" int tm_gat1_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask,
+                                  void* e, void* rmax, void* cmax, void* sal, void* sbl, int P,
+                                  int na, int nt, int H, float alpha, void* stream) {
+  return launch_scores_fwd<1>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, 1, H, alpha,
+                              stream);
+}
+
+// Its backward (pallas_gat.py:264): inputs as tm_gat1_scores_fwd plus the
+// cotangents ge, gsal, gsbl; writes d ha, d hn, the per-block partials
+// f32[P, H] (scratch) and da f32[H].
+extern "C" int tm_gat1_scores_bwd(const void* ha, const void* hn, const void* a, const void* mask,
+                                  const void* ge, const void* gsal, const void* gsbl, void* dha,
+                                  void* dhn, void* partials, void* da, int P, int na, int nt,
+                                  int H, float alpha, void* stream) {
+  return launch_scores_bwd<1>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
+                              1, H, alpha, stream);
+}
+
+// One head (gat_aggregate, pallas_gat.py:350): e, ka, kn, mask f32[P, na,
+// nt]; m_row / z_row f32[P, na]; m_col / z_col f32[P, nt]; h_e f32[P, na,
+// nt, H]; the keep masks are read only when keep < 1.  out: rs f32[P, na, H],
+// cs f32[P, nt, H].
+extern "C" int tm_gat1_aggregate_fwd(const void* e, const void* mr, const void* mc,
+                                     const void* zr, const void* zc, const void* he,
+                                     const void* mask, const void* ka, const void* kn, void* rs,
+                                     void* cs, int P, int na, int nt, int H, float keep,
+                                     void* stream) {
+  return launch_aggregate_fwd<1>(e, mr, mc, zr, zc, he, mask, ka, kn, rs, cs, P, na, nt, 1, H, 1,
+                                 keep, stream);
+}
+
+// Its backward (pallas_gat.py:408, with _datt inside): inputs as
+// tm_gat1_aggregate_fwd plus g_rs f32[P, na, H], g_cs f32[P, nt, H].  out: de
+// f32[P, na, nt], d m_row / d z_row f32[P, na], d m_col / d z_col f32[P, nt],
+// d h_e f32[P, na, nt, H].
+extern "C" int tm_gat1_aggregate_bwd(const void* e, const void* mr, const void* mc,
+                                     const void* zr, const void* zc, const void* he,
+                                     const void* mask, const void* ka, const void* kn,
+                                     const void* grs, const void* gcs, void* de, void* dmr,
+                                     void* dmc, void* dzr, void* dzc, void* dhe, int P, int na,
+                                     int nt, int H, float keep, void* stream) {
+  return launch_aggregate_bwd<1>(e, mr, mc, zr, zc, he, mask, ka, kn, grs, gcs, de, dmr, dmc,
+                                 dzr, dzc, dhe, P, na, nt, 1, H, 1, keep, stream);
 }

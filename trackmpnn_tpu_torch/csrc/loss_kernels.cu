@@ -34,7 +34,10 @@
 //   Replaces _lb_kernel (pallas_loss.py:167).  Per block: d logits per cell
 //   (one thread a column recomputes the picks, the column softmax and the
 //   BCE derivative), then thread (g, k) writes d h_eo = d logit * w_e[k]
-//   for the cells g, g + G, ... and sums h_eo * d logit over them; the
+//   for the cells g, g + G, ... and sums h_eo * d logit over them (G =
+//   256 / K groups of K threads where K < 256: K = nb*H is any head width,
+//   192 for three branches at H 64; where K >= 256 one group whose threads
+//   take columns k, k + 256, ...); the
 //   block's d w_e and d b_e go to a row of per-block partials, which
 //   sum_partials_kernel adds up in block order (the TPU kernel accumulates
 //   them across its sequential grid, :223-231).  Bound: bytes (h_eo read
@@ -211,7 +214,7 @@ __global__ void edge_loss_bwd_kernel(const float* __restrict__ heo, const float*
                                      const float* __restrict__ dpart, float* __restrict__ dheo,
                                      float* __restrict__ part, int na, int nt, int K) {
   extern __shared__ float smem[];
-  const int ncell = na * nt, G = blockDim.x / K;
+  const int ncell = na * nt, G = K < (int)blockDim.x ? (int)blockDim.x / K : 1;
   float* dl_s = smem;              // [ncell]  d logits
   float* red_s = dl_s + ncell;     // [G][K]   per-group d w_e
   const int64_t q = blockIdx.x;
@@ -258,8 +261,11 @@ __global__ void edge_loss_bwd_kernel(const float* __restrict__ heo, const float*
   }
   __syncthreads();
   // d h_eo = d logit * w_e; thread (g, k) owns column k of the cells g + G*t
-  const int k = threadIdx.x % K, g = threadIdx.x / K;
-  if (g < G) {
+  // (threads past G groups idle; with one group a thread takes every
+  // blockDim-th column)
+  const int g = G > 1 ? threadIdx.x / K : 0;
+  const int kstep = G > 1 ? K : blockDim.x;
+  for (int k = G > 1 ? threadIdx.x % K : threadIdx.x; g < G && k < K; k += kstep) {
     const float wk = we[k];
     float acc = 0.f;
     for (int c = g; c < ncell; c += G) {
@@ -336,7 +342,7 @@ extern "C" int tm_edge_loss_l2(const void* logits, const void* lbl, const void* 
   return (int)cudaGetLastError();
 }
 
-// Inputs as tm_edge_loss_l2 plus h_eo f32[P, na, nt, K] (K divides 256),
+// Inputs as tm_edge_loss_l2 plus h_eo f32[P, na, nt, K] (any K > 0),
 // w_e f32[K], wg f32[P, na] and dpart f32[P, 8] (the cotangent of the
 // partials).  Writes d h_eo f32[P, na, nt, K], the per-block partials
 // f32[P, K + 1] (scratch) and dw f32[K + 1] = [d w_e | d b_e].
@@ -346,9 +352,10 @@ extern "C" int tm_edge_loss_bwd(const void* heo, const void* we, const void* log
                                 const void* sizedg, const void* wg, const void* dpart,
                                 void* dheo, void* partials, void* dw, int P, int na, int nt,
                                 int K, void* stream) {
-  if (K <= 0 || K > kBwdThreads || kBwdThreads % K != 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ((size_t)na * nt + kBwdThreads) * sizeof(float);
+  // red_s holds G * K <= max(kBwdThreads, K) floats
+  const size_t smem = ((size_t)na * nt + (K > kBwdThreads ? K : kBwdThreads)) * sizeof(float);
   cudaError_t err = opt_in_smem((const void*)edge_loss_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   edge_loss_bwd_kernel<<<P, kBwdThreads, smem, s>>>(

@@ -1,6 +1,6 @@
 """Ops of the GAT attention heads in the block train step (the counterpart
 of trackmpnn_tpu/ops/pallas_gat.py's stacked-head gat_scores_stats_mh and
-gat_aggregate_mh).
+gat_aggregate_mh, and of its single-head gat_scores_stats and gat_aggregate).
 
 Each op has
   * a plain PyTorch version of its forward and of its hand-derived backward
@@ -20,6 +20,18 @@ by side on the feature axis (ha [P, na, nh*H], hn [P, nt, nh*H], a
 the aggregate sums its rs / cs over the heads (the caller divides by nh).
 Keep masks ka / kn are [nh or 1, P, na, nt] (one head broadcasts) and are
 read only when keep < 1.
+
+The single-head ops compute one head in the layout of the JAX package's
+single-head kernels, with no head axis anywhere: gat_scores_stats_1h (for
+gat_scores_stats, pallas_gat.py:224) takes ha [P, na, H], hn [P, nt, H], a
+[H, 1] and gives e [P, na, nt], rmax / sa_l [P, na], cmax / sb_l [P, nt];
+gat_aggregate_1h (for gat_aggregate, pallas_gat.py:350) takes e, keep masks
+[P, na, nt] and the statistics [P, na] / [P, nt], and gives the head's own
+rs / cs.  At one head they compute what the stacked ops compute, so their
+plain versions are the stacked ones' at nh = 1; on the card they launch
+single-head instances of the same kernel bodies (tm_gat1_* in
+csrc/gat_kernels.cu), counted apart.  The block step's per-head attention
+route (train/block.py, gat_fused=False) calls them once per head.
 """
 
 from __future__ import annotations
@@ -33,7 +45,9 @@ NEG_SCORE = -1e30  # score of a masked cell in the max (pallas_gat.py:164)
 Z_FLOOR = 1e-30    # floor of a softmax normaliser
 
 LAUNCHES = {"gat_scores_fwd": 0, "gat_scores_bwd": 0,
-            "gat_aggregate_fwd": 0, "gat_aggregate_bwd": 0}
+            "gat_aggregate_fwd": 0, "gat_aggregate_bwd": 0,
+            "gat1_scores_fwd": 0, "gat1_scores_bwd": 0,
+            "gat1_aggregate_fwd": 0, "gat1_aggregate_bwd": 0}
 
 
 # -------------------------------------------------------------- references ----
@@ -139,6 +153,36 @@ def gat_aggregate_backward_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, 
            + att_n[..., None] * g_cs[None, :, None, :, :]).sum(0)
     return (pa + pn, -s_a, -s_n, -s_a / torch.clamp(z_row, min=Z_FLOOR),
             -s_n / torch.clamp(z_col, min=Z_FLOOR), dhe)
+
+
+def gat_scores_stats_1h_reference(ha, hn, a, mask3, alpha):
+    """(e, rmax, cmax, sa_l, sb_l) of one head (gat_scores_stats,
+    pallas_gat.py:224): gat_scores_stats_reference at nh = 1, without the
+    head axis."""
+    return tuple(t[0] for t in gat_scores_stats_reference(ha, hn, a, mask3, alpha, 1))
+
+
+def gat_scores_stats_1h_backward_reference(ha, hn, a, mask3, alpha, ge, gsal, gsbl):
+    """(d ha, d hn, d a) of one head (_stats_bwd, pallas_gat.py:264)."""
+    return gat_scores_stats_backward_reference(ha, hn, a, mask3, alpha, 1, ge[None], gsal[None],
+                                               gsbl[None])
+
+
+def gat_aggregate_1h_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    """(rs, cs) of one head (gat_aggregate, pallas_gat.py:350); e, ka, kn
+    [P, na, nt], the statistics [P, na] / [P, nt]."""
+    heads = (t[None] for t in (e, m_row, m_col, z_row, z_col))
+    return gat_aggregate_reference(*heads, h_e, mask3, ka[None], kn[None], keep)
+
+
+def gat_aggregate_1h_backward_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep,
+                                        g_rs, g_cs):
+    """(d e, d m_row, d m_col, d z_row, d z_col, d h_e) of one head
+    (_agg_bwd, pallas_gat.py:408, _datt included)."""
+    heads = (t[None] for t in (e, m_row, m_col, z_row, z_col))
+    out = gat_aggregate_backward_reference(*heads, h_e, mask3, ka[None], kn[None], keep, g_rs,
+                                           g_cs)
+    return tuple(t[0] for t in out[:5]) + (out[5],)
 
 
 # ---------------------------------------------------------------- wrappers ----
@@ -261,6 +305,95 @@ def _gat_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, k
     return out
 
 
+def _gat1_scores_fwd_cuda(ha, hn, a, mask3, alpha):
+    lib, P, na, nt, H = _score_inputs("gat1_scores_fwd", ha, hn, a, mask3, 1)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=ha.device)
+    out = (new(P, na, nt), new(P, na), new(P, nt), new(P, na), new(P, nt))
+    if P == 0 or na == 0 or nt == 0:
+        return tuple(t.zero_() for t in out)
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat1_scores_fwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                    *(t.data_ptr() for t in out), P, na, nt, H, float(alpha),
+                                    _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat1_scores_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat1_scores_fwd"] += 1
+    return out
+
+
+def _gat1_scores_bwd_cuda(ha, hn, a, mask3, alpha, ge, gsal, gsbl):
+    lib, P, na, nt, H = _score_inputs("gat1_scores_bwd", ha, hn, a, mask3, 1)
+    f32 = torch.float32
+    _check("gat1_scores_bwd", ha.device, ge=(ge, f32, (P, na, nt)), gsal=(gsal, f32, (P, na)),
+           gsbl=(gsbl, f32, (P, nt)))
+    dha, dhn = torch.empty_like(ha), torch.empty_like(hn)
+    da = torch.empty(H, 1, dtype=f32, device=ha.device)
+    if P == 0 or na == 0 or nt == 0:
+        return dha.zero_(), dhn.zero_(), da.zero_()
+    partials = torch.empty(P, H, dtype=f32, device=ha.device)
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat1_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                    ge.data_ptr(), gsal.data_ptr(), gsbl.data_ptr(),
+                                    dha.data_ptr(), dhn.data_ptr(), partials.data_ptr(),
+                                    da.data_ptr(), P, na, nt, H, float(alpha), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat1_scores_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat1_scores_bwd"] += 1
+    return dha, dhn, da
+
+
+def _aggregate_1h_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn):
+    if e.dim() != 3 or h_e.dim() != 4:
+        raise TypeError(f"{name}: e must be [P, na, nt] and h_e [P, na, nt, H], got "
+                        f"{list(e.shape)}, {list(h_e.shape)}")
+    P, na, nt, H = h_e.shape
+    f32 = torch.float32
+    _check(name, e.device, e=(e, f32, (P, na, nt)), m_row=(m_row, f32, (P, na)),
+           m_col=(m_col, f32, (P, nt)), z_row=(z_row, f32, (P, na)),
+           z_col=(z_col, f32, (P, nt)), h_e=(h_e, f32, (P, na, nt, H)),
+           mask3=(mask3, f32, (P, na, nt)), ka=(ka, f32, (P, na, nt)),
+           kn=(kn, f32, (P, na, nt)))
+    lib = _build.load("gat")
+    _smem_fits(name, lib, e.device, 1, na, nt, 1, H)
+    return lib, P, na, nt, H
+
+
+def _gat1_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+    lib, P, na, nt, H = _aggregate_1h_inputs("gat1_aggregate_fwd", *args)
+    rs = torch.empty(P, na, H, dtype=torch.float32, device=e.device)
+    cs = torch.empty(P, nt, H, dtype=torch.float32, device=e.device)
+    if P == 0 or na == 0 or nt == 0:
+        return rs.zero_(), cs.zero_()
+    with torch.cuda.device(e.device):
+        rc = lib.tm_gat1_aggregate_fwd(*(t.data_ptr() for t in args), rs.data_ptr(),
+                                       cs.data_ptr(), P, na, nt, H, float(keep), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat1_aggregate_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat1_aggregate_fwd"] += 1
+    return rs, cs
+
+
+def _gat1_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep,
+                             g_rs, g_cs):
+    args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+    lib, P, na, nt, H = _aggregate_1h_inputs("gat1_aggregate_bwd", *args)
+    _check("gat1_aggregate_bwd", e.device, g_rs=(g_rs, torch.float32, (P, na, H)),
+           g_cs=(g_cs, torch.float32, (P, nt, H)))
+    out = (torch.empty_like(e), torch.empty_like(m_row), torch.empty_like(m_col),
+           torch.empty_like(z_row), torch.empty_like(z_col), torch.empty_like(h_e))
+    if P == 0 or na == 0 or nt == 0:
+        return tuple(t.zero_() for t in out)
+    with torch.cuda.device(e.device):
+        rc = lib.tm_gat1_aggregate_bwd(*(t.data_ptr() for t in args), g_rs.data_ptr(),
+                                       g_cs.data_ptr(), *(t.data_ptr() for t in out),
+                                       P, na, nt, H, float(keep), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat1_aggregate_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat1_aggregate_bwd"] += 1
+    return out
+
+
 class GatScoresStats(torch.autograd.Function):
     """(e, rmax, cmax, sa_l, sb_l) = gat_scores_stats_reference(...), with
     the hand-derived backward; rmax and cmax are not differentiable."""
@@ -308,9 +441,72 @@ class GatAggregate(torch.autograd.Function):
         return (*bwd(*args, ctx.keep, g_rs, g_cs), None, None, None, None)
 
 
+class GatScoresStats1h(torch.autograd.Function):
+    """(e, rmax, cmax, sa_l, sb_l) = gat_scores_stats_1h_reference(...),
+    with the hand-derived backward; rmax and cmax are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, ha, hn, a, mask3, alpha):
+        ctx.save_for_backward(ha, hn, a, mask3)
+        ctx.alpha = float(alpha)
+        fwd = _gat1_scores_fwd_cuda if _on_cuda(ha) else gat_scores_stats_1h_reference
+        out = fwd(ha, hn, a, mask3, alpha)
+        ctx.mark_non_differentiable(out[1], out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, ge, _grmax, _gcmax, gsal, gsbl):
+        ha, hn, a, mask3 = ctx.saved_tensors
+        P, na, nt = mask3.shape
+        ge = _zeros_if_none(ge, (P, na, nt), ha.device)
+        gsal = _zeros_if_none(gsal, (P, na), ha.device)
+        gsbl = _zeros_if_none(gsbl, (P, nt), ha.device)
+        bwd = _gat1_scores_bwd_cuda if _on_cuda(ha) else gat_scores_stats_1h_backward_reference
+        dha, dhn, da = bwd(ha, hn, a, mask3, ctx.alpha, ge, gsal, gsbl)
+        return dha, dhn, da, None, None
+
+
+class GatAggregate1h(torch.autograd.Function):
+    """(rs, cs) = gat_aggregate_1h_reference(...), with the hand-derived
+    backward; the masks take no gradient."""
+
+    @staticmethod
+    def forward(ctx, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+        ctx.save_for_backward(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
+        ctx.keep = float(keep)
+        fwd = _gat1_aggregate_fwd_cuda if _on_cuda(e) else gat_aggregate_1h_reference
+        return fwd(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep)
+
+    @staticmethod
+    def backward(ctx, g_rs, g_cs):
+        args = ctx.saved_tensors
+        P, na, nt, H = args[5].shape
+        g_rs = _zeros_if_none(g_rs, (P, na, H), args[0].device)
+        g_cs = _zeros_if_none(g_cs, (P, nt, H), args[0].device)
+        bwd = (_gat1_aggregate_bwd_cuda if _on_cuda(args[0])
+               else gat_aggregate_1h_backward_reference)
+        return (*bwd(*args, ctx.keep, g_rs, g_cs), None, None, None, None)
+
+
 def gat_scores_stats(ha, hn, a, mask3, alpha, nh):
     return GatScoresStats.apply(ha, hn, a, mask3, alpha, nh)
 
 
 def gat_aggregate(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
     return GatAggregate.apply(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep)
+
+
+def gat_scores_stats_1h(ha, hn, a, mask3, alpha):
+    """One head's (e, rmax, cmax, sa_l, sb_l) (gat_scores_stats,
+    pallas_gat.py:224), differentiable in ha, hn, a: ha [P, na, H], hn [P,
+    nt, H], a [H, 1], mask3 [P, na, nt] f32 0/1.  rmax / cmax take no
+    gradient (the caller stops the softmax shift)."""
+    return GatScoresStats1h.apply(ha, hn, a, mask3, alpha)
+
+
+def gat_aggregate_1h(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
+    """One head's (rs, cs) (gat_aggregate, pallas_gat.py:350), differentiable
+    in e, the statistics and h_e: e, ka, kn [P, na, nt]; m_row, z_row [P,
+    na]; m_col, z_col [P, nt]; h_e [P, na, nt, H]; the keep masks are read
+    only when keep < 1."""
+    return GatAggregate1h.apply(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep)

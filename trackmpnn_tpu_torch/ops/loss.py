@@ -40,7 +40,6 @@ from trackmpnn_tpu_torch.ops.segment import segment_max, segment_min, segment_su
 LAUNCHES = {"edge_loss_l1": 0, "edge_loss_l2": 0, "edge_loss_bwd": 0}
 NEG = -1e30
 BIG = float(1 << 30)  # larger than any slot row id (exact in f32)
-MAX_K = 256           # head widths the backward takes: K divides 256
 
 
 # -------------------------------------------------------------- references ----
@@ -230,9 +229,6 @@ def _bwd_cuda(h_eo, w_e, logits, lbl, mask3, ebnt, bna, sel1g, lsedg, sizedg, wg
         raise TypeError(f"edge_loss_bwd: h_eo must be f32[P, na, nt, K], got "
                         f"{list(h_eo.shape)}")
     K = h_eo.shape[3]
-    if K > MAX_K or MAX_K % K != 0:
-        raise ValueError(f"edge_loss_bwd: the kernel takes head widths K dividing {MAX_K}, "
-                         f"got {K}")
     f32 = torch.float32
     _check("edge_loss_bwd", mask3.device, h_eo=(h_eo, f32, (P, na, nt, K)),
            w_e=(w_e, f32, (K, 1)), logits=(logits, f32, (P, na, nt)),

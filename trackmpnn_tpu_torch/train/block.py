@@ -18,13 +18,22 @@ per-window layout [B*capD, H]:
 With attention heads (cfg.nattheads > 0) edge_support is instead the mean
 over heads of attention-weighted signed sums (_block_gat_support): the
 stacked-head score and aggregation kernels (ops.gat), a segment max and sum
-for the per-detection softmax, and the same window scatter.
+for the per-detection softmax, and the same window scatter.  With
+gat_fused=False the heads run one at a time instead
+(_block_gat_support_per_head, the JAX package's per-head loop): the
+single-head score and aggregation kernels, one launch of each a head.
+
+Every feature branch (2d, temp, vis) runs its own input transform, edge
+and node GRUs and attention heads on its own slice of the hidden state, as
+in the JAX package's branch loop; each branch's edge rectangle stays a
+tensor of its own, and the branches meet in the edge head (the sum of
+their head partials) and in the node head.
 
 By default this is the composition the JAX package runs on the TPU (fused
 round, defer_loss, hoisted BN, window scatter/gather, the stacked attention
-kernels), for features '2d', msg 'diff', f32.  Two keyword arguments select
-its two other block-step compositions (TM_ES_KERNEL=1 and TM_FUSED_LOSS=1
-there):
+kernels), for any of the feature branches, msg 'diff', f32.  Two keyword
+arguments select its two other block-step compositions (TM_ES_KERNEL=1 and
+TM_FUSED_LOSS=1 there):
 
   * es_kernel: one kernel gathers the input gates and reduces edge_support
     itself (ops.block.fused_block_round_es), over the batch's detection
@@ -32,7 +41,8 @@ there):
     gather, the round and the scatter; no attention heads;
   * fused_loss: every step computes its edge-side targets, CE, BCE and F1
     counts inside the loop through the fused loss kernels
-    (ops.loss.edge_losses), the detection side in plain tensor ops.
+    (ops.loss.edge_losses) over every branch's edge hidden side by side,
+    the detection side in plain tensor ops.
 
 Blocks are step-major (block q = s*B + w), so at step s the live blocks are
 exactly the first (s+1)*B: each step runs on that prefix and never touches
@@ -52,7 +62,8 @@ from trackmpnn_tpu_torch.losses.losses import EPS
 from trackmpnn_tpu_torch.models import mpnn, nn
 from trackmpnn_tpu_torch.ops.block import (block_incidence, fused_block_round,
                                            fused_block_round_es, window_gather2, window_scatter)
-from trackmpnn_tpu_torch.ops.gat import gat_aggregate, gat_scores_stats
+from trackmpnn_tpu_torch.ops.gat import (gat_aggregate, gat_aggregate_1h, gat_scores_stats,
+                                         gat_scores_stats_1h)
 from trackmpnn_tpu_torch.ops.loss import edge_losses
 from trackmpnn_tpu_torch.ops.segment import segment_max, segment_min, segment_sum
 
@@ -426,6 +437,53 @@ def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_l
                           B, capD) / nh
 
 
+def _block_gat_support_per_head(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_live,
+                                col_live, B, capD, att_keep=None):
+    """_block_gat_support one head at a time (the per-head loop of
+    _block_gat_support, block.py:469-513; the JAX package's route with
+    gat_fused=False): per head the detection projection, its window gather,
+    the single-head scores and statistics (ops.gat.gat_scores_stats_1h),
+    the segment max and sum of the softmax, the single-head aggregate
+    (ops.gat.gat_aggregate_1h) and the window scatter of its signed sums,
+    then the mean over heads.  Arguments as _block_gat_support's; head h
+    reads att_keep's masks at index h.  The softmax shift carries no
+    gradient (the scores op stops it)."""
+    nD = h_d_b.shape[0]
+    seg = torch.cat([act.reshape(-1), new.reshape(-1)])
+    vm = torch.cat([row_live.reshape(-1), col_live.reshape(-1)])
+    es_idx = torch.cat([act_l, new_l], dim=1)
+    keep = 1.0 if att_keep is None else 1.0 - mpnn.ATT_DROPOUT
+    acc = None
+    for h, hp in enumerate(gat_params):
+        h_att = h_d_b @ hp["W_att"]                                       # [nD, H]
+        ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD)
+        e, rmax, cmax, sal, sbl = gat_scores_stats_1h(ha, hn, hp["a"], m3, mpnn.LEAKY_ALPHA)
+        m_d = segment_max(torch.cat([rmax.reshape(-1), cmax.reshape(-1)]), seg, nD, mask=vm)
+        safe_m = torch.where(m_d > _NEG / 2, m_d, 0.0)                    # [nD]
+        m_row, m_col = safe_m[act], safe_m[new]
+        sa = torch.exp(rmax - m_row) * sal
+        sb = torch.exp(cmax - m_col) * sbl
+        z = segment_sum(torch.cat([sa.reshape(-1), sb.reshape(-1)]), seg, nD, mask=vm)
+        ka, kn = (m3, m3) if att_keep is None else (att_keep[0][h], att_keep[1][h])
+        rs, cs = gat_aggregate_1h(e, m_row, m_col, z[act], z[new], h_e, m3, ka, kn, keep)
+        es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx, B, capD)
+        acc = es if acc is None else acc + es
+    return acc / len(gat_params)
+
+
+def _branch_keeps(keep_s, nb):
+    """One round's keep masks as one (rows, columns) pair per branch; a bare
+    pair is the one branch's."""
+    if keep_s is None:
+        return [None] * nb
+    if torch.is_tensor(keep_s[0]):
+        keep_s = [keep_s]
+    if len(keep_s) != nb:
+        raise ValueError(f"att_keep holds keep masks for {len(keep_s)} branches a round, the "
+                         f"model has {nb}")
+    return list(keep_s)
+
+
 def _fused_step_losses(partials, logits_d, det_label, det_live, B, tp_classifier):
     """One step's (CE, BCE, tp, fp, fn) from the fused edge-loss partials
     [P, 8] and the masked detection logits (block.py:983-1009): the edge
@@ -453,10 +511,6 @@ def _fused_step_losses(partials, logits_d, det_label, det_live, B, tp_classifier
 
 def _check_composition(cfg, es_kernel):
     mpnn.check_supported(cfg)
-    if len(cfg.branches) > 1:  # the step reads branch 0 only
-        raise NotImplementedError(
-            f"the block step trains one feature branch; features={cfg.features!r} has "
-            f"{len(cfg.branches)} (ROADMAP.md queue 1, 'Feature branches temp and vis')")
     if es_kernel and cfg.nattheads > 0:
         raise ValueError("es_kernel computes edge_support without attention: it takes no "
                          "attention heads (nattheads > 0)")
@@ -466,38 +520,48 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                          tp_classifier: bool, train: bool = True,
                          generator: Optional[torch.Generator] = None,
                          att_keep: Optional[Sequence] = None, es_kernel: bool = False,
-                         fused_loss: bool = False):
+                         fused_loss: bool = False, gat_fused: bool = True):
     """(loss, aux) of a batch of windows (block_window_forward, block.py:533,
     as the TPU runs it: fused round, defer_loss, hoisted BN, window
     scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
     aux holds loss_ce, loss_f, tp, fp, fn (detached) and the new BN running
-    stats (`batch_stats`).  One feature branch, msg 'diff'; it raises
-    NotImplementedError for the rest, naming its ROADMAP item.
+    stats of every branch (`batch_stats`).  Any feature branches, msg
+    'diff'; it raises NotImplementedError for the rest, naming its ROADMAP
+    item.
 
     With attention heads, training applies dropout to the attention weights:
-    att_keep[s] is round s's pair of keep masks (draw_att_keep's shapes,
-    P = (s+1)*B), or else `generator` draws them, two per round; one of the
-    two is required.  With ATT_DROPOUT 0 or train=False there is none.
+    att_keep[s] is round s's keep masks, one (rows, columns) pair per
+    feature branch in branch order, each mask [nh, P, na_cap, nt_cap]
+    (draw_att_keep's shapes, P = (s+1)*B); for a one-branch model a bare
+    pair also does.  Else `generator` draws them, one pair a branch and
+    round; one of the two is required.  With ATT_DROPOUT 0 or train=False
+    there is none.  gat_fused=False runs the heads one at a time through
+    the single-head kernels (_block_gat_support_per_head, the JAX package's
+    gat_fused=False) on the same masks, head h at index h; without heads it
+    changes nothing.
 
-    es_kernel: each round is one fused_block_round_es (the JAX package's
-    TM_ES_KERNEL=1), which gathers the input gates and reduces edge_support
-    itself; refused with attention heads, whose edge_support the kernel does
-    not compute (the JAX package drops the kernel there silently).
+    es_kernel: each round is one fused_block_round_es a branch (the JAX
+    package's TM_ES_KERNEL=1), which gathers the input gates and reduces
+    edge_support itself; refused with attention heads, whose edge_support
+    the kernel does not compute (the JAX package drops the kernel there
+    silently).
     fused_loss: each round computes its losses in the loop, the edge side
-    through edge_losses (TM_FUSED_LOSS=1 with defer_loss=False there); the
-    round kernels' head partials go unused.  BN stays hoisted out of the
-    loop: the JAX package's in-loop BN of that composition gives the same
-    numbers up to rounding."""
+    through edge_losses over every branch's edge hidden side by side
+    (TM_FUSED_LOSS=1 with defer_loss=False there); the round kernels' head
+    partials go unused.  BN stays hoisted out of the loop: the JAX package's
+    in-loop BN of that composition gives the same numbers up to rounding."""
     _check_composition(cfg, es_kernel)
     if train and cfg.nattheads > 0 and generator is None and att_keep is None:
         raise ValueError("training with attention heads needs a generator for the "
                          "attention dropout (pass generator=...)")
     dropout = train and cfg.nattheads > 0 and mpnn.ATT_DROPOUT > 0.0
+    gat_support = _block_gat_support if gat_fused else _block_gat_support_per_head
     dev = bb.det_feat.device
     B, T = bb.n_windows, bb.t_cap
     capD, na_cap, nt_cap = bb.capD, bb.na_cap, bb.nt_cap
     nD, BT = B * capD, B * T
     H = cfg.nhidden
+    nb = len(cfg.branches)
     det_window = torch.arange(nD, device=dev) // capD
 
     row_m_w = torch.arange(na_cap, device=dev)[None, :] < bb.blk_na[:, None]
@@ -522,20 +586,24 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
         ebnt = torch.stack([bb.blk_edge_base.float(), bb.blk_nt.float()], 1)[perm]
         bna_f = bna.float()[:, None]
 
-    bp = params["branches"][0]
-    width = cfg.branches[0][1]
-    # lin1, BN and lin2 are step-independent: hoisted out of the step loop
-    y1 = nn.linear(bp["input"]["lin1"], bb.det_feat[:, :width])
+    # lin1, BN and lin2 are step-independent: hoisted out of the step loop,
+    # each branch on its own feature columns and with its own running stats
     ids_c = torch.clamp(bb.det_step.long(), max=T - 1)
     det_isnew = (bb.det_step < T) & bb.step_valid[ids_c, det_window]
     blk_isnew = bb.step_valid[blk_step, blk_window]
     nph_T = segment_sum((bna * bnt).float(), blk_step, T, mask=blk_isnew)
-    yb, new_stats = _hoisted_bn_all_steps(bp["input"], batch_stats["branches"][0]["bn"], y1,
-                                          ids_c, det_isnew, nph_T, T, train)
-    xt = nn.linear(bp["input"]["lin2"], torch.relu(yb))
+    xts, new_stats, off = [], [], 0
+    for bi, (_, width) in enumerate(cfg.branches):
+        bp_in = params["branches"][bi]["input"]
+        y1 = nn.linear(bp_in["lin1"], bb.det_feat[:, off:off + width])
+        off += width
+        yb, stats_b = _hoisted_bn_all_steps(bp_in, batch_stats["branches"][bi]["bn"], y1, ids_c,
+                                            det_isnew, nph_T, T, train)
+        xts.append(nn.linear(bp_in["lin2"], torch.relu(yb)))
+        new_stats.append({"bn": stats_b})
+    # each branch's rows of the edge head, for its round kernel's partial
+    w_ebs = [params["out_edge"]["w"][bi * H:(bi + 1) * H] for bi in range(nb)]
 
-    eg = bp["edge_gru"]
-    w_eb = params["out_edge"]["w"][:H]
     # per step: its validity, live detections and live cells
     valid = bb.step_valid                                                # [T, B]
     steps = torch.arange(T, device=dev)
@@ -549,49 +617,61 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     m3 = em3.float()
     if fused_loss:
         any_valid = valid.any(1)                                         # [T]
-        zero = xt.new_zeros(())
+        zero = xts[0].new_zeros(())
         l_ce = l_f = zero
         tp = fp = fn = torch.zeros((), dtype=torch.int64, device=dev)
 
-    h_d = xt.new_zeros(nD, H)
-    h_e = xt.new_zeros(0, na_cap, nt_cap, H)
+    # each branch's hidden state: detections [nD, H], edges [P, na, nt, H]
+    h_d = [xt.new_zeros(nD, H) for xt in xts]
+    h_e = [xt.new_zeros(0, na_cap, nt_cap, H) for xt in xts]
     hd_steps, lg_steps = [], []
     for s in range(T):
         P = (s + 1) * B
-        # new blocks enter with zero hidden state
-        h_e = torch.cat([h_e, h_e.new_zeros(B, na_cap, nt_cap, H)])
-        h_d_b = torch.where(det_new[s][:, None], xt,
-                            torch.where(det_live[s][:, None], h_d, 0.0))
-        # edge GRU input gates factorise over the rectangle:
-        # gi[i, j] = ga_d[act_i] - ga_d[new_j] + b_ih
-        ga_d = h_d_b @ eg["w_ih"]
-        if es_kernel:
-            edge_out, lg, es = fused_block_round_es(
-                h_e, act_l[:P], new_l[:P], ga_d, ga_d, eg["b_ih"], eg["w_hh"], eg["b_hh"],
-                w_eb, m3[s, :P], -1.0, B, capD, inc)
-        else:
-            ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
-            edge_out, rs, cs, lg = fused_block_round(h_e, ga_g + eg["b_ih"], gb, eg["w_hh"],
-                                                     eg["b_hh"], w_eb, m3[s, :P], -1.0)
-            if cfg.nattheads > 0:
-                # the round's rs / cs go unused: attention weighs the edges
-                keep_s = None
-                if dropout:
-                    keep_s = (att_keep[s] if att_keep is not None else
-                              draw_att_keep(generator, cfg.nattheads, (P, na_cap, nt_cap), dev))
-                es = _block_gat_support(bp["gat"], h_d_b, h_e, act[:P], new[:P], act_l[:P],
-                                        new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
-                                        blk_live[s, :P, None] & col_m[:P], B, capD, keep_s)
+        keeps = [None] * nb
+        if cfg.nattheads > 0 and dropout:
+            keeps = (_branch_keeps(att_keep[s], nb) if att_keep is not None else
+                     [draw_att_keep(generator, cfg.nattheads, (P, na_cap, nt_cap), dev)
+                      for _ in range(nb)])
+        hd_parts, eo_parts, lg = [], [], None
+        for bi in range(nb):
+            bp = params["branches"][bi]
+            eg = bp["edge_gru"]
+            # new blocks enter with zero hidden state
+            h_e[bi] = torch.cat([h_e[bi], h_e[bi].new_zeros(B, na_cap, nt_cap, H)])
+            h_d_b = torch.where(det_new[s][:, None], xts[bi],
+                                torch.where(det_live[s][:, None], h_d[bi], 0.0))
+            # edge GRU input gates factorise over the rectangle:
+            # gi[i, j] = ga_d[act_i] - ga_d[new_j] + b_ih
+            ga_d = h_d_b @ eg["w_ih"]
+            if es_kernel:
+                edge_out, lg_b, es = fused_block_round_es(
+                    h_e[bi], act_l[:P], new_l[:P], ga_d, ga_d, eg["b_ih"], eg["w_hh"],
+                    eg["b_hh"], w_ebs[bi], m3[s, :P], -1.0, B, capD, inc)
             else:
-                es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
-        node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
-        h_d_out = torch.where(det_live[s][:, None], node_out, 0.0)
+                ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
+                edge_out, rs, cs, lg_b = fused_block_round(h_e[bi], ga_g + eg["b_ih"], gb,
+                                                           eg["w_hh"], eg["b_hh"], w_ebs[bi],
+                                                           m3[s, :P], -1.0)
+                if cfg.nattheads > 0:
+                    # the round's rs / cs go unused: attention weighs the edges
+                    es = gat_support(bp["gat"], h_d_b, h_e[bi], act[:P], new[:P], act_l[:P],
+                                     new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
+                                     blk_live[s, :P, None] & col_m[:P], B, capD, keeps[bi])
+                else:
+                    es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
+            node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
+            hd_parts.append(torch.where(det_live[s][:, None], node_out, 0.0))
+            eo_parts.append(edge_out)
+            lg = lg_b if lg is None else lg + lg_b
+        h_d_out = hd_parts[0] if nb == 1 else torch.cat(hd_parts, dim=-1)
         if fused_loss:
-            # this step's losses in the loop (block.py:980-1031)
+            # this step's losses in the loop (block.py:980-1031), the edge
+            # side over every branch's edge hidden with the whole edge head
+            h_eo = eo_parts[0] if nb == 1 else torch.cat(eo_parts, dim=-1)
             logits_d = torch.where(det_live[s],
                                    nn.linear(params["out_node"], h_d_out)[:, 0], 0.0)
             act_m = (blk_live[s, :P, None] & row_m[:P]).reshape(-1)
-            partials = edge_losses(edge_out, params["out_edge"]["w"],
+            partials = edge_losses(h_eo, params["out_edge"]["w"],
                                    params["out_edge"]["b"].reshape(1, 1), lbl_pos[:P],
                                    m3[s, :P], ebnt[:P], bna_f[:P], act[:P], act_m, nD)
             ce_s, f_s, tp_s, fp_s, fn_s = _fused_step_losses(partials, logits_d, bb.det_label,
@@ -601,9 +681,11 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
             tp, fp, fn = tp + tp_s, fp + fp_s, fn + fn_s
         else:
             hd_steps.append(h_d_out)
+            # the deferred edge logits: the branches' head partials summed
             lg_steps.append(torch.cat([lg, lg.new_zeros(BT - P, na_cap, nt_cap)]))
-        h_d = torch.where(det_valid[s][:, None], h_d_out, h_d)
-        h_e = torch.where(blk_valid[s, :P, None, None, None], edge_out, h_e)
+        for bi in range(nb):
+            h_d[bi] = torch.where(det_valid[s][:, None], hd_parts[bi], h_d[bi])
+            h_e[bi] = torch.where(blk_valid[s, :P, None, None, None], eo_parts[bi], h_e[bi])
 
     if not fused_loss:
         # the loss side of every step at once, after the loop; the static
@@ -616,7 +698,7 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                                              det_live, blk_live, em3, tp_classifier, B)
     total = (l_ce + l_f) / B
     aux = {"loss_ce": (l_ce / B).detach(), "loss_f": (l_f / B).detach(),
-           "tp": tp, "fp": fp, "fn": fn, "batch_stats": {"branches": [{"bn": new_stats}]}}
+           "tp": tp, "fp": fp, "fn": fn, "batch_stats": {"branches": new_stats}}
     return total, aux
 
 
@@ -640,13 +722,15 @@ def trainable(params):
 
 
 def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel: bool = False,
-                          fused_loss: bool = False):
+                          fused_loss: bool = False, gat_fused: bool = True):
     """A train step over a BlockBatch (make_block_train_step, block.py:1129):
 
         step(params, batch_stats, optimizer, bb, generator=None, att_keep=None)
             -> (params, batch_stats, loss, aux)
 
-    es_kernel / fused_loss select block_window_forward's composition.
+    es_kernel / fused_loss select block_window_forward's composition,
+    gat_fused its attention route (the stacked heads, or one at a time with
+    False); no probe picks one for the caller.
 
     params: the parameter tree with leaves that require grad (`trainable`);
     optimizer: train/optim.py::make_optimizer over param_leaves(params);
@@ -661,7 +745,8 @@ def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel:
         optimizer.zero_grad(set_to_none=True)
         loss, aux = block_window_forward(params, batch_stats, cfg, bb, tp_classifier,
                                          generator=generator, att_keep=att_keep,
-                                         es_kernel=es_kernel, fused_loss=fused_loss)
+                                         es_kernel=es_kernel, fused_loss=fused_loss,
+                                         gat_fused=gat_fused)
         loss.backward()
         if fused_loss and not tp_classifier:
             # out_node feeds no loss term here, and autograd leaves its
