@@ -182,11 +182,42 @@ failure exits non-zero:
     on the same inputs, bitwise on a second launch, each timed beside its
     plain version, that stacked kernel and its bound.
 
+21. Kernel #8 (gat0_scores_fwd / _bwd, the raw masked scores of
+    pallas_gat.py::gat_scores, which no path calls) on phase 19's per-head
+    widest inputs: against its plain versions (forward rtol and atol 1e-5,
+    backward rtol 1e-4 with atol 1e-5 x each output's scale), bitwise the
+    same on a second launch and bitwise equal to gat1_scores_fwd's scores
+    and to gat1_scores_bwd with zero statistic cotangents; timed beside its
+    plain version, gat1_* and its bound.  Every block training phase holds
+    its launches at 0.
+22. The batched validation tracker (decode/batch_tracker.py, pipeline=True)
+    on phase 17's three sequences, model and weights: exactly 3
+    fused_edge_gru and 3 signed_segment_sum launches a cohort forward and
+    no gather_diff; tracks identical to phase 17's card and CPU runs,
+    per-step scores within 1e-4; frames/s beside phase 17's, the busy
+    share, peak memory.
+23. The training CLI in process (cli.train.main(argv)) on a synthetic
+    KITTI tree of real PNGs (21 sequences x 8 frames, 10 tracks: KITTI's
+    sequences have 78-1059 frames): (a) the defaults (2d+temp+vis, espv2
+    at 384 x 1280, nhidden 64, the batch-1 route), 2 epochs: every train
+    step's gather_diff / signed_segment_sum launches exact, fused_edge_gru
+    only in validation, the losses, val F1, MOTA, mAP logged, best
+    checkpoints and vis-nets written; epoch wall, chunks/s, ms a step
+    (events and host), the embedding's ms a chunk, validation wall and
+    frames/s, peak memory, the busy share over one profiled chunk; (b)
+    resumed from (a)'s epoch-1 checkpoint: starts at epoch 2, its first
+    step holds the saved parameters, Adam state and vis-net bitwise; (c)
+    --feats 2d+temp, 1 epoch from one --snapshot on the card and the CPU:
+    the first 10 losses within rtol 1e-4, and one checkpoint validated on
+    both gives identical tracks, MOTA and mAP; (d) --batch-windows 8
+    --no-bf16, 1 epoch: the block route logged, T x 3 block_round_fwd and
+    _bwd and 3T x 3 window_scatter launches every step.
+
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
 fused_edge_gru phase 17's; the single-head attention kernels phase 19's
-per-head route.  The line before the last is {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.
+per-head route; kernel #8's rows say 0 with a note.  The line before the
+last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -532,14 +563,15 @@ def device_profile(torch, run, wall_s):
             "top": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
 
 
-def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what):
+def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=None):
     """Serve `seqs` with the Tracker on the card, the launch counters set to
     0 just before and read just after: each feature branch launches
     fused_edge_gru and signed_segment_sum once a forward (no gradient is
     recorded) and gather_diff never.  Profile the first sequence, then rerun
     all on the CPU, where the plain versions run: identical tracks and
     per-step scores within STEP_SCORE_ATOL.  `warm` (X, y) runs first
-    (cuBLAS handles, the allocator).  Returns the summary."""
+    (cuBLAS handles, the allocator).  Returns the summary; `keep`, a dict,
+    receives the card's and the CPU's (per-step (n, scores2), y_out) runs."""
     from trackmpnn_tpu_torch.decode.tracker import Tracker, TrackerConfig, _bucketed
 
     tcfg = TrackerConfig(cur_win_size=WIN, hungarian=True)
@@ -580,6 +612,8 @@ def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what):
     if worst > STEP_SCORE_ATOL:
         fail(f"{what}: per-step scores differ between card and CPU by {worst:.3g} > "
              f"{STEP_SCORE_ATOL}")
+    if keep is not None:
+        keep.update(card=runs, cpu=cpu_runs)
 
     peak_n = max(n for steps, _ in runs for n, _ in steps)
     frames = sum(len(np.unique(y[:, 0])) for _, y in seqs)
@@ -905,8 +939,11 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
                 **{k: 0 for k in gat_ops.LAUNCHES},
                 **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES}}
     if heads:
+        # the stacked kernels (gat_*) or the single-head ones (gat1_*); never
+        # #8's (gat0_*), which no path launches
+        route = "gat1_" if per_head else "gat_"
         expected.update({k: rounds * heads if per_head else rounds for k in gat_ops.LAUNCHES
-                         if k.startswith("gat1_") == per_head})
+                         if k.startswith(route)})
     counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES)
 
     def check_launches(launches, steps):
@@ -2089,7 +2126,8 @@ def full_serving_phase(torch, np, mp):
     """Phase 17: the default configuration served at full width: features
     2d+temp+vis, nhidden 64, 128 vis features from ESPNetv2 at 384 x 1280
     (random weights from fixed seeds, BN on its running statistics), on
-    phase 3's three sequences.  Per sequence, EmbedTrainer.infer runs on its
+    phase 3's three sequences (model, sequences and both runs returned for
+    phase 22).  Per sequence, EmbedTrainer.infer runs on its
     100 seeded noise frames (made on the card) at the detections' centres
     (data/common.center_indices from the boxes in a 375 x 1242 frame),
     timed by CUDA events; normalized_vis_features gives the vis columns,
@@ -2144,15 +2182,17 @@ def full_serving_phase(torch, np, mp):
               f"{SERVE_FRAMES} frames of {EMBED_HW[0]} x {EMBED_HW[1]} in {ms:.3f} ms "
               f"({SERVE_FRAMES / (ms / 1e3):.2f} frames/s)")
         del frames
+    runs = {}
     summary = serve_and_check(torch, np, mp, cfg, params, stats, seqs,
-                              (seqs[0][0][:200], seqs[0][1][:200]), "full-width serving")
+                              (seqs[0][0][:200], seqs[0][1][:200]), "full-width serving",
+                              keep=runs)
     summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     summary["embedding"] = embeds
     embed_s = sum(e["ms_events"] for e in embeds) / 1e3
     summary["frames_per_s_with_embedding"] = summary["frames"] / (summary["wall_s"] + embed_s)
     print(f"full-width serving: peak memory {summary['peak_memory_bytes'] / 2**30:.3f} GiB, "
           f"frames/s with the embedding {summary['frames_per_s_with_embedding']:.4g}")
-    return summary
+    return summary, (cfg, params, stats, seqs, runs)
 
 
 # ---------------------------------------- the default features, trained ----
@@ -2296,6 +2336,539 @@ def gat1_kernel_phase(torch, gat_ops, inputs, launches):
     return rows
 
 
+# ------------------------------------------------ kernel #8, the raw scores ----
+GAT0_REPLACES = {"gat0_scores_fwd": "trackmpnn_tpu/ops/pallas_gat.py:40",
+                 "gat0_scores_bwd": "trackmpnn_tpu/ops/pallas_gat.py:50"}
+GAT0_NOTE = ("no path of the JAX package or of the port calls gat_scores (pallas_gat.py:78): "
+             "0 launches on every path; launched by phase 21's checks only")
+
+
+def gat0_bounds(name, args):
+    """(bytes, f32 operations) of kernel #8 on these inputs: every input
+    read once and every output written once; per live cell, |diff| . a
+    costs 4 operations a hidden unit, the backward that again and 8 more
+    (d ha, d hn: 3 each; d a: 2)."""
+    f = lambda *ts: 4 * sum(t.numel() for t in ts)
+    ha, hn, a, m3 = args[:4]
+    cells, H = int((m3 != 0).sum()), ha.shape[2]
+    if name == "gat0_scores_fwd":
+        return f(ha, hn, a, m3) + f(m3), cells * 4 * H
+    return f(ha, hn, a, m3, args[5]) + f(ha, hn, a), cells * 12 * H
+
+
+def gat0_kernel_phase(torch, gat_ops, inputs, launches):
+    """Phase 21: kernel #8 (gat0_scores_fwd / _bwd) on phase 19's per-head
+    widest inputs (one head) against its plain versions (forward rtol and
+    atol GAT_FWD_*, backward rtol 1e-4 with atol 1e-5 x each output's
+    scale), bitwise the same on a second launch and bitwise equal to #9's
+    gat1_* on the same inputs (the scores; the backward with zero statistic
+    cotangents); each timed beside its plain version, gat1_* and its bound."""
+    ha, hn, a, m3, alpha = inputs["gat1_scores_fwd"]
+    ge = inputs["gat1_scores_bwd"][5]
+    P, na, nt = m3.shape
+    zeros = (torch.zeros(P, na, device="cuda"), torch.zeros(P, nt, device="cuda"))
+    cases = {
+        "gat0_scores_fwd": ((ha, hn, a, m3, alpha), lambda *x: (gat_ops.gat_scores_reference(*x),),
+                            lambda: gat_ops._gat1_scores_fwd_cuda(ha, hn, a, m3, alpha)[:1]),
+        "gat0_scores_bwd": ((ha, hn, a, m3, alpha, ge), gat_ops.gat_scores_backward_reference,
+                            lambda: gat_ops._gat1_scores_bwd_cuda(ha, hn, a, m3, alpha, ge,
+                                                                  *zeros)),
+    }
+    rows = []
+    for name, (args, ref, gat1) in cases.items():
+        cuda = getattr(gat_ops, f"_{name}_cuda")
+        kernel = (lambda: (cuda(*args),)) if name.endswith("fwd") else (lambda: cuda(*args))
+        got, again, want, via9 = kernel(), kernel(), ref(*args), gat1()
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (x, w) in enumerate(zip(got, want)):
+            err = max(err, float((x - w).abs().max()))
+            if name.endswith("fwd"):
+                ok = torch.allclose(x, w, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL)
+            else:
+                ok = torch.allclose(x, w, rtol=ROUND_BWD_RTOL,
+                                    atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30))
+            if not ok:
+                fail(f"{name} output {k} differs from its plain version by "
+                     f"{float((x - w).abs().max()):.3g}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} is not bitwise the same on a second launch")
+        if not all(torch.equal(x, y) for x, y in zip(got, via9)):
+            fail(f"{name} is not bitwise equal to #9's {name.replace('gat0', 'gat1')} "
+                 "on the same inputs")
+        b, by = bound_ms(*gat0_bounds(name, args))
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/gat_kernels.cu",
+             "replaces": GAT0_REPLACES[name], "launches": launches[name], "note": GAT0_NOTE,
+             "max_abs_err": err, "ms": cuda_time_ms(kernel),
+             "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: ref(*args), iters=PLAIN_ITERS),
+             "gat1_ms": cuda_time_ms(gat1), "bitwise_equal_to_gat1": True,
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"P {P}, na {na}, nt {nt}, H {ha.shape[2]}, live cells "
+                      f"{int((m3 != 0).sum())}"}
+        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"{name.replace('gat0', 'gat1')} {r['gat1_ms'] * 1e3:.2f} us, bitwise equal to it, "
+              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}; "
+              f"launches on the paths {r['launches']}")
+        rows.append(r)
+    return rows
+
+
+# ----------------------------------------------- the batched validation tracker ----
+def batch_tracker_phase(torch, np, mp, served, full):
+    """Phase 22: BatchedTracker (pipeline=True, two cohorts) on the card over
+    phase 17's three default-feature sequences with its model: exactly one
+    fused_edge_gru and one signed_segment_sum launch a branch and forward
+    for the whole cohort and no gather_diff; decoded tracks identical to
+    phase 17's Tracker on the card and on the CPU, per-step scores within
+    STEP_SCORE_ATOL of the card's.  Frames/s beside phase 17's (one
+    sequence at a time), the busy share, peak memory."""
+    from trackmpnn_tpu_torch.decode import BatchedTracker, TrackerConfig
+
+    what = "batched tracker"
+    cfg, params, stats, seqs, runs = served
+    tracker = BatchedTracker(params, stats, cfg, TrackerConfig(cur_win_size=WIN, hungarian=True),
+                             device="cuda")
+    tracker.run([(X[:200], y[:200]) for X, y in seqs[:2]])  # cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters((mp.LAUNCHES,))
+    tracker.n_forwards = 0
+    steps = {}
+    t0 = time.perf_counter()
+    y_outs = tracker.run(seqs, pipeline=True, profile=True,
+                         on_step=lambda i, g, sc: steps.setdefault(i, []).append((g.n, sc.copy())))
+    wall = time.perf_counter() - t0  # run returns after the last scores came back
+    phase_s = dict(tracker.phase_s)
+    launches, forwards, nb = dict(mp.LAUNCHES), tracker.n_forwards, len(cfg.branches)
+    expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
+                "fused_edge_gru": nb * forwards}
+    if launches != expected:
+        fail(f"{what}: launches {launches} in {forwards} cohort forwards of {nb} branches, "
+             f"expected {expected}")
+    worst = 0.0
+    for i, y_out in enumerate(y_outs):
+        for name, (want_steps, want) in (("phase 17's card run", runs["card"][i]),
+                                         ("phase 17's CPU run", runs["cpu"][i])):
+            if not np.array_equal(y_out, want):
+                fail(f"{what}, sequence {i}: decoded tracks differ from {name}")
+        if [n for n, _ in steps[i]] != [n for n, _ in runs["card"][i][0]]:
+            fail(f"{what}, sequence {i}: the steps' row counts differ from phase 17's")
+        worst = max([worst] + [float(np.abs(s - w).max())
+                               for (_, s), (_, w) in zip(steps[i], runs["card"][i][0])])
+    if worst > STEP_SCORE_ATOL:
+        fail(f"{what}: per-step scores differ from phase 17's by {worst:.3g}")
+    peak = torch.cuda.max_memory_allocated()
+    frames = sum(len(np.unique(y[:, 0])) for _, y in seqs)
+    profile = device_profile(torch, lambda: tracker.run(seqs, pipeline=True), wall)
+    summary = {"sequences": len(seqs), "frames": frames, "cohort_forwards": forwards,
+               "sequence_steps": sum(len(v) for v in steps.values()), "wall_s": wall,
+               "frames_per_s": frames / wall,
+               "tracker_frames_per_s_phase17": full["frames_per_s"],
+               "max_step_score_err_vs_tracker": worst, "launches": launches,
+               "peak_memory_bytes": peak,
+               "device_busy_share": None if profile is None else profile["busy_share"],
+               "host_phase_s": phase_s}
+    print(f"{what}: {len(seqs)} sequences, {frames} frames in {wall:.3f} s = "
+          f"{frames / wall:.4g} frames/s (phase 17's Tracker, one sequence at a time: "
+          f"{full['frames_per_s']:.4g}); {forwards} cohort forwards for "
+          f"{summary['sequence_steps']} sequence steps; launches {launches}; tracks identical to "
+          f"phase 17's card and CPU runs, worst per-step score diff {worst:.3g}; peak memory "
+          f"{peak / 2**30:.3f} GiB; busy share {summary['device_busy_share']}; host wall by "
+          f"phase {', '.join(f'{k} {v:.3f} s' for k, v in phase_s.items())}")
+    summary["profile"] = profile
+    return summary
+
+
+# --------------------------------------------------------- the training CLI ----
+# the CLI's tree: 21 sequences (the split takes them by index) of real PNGs;
+# KITTI's sequences have 78-1059 frames and its frames more cars
+CLI_TRAIN_FRAMES, CLI_TRAIN_TRACKS = 8, 10
+CLI_LOSS_RTOL, CLI_LOSS_STEPS = 1e-4, 10
+
+
+@contextlib.contextmanager
+def patched(obj, name, wrap):
+    """obj.name replaced by wrap(obj.name) while active."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+class StepRecorder:
+    """Wraps a train-step factory so that every step the CLI takes records
+    its loss, its CUDA-event and host-wall time (the host waits for the
+    card after each step; the CLI reads the loss right after anyway) and
+    the launches of `counters` it made against expect(batch).  on_first(
+    params, optimizer) runs before the first step."""
+
+    def __init__(self, torch, counters, expect, device="cuda", on_first=None):
+        self.torch, self.counters, self.expect = torch, counters, expect
+        self.device, self.on_first, self.steps = device, on_first, []
+
+    def wrap(self, factory):
+        torch = self.torch
+
+        def make(*a, **kw):
+            step = factory(*a, **kw)
+
+            def timed(params, stats, opt, batch, **kw2):
+                if self.on_first is not None and not self.steps:
+                    self.on_first(params, opt)
+                before = {k: v for c in self.counters for k, v in c.items()}
+                cuda = self.device == "cuda"
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+                if cuda:
+                    ev[0].record()
+                t0 = time.perf_counter()
+                out = step(params, stats, opt, batch, **kw2)
+                if cuda:
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                host = time.perf_counter() - t0
+                launched = {k: v - before[k] for c in self.counters for k, v in c.items()}
+                self.steps.append({"loss": float(out[2]), "host_s": host, "events": ev,
+                                   "launched": launched, "expect": self.expect(batch)})
+                return out
+
+            return timed
+
+        return make
+
+    def check(self, what):
+        import numpy as np
+
+        for i, s in enumerate(self.steps):
+            for k, v in s["expect"].items():
+                if s["launched"][k] != v:
+                    fail(f"{what}: step {i} launched {k} {s['launched'][k]} times, expected {v}")
+        losses = np.array([s["loss"] for s in self.steps])
+        if not len(losses) or not np.all(np.isfinite(losses)):
+            fail(f"{what}: step losses {losses}")
+        return losses
+
+    def ms(self):
+        """(ms a step by CUDA events, ms a step host wall), means."""
+        import numpy as np
+
+        ev = [s["events"][0].elapsed_time(s["events"][1]) for s in self.steps]
+        return float(np.mean(ev)), float(np.mean([s["host_s"] for s in self.steps])) * 1e3
+
+
+class ChunkRecorder:
+    """Wraps EmbedTrainer.train_chunk: CUDA-event and host-wall time of each
+    chunk's embedding step; on_first(trainer) runs before the first."""
+
+    def __init__(self, torch, on_first=None):
+        self.torch, self.on_first, self.calls = torch, on_first, []
+
+    def wrap(self, orig):
+        torch = self.torch
+
+        def timed(trainer, vis_meta, track_ids):
+            if self.on_first is not None and not self.calls:
+                self.on_first(trainer)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            out = orig(trainer, vis_meta, track_ids)  # ends in a copy to the host
+            ev[1].record()
+            torch.cuda.synchronize()
+            self.calls.append((ev, time.perf_counter() - t0))
+            return out
+
+        return timed
+
+    def ms(self):
+        import numpy as np
+
+        return (float(np.mean([e[0].elapsed_time(e[1]) for e, _ in self.calls])),
+                float(np.mean([h for _, h in self.calls])) * 1e3)
+
+
+def batch1_expect(nb):
+    """The batch-1 step's launches: gather_diff and signed_segment_sum once a
+    branch and valid step forward and once as each other's backward."""
+    def expect(sb):
+        v = 2 * nb * int(sb.step_valid.sum())
+        return {"gather_diff": v, "signed_segment_sum": v, "fused_edge_gru": 0}
+    return expect
+
+
+def block_expect(nb):
+    """The block step's default composition: T rounds a branch, each one
+    block_round_fwd, one block_round_bwd and three window_scatter."""
+    def expect(bb):
+        r = bb.t_cap * nb
+        return {"block_round_fwd": r, "block_round_bwd": r, "window_scatter": 3 * r,
+                "block_round_es_fwd": 0, "block_round_es_bwd": 0}
+    return expect
+
+
+def read_log(out_dir):
+    with open(os.path.join(out_dir, "logs.txt")) as f:
+        return f.read()
+
+
+def tensors_equal(torch, xs, ys):
+    return all(torch.equal(x.detach().cpu(), y.detach().cpu()) for x, y in zip(xs, ys))
+
+
+def adam_equal(torch, opt_a, leaves_a, opt_b, leaves_b):
+    for p, q in zip(leaves_a, leaves_b):
+        a, b = opt_a.state.get(p, {}), opt_b.state.get(q, {})
+        if set(a) != set(b) or any(not torch.equal(a[k].cpu(), b[k].cpu()) for k in a):
+            return False
+    return True
+
+
+def cli_chunk_profile(torch, np, argv, snapshot):
+    """The busy share over one chunk of the CLI's batch-1 route with vis: the
+    embedding's train step on the chunk, its schedule, the tracker's step,
+    from the run's checkpoint, as cli/train.py::main does them; timed once
+    unprofiled, then profiled."""
+    from trackmpnn_tpu_torch.cli import train as cli
+    from trackmpnn_tpu_torch.graph.schedule import build_window_schedule
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import checkpoint, optim
+    from trackmpnn_tpu_torch.train import step as train_step
+    from trackmpnn_tpu_torch.utils.config import build_train_parser
+
+    args = build_train_parser().parse_args(argv)
+    args.tp_classifier = not args.no_tp_classifier
+    ds, embed = cli.make_dataset(args, "train"), cli.make_embed_trainer(args)
+    cfg = mpnn.ModelConfig(features=args.feats, ncategories=len(ds.class_dict),
+                           nhidden=args.num_hidden_feats)
+    params, stats, _, _ = checkpoint.load_state(snapshot, cfg, "cuda")
+    params = train_block.trainable(params)
+    opt = optim.make_optimizer(train_block.param_leaves(params), args.learning_rate,
+                               args.weight_decay)
+    step = train_step.make_train_step(cfg, args.tp_classifier)
+    feats, bp, _, vis_meta = ds[0]
+
+    def run():
+        f, _ = cli.attach_vis(feats, vis_meta, embed, bp[:, 1].astype(np.int32), train=True)
+        y = bp[:, :2].astype(np.int64)
+        ws = build_window_schedule(f, y, bucket=256)
+        ws = build_window_schedule(f, y, cap=cli._bucket(ws.n_rows), t_cap=cli._t_bucket(
+            ws.n_steps))
+        float(step(params, stats, opt, train_step.schedule_to_device(ws, "cuda"))[2])
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    return wall, device_profile(torch, run, wall)
+
+
+def train_cli_phase(torch, np, mp, block_ops):
+    """Phase 23: the training CLI on the card, in process
+    (cli.train.main(argv)), on the port's synthetic KITTI tree of real PNGs.
+    (a) the defaults (2d+temp+vis, espv2 at 384 x 1280, nhidden 64, the
+    batch-1 route), 2 epochs; (b) resumed from (a)'s epoch-1 checkpoint;
+    (c) --feats 2d+temp, 1 epoch, on the card and on the CPU from one
+    --snapshot, and one checkpoint validated on both; (d) --batch-windows 8
+    --no-bf16, 1 epoch."""
+    from trackmpnn_tpu_torch.backbones.weights import state_dict_from_jax
+    from trackmpnn_tpu_torch.cli import train as cli
+    from trackmpnn_tpu_torch.data.synthetic import write_kitti_tree
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import checkpoint, optim
+    from trackmpnn_tpu_torch.train import step as train_step
+    from trackmpnn_tpu_torch.train.embed import EmbedTrainer
+    from trackmpnn_tpu_torch.utils.config import build_train_parser
+
+    base = os.path.join(WORK, "train_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    root = os.path.join(base, "kitti")
+    t0 = time.perf_counter()
+    write_kitti_tree(root, num_seqs=21, num_frames=CLI_TRAIN_FRAMES,
+                     num_tracks=CLI_TRAIN_TRACKS, seed=0, real_images=True)
+    print(f"train CLI: tree of 21 sequences x {CLI_TRAIN_FRAMES} frames, {CLI_TRAIN_TRACKS} "
+          f"tracks, real PNGs, written in {time.perf_counter() - t0:.2f} s (set-up)")
+    common = ["--dataset-root-path", root, "--detections", "rrc", "--log-schedule", "50"]
+    out = {}
+    nb3 = len(mpnn.ModelConfig(features=DEFAULT_FEATS).branches)
+
+    # (a) the defaults, 2 epochs
+    what = f"train CLI (a) ({DEFAULT_FEATS}, batch 1)"
+    dir_a = os.path.join(base, "a")
+    argv_a = common + ["--output-dir", dir_a, "--epochs", "2"]
+    steps, chunks = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb3)), ChunkRecorder(torch)
+    zero_counters((mp.LAUNCHES,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(train_step, "make_train_step", steps.wrap), \
+            patched(EmbedTrainer, "train_chunk", chunks.wrap):
+        hist = cli.main(argv_a)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(mp.LAUNCHES)
+    losses = steps.check(what)
+    log = read_log(dir_a)
+    for line in ("Average loss for epoch", "Average embedding loss for epoch",
+                 "Validation F1 score", "Validation MOTA =", "Validation mAP"):
+        if log.count(line) != 2:
+            fail(f"{what}: logs.txt has {log.count(line)} lines '{line}', expected 2")
+    for name in ("track-mpnn_best.npz", "vis-net_best.npz", "track-mpnn_0001.npz",
+                 "vis-net_0001.npz"):
+        if not os.path.exists(os.path.join(dir_a, name)):
+            fail(f"{what}: {name} was not written")
+    val_fwd = sum(hist["val_forwards"])
+    trained = {k: sum(s["launched"][k] for s in steps.steps) for k in launches}
+    want = {"gather_diff": trained["gather_diff"],
+            "signed_segment_sum": trained["signed_segment_sum"] + nb3 * val_fwd,
+            "fused_edge_gru": nb3 * val_fwd}
+    if launches != want or val_fwd == 0:
+        fail(f"{what}: launches {launches}, expected {want} ({len(steps.steps)} train steps, "
+             f"{val_fwd} validation forwards of {nb3} branches)")
+    step_ev, step_wall = steps.ms()
+    emb_ev, emb_wall = chunks.ms()
+    chunk_wall, prof = cli_chunk_profile(torch, np, common,
+                                         os.path.join(dir_a, "track-mpnn_best.npz"))
+    out["a"] = {
+        "features": DEFAULT_FEATS, "epochs": 2, "wall_s": wall, "history": hist,
+        "chunks_per_s": [n / w for n, w in zip(hist["steps"], hist["epoch_wall_s"])],
+        "ms_per_step_events": step_ev, "ms_per_step_wall": step_wall,
+        "embedding_ms_per_chunk_events": emb_ev, "embedding_ms_per_chunk_wall": emb_wall,
+        "val_frames_per_s": [f / w for f, w in zip(hist["val_frames"], hist["val_wall_s"])],
+        "peak_memory_bytes": peak, "launches": launches, "train_steps": len(steps.steps),
+        "chunk_wall_s": chunk_wall,
+        "device_busy_share_chunk": None if prof is None else prof["busy_share"],
+        "profile_chunk": prof}
+    print(f"{what}: {len(steps.steps)} steps in 2 epochs, wall {wall:.1f} s; epoch wall "
+          f"{[round(w, 2) for w in hist['epoch_wall_s']]} s, chunks/s "
+          f"{[round(c, 3) for c in out['a']['chunks_per_s']]}; train step {step_ev:.3f} ms "
+          f"(CUDA events) / {step_wall:.3f} ms (host wall); embedding {emb_ev:.3f} ms (events) / "
+          f"{emb_wall:.3f} ms (host) a chunk; validation {hist['val_wall_s']} s, frames/s "
+          f"{[round(v, 2) for v in out['a']['val_frames_per_s']]}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}; losses {losses[0]:.5g} -> "
+          f"{losses[-1]:.5g}; val F1 {hist['val_f1']}, MOTA {hist['val_mota']}, mAP "
+          f"{hist['val_map']}; busy share over one chunk "
+          f"{out['a']['device_busy_share_chunk']} ({chunk_wall * 1e3:.1f} ms a chunk)")
+
+    # (b) resumed from (a)'s epoch-1 checkpoint
+    what = "train CLI (b) (resume)"
+    dir_b = os.path.join(base, "b")
+    snap = os.path.join(dir_a, "track-mpnn_0001.npz")
+    cfg3 = mpnn.ModelConfig(features=DEFAULT_FEATS, nhidden=HIDDEN)
+    held = {}
+
+    def first_step(params, opt):
+        p0, _, _, _ = checkpoint.load_state(snap, cfg3, "cuda")
+        p0 = train_block.trainable(p0)
+        opt0 = optim.make_optimizer(train_block.param_leaves(p0), 1.0, 0.0)
+        checkpoint.load_optimizer_state(snap, opt0, p0, cfg3)
+        leaves = train_block.param_leaves(params)
+        held["params"] = tensors_equal(torch, leaves, train_block.param_leaves(p0))
+        held["adam"] = adam_equal(torch, opt, leaves, opt0, train_block.param_leaves(p0))
+        held["adam_step"] = int(opt.state[leaves[0]]["step"])
+
+    def first_chunk(trainer):
+        fresh = EmbedTrainer(arch="espv2", input_hw=EMBED_HW, seed=99, device="cuda")
+        checkpoint.load_embed(snap.replace("track-mpnn", "vis-net"), fresh)
+        ps = [p for _, p in trainer.net.named_parameters()]
+        qs = [q for _, q in fresh.net.named_parameters()]
+        held["vis_net"] = tensors_equal(torch, ps, qs) and tensors_equal(
+            torch, trainer.net.state_dict().values(), fresh.net.state_dict().values())
+        held["vis_adam"] = adam_equal(torch, trainer.opt, ps, fresh.opt, qs)
+
+    steps_b = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb3), on_first=first_step)
+    chunks_b = ChunkRecorder(torch, on_first=first_chunk)
+    with patched(train_step, "make_train_step", steps_b.wrap), \
+            patched(EmbedTrainer, "train_chunk", chunks_b.wrap):
+        hist_b = cli.main(common + ["--output-dir", dir_b, "--epochs", "2", "--snapshot", snap])
+    steps_b.check(what)
+    if f"resumed from {snap} at epoch 2" not in read_log(dir_b) or len(hist_b["loss"]) != 1:
+        fail(f"{what}: did not resume at epoch 2 (history of {len(hist_b['loss'])} epochs)")
+    if not all(held.get(k) for k in ("params", "adam", "vis_net", "vis_adam")):
+        fail(f"{what}: the first step did not hold the saved state: {held}")
+    out["b"] = {"history": hist_b, "held": held}
+    print(f"{what}: started at epoch 2 from {os.path.basename(snap)}; the first step held the "
+          f"saved parameters and Adam state (step {held['adam_step']}), the embedding net and "
+          f"its Adam state bitwise; epoch 2 loss {hist_b['loss'][0]:.5g} (run (a): "
+          f"{hist['loss'][1]:.5g})")
+
+    # (c) 2d+temp on the card and on the CPU from one snapshot
+    what = "train CLI (c) (2d+temp, card vs CPU)"
+    cfg2 = mpnn.ModelConfig(features="2d+temp", nhidden=HIDDEN)
+    p2 = train_block.trainable(mpnn.init_params(torch.Generator().manual_seed(23), cfg2))
+    snap_c = os.path.join(base, "snap_c", "track-mpnn_0000.npz")
+    checkpoint.save_state(snap_c, p2, mpnn.init_batch_stats(cfg2),
+                          optim.make_optimizer(train_block.param_leaves(p2)), cfg2, 0, -1000.0)
+    argv_c = common + ["--feats", "2d+temp", "--epochs", "1", "--snapshot", snap_c]
+    nb2 = len(cfg2.branches)
+    runs_c = {}
+    for dev in ("cuda", "cpu"):
+        rec = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb2) if dev == "cuda" else
+                           (lambda sb: {}), device=dev)
+        t0 = time.perf_counter()
+        with patched(train_step, "make_train_step", rec.wrap):
+            h = cli.main(argv_c + ["--output-dir", os.path.join(base, f"c_{dev}"),
+                                   "--device", dev])
+        runs_c[dev] = (h, rec.check(f"{what}, {dev}"), time.perf_counter() - t0)
+    (hc, lc, wc), (hp, lp, wp) = runs_c["cuda"], runs_c["cpu"]
+    if len(lc) != len(lp):
+        fail(f"{what}: {len(lc)} steps on the card, {len(lp)} on the CPU")
+    rel = np.abs(lc - lp) / np.maximum(np.abs(lp), 1e-30)
+    if rel[:CLI_LOSS_STEPS].max() > CLI_LOSS_RTOL:
+        fail(f"{what}: the first {CLI_LOSS_STEPS} losses differ by rtol "
+             f"{rel[:CLI_LOSS_STEPS].max():.3g} > {CLI_LOSS_RTOL}")
+    best_c = os.path.join(base, "c_cuda", "track-mpnn_best.npz")
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        args = build_train_parser().parse_args(argv_c + ["--device", dev])
+        args.tp_classifier = not args.no_tp_classifier
+        params, stats = checkpoint.load(best_c, cfg2, dev)
+        got = {}
+        metrics = cli.run_validation(args, cfg2, params, stats, cli.make_dataset(args, "val"),
+                                     lambda m: None, stats_out=got)
+        vals[dev] = (metrics, got["tracks"])
+    if vals["cuda"][0] != vals["cpu"][0] or not all(
+            np.array_equal(a, b) for a, b in zip(vals["cuda"][1], vals["cpu"][1])):
+        fail(f"{what}: validating {os.path.basename(best_c)} gives {vals['cuda'][0]} and other "
+             f"tracks on the card, {vals['cpu'][0]} on the CPU")
+    out["c"] = {"steps": len(lc), "max_rel_loss_diff_first10": float(rel[:CLI_LOSS_STEPS].max()),
+                "max_rel_loss_diff_epoch": float(rel.max()), "card_wall_s": wc, "cpu_wall_s": wp,
+                "history_card": hc, "history_cpu": hp,
+                "validation_same_checkpoint": list(vals["cuda"][0])}
+    print(f"{what}: {len(lc)} steps; first {CLI_LOSS_STEPS} losses within rtol "
+          f"{rel[:CLI_LOSS_STEPS].max():.3g}, the epoch's largest relative difference "
+          f"{rel.max():.3g}; epoch loss {hc['loss'][0]:.6g} / {hp['loss'][0]:.6g}; wall "
+          f"{wc:.1f} s card, {wp:.1f} s CPU; one checkpoint validated on both: identical tracks, "
+          f"F1/MOTA/mAP {vals['cuda'][0]}")
+
+    # (d) the block route
+    what = "train CLI (d) (--batch-windows 8 --no-bf16)"
+    dir_d = os.path.join(base, "d")
+    rec = StepRecorder(torch, (block_ops.LAUNCHES,), block_expect(nb3))
+    t0 = time.perf_counter()
+    with patched(train_block, "make_block_train_step", rec.wrap):
+        hist_d = cli.main(common + ["--output-dir", dir_d, "--epochs", "1", "--batch-windows", "8",
+                                    "--no-bf16"])
+    wall_d = time.perf_counter() - t0
+    losses_d = rec.check(what)
+    if "block-structured batched training: 8 windows/step" not in read_log(dir_d):
+        fail(f"{what}: the log does not say the block route ran")
+    ev_d, host_d = rec.ms()
+    out["d"] = {"steps": len(rec.steps), "wall_s": wall_d, "history": hist_d,
+                "ms_per_step_events": ev_d, "ms_per_step_wall": host_d,
+                "launches_per_step": [s["launched"] for s in rec.steps[:3]]}
+    print(f"{what}: {len(rec.steps)} block steps (launches a step = T x {nb3} round fwd/bwd, "
+          f"3T x {nb3} window_scatter, held on every step), {ev_d:.3f} ms (events) / "
+          f"{host_d:.3f} ms (host) a step, wall {wall_d:.1f} s, losses {losses_d[0]:.5g} -> "
+          f"{losses_d[-1]:.5g}, val MOTA {hist_d['val_mota']}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -2390,12 +2963,21 @@ def main():
                                                      default_wl)
     kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
                                  default_heads["per_head"]["launches"])
+    # 21. kernel #8 on the same inputs (every block training phase above held
+    # its launches at 0: no path calls it)
+    kernels += gat0_kernel_phase(torch, gat_ops, gat1_inputs,
+                                 default_heads["per_head"]["launches"])
     # 15. the embedding path, 16. its DCN kernels
     embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
     kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
                                 embedding["dla34_bounded"]["launches"])
     # 17. the default configuration served at full width
-    full = full_serving_phase(torch, np, mp)
+    full, served = full_serving_phase(torch, np, mp)
+    # 22. the batched validation tracker on phase 17's sequences
+    batch_tracking = batch_tracker_phase(torch, np, mp, served, full)
+    del served
+    # 23. the training CLI
+    train_cli = train_cli_phase(torch, np, mp, block_ops)
     # each serving kernel's launches on the path it runs on: gather_diff in
     # row-layout training (phase 10; a served forward takes fused_edge_gru),
     # signed_segment_sum serving (phase 3), fused_edge_gru the default
@@ -2418,12 +3000,14 @@ def main():
                        "row_packed": packed_training, "block_compositions": compositions,
                        "edge_losses_one_branch": loss_narrow,
                        "default_training": default_training, "default_heads": default_heads,
-                       "embedding": embedding, "full_serving": full},
+                       "embedding": embedding, "full_serving": full,
+                       "batch_tracker": batch_tracking, "train_cli": train_cli},
                       f, indent=1)
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ["note"] if k in r}
+                                  for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -344,7 +344,7 @@ def test_gat_kernels_match_plain_versions(cuda, nh, P, na, nt, H, keep):
     assert torch.all(rs[~live.any(2)] == 0) and torch.all(cs[~live.any(1)] == 0)
     assert {k: gat.LAUNCHES[k] - before[k] for k in before} == {
         "gat_scores_fwd": 2, "gat_scores_bwd": 2, "gat_aggregate_fwd": 3,
-        "gat_aggregate_bwd": 2, **dict.fromkeys(GAT1_KERNELS, 0)}
+        "gat_aggregate_bwd": 2, **dict.fromkeys(GAT1_KERNELS + GAT0_KERNELS, 0)}
 
 
 @pytest.mark.cuda
@@ -363,7 +363,7 @@ def test_gat_autograd_launches_its_kernels(cuda):
         rs, cs = gat.gat_aggregate(*a_args, keep)
         ((e ** 2).sum() + sal.sum() + sbl.sum() + (rs ** 2).sum() + cs.sum()).backward()
         launched = {k: gat.LAUNCHES[k] - before[k] for k in before}
-        assert launched == {k: int(dev != "cpu" and k not in GAT1_KERNELS)
+        assert launched == {k: int(dev != "cpu" and k.startswith("gat_"))
                             for k in launched}, launched
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -371,6 +371,7 @@ def test_gat_autograd_launches_its_kernels(cuda):
 
 
 GAT1_KERNELS = ("gat1_scores_fwd", "gat1_scores_bwd", "gat1_aggregate_fwd", "gat1_aggregate_bwd")
+GAT0_KERNELS = ("gat0_scores_fwd", "gat0_scores_bwd")
 
 
 def gat1_problem(seed, P, na, nt, H, keep, device):
@@ -946,3 +947,101 @@ def test_dcn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dcn._sample_cuda(xs, off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)
     with pytest.raises(TypeError):
         dcn._dx_cuda(off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,na,nt,H", [(17, 8, 16, 16), (120, 24, 24, 64), (3, 5, 40, 32)])
+def test_gat0_kernels_match_plain_versions_and_gat1(cuda, P, na, nt, H):
+    """Kernel #8 (gat0_scores_fwd / _bwd) against its plain versions
+    (forward rtol and atol 1e-5, backward rtol 1e-4 with atol 1e-5 x each
+    output's scale), bitwise the same on a second launch, and bitwise equal
+    to #9's gat1_* on the same inputs: its scores, and its backward with
+    zero statistic cotangents."""
+    pr = gat1_problem(P + 7, P, na, nt, H, 1.0, cuda)
+    ha, hn, a, m = pr["scores"]
+    ge = pr["scores_cot"][0]
+    zeros = (torch.zeros_like(pr["scores_cot"][1]), torch.zeros_like(pr["scores_cot"][2]))
+    before = dict(gat.LAUNCHES)
+    e, e2 = gat._gat0_scores_fwd_cuda(ha, hn, a, m, 0.2), gat._gat0_scores_fwd_cuda(ha, hn, a, m,
+                                                                                    0.2)
+    g, g2 = (gat._gat0_scores_bwd_cuda(ha, hn, a, m, 0.2, ge) for _ in range(2))
+    e1 = gat._gat1_scores_fwd_cuda(ha, hn, a, m, 0.2)[0]
+    g1 = gat._gat1_scores_bwd_cuda(ha, hn, a, m, 0.2, ge, *zeros)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(e, gat.gat_scores_reference(ha, hn, a, m, 0.2), rtol=1e-5,
+                               atol=1e-5)
+    assert_close_scaled(g, gat.gat_scores_backward_reference(ha, hn, a, m, 0.2, ge),
+                        ["dha", "dhn", "da"])
+    assert torch.equal(e, e2) and all(torch.equal(x, y) for x, y in zip(g, g2))
+    assert torch.equal(e, e1) and all(torch.equal(x, y) for x, y in zip(g, g1))
+    assert torch.all(e[m == 0] == 0)
+    assert {k: gat.LAUNCHES[k] - before[k] for k in GAT0_KERNELS} == {
+        "gat0_scores_fwd": 2, "gat0_scores_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_gat0_autograd_launches_its_kernels(cuda):
+    """gat_scores through autograd: one launch of each #8 kernel and no
+    other attention kernel on the card, none on the CPU, and the CPU's
+    gradients."""
+    pr = gat1_problem(8, 6, 8, 8, 16, 1.0, "cpu")
+    grads = {}
+    for dev in ("cpu", cuda):
+        ha, hn, a, m = (t.detach().to(dev) for t in pr["scores"])
+        leaves = [t.requires_grad_(True) for t in (ha, hn, a)]
+        before = dict(gat.LAUNCHES)
+        (gat.gat_scores(ha, hn, a, m, 0.2) ** 2).sum().backward()
+        launched = {k: gat.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {k: int(dev != "cpu" and k in GAT0_KERNELS) for k in launched}
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+def test_batch_tracker_on_the_card_matches_the_cpu(cuda):
+    """BatchedTracker on the card against the CPU on small sequences:
+    identical tracks, one fused_edge_gru and signed_segment_sum launch a
+    forward for the whole cohort, no gather_diff."""
+    from torch_port_util import spread_weights
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.decode import BatchedTracker, TrackerConfig
+    from trackmpnn_tpu_torch.models import mpnn, weights
+
+    cfg = mpnn.ModelConfig(features="2d", nhidden=16)
+    params, stats = weights.from_jax_params(*spread_weights(cfg, seed=5), cfg)
+    seqs = []
+    for seed in (31, 32, 33):
+        X, bp, _ = make_sequence(num_tracks=6, num_frames=12, seed=seed)
+        seqs.append((X, bp[:, :2].astype(np.int64)))
+    tcfg = TrackerConfig(cur_win_size=4, hungarian=True)
+    want = BatchedTracker(params, stats, cfg, tcfg, device="cpu").run(seqs)
+    before = dict(mp.LAUNCHES)
+    tracker = BatchedTracker(params, stats, cfg, tcfg, device=cuda)
+    got = tracker.run(seqs, pipeline=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert {k: mp.LAUNCHES[k] - before[k] for k in before} == {
+        "gather_diff": 0, "signed_segment_sum": tracker.n_forwards,
+        "fused_edge_gru": tracker.n_forwards}
+
+
+@pytest.mark.cuda
+def test_train_cli_epoch_on_the_card(cuda, tmp_path):
+    """One short epoch of the training CLI on the card at --feats 2d: finite
+    losses, validation, a best checkpoint, and the batch-1 step's kernels
+    (gather_diff and signed_segment_sum) launched."""
+    from trackmpnn_tpu_torch.cli import train
+    from trackmpnn_tpu_torch.data.synthetic import write_kitti_tree
+
+    root = str(tmp_path / "kitti")
+    write_kitti_tree(root, num_seqs=21, num_frames=6, num_tracks=4, seed=0)
+    before = dict(mp.LAUNCHES)
+    hist = train.main(["--dataset-root-path", root, "--output-dir", str(tmp_path / "out"),
+                       "--category", "All", "--detections", "rrc", "--feats", "2d",
+                       "--cur-win-size", "4", "--epochs", "1", "--num-hidden-feats", "16"])
+    launched = {k: mp.LAUNCHES[k] - before[k] for k in before}
+    assert np.isfinite(hist["loss"][0]) and hist["steps"][0] > 0
+    assert launched["gather_diff"] > 0 and launched["fused_edge_gru"] == hist["val_forwards"][0]
+    assert (tmp_path / "out" / "track-mpnn_best.npz").exists()

@@ -79,6 +79,21 @@
 //   stacked forms at nh = 1: the per-head route of the block step
 //   (train/block.py, gat_fused=False) launches each once per head.
 //
+// gat0_scores_fwd / gat0_scores_bwd
+//   Replace _fwd_kernel (:40) and _bwd_kernel (:50) of gat_scores (:78), the
+//   raw masked scores e = leaky(sum_k |ha_i,k - hn_j,k| a_k * m3) [P, na, nt]
+//   and their custom VJP (d ha, d hn, d a summed over the grid; the mask
+//   takes none).  It is gat_scores_stats without the statistics, so these
+//   are the single-head bodies with a second compile-time flag, kStats =
+//   false: the forward drops the row / column pass and the rmax / cmax /
+//   sa_l / sb_l stores, the backward the statistics pass and the gsal /
+//   gsbl terms of de (de = ge).  So e is bitwise gat1_scores_fwd's first
+//   output and the backward bitwise gat1_scores_bwd's with zero gsal /
+//   gsbl.  Same bounds (f32 operations), same CTA layout, d a through the
+//   same per-block partials and the fixed-order sum, no atomics.  No path
+//   of the JAX package calls gat_scores (its routes need the statistics
+//   with the scores), so no path of the port launches these yet.
+//
 // No kernel synchronises or allocates: the caller allocates every output
 // and scratch and every launch goes to the stream it is given.  Each entry
 // point returns cudaGetLastError() so the caller can raise on a refused
@@ -162,8 +177,9 @@ __device__ void row_or_col_stats(const ScoreSmem& s, int r, int na, int nt, floa
 }
 
 // kNH: the head count when the compiler knows it (1: the single-head entry
-// points), 0 for the runtime nh of the stacked ones; one CTA per (block, head)
-template <int kNH>
+// points), 0 for the runtime nh of the stacked ones; one CTA per (block, head).
+// kStats false (gat0_*): the scores alone, no statistics (their pointers unused)
+template <int kNH, bool kStats>
 __global__ void gat_scores_fwd_kernel(const float* __restrict__ ha, const float* __restrict__ hn,
                                       const float* __restrict__ a, const float* __restrict__ mask,
                                       float* __restrict__ e, float* __restrict__ rmax,
@@ -177,6 +193,7 @@ __global__ void gat_scores_fwd_kernel(const float* __restrict__ ha, const float*
   masked_scores(s, na, nt, H);
   const int64_t hp = (int64_t)h * P + p;
   for (int c = threadIdx.x; c < ncell; c += blockDim.x) e[hp * ncell + c] = leaky(s.pm[c], alpha);
+  if (!kStats) return;
   for (int r = threadIdx.x; r < na + nt; r += blockDim.x) {
     float mx, sum;
     row_or_col_stats(s, r, na, nt, alpha, &mx, &sum);
@@ -190,7 +207,7 @@ __global__ void gat_scores_fwd_kernel(const float* __restrict__ ha, const float*
   }
 }
 
-template <int kNH>
+template <int kNH, bool kStats>
 __global__ void gat_scores_bwd_kernel(const float* __restrict__ ha, const float* __restrict__ hn,
                                       const float* __restrict__ a, const float* __restrict__ mask,
                                       const float* __restrict__ ge, const float* __restrict__ gsal,
@@ -206,20 +223,25 @@ __global__ void gat_scores_bwd_kernel(const float* __restrict__ ha, const float*
   float* dpre_s = mx_s + na + nt;  // [ncell]
   float* da_s = dpre_s + ncell;  // [na][H]  d a summed over j, per row
   masked_scores(s, na, nt, H);
-  for (int r = threadIdx.x; r < na + nt; r += blockDim.x) {
-    float sum;
-    row_or_col_stats(s, r, na, nt, alpha, &mx_s[r], &sum);
+  if (kStats) {
+    for (int r = threadIdx.x; r < na + nt; r += blockDim.x) {
+      float sum;
+      row_or_col_stats(s, r, na, nt, alpha, &mx_s[r], &sum);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const int64_t hp = (int64_t)h * P + p;
   for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
     const float m = s.m[c];
     float dpre = 0.f;
     if (m != 0.f) {
-      const int i = c / nt, j = c % nt;
-      const float em = masked_score(s, c, alpha);
-      const float de = ge[hp * ncell + c] + gsal[hp * na + i] * m * expf(em - mx_s[i])
-                       + gsbl[hp * nt + j] * m * expf(em - mx_s[na + j]);
+      float de = ge[hp * ncell + c];
+      if (kStats) {
+        const int i = c / nt, j = c % nt;
+        const float em = masked_score(s, c, alpha);
+        de = de + gsal[hp * na + i] * m * expf(em - mx_s[i])
+             + gsbl[hp * nt + j] * m * expf(em - mx_s[na + j]);
+      }
       dpre = de * (s.pm[c] >= 0.f ? 1.f : alpha) * m;
     }
     dpre_s[c] = dpre;
@@ -444,22 +466,23 @@ AggArgs agg_args(const void* e, const void* mr, const void* mc, const void* zr, 
 }
 
 // The launches, for the stacked (kNH = 0, nh heads at run time) and the
-// single-head (kNH = 1) instances of each body.
-template <int kNH>
+// single-head (kNH = 1) instances of each body; the score kernels also
+// without their statistics (kStats = false).
+template <int kNH, bool kStats>
 int launch_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask, void* e,
                       void* rmax, void* cmax, void* sal, void* sbl, int P, int na, int nt, int nh,
                       int H, float alpha, void* stream) {
   if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
   const size_t smem = score_smem_floats(na, nt, H, false) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_scores_fwd_kernel<kNH>, smem);
+  cudaError_t err = opt_in_smem((const void*)gat_scores_fwd_kernel<kNH, kStats>, smem);
   if (err != cudaSuccess) return (int)err;
-  gat_scores_fwd_kernel<kNH><<<dim3(P, nh), kThreads, smem, (cudaStream_t)stream>>>(
+  gat_scores_fwd_kernel<kNH, kStats><<<dim3(P, nh), kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (float*)e,
       (float*)rmax, (float*)cmax, (float*)sal, (float*)sbl, P, na, nt, nh, H, alpha);
   return (int)cudaGetLastError();
 }
 
-template <int kNH>
+template <int kNH, bool kStats>
 int launch_scores_bwd(const void* ha, const void* hn, const void* a, const void* mask,
                       const void* ge, const void* gsal, const void* gsbl, void* dha, void* dhn,
                       void* partials, void* da, int P, int na, int nt, int nh, int H, float alpha,
@@ -467,9 +490,9 @@ int launch_scores_bwd(const void* ha, const void* hn, const void* a, const void*
   if (P == 0 || na == 0 || nt == 0 || nh == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = score_smem_floats(na, nt, H, true) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)gat_scores_bwd_kernel<kNH>, smem);
+  cudaError_t err = opt_in_smem((const void*)gat_scores_bwd_kernel<kNH, kStats>, smem);
   if (err != cudaSuccess) return (int)err;
-  gat_scores_bwd_kernel<kNH><<<dim3(P, nh), kThreads, smem, s>>>(
+  gat_scores_bwd_kernel<kNH, kStats><<<dim3(P, nh), kThreads, smem, s>>>(
       (const float*)ha, (const float*)hn, (const float*)a, (const float*)mask, (const float*)ge,
       (const float*)gsal, (const float*)gsbl, (float*)dha, (float*)dhn, (float*)partials, P, na,
       nt, nh, H, alpha);
@@ -528,7 +551,7 @@ extern "C" int tm_gat_smem_bytes(int kind, int na, int nt, int nh, int H, int ba
 extern "C" int tm_gat_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask,
                                  void* e, void* rmax, void* cmax, void* sal, void* sbl, int P,
                                  int na, int nt, int nh, int H, float alpha, void* stream) {
-  return launch_scores_fwd<0>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, nh, H, alpha,
+  return launch_scores_fwd<0, true>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, nh, H, alpha,
                               stream);
 }
 
@@ -539,7 +562,7 @@ extern "C" int tm_gat_scores_bwd(const void* ha, const void* hn, const void* a, 
                                  const void* ge, const void* gsal, const void* gsbl, void* dha,
                                  void* dhn, void* partials, void* da, int P, int na, int nt,
                                  int nh, int H, float alpha, void* stream) {
-  return launch_scores_bwd<0>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
+  return launch_scores_bwd<0, true>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
                               nh, H, alpha, stream);
 }
 
@@ -575,7 +598,7 @@ extern "C" int tm_gat_aggregate_bwd(const void* e, const void* mr, const void* m
 extern "C" int tm_gat1_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask,
                                   void* e, void* rmax, void* cmax, void* sal, void* sbl, int P,
                                   int na, int nt, int H, float alpha, void* stream) {
-  return launch_scores_fwd<1>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, 1, H, alpha,
+  return launch_scores_fwd<1, true>(ha, hn, a, mask, e, rmax, cmax, sal, sbl, P, na, nt, 1, H, alpha,
                               stream);
 }
 
@@ -586,7 +609,7 @@ extern "C" int tm_gat1_scores_bwd(const void* ha, const void* hn, const void* a,
                                   const void* ge, const void* gsal, const void* gsbl, void* dha,
                                   void* dhn, void* partials, void* da, int P, int na, int nt,
                                   int H, float alpha, void* stream) {
-  return launch_scores_bwd<1>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
+  return launch_scores_bwd<1, true>(ha, hn, a, mask, ge, gsal, gsbl, dha, dhn, partials, da, P, na, nt,
                               1, H, alpha, stream);
 }
 
@@ -615,4 +638,23 @@ extern "C" int tm_gat1_aggregate_bwd(const void* e, const void* mr, const void* 
                                      int nt, int H, float keep, void* stream) {
   return launch_aggregate_bwd<1>(e, mr, mc, zr, zc, he, mask, ka, kn, grs, gcs, de, dmr, dmc,
                                  dzr, dzc, dhe, P, na, nt, 1, H, 1, keep, stream);
+}
+
+// gat_scores (pallas_gat.py:78): ha f32[P, na, H], hn f32[P, nt, H], a f32[H],
+// mask f32[P, na, nt].  out: e f32[P, na, nt].
+extern "C" int tm_gat0_scores_fwd(const void* ha, const void* hn, const void* a, const void* mask,
+                                  void* e, int P, int na, int nt, int H, float alpha,
+                                  void* stream) {
+  return launch_scores_fwd<1, false>(ha, hn, a, mask, e, nullptr, nullptr, nullptr, nullptr, P, na,
+                                     nt, 1, H, alpha, stream);
+}
+
+// Its VJP (pallas_gat.py:115): inputs as tm_gat0_scores_fwd plus the
+// cotangent ge f32[P, na, nt]; writes d ha, d hn, the per-block partials
+// f32[P, H] (scratch) and da f32[H].
+extern "C" int tm_gat0_scores_bwd(const void* ha, const void* hn, const void* a, const void* mask,
+                                  const void* ge, void* dha, void* dhn, void* partials, void* da,
+                                  int P, int na, int nt, int H, float alpha, void* stream) {
+  return launch_scores_bwd<1, false>(ha, hn, a, mask, ge, nullptr, nullptr, dha, dhn, partials, da,
+                                     P, na, nt, 1, H, alpha, stream);
 }

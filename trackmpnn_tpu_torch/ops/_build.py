@@ -56,7 +56,9 @@ LIBRARIES = {
              "tm_gat1_scores_fwd": [_P] * 9 + [_I] * 4 + [_F, _P],
              "tm_gat1_scores_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
              "tm_gat1_aggregate_fwd": [_P] * 11 + [_I] * 4 + [_F, _P],
-             "tm_gat1_aggregate_bwd": [_P] * 17 + [_I] * 4 + [_F, _P]}),
+             "tm_gat1_aggregate_bwd": [_P] * 17 + [_I] * 4 + [_F, _P],
+             "tm_gat0_scores_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+             "tm_gat0_scores_bwd": [_P] * 9 + [_I] * 4 + [_F, _P]}),
     "round": (os.path.join(_PKG, "csrc", "round_kernels.cu"),
               os.path.join(BUILD_DIR, "libtm_round.so"),
               {"tm_round_fwd": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 3 + [_P],

@@ -1,6 +1,7 @@
 """Ops of the GAT attention heads in the block train step (the counterpart
 of trackmpnn_tpu/ops/pallas_gat.py's stacked-head gat_scores_stats_mh and
-gat_aggregate_mh, and of its single-head gat_scores_stats and gat_aggregate).
+gat_aggregate_mh, of its single-head gat_scores_stats and gat_aggregate,
+and of its raw scores gat_scores).
 
 Each op has
   * a plain PyTorch version of its forward and of its hand-derived backward
@@ -32,6 +33,13 @@ plain versions are the stacked ones' at nh = 1; on the card they launch
 single-head instances of the same kernel bodies (tm_gat1_* in
 csrc/gat_kernels.cu), counted apart.  The block step's per-head attention
 route (train/block.py, gat_fused=False) calls them once per head.
+
+gat_scores (for gat_scores, pallas_gat.py:78) is the single-head scores op
+without its statistics: e [P, na, nt] alone, with the VJP d ha, d hn, d a.
+Its plain version is gat_scores_stats_1h's first output; on the card it
+launches tm_gat0_* (the single-head bodies with the statistics compiled
+out).  No path of the JAX package calls gat_scores (every attention route
+needs the statistics with the scores), so no path of the port does yet.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ Z_FLOOR = 1e-30    # floor of a softmax normaliser
 LAUNCHES = {"gat_scores_fwd": 0, "gat_scores_bwd": 0,
             "gat_aggregate_fwd": 0, "gat_aggregate_bwd": 0,
             "gat1_scores_fwd": 0, "gat1_scores_bwd": 0,
-            "gat1_aggregate_fwd": 0, "gat1_aggregate_bwd": 0}
+            "gat1_aggregate_fwd": 0, "gat1_aggregate_bwd": 0,
+            "gat0_scores_fwd": 0, "gat0_scores_bwd": 0}
 
 
 # -------------------------------------------------------------- references ----
@@ -166,6 +175,21 @@ def gat_scores_stats_1h_backward_reference(ha, hn, a, mask3, alpha, ge, gsal, gs
     """(d ha, d hn, d a) of one head (_stats_bwd, pallas_gat.py:264)."""
     return gat_scores_stats_backward_reference(ha, hn, a, mask3, alpha, 1, ge[None], gsal[None],
                                                gsbl[None])
+
+
+def gat_scores_reference(ha, hn, a, mask3, alpha):
+    """e = leaky(sum_k |ha[i, k] - hn[j, k]| a[k] * m3) [P, na, nt], 0 where
+    masked (gat_scores, pallas_gat.py:78; reference_gat_scores, :134)."""
+    return _scores(ha, hn, a, mask3, alpha, 1)[2][0]
+
+
+def gat_scores_backward_reference(ha, hn, a, mask3, alpha, ge):
+    """(d ha, d hn, d a) of gat_scores (_bwd_kernel, pallas_gat.py:50-75):
+    gat_scores_stats_1h_backward_reference with zero statistic cotangents.
+    A masked cell passes no cotangent; d|x| is sign(x), 0 at 0."""
+    P, na, nt = mask3.shape
+    return gat_scores_stats_1h_backward_reference(ha, hn, a, mask3, alpha, ge,
+                                                  ge.new_zeros(P, na), ge.new_zeros(P, nt))
 
 
 def gat_aggregate_1h_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
@@ -342,6 +366,40 @@ def _gat1_scores_bwd_cuda(ha, hn, a, mask3, alpha, ge, gsal, gsbl):
     return dha, dhn, da
 
 
+def _gat0_scores_fwd_cuda(ha, hn, a, mask3, alpha):
+    lib, P, na, nt, H = _score_inputs("gat0_scores_fwd", ha, hn, a, mask3, 1)
+    e = torch.empty(P, na, nt, dtype=torch.float32, device=ha.device)
+    if P == 0 or na == 0 or nt == 0:
+        return e.zero_()
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat0_scores_fwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                    e.data_ptr(), P, na, nt, H, float(alpha), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat0_scores_fwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat0_scores_fwd"] += 1
+    return e
+
+
+def _gat0_scores_bwd_cuda(ha, hn, a, mask3, alpha, ge):
+    lib, P, na, nt, H = _score_inputs("gat0_scores_bwd", ha, hn, a, mask3, 1)
+    f32 = torch.float32
+    _check("gat0_scores_bwd", ha.device, ge=(ge, f32, (P, na, nt)))
+    dha, dhn = torch.empty_like(ha), torch.empty_like(hn)
+    da = torch.empty(H, 1, dtype=f32, device=ha.device)
+    if P == 0 or na == 0 or nt == 0:
+        return dha.zero_(), dhn.zero_(), da.zero_()
+    partials = torch.empty(P, H, dtype=f32, device=ha.device)
+    with torch.cuda.device(ha.device):
+        rc = lib.tm_gat0_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
+                                    ge.data_ptr(), dha.data_ptr(), dhn.data_ptr(),
+                                    partials.data_ptr(), da.data_ptr(), P, na, nt, H,
+                                    float(alpha), _stream())
+    if rc != 0:
+        raise RuntimeError(f"gat0_scores_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat0_scores_bwd"] += 1
+    return dha, dhn, da
+
+
 def _aggregate_1h_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn):
     if e.dim() != 3 or h_e.dim() != 4:
         raise TypeError(f"{name}: e must be [P, na, nt] and h_e [P, na, nt, H], got "
@@ -466,6 +524,26 @@ class GatScoresStats1h(torch.autograd.Function):
         return dha, dhn, da, None, None
 
 
+class GatScores(torch.autograd.Function):
+    """e = gat_scores_reference(...), with the hand-derived backward; the
+    mask takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, ha, hn, a, mask3, alpha):
+        ctx.save_for_backward(ha, hn, a, mask3)
+        ctx.alpha = float(alpha)
+        fwd = _gat0_scores_fwd_cuda if _on_cuda(ha) else gat_scores_reference
+        return fwd(ha, hn, a, mask3, alpha)
+
+    @staticmethod
+    def backward(ctx, ge):
+        ha, hn, a, mask3 = ctx.saved_tensors
+        ge = _zeros_if_none(ge, tuple(mask3.shape), ha.device)
+        bwd = _gat0_scores_bwd_cuda if _on_cuda(ha) else gat_scores_backward_reference
+        dha, dhn, da = bwd(ha, hn, a, mask3, ctx.alpha, ge)
+        return dha, dhn, da, None, None
+
+
 class GatAggregate1h(torch.autograd.Function):
     """(rs, cs) = gat_aggregate_1h_reference(...), with the hand-derived
     backward; the masks take no gradient."""
@@ -502,6 +580,13 @@ def gat_scores_stats_1h(ha, hn, a, mask3, alpha):
     nt, H], a [H, 1], mask3 [P, na, nt] f32 0/1.  rmax / cmax take no
     gradient (the caller stops the softmax shift)."""
     return GatScoresStats1h.apply(ha, hn, a, mask3, alpha)
+
+
+def gat_scores(ha, hn, a, mask3, alpha):
+    """The masked leaky-relu L1 scores (gat_scores, pallas_gat.py:78),
+    differentiable in ha, hn, a: ha [P, na, H], hn [P, nt, H], a [H, 1],
+    mask3 [P, na, nt] f32 0/1; e [P, na, nt], 0 where masked."""
+    return GatScores.apply(ha, hn, a, mask3, alpha)
 
 
 def gat_aggregate_1h(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
