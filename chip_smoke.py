@@ -15,9 +15,15 @@ failure exits non-zero:
  2. Kernels: each kernel against its plain PyTorch version on the card, on
     the GraphView of the largest window of a 30-track sequence (capacity
     16384, H = 64, f32) and a random h: gather_diff exact,
-    signed_segment_sum within atol 1e-5, rtol 1e-5 (its atomics add in no
-    fixed order, in f64, rounded to f32 once), fused_edge_gru (with seeded
-    GRU weights) within atol 1e-5 and bitwise on a second launch.  Each is
+    signed_segment_sum over the view's incidence (one call of the build
+    kernels under torch.cuda.set_sync_debug_mode("error"), bitwise equal to
+    its plain version and a numpy build, on a second launch too; its device
+    and host time printed beside theirs) within atol 1e-5, rtol 1e-5 of its
+    plain version and of
+    the plain pull over that incidence (f64 sums in another order, rounded
+    to f32 once) and bitwise on a second launch, fused_edge_gru (with
+    seeded GRU weights) within atol 1e-5 and bitwise on a second launch.
+    Each is
     timed with CUDA events beside its plain version, its memory/compute
     bound, for the scatter torch's index_add_ and for fused_edge_gru the
     route it replaces (gather_diff, then the GRU cell's two matmuls).
@@ -27,8 +33,9 @@ failure exits non-zero:
     in eval mode) serves three 30-track x 100-frame sequences (features
     2d).  A served forward records no gradient, so it launches
     fused_edge_gru and signed_segment_sum once a forward and gather_diff
-    never.  The same sequences rerun on the CPU, where the plain versions
-    run, must decode identical tracks with per-step scores within 1e-4.
+    never; its view builds one incidence (counted).  The same sequences
+    rerun on the CPU, where the plain versions run, must decode identical
+    tracks with per-step scores within 1e-4.
  4. CLI: the default features (2d+temp+vis, espv2 at 384 x 1280): a
     tracker and a vis-net snapshot the port writes in the JAX format and a
     small synthetic KITTI test tree of real PNGs (2 sequences of 12 frames)
@@ -41,21 +48,26 @@ failure exits non-zero:
     weights from torch.Generator seed 0.  A first step records the
     block-kernel inputs of its widest step (P = 120 blocks); 3 warm-up
     steps, then 20 timed steps with the launch counters set to 0 before
-    and read after (15 / 15 / 45 launches a step expected); one profiled
+    and read after (15 / 15 / 30 launches a step expected, and no incidence
+    build: the BlockBatch built its own once, in numpy; its host time
+    printed); one profiled
     step.  The first step rerun on the CPU must agree: loss, loss_ce,
     loss_f within rtol 1e-4, tp/fp/fn equal, grads within rtol 1e-3 with
     an atol of 1e-4 x the largest |grad|.
  6. Block kernels: block_round_fwd (atol 1e-5), block_round_bwd (rtol
-    1e-4, atol 1e-5 x each output's scale) and window_scatter (atol 1e-5)
+    1e-4, atol 1e-5 x each output's scale) and window_scatter (atol 1e-5;
+    the es sum at F = 64 and the gate gather's backward, both cotangents
+    at F = 192 in one launch, each over the batch's incidence, also held
+    against the plain pull over it and the call without an incidence)
     against their plain versions on the recorded inputs, each bitwise the
     same on a second launch, timed beside its plain version, its bound
-    and, for the scatter, torch's index_add_.
+    and, for the scatter, one index_add_ over the same values.
  7. GAT training: the block train step of phase 5 with one attention head
     (weights from torch.Generator seed 0) and real attention dropout.  The
     first step takes keep masks drawn on the card (att_keep) and records
     the attention kernels' widest inputs; 3 warm-up steps and 20 timed
     steps draw their masks from a cuda generator, with the launch counters
-    set to 0 before and read after (T of each attention kernel, T / T / 5T
+    set to 0 before and read after (T of each attention kernel, T / T / 3T
     of the block kernels a step); one profiled step.  The first step rerun
     on the CPU with the same masks must agree to phase 5's tolerances.
  8. GAT kernels: gat_scores_fwd / gat_aggregate_fwd (rtol and atol 1e-5) and
@@ -74,7 +86,9 @@ failure exits non-zero:
     1e-4 with L2 5e-4, tp_classifier off, weights from torch.Generator seed
     0.  3 warm-up and 20 timed steps with the launch counters set to 0
     before and read after: gather_diff and signed_segment_sum twice a valid
-    step each (a forward, and the other's backward); one profiled step.
+    step each (a forward, and the other's backward) and no incidence build
+    (the step batch built one when it was moved to the card: counted, its
+    device time printed); one profiled step.
     The first step rerun on the CPU must agree to phase 5's tolerances.
     The first step records both kernels' widest inputs as forwards and as
     each other's backward (on a cotangent); each of the four is held
@@ -162,7 +176,7 @@ failure exits non-zero:
     window at the boxes' centres, as phase 17 makes them (set-up, once).
     The default composition: a first step, 3 warm-up steps and 20 timed
     by CUDA events and host wall, the launch counters set to 0 before and
-    read after (T x 3 of each block kernel and 3T x 3 window_scatter a
+    read after (T x 3 of each block kernel and 2T x 3 window_scatter a
     step), a profiled step, the first step rerun on the CPU.  es_kernel and
     fused_loss (the edge losses over the three branches' edge hiddens side
     by side, K = 192): a first step each, its launches counted, against
@@ -192,8 +206,8 @@ failure exits non-zero:
     its launches at 0.
 22. The batched validation tracker (decode/batch_tracker.py, pipeline=True)
     on phase 17's three sequences, model and weights: exactly 3
-    fused_edge_gru and 3 signed_segment_sum launches a cohort forward and
-    no gather_diff; tracks identical to phase 17's card and CPU runs,
+    fused_edge_gru and 3 signed_segment_sum launches and one incidence
+    build a cohort forward and no gather_diff; tracks identical to phase 17's card and CPU runs,
     per-step scores within 1e-4; frames/s beside phase 17's, the busy
     share, peak memory.
 23. The training CLI in process (cli.train.main(argv)) on a synthetic
@@ -201,7 +215,8 @@ failure exits non-zero:
     sequences have 78-1059 frames): (a) the defaults (2d+temp+vis, espv2
     at 384 x 1280, nhidden 64, the batch-1 route), 2 epochs: every train
     step's gather_diff / signed_segment_sum launches exact, fused_edge_gru
-    only in validation, the losses, val F1, MOTA, mAP logged, best
+    only in validation, one incidence build a step batch and a validation
+    forward, the losses, val F1, MOTA, mAP logged, best
     checkpoints and vis-nets written; epoch wall, chunks/s, ms a step
     (events and host), the embedding's ms a chunk, validation wall and
     frames/s, peak memory, the busy share over one profiled chunk; (b)
@@ -211,13 +226,15 @@ failure exits non-zero:
     the first 10 losses within rtol 1e-4, and one checkpoint validated on
     both gives identical tracks, MOTA and mAP; (d) --batch-windows 8
     --no-bf16, 1 epoch: the block route logged, T x 3 block_round_fwd and
-    _bwd and 3T x 3 window_scatter launches every step.
+    _bwd and 2T x 3 window_scatter launches every step, one BlockBatch
+    incidence a step.
 
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
 fused_edge_gru phase 17's; the single-head attention kernels phase 19's
-per-head route; kernel #8's rows say 0 with a note.  The line before the
-last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+per-head route; kernel #8's rows say 0 with a note.  A line gives the
+incidence builds (device or host time, counts a path).  The line before
+the last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -354,21 +371,27 @@ MP_REPLACES = {"gather_diff": "trackmpnn_tpu/ops/pallas_mp.py:184",
                "signed_segment_sum": "trackmpnn_tpu/ops/pallas_mp.py:128"}
 
 
-def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
+def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where, inc=None, build=None):
     """One message-passing kernel on these inputs against its plain version
-    (gather_diff exact; signed_segment_sum within SCATTER_RTOL / ATOL, its
-    atomics add in no fixed order, in f64, rounded to f32 once), timed
-    beside its plain version, its memory/compute bound and, for the scatter,
-    torch's index_add_.  Prints and returns the kernel's row."""
+    (gather_diff exact; signed_segment_sum within SCATTER_RTOL / ATOL, both
+    f64 rounded to f32 once in another order, and bitwise the same on a
+    second launch), timed beside its plain version, its memory/compute bound
+    and, for the scatter, torch's index_add_.  signed_segment_sum pulls
+    through `inc`, the incidence its path built (segment_incidence), and is
+    also held against the plain pull over it; `build`, that incidence's
+    build (incidence_build), is printed beside the row and kept in it,
+    outside the bound.  Prints and returns the kernel's row."""
     N, H = h.shape
     n_edges = int(em.sum())
     if name == "gather_diff":
         kernel = lambda: mp.gather_diff(h, past, fut, em)
         plain = lambda: mp.gather_diff_reference(h, past, fut, em)
     else:
-        kernel = lambda: mp.signed_segment_sum(h, past, fut, em, n)
+        if inc is None:
+            fail(f"signed_segment_sum ({where}): the path handed the kernel no incidence")
+        kernel = lambda: mp.signed_segment_sum(h, past, fut, em, n, inc)
         plain = lambda: mp.signed_segment_sum_reference(h, past, fut, em, n)
-    got, want = kernel(), plain()
+    got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     library_ms = None
@@ -378,11 +401,15 @@ def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
         endpoints = int(torch.unique(torch.cat([past[em], fut[em]])).numel())
         b, by = bound_ms(9 * N + endpoints * H * 4 + N * H * 4, n_edges * H)
     else:
-        if not torch.allclose(got, want, rtol=SCATTER_RTOL, atol=SCATTER_ATOL):
-            fail(f"signed_segment_sum ({where}) differs from its plain version by {err} "
-                 f"(atol {SCATTER_ATOL}, rtol {SCATTER_RTOL})")
+        pull = mp.signed_segment_sum_pull_reference(h, em, inc, n)
+        for label, ref in (("plain version", want), ("plain pull over its incidence", pull)):
+            if not torch.allclose(got, ref, rtol=SCATTER_RTOL, atol=SCATTER_ATOL):
+                fail(f"signed_segment_sum ({where}) differs from its {label} by "
+                     f"{float((got - ref).abs().max())} (atol {SCATTER_ATOL}, rtol {SCATTER_RTOL})")
+        if not torch.equal(got, again):
+            fail(f"signed_segment_sum ({where}) is not bitwise the same on a second launch")
         # yardstick: one f32 index_add_ over the doubled incidence [past; fut] <- [h; -h].
-        # It sums in f32 in the atomics' order, whose rounding at these sizes
+        # It sums in f32 in its atomics' order, whose rounding at these sizes
         # (~135 terms a row) reaches 1e-5 by itself: checked at 1e-4 only, to
         # show it computes the same function.
         idx2 = torch.cat([torch.where(em, past, n), torch.where(em, fut, n)]).long()
@@ -391,6 +418,9 @@ def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
         if not torch.allclose(library()[:n], want, rtol=1e-4, atol=1e-4):
             fail(f"index_add_ yardstick ({where}) does not compute the same function")
         library_ms = cuda_time_ms(library)
+        # the function's own bytes: h's edge rows, 9 B of index and mask a
+        # row read once, out written once (the incidence repeats past/fut;
+        # its build is timed beside the row)
         b, by = bound_ms(9 * N + n_edges * H * 4 + n * H * 4, 2 * n_edges * H)
     r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
          "replaces": MP_REPLACES[name], "max_abs_err": err,
@@ -398,11 +428,15 @@ def mp_kernel_row(torch, mp, name, h, past, fut, em, n, where):
          "plain_ms": cuda_time_ms(plain), "bound_ms": b, "bound_by": by,
          "library_ms": library_ms, "where": where,
          "shape": f"N {N}, n {n}, H {H}, edge rows {n_edges}"}
+    if build is not None:
+        r["incidence_build"] = build
     print(f"kernel {name} ({where}; {r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
           f"with the host's launch cost {r['call_ms'] * 1e3:.2f} us (plain "
           f"{r['plain_ms'] * 1e3:.2f} us, bound {b * 1e3:.2f} us by {by}, library "
           f"{'-' if library_ms is None else '%.2f us' % (library_ms * 1e3)}), "
-          f"max abs err {err:.3g}")
+          f"max abs err {err:.3g}"
+          + ("" if build is None else f"; its incidence's build {build['ms'] * 1e3:.2f} us "
+             "on the card, once a view or step batch"))
     return r
 
 
@@ -456,7 +490,75 @@ def edge_gru_row(torch, mp, h, past, fut, em, live, where):
     return r
 
 
-def kernel_phase(torch, mp, tracker_mod, view_mod):
+# each incidence build the paths made: device (or, for the BlockBatch's
+# numpy build, host) µs and counts, printed and written to --json
+INCIDENCE = {}
+
+
+def host_call_us(torch, fn, calls=50):
+    """Mean host µs a call of `fn` takes to return (its enqueue), the device
+    idle before: what a path's host loop pays for it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def numpy_incidence(np, past, fut, n):
+    """segment_incidence built on the host in numpy (a stable argsort and a
+    search), as graph/view.py::pack_slots could build it beside the slots."""
+    rows = np.arange(len(past))
+    ends = np.concatenate([past, fut])
+    listed = np.tile((past != rows) | (fut != rows), 2) & (ends >= 0) & (ends < n)
+    key = np.where(listed, ends, n)
+    order = np.argsort(key, kind="stable")
+    return np.searchsorted(key[order], np.arange(n + 1)).astype(np.int32), order.astype(np.int32)
+
+
+def incidence_build(torch, np, mp, past, fut, n, where, key):
+    """The path's incidence build on its endpoints (mp.segment_incidence:
+    one call of the build kernels), with no host synchronisation, held
+    bitwise against its plain version (segment_incidence_reference: a
+    stable sort and a search in tensor ops on the card) and a numpy build
+    on the host, also on a second launch.  Timed: device µs of the kernel
+    and of the plain version (CUDA events, few calls), and the host µs a
+    call of each takes, beside the numpy build's host µs (the choice a
+    serving forward faces: the host is its bottleneck).  Printed and kept
+    under INCIDENCE[key]."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [mp.segment_incidence(past, fut, n) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = mp.segment_incidence_reference(past, fut, n)
+    p_np, f_np = past.cpu().numpy(), fut.cpu().numpy()
+    host = numpy_incidence(np, p_np, f_np, n)
+    listed = int(want[0][-1])
+    for ptr, ent in got + [tuple(torch.from_numpy(a).cuda() for a in host)]:
+        if not (torch.equal(ptr, want[0]) and torch.equal(ent[:listed], want[1][:listed])):
+            fail(f"incidence build ({where}) differs from its plain version")
+    build = lambda: mp.segment_incidence(past, fut, n)
+    plain = lambda: mp.segment_incidence_reference(past, fut, n)
+    r = {"ms": cuda_time_ms(build, iters=PLAIN_ITERS),
+         "plain_ms": cuda_time_ms(plain, iters=PLAIN_ITERS),
+         "host_us": host_call_us(torch, build), "plain_host_us": host_call_us(torch, plain),
+         "numpy_host_us": host_call_us(torch, lambda: numpy_incidence(np, p_np, f_np, n),
+                                       calls=10),
+         "rows": int(past.shape[0]), "destinations": n, "entries": listed}
+    INCIDENCE.setdefault(key, {})["build"] = r
+    print(f"incidence build ({where}; {r['rows']} rows, {listed} entries): one call, "
+          f"{r['ms'] * 1e3:.2f} us on the card, {r['host_us']:.1f} us of host a call; the plain "
+          f"sort and search {r['plain_ms'] * 1e3:.2f} us on the card, {r['plain_host_us']:.1f} us "
+          f"of host; numpy on the host {r['numpy_host_us']:.1f} us (before its copy to the card); "
+          "bitwise equal, on a second call too")
+    return r
+
+
+def kernel_phase(torch, np, mp, tracker_mod, view_mod):
     X, g, n_new = peak_window(SERVE_SEEDS[0])
     cap = tracker_mod._bucketed(g.n, tracker_mod.TrackerConfig().bucket)
     view = view_mod.make_view(g, X, n_new, cap, "cuda")
@@ -465,7 +567,14 @@ def kernel_phase(torch, mp, tracker_mod, view_mod):
     past, fut, em = view.past, view.fut, view.edge_mask()
     print(f"kernel inputs: live rows {g.n}, edge rows {int(em.sum())}, capacity {cap}, "
           f"H {HIDDEN}")
-    rows = [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving")
+    # the serving incidence is built on the card with no host synchronisation
+    build = incidence_build(torch, np, mp, past, fut, cap, f"serving, capacity {cap}", "serving")
+    want = mp.segment_incidence_reference(past, fut, cap)
+    if not (torch.equal(view.inc[0], want[0])
+            and torch.equal(view.inc[1][:int(want[0][-1])], want[1][:int(want[0][-1])])):
+        fail("the serving view's incidence differs from its plain version")
+    rows = [mp_kernel_row(torch, mp, name, h, past, fut, em, cap, "serving", view.inc,
+                          build if name == "signed_segment_sum" else None)
             for name in MP_REPLACES] + [edge_gru_row(torch, mp, h, past, fut, em, g.n,
                                                      "serving")]
     # a width of two unit blocks and two k chunks of the weights
@@ -490,17 +599,20 @@ def record_mp_widest(mp, keep: dict):
         yield
 
 
-def mp_path_rows(torch, mp, inputs, where):
+def mp_path_rows(torch, mp, inputs, where, build):
     """gather_diff and signed_segment_sum at the widest inputs a training
-    path gave them, as forwards and as each other's backward."""
+    path gave them, as forwards and as each other's backward; `build`, the
+    path's incidence build, beside signed_segment_sum's rows."""
     rows = []
     for name in MP_REPLACES:
         for role in ("forward", "backward"):
             if (name, role) not in inputs:
                 fail(f"{where}: no {role} call of {name} was recorded")
-            h, past, fut, em, *n = inputs[(name, role)]
+            h, past, fut, em, *rest = inputs[(name, role)]
             rows.append(mp_kernel_row(torch, mp, name, h, past, fut, em,
-                                      n[0] if n else h.shape[0], f"{where}, {role}"))
+                                      rest[0] if rest else h.shape[0], f"{where}, {role}",
+                                      rest[1] if len(rest) > 1 else None,
+                                      build if name == "signed_segment_sum" else None))
     return rows
 
 
@@ -567,7 +679,8 @@ def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=No
     """Serve `seqs` with the Tracker on the card, the launch counters set to
     0 just before and read just after: each feature branch launches
     fused_edge_gru and signed_segment_sum once a forward (no gradient is
-    recorded) and gather_diff never.  Profile the first sequence, then rerun
+    recorded) and gather_diff never, and each forward's view builds one
+    incidence, which its branches share.  Profile the first sequence, then rerun
     all on the CPU, where the plain versions run: identical tracks and
     per-step scores within STEP_SCORE_ATOL.  `warm` (X, y) runs first
     (cuBLAS handles, the allocator).  Returns the summary; `keep`, a dict,
@@ -579,18 +692,20 @@ def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=No
     gpu.run(*warm)
     torch.cuda.synchronize()
 
-    for k in mp.LAUNCHES:
-        mp.LAUNCHES[k] = 0
+    zero_counters((mp.LAUNCHES, mp.BUILDS))
     runs, fwd_ms, walls = serve(gpu, seqs, np)
-    launches = dict(mp.LAUNCHES)
+    launches = {**mp.LAUNCHES, **mp.BUILDS}
     forwards = sum(len(steps) for steps, _ in runs)
     nb = len(cfg.branches)
     expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
-                "fused_edge_gru": nb * forwards}
+                "fused_edge_gru": nb * forwards, "segment_incidence": forwards}
     if launches != expected:
-        fail(f"{what}: launches {launches} in {forwards} forwards of {nb} branches, "
-             f"expected {expected}")
-    print(f"{what}: launches {launches} over {forwards} forwards of {nb} branches")
+        fail(f"{what}: launches and incidence builds {launches} in {forwards} forwards of {nb} "
+             f"branches, expected {expected}")
+    INCIDENCE.setdefault("serving", {})[what] = {"builds": launches["segment_incidence"],
+                                                 "forwards": forwards}
+    print(f"{what}: launches and incidence builds {launches} over {forwards} forwards of {nb} "
+          "branches")
     wall = sum(walls)
     profile = device_profile(torch, lambda: gpu.run(*seqs[0]), walls[0])
 
@@ -870,6 +985,26 @@ def zero_counters(counters):
             c[k] = 0
 
 
+def block_incidence_host(np, block_ops, bb, what):
+    """The BlockBatch's incidence is built once a batch, in numpy on the
+    host (ops/block.py::block_incidence): time that build again on the
+    batch's own arrays (host clock, 5 builds) under INCIDENCE["block"]."""
+    B, T = bb.n_windows, bb.t_cap
+    perm = np.arange(B * T).reshape(B, T).T.reshape(-1)
+    arrays = [t.cpu().numpy()[perm] for t in (bb.active_idx, bb.newdet_idx, bb.blk_na, bb.blk_nt)]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ptr, slot = block_ops.block_incidence(*arrays, B * bb.capD)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    if not (np.array_equal(ptr, bb.det_inc_ptr.cpu().numpy())
+            and np.array_equal(slot, bb.det_inc_slot.cpu().numpy())):
+        fail(f"{what}: the BlockBatch's incidence differs from a rebuild of it")
+    INCIDENCE.setdefault("block", {})[what] = {"host_ms": host_ms, "entries": int(slot.size),
+                                               "builds_per_batch": 1}
+    print(f"incidence build ({what}, BlockBatch, numpy): {host_ms * 1e3:.1f} us on the host, "
+          f"{slot.size} entries, once a batch")
+
+
 def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
                    fused_loss=False, features="2d", workload=None, gat_fused=True, timed=True,
                    keep1=None):
@@ -897,7 +1032,12 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
     if flags:
         what += " (" + ", ".join(flags) + ")"
     schedules, t_cap, edges = workload or training_workload(np)
+    built = block_ops.BUILDS["block_incidence"]
     bb = train_block.build_block_batch(schedules, t_cap, device="cuda")
+    if block_ops.BUILDS["block_incidence"] != built + 1:
+        fail(f"{what}: the BlockBatch built its incidence "
+             f"{block_ops.BUILDS['block_incidence'] - built} times, expected once")
+    block_incidence_host(np, block_ops, bb, what)
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
     cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=HIDDEN, msg_type="diff",
                            nattheads=heads)
@@ -923,28 +1063,30 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
             keep1 = draw_keep_masks(train_block, gen, heads, nb, bb)
 
     # one step's launches: the block kernels T a branch (the es round in
-    # their place with es_kernel); window_scatter the es sum and two
-    # launches for the backward of the gate gather, with stacked heads two
-    # more for the attention projections' gather, on the per-head route
-    # three a head (its projection's gather, its own es sum); the stacked
-    # attention kernels T a branch, the single-head ones T a branch and
-    # head; the loss kernels T with fused_loss
+    # their place with es_kernel); window_scatter the es sum and one launch
+    # for both cotangents of the gate gather, with stacked heads one more
+    # for the attention projections' gather, on the per-head route two a
+    # head (its projection's gather, its own es sum); the stacked attention
+    # kernels T a branch, the single-head ones T a branch and head; the loss
+    # kernels T with fused_loss.  No incidence is built in a step: the
+    # BlockBatch's serves every round.
     per_head = bool(heads) and not gat_fused
     rounds = t_cap * nb
     default = 0 if es_kernel else rounds
-    scatters = 0 if es_kernel else (2 + 3 * heads if per_head else 5 if heads else 3)
+    scatters = 0 if es_kernel else (1 + 2 * heads if per_head else 3 if heads else 2)
     expected = {"block_round_fwd": default, "block_round_bwd": default,
                 "window_scatter": scatters * rounds,
                 "block_round_es_fwd": rounds - default, "block_round_es_bwd": rounds - default,
                 **{k: 0 for k in gat_ops.LAUNCHES},
-                **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES}}
+                **{k: t_cap if fused_loss else 0 for k in loss_ops.LAUNCHES},
+                "block_incidence": 0, "window_incidence": 0}
     if heads:
         # the stacked kernels (gat_*) or the single-head ones (gat1_*); never
         # #8's (gat0_*), which no path launches
         route = "gat1_" if per_head else "gat_"
         expected.update({k: rounds * heads if per_head else rounds for k in gat_ops.LAUNCHES
                          if k.startswith(route)})
-    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES)
+    counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES, block_ops.BUILDS)
 
     def check_launches(launches, steps):
         for k, v in expected.items():
@@ -976,6 +1118,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
                                             lambda a: "bwd"))
             rec.enter_context(record_widest(block_ops, "_window_scatter_cuda", inputs,
                                             lambda a: f"scatter_F{a[0].shape[2]}"))
+            rec.enter_context(record_widest(block_ops, "_window_gather2_bwd_cuda", inputs,
+                                            lambda a: f"gather2_F{a[0].shape[2]}"))
         if fused_loss:
             for name in ("l1", "l2", "bwd"):
                 rec.enter_context(record_widest(loss_ops, f"_{name}_cuda", inputs,
@@ -1129,51 +1273,94 @@ def block_kernel_phase(torch, block_ops, inputs, launches):
     })
 
     extra = {}
-    for key in sorted(k for k in inputs if k.startswith("scatter_F")):
-        vals, idx, B, capD = inputs[key]
-        Pw, n, F = vals.shape
-        got = block_ops._window_scatter_cuda(vals, idx, B, capD)
-        again = block_ops._window_scatter_cuda(vals, idx, B, capD)
-        want = block_ops.window_scatter_reference(vals, idx, B, capD)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if err > WSCATTER_ATOL:
-            fail(f"window_scatter ({key}) differs from its plain version by {err} "
-                 f"(atol {WSCATTER_ATOL})")
-        if not torch.equal(got, again):
-            fail(f"window_scatter ({key}) is not bitwise the same on a second launch")
-        gid = block_ops.global_idx(idx, B, capD).reshape(-1)
-        flat = vals.reshape(-1, F)
-        lib = torch.zeros(B * capD, F, device="cuda").index_add_(0, gid, flat)
-        if not torch.allclose(lib, want, rtol=1e-4, atol=1e-4):
-            fail("index_add_ yardstick does not compute the same function as window_scatter")
-        b, by = bound_ms(4 * (Pw * n * F + Pw * n + B * capD * F), Pw * n * F)
-        extra[key] = {
-            "name": "window_scatter", "route": "cuda",
-            "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
-            "replaces": "trackmpnn_tpu/ops/pallas_block.py:616",
-            "launches": launches["window_scatter"], "max_abs_err": err,
-            "ms": cuda_time_ms(lambda: block_ops._window_scatter_cuda(vals, idx, B, capD)),
-            "call_ms": cuda_time_ms(lambda: block_ops._window_scatter_cuda(vals, idx, B, capD),
-                                    queue_ahead=False),
-            "plain_ms": cuda_time_ms(lambda: block_ops.window_scatter_reference(vals, idx, B,
-                                                                                capD),
-                                     iters=PLAIN_ITERS),
-            "bound_ms": b, "bound_by": by,
-            "library_ms": cuda_time_ms(
-                lambda: torch.zeros(B * capD, F, device="cuda").index_add_(0, gid, flat)),
-            "shape": f"P {Pw}, n {n}, F {F}, B {B}, capD {capD}",
-        }
-    # the kernels line carries the gate-gradient shape (F = 3H, 2 of the 3
-    # launches a step); the es shape (F = H) goes to the JSON file
-    results.append(extra[f"scatter_F{3 * H}"])
+    for key in sorted(k for k in inputs if k.startswith(("scatter_F", "gather2_F"))):
+        extra[key] = window_scatter_row(torch, block_ops, key, inputs[key],
+                                        launches["window_scatter"])
+    # the kernels line carries the gate gather's backward (both cotangents
+    # at F = 3H in one launch, half the launches a step); the es sum (F = H)
+    # goes to the JSON file.  Beside each: the batch incidence's build
+    # (phase 5's, in numpy on the host, once a batch)
+    build = INCIDENCE["block"]["training"]
+    results.append(extra[f"gather2_F{3 * H}"])
+    for r in extra.values():
+        r["incidence_build"] = build
     for r in results + [extra[f"scatter_F{H}"]]:
         print(f"kernel {r['name']} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
               f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
               f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}), "
-              f"max abs err {r['max_abs_err']:.3g}")
+              f"max abs err {r['max_abs_err']:.3g}"
+              + ("" if r["name"] != "window_scatter" else
+                 f"; its incidence's build {build['host_ms'] * 1e3:.1f} us on the host, "
+                 "once a batch"))
     return results, extra[f"scatter_F{H}"]
+
+
+def window_scatter_row(torch, block_ops, key, args, launches):
+    """The window_scatter kernel on a recorded call of the training step:
+    the es sum (scatter_F*: vals [P, na + nt, F]) or the gate gather's
+    backward (gather2_F*: d ga [P, na, F] and d gb [P, nt, F] in one
+    launch), each over the batch's incidence the path handed it.  Held
+    against its plain version (window_scatter_reference, atol
+    WSCATTER_ATOL) and the plain pull over that incidence, bitwise on a
+    second launch; timed beside its plain version, its bound (the sources
+    and ids read once, the outputs written once) and one index_add_ over the
+    same values; also the call without an incidence (the full one built on
+    the card for the call: not the main path)."""
+    if key.startswith("scatter_F"):
+        vals, idx, B, capD, inc = args
+        srcs, ids = (vals,), (idx,)
+        kernel = lambda: (block_ops._window_scatter_cuda(vals, idx, B, capD, inc),)
+        no_inc = lambda: (block_ops._window_scatter_cuda(vals, idx, B, capD),)
+        pull = lambda: (block_ops.incidence_sum_reference(vals, vals[:, :0], *inc, B * capD)[0],)
+    else:
+        dga, dgb, act, new, B, capD, inc = args
+        srcs, ids = (dga, dgb), (act, new)
+        kernel = lambda: block_ops._window_gather2_bwd_cuda(dga, dgb, act, new, B, capD, inc)
+        no_inc = lambda: block_ops._window_gather2_bwd_cuda(dga, dgb, act, new, B, capD)
+        pull = lambda: block_ops.incidence_sum_reference(dga, dgb, *inc, B * capD)
+    if inc is None:
+        fail(f"window_scatter ({key}): the training path handed the kernel no incidence")
+    plain = lambda: tuple(block_ops.window_scatter_reference(v, i, B, capD)
+                          for v, i in zip(srcs, ids))
+    got, again, want, pulled, built = kernel(), kernel(), plain(), pull(), no_inc()
+    torch.cuda.synchronize()
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    for label, refs in (("plain version", want), ("plain pull over its incidence", pulled),
+                        ("call without an incidence", built)):
+        worst = max(float((a - w.float()).abs().max()) for a, w in zip(got, refs))
+        if worst > WSCATTER_ATOL:
+            fail(f"window_scatter ({key}) differs from its {label} by {worst} "
+                 f"(atol {WSCATTER_ATOL})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"window_scatter ({key}) is not bitwise the same on a second launch")
+    P, F = srcs[0].shape[0], srcs[0].shape[2]
+    # yardstick: one index_add_ over every position of every source
+    gid = torch.cat([k * B * capD + block_ops.global_idx(i, B, capD).reshape(-1)
+                     for k, i in enumerate(ids)])
+    flat = torch.cat([v.reshape(-1, F) for v in srcs])
+    library = lambda: torch.zeros(len(srcs) * B * capD, F, device="cuda").index_add_(0, gid, flat)
+    if not torch.allclose(library(), torch.cat(want), rtol=1e-4, atol=1e-4):
+        fail("index_add_ yardstick does not compute the same function as window_scatter")
+    positions = sum(v.shape[0] * v.shape[1] for v in srcs)
+    # the function's own bytes: every source value and id read once, every
+    # output written once (the incidence repeats the ids; it is built once
+    # a batch on the host, timed beside the row)
+    b, by = bound_ms(4 * (positions * F + positions + len(srcs) * B * capD * F), positions * F)
+    r = {"name": "window_scatter", "route": "cuda",
+         "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+         "replaces": "trackmpnn_tpu/ops/pallas_block.py:616",
+         "launches": launches, "max_abs_err": err,
+         "ms": cuda_time_ms(kernel), "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+         "plain_ms": cuda_time_ms(plain, iters=PLAIN_ITERS), "bound_ms": b, "bound_by": by,
+         "library_ms": cuda_time_ms(library),
+         "no_incidence_ms": cuda_time_ms(no_inc, iters=PLAIN_ITERS),
+         "shape": (f"{'es sum' if len(srcs) == 1 else 'd ga and d gb'}: P {P}, n "
+                   f"{'+'.join(str(v.shape[1]) for v in srcs)}, F {F}, B {B}, capD {capD}, "
+                   f"incidence entries {inc[1].numel()}")}
+    print(f"  window_scatter ({key}) without an incidence (built for the call on the card): "
+          f"{r['no_incidence_ms'] * 1e3:.2f} us")
+    return r
 
 
 def gat_bounds(args, name, nh):
@@ -1518,7 +1705,14 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
     valid = int(ws.step_valid.sum())
     cfg, params0, stats0 = row_model(torch)
     step = train_step.make_train_step(cfg, tp_classifier=False)
+    built = mp.BUILDS["segment_incidence"]
     sb = train_step.schedule_to_device(ws, device="cuda")
+    if mp.BUILDS["segment_incidence"] != built + 1:
+        fail(f"{what}: the step batch built its incidence "
+             f"{mp.BUILDS['segment_incidence'] - built} times, expected once")
+    build = incidence_build(torch, np, mp, sb.past, sb.fut, cap, f"batch 1, capacity {cap}",
+                            "batch 1")
+    INCIDENCE["batch 1"]["builds_per_step_batch"] = 1
     print(f"{what} inputs: one window, cap {cap}, rows {ws.n_rows}, T {t_cap} ({valid} valid), "
           f"H {HIDDEN}, live edge rows summed over steps {edges}")
     params = train_block.trainable(to_device(params0, "cuda"))
@@ -1535,10 +1729,11 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
         params, stats, loss, _ = step(params, stats, opt, sb)
         return loss
 
-    losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES,
+    losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES, mp.BUILDS,
                                                                     round_ops.LAUNCHES))
     check_launches(what, launches, {"gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
-                                    "fused_edge_gru": 0, **dict.fromkeys(round_ops.LAUNCHES, 0)})
+                                    "fused_edge_gru": 0, "segment_incidence": 0,
+                                    **dict.fromkeys(round_ops.LAUNCHES, 0)})
     if not np.all(np.isfinite(losses)):
         fail(f"{what} loss not finite: {losses}")
     print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
@@ -1558,7 +1753,7 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
                                            loss_c, total(aux_c), params_c, what)
     print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn equal, worst "
           f"grad diff {worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
-    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, batch 1")
+    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, batch 1", build)
     return {"cap": cap, "rows": ws.n_rows, "t_cap": t_cap, "valid_steps": valid,
             "mp_kernels": mp_rows,
             "hidden": HIDDEN, "edges_per_step": edges, "steps": TRAIN_STEPS,
@@ -1588,7 +1783,14 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
     schedules, cap, t_cap, edges = packed_wl
     edges = sum(edges)
     cfg, params0, stats0 = row_model(torch)
+    built = mp.BUILDS["segment_incidence"]
     pb = packed.pack_schedules(schedules, cap, t_cap, device="cuda")
+    if mp.BUILDS["segment_incidence"] != built + 1:
+        fail(f"{what}: the packed batch built its incidence "
+             f"{mp.BUILDS['segment_incidence'] - built} times, expected once")
+    build = incidence_build(torch, np, mp, pb.past, pb.fut, pb.past.shape[0],
+                            f"packed, {pb.past.shape[0]} slots", "packed")
+    INCIDENCE["packed"]["builds_per_step_batch"] = 1
     valid = int(pb.valid_host.any(1).sum())
     print(f"{what} inputs: B {pb.n_windows}, cap {cap}, T {t_cap} ({valid} valid), H {HIDDEN}, "
           f"rows {[ws.n_rows for ws in schedules]}, incidence entries {pb.inc_idx.numel()}, "
@@ -1633,10 +1835,10 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
         params, stats, loss, _ = fused_step(params, stats, opt, pb)
         return loss
 
-    counters = (mp.LAUNCHES, round_ops.LAUNCHES)
+    counters = (mp.LAUNCHES, mp.BUILDS, round_ops.LAUNCHES)
     losses, events_ms, wall_ms, launches = timed_steps(torch, run, counters)
     check_launches(what, launches, {**dict.fromkeys(round_ops.LAUNCHES, valid),
-                                    **dict.fromkeys(mp.LAUNCHES, 0)})
+                                    **dict.fromkeys(mp.LAUNCHES, 0), "segment_incidence": 0})
     if not np.all(np.isfinite(losses)):
         fail(f"{what} loss not finite: {losses}")
     print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
@@ -1677,14 +1879,14 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
     check_launches("packed training (unfused)", launches_u,
                    {**dict.fromkeys(round_ops.LAUNCHES, 0),
                     "gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
-                    "fused_edge_gru": 0})
+                    "fused_edge_gru": 0, "segment_incidence": 0})
     if not np.all(np.isfinite(losses_u)):
         fail(f"packed training (unfused) loss not finite: {losses_u}")
     print(f"packed training (unfused, make_packed_train_step): {events_u:.3f} ms/step (CUDA "
           f"events), {wall_u:.3f} ms/step (host wall), {edges / (wall_u / 1e3):.4g} edges/s; "
           f"launches a step { {k: v / TRAIN_STEPS for k, v in launches_u.items() if v} }")
     profile_u = device_profile(torch, run_u, wall_u / 1e3)
-    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, packed unfused")
+    mp_rows = mp_path_rows(torch, mp, mp_inputs, "row layout, packed unfused", build)
     summary = {
         "windows": pb.n_windows, "cap": cap, "t_cap": t_cap, "valid_steps": valid,
         "hidden": HIDDEN, "edges_per_step": edges, "incidence_entries": pb.inc_idx.numel(),
@@ -2420,7 +2622,8 @@ def batch_tracker_phase(torch, np, mp, served, full):
     """Phase 22: BatchedTracker (pipeline=True, two cohorts) on the card over
     phase 17's three default-feature sequences with its model: exactly one
     fused_edge_gru and one signed_segment_sum launch a branch and forward
-    for the whole cohort and no gather_diff; decoded tracks identical to
+    for the whole cohort, one incidence build a forward and no gather_diff;
+    decoded tracks identical to
     phase 17's Tracker on the card and on the CPU, per-step scores within
     STEP_SCORE_ATOL of the card's.  Frames/s beside phase 17's (one
     sequence at a time), the busy share, peak memory."""
@@ -2433,7 +2636,7 @@ def batch_tracker_phase(torch, np, mp, served, full):
     tracker.run([(X[:200], y[:200]) for X, y in seqs[:2]])  # cuBLAS handles, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counters((mp.LAUNCHES,))
+    zero_counters((mp.LAUNCHES, mp.BUILDS))
     tracker.n_forwards = 0
     steps = {}
     t0 = time.perf_counter()
@@ -2441,12 +2644,14 @@ def batch_tracker_phase(torch, np, mp, served, full):
                          on_step=lambda i, g, sc: steps.setdefault(i, []).append((g.n, sc.copy())))
     wall = time.perf_counter() - t0  # run returns after the last scores came back
     phase_s = dict(tracker.phase_s)
-    launches, forwards, nb = dict(mp.LAUNCHES), tracker.n_forwards, len(cfg.branches)
+    launches, forwards, nb = {**mp.LAUNCHES, **mp.BUILDS}, tracker.n_forwards, len(cfg.branches)
     expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
-                "fused_edge_gru": nb * forwards}
+                "fused_edge_gru": nb * forwards, "segment_incidence": forwards}
     if launches != expected:
-        fail(f"{what}: launches {launches} in {forwards} cohort forwards of {nb} branches, "
-             f"expected {expected}")
+        fail(f"{what}: launches and incidence builds {launches} in {forwards} cohort forwards "
+             f"of {nb} branches, expected {expected}")
+    INCIDENCE.setdefault("serving", {})[what] = {"builds": launches["segment_incidence"],
+                                                 "forwards": forwards}
     worst = 0.0
     for i, y_out in enumerate(y_outs):
         for name, (want_steps, want) in (("phase 17's card run", runs["card"][i]),
@@ -2592,20 +2797,24 @@ class ChunkRecorder:
 
 def batch1_expect(nb):
     """The batch-1 step's launches: gather_diff and signed_segment_sum once a
-    branch and valid step forward and once as each other's backward."""
+    branch and valid step forward and once as each other's backward; no
+    incidence build (the step batch's serves every round)."""
     def expect(sb):
         v = 2 * nb * int(sb.step_valid.sum())
-        return {"gather_diff": v, "signed_segment_sum": v, "fused_edge_gru": 0}
+        return {"gather_diff": v, "signed_segment_sum": v, "fused_edge_gru": 0,
+                "segment_incidence": 0}
     return expect
 
 
 def block_expect(nb):
     """The block step's default composition: T rounds a branch, each one
-    block_round_fwd, one block_round_bwd and three window_scatter."""
+    block_round_fwd, one block_round_bwd and two window_scatter (the es sum,
+    the gate gather's backward); no incidence build in the step."""
     def expect(bb):
         r = bb.t_cap * nb
-        return {"block_round_fwd": r, "block_round_bwd": r, "window_scatter": 3 * r,
-                "block_round_es_fwd": 0, "block_round_es_bwd": 0}
+        return {"block_round_fwd": r, "block_round_bwd": r, "window_scatter": 2 * r,
+                "block_round_es_fwd": 0, "block_round_es_bwd": 0, "block_incidence": 0,
+                "window_incidence": 0}
     return expect
 
 
@@ -2701,8 +2910,9 @@ def train_cli_phase(torch, np, mp, block_ops):
     what = f"train CLI (a) ({DEFAULT_FEATS}, batch 1)"
     dir_a = os.path.join(base, "a")
     argv_a = common + ["--output-dir", dir_a, "--epochs", "2"]
-    steps, chunks = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb3)), ChunkRecorder(torch)
-    zero_counters((mp.LAUNCHES,))
+    steps = StepRecorder(torch, (mp.LAUNCHES, mp.BUILDS), batch1_expect(nb3))
+    chunks = ChunkRecorder(torch)
+    zero_counters((mp.LAUNCHES, mp.BUILDS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2711,7 +2921,7 @@ def train_cli_phase(torch, np, mp, block_ops):
         hist = cli.main(argv_a)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(mp.LAUNCHES)
+    launches = {**mp.LAUNCHES, **mp.BUILDS}
     losses = steps.check(what)
     log = read_log(dir_a)
     for line in ("Average loss for epoch", "Average embedding loss for epoch",
@@ -2724,12 +2934,15 @@ def train_cli_phase(torch, np, mp, block_ops):
             fail(f"{what}: {name} was not written")
     val_fwd = sum(hist["val_forwards"])
     trained = {k: sum(s["launched"][k] for s in steps.steps) for k in launches}
+    # one incidence a step batch (built before its step) and a validation forward
     want = {"gather_diff": trained["gather_diff"],
             "signed_segment_sum": trained["signed_segment_sum"] + nb3 * val_fwd,
-            "fused_edge_gru": nb3 * val_fwd}
+            "fused_edge_gru": nb3 * val_fwd, "segment_incidence": len(steps.steps) + val_fwd}
     if launches != want or val_fwd == 0:
-        fail(f"{what}: launches {launches}, expected {want} ({len(steps.steps)} train steps, "
-             f"{val_fwd} validation forwards of {nb3} branches)")
+        fail(f"{what}: launches and incidence builds {launches}, expected {want} "
+             f"({len(steps.steps)} train steps, {val_fwd} validation forwards of {nb3} branches)")
+    INCIDENCE["train CLI (a)"] = {"builds": launches["segment_incidence"],
+                                  "step_batches": len(steps.steps), "val_forwards": val_fwd}
     step_ev, step_wall = steps.ms()
     emb_ev, emb_wall = chunks.ms()
     chunk_wall, prof = cli_chunk_profile(torch, np, common,
@@ -2781,7 +2994,8 @@ def train_cli_phase(torch, np, mp, block_ops):
             torch, trainer.net.state_dict().values(), fresh.net.state_dict().values())
         held["vis_adam"] = adam_equal(torch, trainer.opt, ps, fresh.opt, qs)
 
-    steps_b = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb3), on_first=first_step)
+    steps_b = StepRecorder(torch, (mp.LAUNCHES, mp.BUILDS), batch1_expect(nb3),
+                           on_first=first_step)
     chunks_b = ChunkRecorder(torch, on_first=first_chunk)
     with patched(train_step, "make_train_step", steps_b.wrap), \
             patched(EmbedTrainer, "train_chunk", chunks_b.wrap):
@@ -2808,8 +3022,8 @@ def train_cli_phase(torch, np, mp, block_ops):
     nb2 = len(cfg2.branches)
     runs_c = {}
     for dev in ("cuda", "cpu"):
-        rec = StepRecorder(torch, (mp.LAUNCHES,), batch1_expect(nb2) if dev == "cuda" else
-                           (lambda sb: {}), device=dev)
+        rec = StepRecorder(torch, (mp.LAUNCHES, mp.BUILDS),
+                           batch1_expect(nb2) if dev == "cuda" else (lambda sb: {}), device=dev)
         t0 = time.perf_counter()
         with patched(train_step, "make_train_step", rec.wrap):
             h = cli.main(argv_c + ["--output-dir", os.path.join(base, f"c_{dev}"),
@@ -2849,13 +3063,19 @@ def train_cli_phase(torch, np, mp, block_ops):
     # (d) the block route
     what = "train CLI (d) (--batch-windows 8 --no-bf16)"
     dir_d = os.path.join(base, "d")
-    rec = StepRecorder(torch, (block_ops.LAUNCHES,), block_expect(nb3))
+    rec = StepRecorder(torch, (block_ops.LAUNCHES, block_ops.BUILDS), block_expect(nb3))
+    built = block_ops.BUILDS["block_incidence"]
     t0 = time.perf_counter()
     with patched(train_block, "make_block_train_step", rec.wrap):
         hist_d = cli.main(common + ["--output-dir", dir_d, "--epochs", "1", "--batch-windows", "8",
                                     "--no-bf16"])
     wall_d = time.perf_counter() - t0
     losses_d = rec.check(what)
+    if block_ops.BUILDS["block_incidence"] - built != len(rec.steps):
+        fail(f"{what}: {block_ops.BUILDS['block_incidence'] - built} BlockBatch incidences for "
+             f"{len(rec.steps)} steps, expected one a batch")
+    INCIDENCE["train CLI (d)"] = {"builds": block_ops.BUILDS["block_incidence"] - built,
+                                  "block_batches": len(rec.steps)}
     if "block-structured batched training: 8 windows/step" not in read_log(dir_d):
         fail(f"{what}: the log does not say the block route ran")
     ev_d, host_d = rec.ms()
@@ -2863,7 +3083,7 @@ def train_cli_phase(torch, np, mp, block_ops):
                 "ms_per_step_events": ev_d, "ms_per_step_wall": host_d,
                 "launches_per_step": [s["launched"] for s in rec.steps[:3]]}
     print(f"{what}: {len(rec.steps)} block steps (launches a step = T x {nb3} round fwd/bwd, "
-          f"3T x {nb3} window_scatter, held on every step), {ev_d:.3f} ms (events) / "
+          f"2T x {nb3} window_scatter, held on every step), {ev_d:.3f} ms (events) / "
           f"{host_d:.3f} ms (host) a step, wall {wall_d:.1f} s, losses {losses_d[0]:.5g} -> "
           f"{losses_d[-1]:.5g}, val MOTA {hist_d['val_mota']}")
     return out
@@ -2917,7 +3137,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     # 2. kernels, 3. serving, 4. CLI: the serving path
-    kernels, edge_gru_wide = kernel_phase(torch, mp, tracker_mod, view_mod)
+    kernels, edge_gru_wide = kernel_phase(torch, np, mp, tracker_mod, view_mod)
     serving = serving_phase(torch, np, mp)
     cli = cli_phase(torch, np)
     # 5. training, 6. block kernels: the training path
@@ -3001,8 +3221,10 @@ def main():
                        "edge_losses_one_branch": loss_narrow,
                        "default_training": default_training, "default_heads": default_heads,
                        "embedding": embedding, "full_serving": full,
-                       "batch_tracker": batch_tracking, "train_cli": train_cli},
+                       "batch_tracker": batch_tracking, "train_cli": train_cli,
+                       "incidence": INCIDENCE},
                       f, indent=1)
+    print(f"incidence builds: {json.dumps(INCIDENCE)}")
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -41,25 +41,114 @@ def problem(seed, n, h, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h", [(1024, 64), (300, 16), (7, 4)])
+@pytest.mark.parametrize("n,h", [(1024, 64), (300, 16), (7, 4), (5000, 1040)])
 def test_kernels_match_plain_versions(cuda, n, h):
-    """gather_diff exact; signed_segment_sum within atol/rtol 1e-5 (atomics)."""
+    """gather_diff exact; signed_segment_sum within atol/rtol 1e-5 of its
+    plain version (both f64, rounded once), with and without an incidence
+    given, bitwise the same on a second launch; one launch a call, one
+    incidence build where none is given."""
     hid, past, fut, edge = problem(n, n, h, cuda)
-    before = dict(mp.LAUNCHES)
+    before, builds = dict(mp.LAUNCHES), dict(mp.BUILDS)
     gd = mp.gather_diff(hid, past, fut, edge)
     ss = mp.signed_segment_sum(hid, past, fut, edge, n)
+    assert mp.BUILDS["segment_incidence"] == builds["segment_incidence"] + 1
+    inc = mp.segment_incidence(past, fut, n)
+    given, again = (mp.signed_segment_sum(hid, past, fut, edge, n, inc) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(gd, mp.gather_diff_reference(hid, past, fut, edge))
-    torch.testing.assert_close(ss, mp.signed_segment_sum_reference(hid, past, fut, edge, n),
+    want = mp.signed_segment_sum_reference(hid, past, fut, edge, n)
+    for got in (ss, given):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(given, again) and torch.equal(ss, given)
+    torch.testing.assert_close(given, mp.signed_segment_sum_pull_reference(hid, edge, inc, n),
                                rtol=1e-5, atol=1e-5)
     assert mp.LAUNCHES["gather_diff"] == before["gather_diff"] + 1
-    assert mp.LAUNCHES["signed_segment_sum"] == before["signed_segment_sum"] + 1
+    assert mp.LAUNCHES["signed_segment_sum"] == before["signed_segment_sum"] + 3
+    assert mp.BUILDS["segment_incidence"] == builds["segment_incidence"] + 2
+
+
+def graph_on(seed, cap, h, device, nd=None):
+    """A padded slot layout as graph/view.py::pack_slots writes it: detection
+    rows, edge rows between them, self-pointing padding; a random mask over
+    the edges."""
+    rng = np.random.default_rng(seed)
+    nd = nd or cap // 12
+    n = cap * 3 // 4
+    is_det = np.zeros(cap, bool)
+    is_det[rng.choice(n, nd, replace=False)] = True
+    past = np.arange(cap, dtype=np.int32)
+    fut = past.copy()
+    edges = np.where(~is_det[:n])[0]
+    dets = np.where(is_det)[0]
+    past[edges], fut[edges] = rng.choice(dets, len(edges)), rng.choice(dets, len(edges))
+    mask = (np.arange(cap) < n) & ~is_det & (rng.random(cap) < 0.8)
+    put = lambda a: torch.from_numpy(a).to(device)
+    return (put(rng.normal(size=(cap, h)).astype(np.float32)), put(past), put(fut),
+            put(is_det), put(mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,h,nd", [(16384, 64, 170), (4096, 64, 150), (700, 20, 9)])
+def test_signed_segment_sum_pulls_over_a_view_incidence(cuda, cap, h, nd):
+    """The serving shape (~170 detection rows of ~70 terms): the incidence
+    built on the card with no host synchronisation, the kernel against its
+    plain versions and bitwise on a second launch, one launch a call."""
+    hid, past, fut, is_det, mask = graph_on(cap, cap, h, cuda, nd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inc = mp.segment_incidence(past, fut, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = mp.LAUNCHES["signed_segment_sum"]
+    got, again = (mp.signed_segment_sum(hid, past, fut, mask, cap, inc) for _ in range(2))
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES["signed_segment_sum"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, mp.signed_segment_sum_reference(hid, past, fut, mask, cap),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, mp.signed_segment_sum_pull_reference(hid, mask, inc, cap),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.all(got[~is_det] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,cap,n", [("view", 16384, 16384), ("view", 700, 700),
+                                          ("random", 5000, 5000), ("random", 300, 200),
+                                          ("random", 0, 4), ("random", 9, 0)])
+def test_segment_incidence_kernel_matches_its_plain_version(cuda, layout, cap, n):
+    """The build kernel against segment_incidence_reference on the card:
+    ptr and the listed entries bitwise equal, on a second launch too, with
+    no host synchronisation; rows pointing at themselves and endpoints
+    outside [0, n), negative or beyond, are not listed."""
+    if layout == "view":
+        _, past, fut, _, _ = graph_on(cap, cap, 4, cuda)
+    else:
+        rng = np.random.default_rng(cap + n)
+        ends = rng.integers(-3, n + 3, (2, cap)).astype(np.int32)
+        ends[:, ::5] = np.arange(cap, dtype=np.int32)[::5]  # pointing at themselves
+        past, fut = (torch.from_numpy(a).to(cuda) for a in ends)
+    builds = mp.BUILDS["segment_incidence"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, again = (mp.segment_incidence(past, fut, n) for _ in range(2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want_ptr, want_ent = mp.segment_incidence_reference(past, fut, n)
+    assert mp.BUILDS["segment_incidence"] == builds + 2
+    for ptr, ent in (got, again):
+        assert ptr.dtype == ent.dtype == torch.int32 and ent.shape == (2 * cap,)
+        assert torch.equal(ptr, want_ptr)
+        listed = int(want_ptr[-1])
+        assert torch.equal(ent[:listed], want_ent[:listed])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("call", [
     "mp.gather_diff(h, bad, idx, mask)",
     "mp.signed_segment_sum(h, idx, bad, mask, 8)",
+    "mp.signed_segment_sum(h, idx, bad, mask, 8, mp.segment_incidence(idx, bad, 8))",
     "mp.fused_edge_gru(h16, idx, bad, mask, w, w, b, b)",
 ])
 def test_out_of_range_endpoint_traps_the_kernel(cuda, call):
@@ -97,6 +186,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mp.gather_diff(hid[:, :6], past, fut, edge)
     with pytest.raises(ValueError):
         mp.gather_diff(hid, past, fut.cpu(), edge)
+    ptr, ent = mp.segment_incidence(past, fut, 64)
+    for bad in ((ptr[:-1], ent), (ptr, ent.long()), (ptr.cpu(), ent)):
+        with pytest.raises((TypeError, ValueError)):
+            mp.signed_segment_sum(hid, past, fut, edge, 64, bad)
     # a gradient is no refusal: the ops are autograd Functions
     assert mp.gather_diff(hid.requires_grad_(), past, fut, edge).requires_grad
 
@@ -208,27 +301,120 @@ def test_block_round_kernels_match_plain_versions(cuda, sign, P, na, nt, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,n,F,B,capD", [(120, 48, 64, 8, 256), (30, 48, 192, 8, 256),
-                                          (7, 5, 12, 3, 9)])
+                                          (7, 5, 12, 3, 9), (24, 48, 64, 2, 4096)])
 def test_window_scatter_kernel_matches_plain_version(cuda, P, n, F, B, capD):
-    """Duplicate ids within a block included; atol 1e-5, bitwise repeatable."""
+    """Without an incidence: the full one built on the card (no host
+    synchronisation) for each call; duplicate ids within a block included;
+    atol 1e-5, bitwise repeatable.  capD 4096 lies beyond the shared memory
+    the first design's accumulator needed (capD x 64 floats a CTA)."""
     rng = np.random.default_rng(P)
     vals = torch.from_numpy(rng.normal(size=(P, n, F)).astype(np.float32)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, capD, (P, n)).astype(np.int32)).to(cuda)
-    before = block.LAUNCHES["window_scatter"]
-    got = block.window_scatter_raw(vals, idx, B, capD)
+    before, builds = block.LAUNCHES["window_scatter"], block.BUILDS["window_incidence"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = block.window_scatter_raw(vals, idx, B, capD)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     again = block.window_scatter_raw(vals, idx, B, capD)
     want = block.window_scatter_reference(vals, idx, B, capD)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(got, again)
     assert block.LAUNCHES["window_scatter"] == before + 2
+    assert block.BUILDS["window_incidence"] == builds + 2
+
+
+def block_batch_on(device, n=8, seed0=100):
+    """A real BlockBatch of `n` synthetic windows and its step-major ids."""
+    from torch_port_util import training_chunks
+    from trackmpnn_tpu_torch.graph import schedule
+    from trackmpnn_tpu_torch.train import block as train_block
+
+    scheds = [schedule.build_window_schedule(X, y, cap=1024, t_cap=16)
+              for X, y in training_chunks(n, seed0, num_tracks=12)]
+    bb = train_block.build_block_batch(scheds, 16, device=device)
+    B, T = bb.n_windows, bb.t_cap
+    perm = torch.arange(B * T, device=device).reshape(B, T).t().reshape(-1)
+    act = (bb.active_idx[perm] % bb.capD).to(torch.int32)
+    new = (bb.newdet_idx[perm] % bb.capD).to(torch.int32)
+    return bb, act, new
+
+
+def listed_values(bb, shape, seed, device):
+    """Random values [P, na + nt, F] that are 0 wherever the batch's
+    incidence lists nothing, as every caller's are."""
+    P, W, F = shape
+    slot = bb.det_inc_slot.long()
+    live = torch.zeros(P * W, dtype=torch.bool, device=device)
+    live[slot[slot < P * W]] = True
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+    return torch.where(live.reshape(P, W, 1), vals, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,P_frac", [(64, 1.0), (192, 1.0), (48, 0.5)])
+def test_window_scatter_pulls_over_the_batch_incidence(cuda, F, P_frac):
+    """With the BlockBatch's incidence: the es form and window_gather2's
+    backward (both cotangents in one launch) against their plain versions
+    (atol 1e-5) and the plain pull (incidence_sum_reference), bitwise the
+    same on a second launch, one launch a call and no incidence built."""
+    bb, act, new = block_batch_on(cuda)
+    B, capD, na, nt = bb.n_windows, bb.capD, bb.na_cap, bb.nt_cap
+    P = max(B, int(act.shape[0] * P_frac) // B * B)
+    inc = (bb.det_inc_ptr, bb.det_inc_slot)
+    vals = listed_values(bb, (P, na + nt, F), F, cuda)
+    idx = torch.cat([act, new], 1)[:P].contiguous()
+    before, builds = block.LAUNCHES["window_scatter"], dict(block.BUILDS)
+    es, es2 = (block.window_scatter_raw(vals, idx, B, capD, inc) for _ in range(2))
+    dga, dgb = vals[:, :na].contiguous(), vals[:, na:].contiguous()
+    g2 = [block.window_gather2_backward_raw(dga, dgb, act[:P].contiguous(),
+                                            new[:P].contiguous(), B, capD, inc)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["window_scatter"] == before + 4 and block.BUILDS == builds
+    assert torch.equal(es, es2) and all(torch.equal(a, b) for a, b in zip(*g2))
+    torch.testing.assert_close(es, block.window_scatter_reference(vals, idx, B, capD),
+                               rtol=0, atol=1e-5)
+    rows, _ = block.incidence_sum_reference(vals, vals[:, :0], *inc, B * capD)
+    torch.testing.assert_close(es, rows.float(), rtol=0, atol=1e-5)
+    for got, src, ids in zip(g2[0], (dga, dgb), (act[:P], new[:P])):
+        torch.testing.assert_close(got, block.window_scatter_reference(src, ids, B, capD),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [True, False], ids=["batch incidence", "built"])
+def test_window_gather2_backward_takes_two_widths(cuda, given):
+    """Cotangents of two widths (d ga F 48, d gb F 24, and the reverse) in
+    one launch, with the batch's incidence or the one built for the call:
+    against their plain versions (atol 1e-5), bitwise on a second launch."""
+    bb, act, new = block_batch_on(cuda)
+    B, capD, na, nt = bb.n_windows, bb.capD, bb.na_cap, bb.nt_cap
+    P = act.shape[0]
+    inc = (bb.det_inc_ptr, bb.det_inc_slot) if given else None
+    for fa, fb in ((48, 24), (24, 48)):
+        dga = listed_values(bb, (P, na + nt, fa), fa, cuda)[:, :na].contiguous()
+        dgb = listed_values(bb, (P, na + nt, fb), fb, cuda)[:, na:].contiguous()
+        before = block.LAUNCHES["window_scatter"]
+        g2 = [block.window_gather2_backward_raw(dga, dgb, act, new, B, capD, inc)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        assert block.LAUNCHES["window_scatter"] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(*g2))
+        for got, src, ids in zip(g2[0], (dga, dgb), (act, new)):
+            assert got.shape == (B * capD, src.shape[2])
+            torch.testing.assert_close(got, block.window_scatter_reference(src, ids, B, capD),
+                                       rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
 def test_block_ops_autograd_launch_their_kernels(cuda):
     """Through autograd: the round launches its forward and backward kernel
-    once each, the gather's backward two window scatters; the gradients
-    match the CPU's plain backward."""
+    once each, the gather's backward one window scatter for both
+    cotangents; the gradients match the CPU's plain backward."""
     args, _ = round_problem(0, 6, 8, 8, 16, cuda)
     he, ga, gb, whh, bhh, web, m = args
     B, capD = 3, 16
@@ -249,23 +435,34 @@ def test_block_ops_autograd_launch_their_kernels(cuda):
         launched = {k: block.LAUNCHES[k] - before[k] for k in before}
         assert launched == {**dict.fromkeys(block.LAUNCHES, 0), **(
             {} if dev == "cpu" else
-            {"block_round_fwd": 1, "block_round_bwd": 1, "window_scatter": 3})}
+            {"block_round_fwd": 1, "block_round_bwd": 1, "window_scatter": 2})}
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1.0))
 
 
 @pytest.mark.cuda
-def test_window_scatter_traps_an_id_outside_its_window(cuda):
+@pytest.mark.parametrize("call", [
+    "block.window_scatter_raw(vals, idx, 2, 16)",
+    "block.window_scatter_raw(vals, idx, 2, 16, inc)",
+    "block.window_gather2_backward_raw(*(t.contiguous() for t in (vals[:, :1], vals[:, 1:], "
+    "ok[:, :1], idx[:, 1:])), 2, 16, inc)",
+    "block.window_scatter_raw(vals, ok, 2, 16, (inc[0] + 100, inc[1]))",
+    "block.window_scatter_raw(vals, ok, 2, 16, (inc[0] - 1, inc[1]))",
+])
+def test_window_scatter_traps_an_id_outside_its_window(cuda, call):
     """A window-local id >= capD is a CUDA error at the next synchronisation,
-    not a write out of bounds (a process of its own: a trap leaves the CUDA
-    context unusable)."""
+    not a write out of bounds, also where the incidence given does not list
+    it; so are an incidence's offsets outside its slots (a process of its
+    own: a trap leaves the CUDA context unusable)."""
     code = (
         "import torch\n"
         "from trackmpnn_tpu_torch.ops import block\n"
         "vals = torch.ones(4, 3, 8, device='cuda')\n"
-        "idx = torch.zeros(4, 3, dtype=torch.int32, device='cuda'); idx[2, 1] = 16\n"
-        "block.window_scatter_raw(vals, idx, 2, 16)\n"
+        "ok = torch.zeros(4, 3, dtype=torch.int32, device='cuda')\n"
+        "idx = ok.clone(); idx[2, 1] = 16\n"
+        "inc = block.window_incidence(ok, 2, 16)\n"
+        f"{call}\n"
         "torch.cuda.synchronize()\n"
         "print('no error')\n"
     )
@@ -291,6 +488,11 @@ def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         block.window_scatter_raw(vals[..., :4].contiguous(),
                                  torch.zeros(4, 3, dtype=torch.int64, device=cuda), 2, 8)
+    ids = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    ptr, slot = block.window_incidence(ids, 2, 8)
+    for bad in ((ptr[:-1], slot), (ptr.long(), slot), (ptr, slot.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            block.window_scatter_raw(vals[..., :4].contiguous(), ids, 2, 8, bad)
 
 
 def gat_problem(seed, nh, P, na, nt, H, keep, device):
@@ -503,7 +705,8 @@ def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_mp_autograd_launches_each_kernel_as_the_others_backward(cuda):
     """gather_diff's backward is one signed_segment_sum launch and the other
     way round; the gradients match the CPU's plain versions (d gather_diff
-    within atol 1e-5, the f64 atomics; d signed_segment_sum exact)."""
+    within atol 1e-5, f64 sums in another order; d signed_segment_sum
+    exact)."""
     n, h = 512, 64
     hid, past, fut, edge = problem(9, n, h, "cpu")
     cot = torch.from_numpy(np.random.default_rng(1).normal(size=(n, h)).astype(np.float32))

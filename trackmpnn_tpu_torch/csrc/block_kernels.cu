@@ -2,8 +2,9 @@
 // trackmpnn_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface and called through ctypes from ops/block.py, which checks
 // device, dtype, shape and contiguity before any pointer gets here.  All
-// math is f32; no kernel uses atomics, so every result is the same from
-// run to run whatever order the blocks run in.
+// math is f32 but the incidence sums (f64, rounded to f32 once); no kernel
+// uses atomics, so every result is the same from run to run whatever order
+// the blocks run in.
 //
 // block_round_fwd
 //   Replaces _fwd_kernel / fused_block_round in
@@ -45,22 +46,46 @@
 //
 // window_scatter
 //   Replaces _wscatter_kernel / window_scatter in pallas_block.py.
-//   out[(p % B)*capD + idx[p, i]] += vals[p, i]  over blocks p and rows i.
-//   Bound: device-memory bytes (vals read once, out written once).  Each
-//   window owns its capD rows of out, so one CTA per (window, column tile
-//   of kScatterCols) walks that window's blocks p = w, w + B, ... in
-//   increasing order into a shared-memory accumulator [capD, tile] and
-//   writes it once.  The blocks come into shared memory a chunk at a time
-//   (coalesced 16-byte loads, all in flight at once); warp w owns the
-//   destination rows r with r % kScatterWarps == w and adds the staged rows with
-//   such an id in block, then row order, its lanes over the columns: a
-//   fixed order, no atomics.  A staged row of zeros is skipped (adding it
-//   changes nothing), so the padded positions, which all carry id 0 and
-//   zeros, do not queue up on row 0's warp.  It does not
-//   mask: callers scatter zeros from padded positions.  An id outside
-//   [0, capD) traps the kernel (a sticky CUDA error that the next
-//   synchronisation raises).
-//
+//   out[(p % B)*capD + idx[p, i]] += vals[p, i]  over blocks p and rows i,
+//   computed as a pull over a destination-sorted incidence: out[d] = the sum
+//   of the source rows in d's list inc_slot[inc_ptr[d] .. inc_ptr[d+1]), in
+//   list order, up to the first slot of a block >= P.  A slot q*(na + nt) + r
+//   is row r of block q's src_a [P, na, F] where r < na, else row r - na of
+//   src_b [P, nt, F].  Callers pass the batch's detection incidence
+//   (BlockBatch.det_inc_*, the es round's), built once a batch: the es sum
+//   scatters cat([rs, -cs]) as src_a with na = na_cap + nt_cap, nt = 0
+//   (every slot a row of it); the backward of window_gather2 scatters d ga
+//   (src_a, rows) and d gb (src_b, columns) in one launch into two outputs,
+//   of the same width or not (a column past one side's width reads none of
+//   that side).
+//   That incidence lists only rows and columns of blocks with cells, where
+//   every caller's values are 0 elsewhere; without one the wrapper builds
+//   the full incidence of idx on the device (every position).
+//   Bound: device-memory bytes (the sources read once, out written once).
+//   The first design ran one CTA a (window, 64-column tile): 8 CTAs at
+//   F 64 and 24 at F 192 on 132 SMs, each staging every block of its window
+//   through 64 KiB of shared memory into a capD x 64 accumulator, every warp
+//   scanning every staged id for its 1/8 of them: 39.00 us at F 192 and
+//   54.97 at F 64 against bounds of 1.13 and 0.60, slower than its own plain
+//   version and 4.9-7.3x one index_add_, and capD was bounded by shared
+//   memory.  Here a group of S adjacent lanes owns one float4 column of one
+//   destination row (B*capD*F/4 groups, ~98k at F 192) and walks the row's
+//   list alone: lane s takes entries s, s + S, ..., kWsUnroll slots then
+//   their values in flight, sums them in f64, and the S lanes combine by a
+//   fixed shuffle tree; f32 rounding once.  S is the launch's: a batch
+//   incidence holds at most one entry a block for a detection (lists of
+//   about ceil(P/B) + 1), the full one every padded position (lists up to
+//   ceil(P/B) * (na + nt)), and the entry point picks the smallest power
+//   of two up to 32 that cuts the longest possible list to kWsUnroll a lane,
+//   but no more lanes than keep the grid within one wave of the threads the
+//   card holds resident (SMs x the kernel's occupancy, asked once a device)
+//   (at F 192 a wave holds ~2.7 lanes a group; more lanes add waves of
+//   the same three dependent loads: offsets, slots, values).  No shared
+//   memory, no atomics, one launch; any capD.  Every id of idx is
+//   checked over the grid: one outside [0, capD) traps the kernel (a sticky
+//   CUDA error that the next synchronisation raises), as do a negative slot
+//   and a list's offsets outside the slots.
+
 // block_round_es_fwd
 //   Replaces _es_fwd_kernel / fused_block_round_es in pallas_block.py:333,
 //   the round with the input-gate gather and the edge-support reduction
@@ -100,11 +125,8 @@ namespace {
 constexpr int kThreadsTarget = 256;
 constexpr int kCellsPerThread = 8;
 constexpr int kDwRows = 8;  // rows of d w_hh a backward thread sums at once (H % 8 == 0)
-constexpr int kScatterThreads = 256;
-constexpr int kScatterCols = 64;
-constexpr int kScatterWarps = kScatterThreads / 32;
-constexpr int kScatterStageBytes = 64 * 1024;
-constexpr int kScatterStageLoads = kScatterStageBytes / 16 / kScatterThreads;
+constexpr int kWsThreads = 256;
+constexpr int kWsUnroll = 8;  // slots (then values) a lane has in flight
 constexpr int kRoundSplits = 4;  // CTAs a block's forward is split over
 
 // threads of a block-round CTA: H columns times G cell groups
@@ -537,90 +559,115 @@ __global__ void incidence_reduce_kernel(const float* __restrict__ src_a,
   }
 }
 
-__global__ void window_scatter_kernel(const float* __restrict__ vals,
-                                      const int32_t* __restrict__ idx,
-                                      float* __restrict__ out, int P, int n, int F,
-                                      int B, int capD, int chunk) {
-  extern __shared__ float4 smem4[];
-  float* stage = (float*)smem4;                  // [chunk][n][kScatterCols]
-  float* acc = stage + chunk * n * kScatterCols; // [capD][kScatterCols]
-  int* idx_s = (int*)(acc + capD * kScatterCols);  // [chunk][n]
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int w = blockIdx.x, f0 = blockIdx.y * kScatterCols;
-  const int fw = min(kScatterCols, F - f0), f4 = fw / 4;  // fw is a multiple of 4
-  for (int k = threadIdx.x; k < capD * kScatterCols; k += blockDim.x) acc[k] = 0.f;
-  for (int p0 = w; p0 < P; p0 += chunk * B) {
-    __syncthreads();  // the previous chunk is no longer read
-    // stage `chunk` of the window's blocks: coalesced 16-byte loads,
-    // kScatterStageLoads of a thread issued before its first store
-    for (int base = 0; base < chunk * n * f4; base += kScatterStageLoads * kScatterThreads) {
-      float4 v[kScatterStageLoads];
+// Grid: ceil(nrows * max(fa4, fb4) * split / kWsThreads) CTAs.  Thread t:
+// lane s = t % split of the group t / split, which owns destination row d
+// and float4 column c of out_a (fa4 columns) and out_b (fb4).  out_b null:
+// out_a = rows + columns (fb4 = fa4), else out_a = rows, out_b = columns.
+// idx_a [P, na] and idx_b [P, nt] are checked; src_b and idx_b are not read
+// where nt = 0.  d's offsets must lie in [0, n_slot], increasing.
+__global__ void __launch_bounds__(kWsThreads)
+window_pull_kernel(const float4* __restrict__ src_a, const float4* __restrict__ src_b,
+                   const int32_t* __restrict__ idx_a, const int32_t* __restrict__ idx_b,
+                   const int32_t* __restrict__ inc_ptr, const int32_t* __restrict__ inc_slot,
+                   int n_slot, float4* __restrict__ out_a, float4* __restrict__ out_b, int P,
+                   int na, int nt, int fa4, int fb4, int nrows, int capD, int split) {
+  const int64_t t = (int64_t)blockIdx.x * kWsThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kWsThreads;
+  const int W = na + nt;
+  const int64_t limit = (int64_t)P * W;
+  for (int64_t i = t; i < limit; i += stride) {  // every id, once over the grid
+    const int64_t q = i / W;
+    const int r = (int)(i - q * W);
+    const int32_t id = r < na ? idx_a[q * na + r] : idx_b[q * nt + (r - na)];
+    if ((uint32_t)id >= (uint32_t)capD) __trap();
+  }
+  const int f4 = fa4 > fb4 ? fa4 : fb4;
+  const int64_t grp = t / split;
+  const int s = (int)(t % split);
+  const bool valid = grp < (int64_t)nrows * f4;  // no early exit: the lanes shuffle below
+  const int d = valid ? (int)(grp / f4) : 0;
+  const int c = valid ? (int)(grp % f4) : 0;
+  const bool two = out_b != nullptr;
+  const bool has_a = c < fa4, has_b = c < fb4;  // this column of the rows, of the columns
+  double ax = 0.0, ay = 0.0, az = 0.0, aw = 0.0, bx = 0.0, by = 0.0, bz = 0.0, bw = 0.0;
+  const int e0 = valid ? inc_ptr[d] : 0, e1 = valid ? inc_ptr[d + 1] : 0;
+  if (e0 < 0 || e1 < e0 || e1 > n_slot) __trap();
+  for (int base = e0 + s; base < e1; base += split * kWsUnroll) {
+    int slot[kWsUnroll];
 #pragma unroll
-      for (int u = 0; u < kScatterStageLoads; ++u) {
-        const int k = base + threadIdx.x + u * kScatterThreads;
-        const int pc = k / (n * f4), i = (k / f4) % n, f = k % f4;
-        const int p = p0 + pc * B;
-        if (k < chunk * n * f4 && p < P)
-          v[u] = __ldg((const float4*)(vals + ((int64_t)p * n + i) * F + f0) + f);
-      }
+    for (int u = 0; u < kWsUnroll; ++u) {
+      const int k = base + u * split;
+      slot[u] = k < e1 ? __ldg(inc_slot + k) : 0x7fffffff;
+      if (slot[u] < 0) __trap();
+    }
+    float4 v[kWsUnroll];
+    bool row[kWsUnroll], use[kWsUnroll];
 #pragma unroll
-      for (int u = 0; u < kScatterStageLoads; ++u) {
-        const int k = base + threadIdx.x + u * kScatterThreads;
-        const int pc = k / (n * f4), i = (k / f4) % n, f = k % f4;
-        if (k < chunk * n * f4 && p0 + pc * B < P)
-          ((float4*)stage)[(pc * n + i) * (kScatterCols / 4) + f] = v[u];
-      }
+    for (int u = 0; u < kWsUnroll; ++u) {
+      const bool live = slot[u] < limit;
+      const int q = live ? slot[u] / W : 0;
+      const int r = live ? slot[u] - q * W : 0;
+      row[u] = r < na;
+      use[u] = live && (row[u] ? has_a : has_b);
+      const float4* src = row[u] ? src_a + ((int64_t)q * na + r) * fa4
+                                 : src_b + ((int64_t)q * nt + (r - na)) * fb4;
+      v[u] = use[u] ? __ldg(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    for (int k = threadIdx.x; k < chunk * n; k += blockDim.x) {
-      const int p = p0 + (k / n) * B;
-      int r = -1;
-      if (p < P) {
-        r = idx[(int64_t)p * n + k % n];
-        if ((unsigned)r >= (unsigned)capD) __trap();
-      }
-      idx_s[k] = r;
-    }
-    __syncthreads();
-    // a row of zeros adds nothing: drop it here, so that the padded
-    // positions (all id 0, all zero) do not queue up on one owner warp
-    for (int k = threadIdx.x; k < chunk * n; k += blockDim.x) {
-      const float4* row = (const float4*)(stage + k * kScatterCols);
-      bool zero = true;
-      for (int f = 0; f < f4 && zero; ++f) {
-        const float4 v = row[f];
-        zero = v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f;
-      }
-      if (zero) idx_s[k] = -1;
-    }
-    __syncthreads();
-    // warp w owns the destination rows r with r % kScatterWarps == w and adds its
-    // staged rows in block, then row order, its lanes over the columns
-    // (ids read four at a time, so the scan does not wait on each one)
-    for (int k0 = 0; k0 < chunk * n; k0 += 4) {
-      int4 r4 = make_int4(-1, -1, -1, -1);
-      if (k0 + 4 <= chunk * n) {
-        r4 = ((const int4*)idx_s)[k0 / 4];
+#pragma unroll
+    for (int u = 0; u < kWsUnroll; ++u) {
+      if (!use[u]) continue;
+      if (row[u] || !two) {
+        ax += (double)v[u].x; ay += (double)v[u].y; az += (double)v[u].z; aw += (double)v[u].w;
       } else {
-        r4.x = idx_s[k0];
-        if (k0 + 1 < chunk * n) r4.y = idx_s[k0 + 1];
-        if (k0 + 2 < chunk * n) r4.z = idx_s[k0 + 2];
-      }
-      const int rr[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = rr[u];
-        if (r < 0 || r % kScatterWarps != warp) continue;  // the same for the whole warp
-        const float* src = stage + (k0 + u) * kScatterCols;
-        float* dst = acc + r * kScatterCols;
-        for (int f = lane; f < fw; f += 32) dst[f] += src[f];
+        bx += (double)v[u].x; by += (double)v[u].y; bz += (double)v[u].z; bw += (double)v[u].w;
       }
     }
+    if (slot[kWsUnroll - 1] >= limit) break;  // lists increase: the rest lie beyond P too
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < capD * fw; k += blockDim.x) {
-    const int r = k / fw, f = k % fw;
-    out[((int64_t)w * capD + r) * F + f0 + f] = acc[r * kScatterCols + f];
+  // the group's lanes, in a fixed tree
+  for (int off = split / 2; off > 0; off /= 2) {
+    ax += __shfl_down_sync(0xffffffffu, ax, off, split);
+    ay += __shfl_down_sync(0xffffffffu, ay, off, split);
+    az += __shfl_down_sync(0xffffffffu, az, off, split);
+    aw += __shfl_down_sync(0xffffffffu, aw, off, split);
+    if (two) {
+      bx += __shfl_down_sync(0xffffffffu, bx, off, split);
+      by += __shfl_down_sync(0xffffffffu, by, off, split);
+      bz += __shfl_down_sync(0xffffffffu, bz, off, split);
+      bw += __shfl_down_sync(0xffffffffu, bw, off, split);
+    }
   }
+  if (!valid || s != 0) return;
+  if (has_a) out_a[(int64_t)d * fa4 + c] = make_float4((float)ax, (float)ay, (float)az, (float)aw);
+  if (two && has_b)
+    out_b[(int64_t)d * fb4 + c] = make_float4((float)bx, (float)by, (float)bz, (float)bw);
+}
+
+// Lanes a window_scatter group splits a destination's list over: the
+// smallest power of two up to 32 that leaves a lane at most kWsUnroll of
+// the longest list the incidence can hold, but no more than keep the groups
+// within one wave of the card's resident threads of this kernel.
+int window_split(int64_t groups, int longest, int* split) {
+  static int64_t waves[64];  // resident threads a device, asked once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (waves[dev] == 0) {
+    int sms = 0, ctas = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, window_pull_kernel, kWsThreads,
+                                                          0);
+    if (err != cudaSuccess) return (int)err;
+    waves[dev] = (int64_t)sms * ctas * kWsThreads;
+  }
+  const int64_t wave = waves[dev];
+  int lanes = 1;
+  while (lanes < 32 && (int64_t)lanes * kWsUnroll < longest && 2 * lanes * groups <= wave)
+    lanes *= 2;
+  *split = lanes;
+  return (int)cudaSuccess;
 }
 
 size_t round_smem_bytes(int na, int nt, int H, bool backward) {
@@ -765,30 +812,32 @@ extern "C" int tm_block_round_es_bwd(const void* he, const void* act, const void
   return (int)cudaGetLastError();
 }
 
-// blocks of a window staged at once: as many as fit kScatterStageBytes
-static int scatter_chunk(int n) {
-  const int per_block = n * kScatterCols * (int)sizeof(float);
-  return per_block <= 0 ? 1 : (kScatterStageBytes / per_block > 1 ? kScatterStageBytes / per_block
-                                                                    : 1);
-}
-
-extern "C" int tm_window_scatter_smem_bytes(int n, int capD) {
-  const size_t chunk = scatter_chunk(n);
-  return (int)(((size_t)capD * kScatterCols + chunk * n * (kScatterCols + 1)) * sizeof(float));
-}
-
-// vals: f32[P, n, F] (F % 4 == 0, 16-byte aligned); idx: int32[P, n]
-// window-local ids in [0, capD) (else the kernel traps); out: f32[B*capD, F],
-// every element written.
-extern "C" int tm_window_scatter(const void* vals, const void* idx, void* out, int P, int n,
-                                 int F, int B, int capD, void* stream) {
-  if (B == 0 || capD == 0 || F == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)tm_window_scatter_smem_bytes(n, capD);
-  cudaError_t err = opt_in_smem((const void*)window_scatter_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, (F + kScatterCols - 1) / kScatterCols);
-  window_scatter_kernel<<<grid, kScatterThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int32_t*)idx, (float*)out, P, n, F, B, capD,
-      scatter_chunk(n));
+// src_a f32[P, na, Fa], src_b f32[P, nt, Fb], idx_a int32[P, na], idx_b
+// int32[P, nt] their window-local ids (src_b and idx_b may be null where
+// nt = 0), the incidence inc_ptr int32[nrows + 1], inc_slot int32[n_slot]
+// (slots q*(na + nt) + r, increasing within a row); out_a f32[nrows, Fa]
+// and, unless null, out_b f32[nrows, Fb] (out_b null: out_a = rows +
+// columns, Fb = Fa), every element written.  Fa % 4 == Fb % 4 == 0, every
+// float pointer 16-byte aligned.  longest: the most entries a destination's
+// list can hold, which picks the lanes a list is split over.  An id outside
+// [0, capD), an offset outside [0, n_slot] or a negative slot traps the
+// kernel.  One launch.
+extern "C" int tm_window_scatter(const void* src_a, const void* src_b, const void* idx_a,
+                                 const void* idx_b, const void* inc_ptr, const void* inc_slot,
+                                 void* out_a, void* out_b, int n_slot, int P, int na, int nt,
+                                 int Fa, int Fb, int nrows, int capD, int longest, void* stream) {
+  if (Fa % 4 != 0 || Fb % 4 != 0 || (out_b == nullptr && Fb != Fa))
+    return (int)cudaErrorInvalidValue;
+  const int f4 = (Fa > Fb ? Fa : Fb) / 4;
+  if (nrows == 0 || f4 == 0) return (int)cudaSuccess;
+  int split = 1;
+  const int err = window_split((int64_t)nrows * f4, longest, &split);
+  if (err != (int)cudaSuccess) return err;
+  const int64_t threads = (int64_t)nrows * f4 * split;
+  window_pull_kernel<<<(unsigned)((threads + kWsThreads - 1) / kWsThreads), kWsThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float4*)src_a, (const float4*)src_b, (const int32_t*)idx_a, (const int32_t*)idx_b,
+      (const int32_t*)inc_ptr, (const int32_t*)inc_slot, n_slot, (float4*)out_a,
+      (float4*)out_b, P, na, nt, Fa / 4, Fb / 4, nrows, capD, split);
   return (int)cudaGetLastError();
 }

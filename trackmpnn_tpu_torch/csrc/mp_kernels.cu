@@ -18,19 +18,55 @@
 // signed_segment_sum
 //   Replaces _signed_scatter_kernel / signed_segment_sum_pallas in
 //   trackmpnn_tpu/ops/pallas_mp.py.
-//   out[d] = sum_{e: past_e = d} h[e] - sum_{e: fut_e = d} h[e]  over edges e
-//   Bound: device-memory bytes (edge rows of h read once, out written once)
-//   plus 2*H atomics per edge row, which resolve in L2.  The TPU kernel
-//   accumulates serially in VMEM over a sequential grid; blocks here run in
-//   no order, so each thread scatters its float4 of one edge row with
-//   red.add atomics into the two endpoint rows.  In f32 the varying order
-//   would move the last bits from run to run, and at serving sizes (~135
-//   terms a row, partial sums ~50) that noise reaches 1e-5.  So the atomics
-//   accumulate in an f64 scratch the caller allocates, zeroed here on the
-//   stream, and a second kernel rounds it to f32 once: the result is the
-//   correctly rounded sum, whatever the order, unless the exact sum lies
-//   within f64 rounding (~1e-14) of an f32 rounding boundary.  The cost is
-//   the scratch's traffic (8 B a value, in L2 at serving sizes).
+//   out[d] = sum over d's incidence entries (e, sign) of sign * mask[e] * h[e]
+//   The incidence (ops/mp.py::segment_incidence, built once a graph view or
+//   step batch on the device) lists every edge row at past(e) with sign +1
+//   and at fut(e) with sign -1, sorted by destination, and leaves out the
+//   rows that point at themselves (detections, padding); the kernel reads
+//   mask[e] itself, so one incidence serves every round while `live`
+//   changes.
+//   Bound: device-memory bytes (edge rows of h read once, 9 B of index and
+//   mask a row, out written once).  The TPU kernel accumulates serially in
+//   VMEM over a sequential grid.  The first design scattered each edge
+//   row with 2*H f64 atomics into a zeroed f64 scratch and rounded it in a
+//   second kernel: three launches, ~1.46M atomics contending on ~170
+//   destination rows in L2 at serving, 40.21 us against a 2.16 us bound,
+//   and not bitwise repeatable.  This is a pull: no atomics, no scratch, one
+//   launch.  CTA b owns the destination rows b + k * gridDim.x (k <
+//   kPullRows), so the contiguous detection rows of one frame land on
+//   different CTAs; it writes its empty rows as zeros at once, then takes
+//   its listed rows one at a time with all 256 threads: thread t owns float4
+//   column t % (H/4) and entry group t / (H/4) (16 groups at H = 64), walks
+//   entries g, g + 16, ... with kPullUnroll of them (index, mask, then h)
+//   in flight, in f64, and the groups are summed in group order through
+//   shared memory and rounded to f32 once.  At serving (capacity 16,384,
+//   ~170 detection rows of ~135 entries, H = 64) that is 1,024 CTAs and two
+//   rounds of loads a listed row.  Fixed order throughout: bitwise the same
+//   on every launch, and the correctly rounded sum unless the exact sum lies
+//   within f64 rounding (~1e-14) of an f32 rounding boundary.
+//
+// segment_incidence (the pull's incidence; no TPU counterpart)
+//   ptr int32[n + 1] and ent int32[2N]: destination d's entries are
+//   ent[ptr[d] .. ptr[d+1]), entry k < N row k at past[k] with sign +1,
+//   entry k >= N row k - N at fut[k - N] with sign -1, in increasing k
+//   (the stable sort of ops/mp.py::segment_incidence_reference, bitwise);
+//   rows pointing at themselves at both ends and endpoints outside [0, n)
+//   are not listed.  A serving forward builds one, and the host is what
+//   serving waits on: a sort and a search in torch ops were ~10 launches and
+//   ~80 us of device time and ~250-600 us of host time a forward.  Here one
+//   call from the host enqueues a memset and four kernels: count each
+//   destination's entries with atomics into ptr (a thread an entry), scan
+//   ptr in one CTA of 1,024 threads, place each entry at its destination's
+//   cursor (the arrival order of atomics), then put each list in entry
+//   order: warp w looks at the destinations w + n_warps * lane (so a
+//   frame's neighbouring detection rows go to different warps) and ranks
+//   each list of two or more entries with the whole warp from shared
+//   memory, an entry's place being the count of smaller entries in its list
+//   (~135 entries a detection at serving, ~180 of 16,384 rows listed).  The
+//   atomics decide only the order before that last pass, so the result is
+//   the same on every launch.  A first design did all four in one CTA:
+//   one launch, but 178 us at serving and 405 us at 32,768 rows, one SM
+//   doing every pass.
 //
 // fused_edge_gru
 //   Replaces _edge_gru_kernel / fused_edge_gru in
@@ -59,12 +95,14 @@
 //   chunking: bitwise repeatable, no atomics.  Any N, any H % 4 == 0;
 //   H 16, 32 and 64 get instances with H known to the compiler.
 //
-// An endpoint index of an edge row outside the rows it addresses traps the
-// kernel (a sticky CUDA error that the next synchronisation raises) rather
-// than reading or writing out of bounds; the check is two compares a thread.
+// An endpoint index of a masked-in edge row outside the rows it addresses
+// traps the kernel (a sticky CUDA error that the next synchronisation
+// raises) rather than reading or writing out of bounds; the check is two
+// compares a row (the pull checks every row once, over the grid), and the
+// pull traps too on an incidence entry outside the rows.
 //
-// No kernel synchronises or allocates: the caller allocates `out` (and the
-// scatter's scratch) and every launch goes to the stream it is given.
+// No kernel synchronises or allocates: the caller allocates `out` and every
+// launch goes to the stream it is given.
 // Each entry point returns cudaGetLastError() so the caller can raise on a
 // refused launch.
 
@@ -96,39 +134,259 @@ __global__ void gather_diff_kernel(const float4* __restrict__ h,
   out[t] = v;
 }
 
-__global__ void signed_scatter_kernel(const float4* __restrict__ h,
-                                      const int32_t* __restrict__ past,
-                                      const int32_t* __restrict__ fut,
-                                      const uint8_t* __restrict__ mask,
-                                      double* __restrict__ acc,
-                                      int64_t total, int h4, int n_out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t row = t / h4;
-  if (!mask[row]) return;
-  const int32_t p = past[row], f = fut[row];
-  if ((uint32_t)p >= (uint32_t)n_out || (uint32_t)f >= (uint32_t)n_out) __trap();
-  const int c = (int)(t - row * h4);
-  const float4 v = __ldg(h + t);
-  double* dp = acc + ((int64_t)p * h4 + c) * 4;
-  double* df = acc + ((int64_t)f * h4 + c) * 4;
-  atomicAdd(dp + 0, (double)v.x);
-  atomicAdd(dp + 1, (double)v.y);
-  atomicAdd(dp + 2, (double)v.z);
-  atomicAdd(dp + 3, (double)v.w);
-  atomicAdd(df + 0, -(double)v.x);
-  atomicAdd(df + 1, -(double)v.y);
-  atomicAdd(df + 2, -(double)v.z);
-  atomicAdd(df + 3, -(double)v.w);
+constexpr int kPullThreads = 256;
+constexpr int kPullRows = 16;    // destination rows a CTA owns (gridDim.x apart)
+constexpr int kPullUnroll = 8;   // entries a thread has in flight
+
+// Incidence entry k: row k with sign +1 for k < n_rows, row k - n_rows with
+// sign -1 for k >= n_rows (the doubled incidence [past; fut]).
+// Grid: ceil(n_out / kPullRows) CTAs of kPullThreads; CTA b owns the rows
+// b + k * gridDim.x, k < kPullRows (see the note at the top).
+__global__ void __launch_bounds__(kPullThreads)
+signed_pull_kernel(const float4* __restrict__ h, const int32_t* __restrict__ past,
+                   const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
+                   const int32_t* __restrict__ inc_ptr, const int32_t* __restrict__ inc_ent,
+                   int n_ent, float4* __restrict__ out, int n_rows, int n_out, int h4) {
+  __shared__ double2 part[2 * kPullThreads];  // each thread's four partial sums
+  __shared__ int beg_s[kPullRows], end_s[kPullRows];
+  const int G = gridDim.x;
+  if (threadIdx.x < kPullRows) {
+    const int64_t d = blockIdx.x + (int64_t)threadIdx.x * G;
+    int b = 0, e1 = 0;
+    if (d < n_out) {
+      b = inc_ptr[d];
+      e1 = inc_ptr[d + 1];
+      if (b < 0 || e1 < b || e1 > n_ent) __trap();
+    }
+    beg_s[threadIdx.x] = b;
+    end_s[threadIdx.x] = e1;
+  }
+  // every masked-in row's endpoints lie in [0, n_out), checked once over the
+  // grid (the three loads issued together, beside the offsets above)
+  for (int64_t e = (int64_t)blockIdx.x * kPullThreads + threadIdx.x; e < n_rows;
+       e += (int64_t)G * kPullThreads) {
+    const bool m = mask[e];
+    const uint32_t p = (uint32_t)__ldg(past + e), f = (uint32_t)__ldg(fut + e);
+    if (m && (p >= (uint32_t)n_out || f >= (uint32_t)n_out)) __trap();
+  }
+  __syncthreads();
+  // the rows with no entry are zeros
+  for (int i = threadIdx.x; i < kPullRows * h4; i += kPullThreads) {
+    const int k = i / h4;
+    const int64_t d = blockIdx.x + (int64_t)k * G;
+    if (d < n_out && beg_s[k] == end_s[k])
+      out[d * h4 + (i - k * h4)] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the listed rows, one at a time: columns over cp threads, entries over groups
+  const int cp = h4 < kPullThreads ? h4 : kPullThreads;
+  const int groups = kPullThreads / cp;
+  const int cl = threadIdx.x % cp, g = threadIdx.x / cp;
+  for (int k = 0; k < kPullRows; ++k) {
+    const int b = beg_s[k], e1 = end_s[k];
+    if (b == e1) continue;  // the same for the whole CTA
+    const int64_t d = blockIdx.x + (int64_t)k * G;
+    for (int c0 = 0; c0 < h4; c0 += cp) {
+      const int c = c0 + cl;
+      double ax = 0.0, ay = 0.0, az = 0.0, aw = 0.0;
+      if (g < groups && c < h4) {
+        for (int base = b + g; base < e1; base += groups * kPullUnroll) {
+          int ent[kPullUnroll];
+#pragma unroll
+          for (int u = 0; u < kPullUnroll; ++u) {
+            const int i = base + u * groups;
+            ent[u] = i < e1 ? __ldg(inc_ent + i) : -1;
+          }
+          bool use[kPullUnroll], neg[kPullUnroll];
+#pragma unroll
+          for (int u = 0; u < kPullUnroll; ++u) {
+            const int i = base + u * groups;
+            if (i < e1 && (uint32_t)ent[u] >= 2u * (uint32_t)n_rows) __trap();
+            neg[u] = ent[u] >= n_rows;
+            if (neg[u]) ent[u] -= n_rows;  // the row
+            use[u] = i < e1 && mask[ent[u]];
+          }
+          float4 v[kPullUnroll];
+#pragma unroll
+          for (int u = 0; u < kPullUnroll; ++u)
+            v[u] = use[u] ? __ldg(h + (int64_t)ent[u] * h4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < kPullUnroll; ++u) {
+            if (!use[u]) continue;
+            if (neg[u]) {
+              ax -= (double)v[u].x; ay -= (double)v[u].y;
+              az -= (double)v[u].z; aw -= (double)v[u].w;
+            } else {
+              ax += (double)v[u].x; ay += (double)v[u].y;
+              az += (double)v[u].z; aw += (double)v[u].w;
+            }
+          }
+        }
+      }
+      part[2 * threadIdx.x] = make_double2(ax, ay);
+      part[2 * threadIdx.x + 1] = make_double2(az, aw);
+      __syncthreads();
+      if (g == 0 && c < h4) {
+        double sx = 0.0, sy = 0.0, sz = 0.0, sw = 0.0;
+        for (int gg = 0; gg < groups; ++gg) {  // group order
+          const double2 p = part[2 * (gg * cp + cl)], q = part[2 * (gg * cp + cl) + 1];
+          sx += p.x; sy += p.y; sz += q.x; sw += q.y;
+        }
+        out[d * h4 + c] = make_float4((float)sx, (float)sy, (float)sz, (float)sw);
+      }
+      __syncthreads();  // part is read before the next row writes it
+    }
+  }
 }
 
-// out[i] = (float)acc[i], four values a thread.
-__global__ void round_to_f32_kernel(const double2* __restrict__ acc,
-                                    float4* __restrict__ out, int64_t total4) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total4) return;
-  const double2 a = acc[2 * t], b = acc[2 * t + 1];
-  out[t] = make_float4((float)a.x, (float)a.y, (float)b.x, (float)b.y);
+constexpr int kBuildThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kScanUnroll = 8;   // offsets a scan thread has in flight
+constexpr int kRankStage = 256;  // longest list a warp ranks from shared memory
+
+// Destination of incidence entry k (row k % n_rows, past side for k <
+// n_rows), or -1 where the row points at itself at both ends or the
+// endpoint lies outside [0, n_out): such entries are not listed.
+__device__ __forceinline__ int entry_key(const int32_t* __restrict__ past,
+                                         const int32_t* __restrict__ fut, int64_t k,
+                                         int n_rows, int n_out) {
+  const int e = (int)(k < n_rows ? k : k - n_rows);
+  const int p = __ldg(past + e), f = __ldg(fut + e);
+  if (p == e && f == e) return -1;
+  const int key = k < n_rows ? p : f;
+  return (uint32_t)key < (uint32_t)n_out ? key : -1;
+}
+
+// 1. ptr[d + 1] = the count of d's entries (ptr zeroed before); a thread an
+// entry.
+__global__ void __launch_bounds__(kBuildThreads)
+incidence_count_kernel(const int32_t* __restrict__ past, const int32_t* __restrict__ fut,
+                       int32_t* __restrict__ ptr, int n_rows, int n_out) {
+  const int64_t k = (int64_t)blockIdx.x * kBuildThreads + threadIdx.x;
+  if (k >= 2 * (int64_t)n_rows) return;
+  const int key = entry_key(past, fut, k, n_rows, n_out);
+  if (key >= 0) atomicAdd(ptr + key + 1, 1);
+}
+
+// 2. one CTA: the inclusive scan of ptr[1 .. n_out] in place (thread t sums
+// a contiguous chunk, the chunk totals are scanned across the CTA, then each
+// chunk is rewritten), so ptr[d] is d's first entry; cur[d] = ptr[d].
+__global__ void __launch_bounds__(kScanThreads)
+incidence_scan_kernel(int32_t* __restrict__ ptr, int32_t* __restrict__ cur, int n_out) {
+  __shared__ int warp_tot[kScanThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t chunk = (n_out + kScanThreads - 1) / kScanThreads;
+  const int64_t lo = 1 + tid * chunk, hi = lo + chunk < n_out + 1 ? lo + chunk : n_out + 1;
+  int tot = 0;
+  for (int64_t i0 = lo; i0 < hi; i0 += kScanUnroll) {
+    int v[kScanUnroll];
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) v[u] = i0 + u < hi ? ptr[i0 + u] : 0;
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) tot += v[u];
+  }
+  int incl = tot;
+  for (int off = 1; off < 32; off *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = warp_tot[lane];
+    int wi = w;
+    for (int off = 1; off < 32; off *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, wi, off);
+      if (lane >= off) wi += v;
+    }
+    warp_tot[lane] = wi - w;  // exclusive over warps
+  }
+  __syncthreads();
+  int run = warp_tot[warp] + incl - tot;
+  for (int64_t i0 = lo; i0 < hi; i0 += kScanUnroll) {
+    int v[kScanUnroll];
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) v[u] = i0 + u < hi ? ptr[i0 + u] : 0;
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      run += v[u];
+      if (i0 + u < hi) {
+        ptr[i0 + u] = run;
+        if (i0 + u < n_out) cur[i0 + u] = run;
+      }
+    }
+  }
+  if (tid == 0 && n_out > 0) cur[0] = 0;
+}
+
+// 3. each listed entry into its destination's list, at its cursor (the
+// arrival order of atomics); a thread an entry.
+__global__ void __launch_bounds__(kBuildThreads)
+incidence_place_kernel(const int32_t* __restrict__ past, const int32_t* __restrict__ fut,
+                       int32_t* __restrict__ cur, int32_t* __restrict__ loose, int n_rows,
+                       int n_out) {
+  const int64_t k = (int64_t)blockIdx.x * kBuildThreads + threadIdx.x;
+  if (k >= 2 * (int64_t)n_rows) return;
+  const int key = entry_key(past, fut, k, n_rows, n_out);
+  if (key >= 0) loose[atomicAdd(cur + key, 1)] = (int32_t)k;
+}
+
+// 4. each list in entry order.  Warp w of the grid's n_warps looks at the
+// destinations w + n_warps * lane (n_warps apart, so the neighbouring
+// detection rows of a frame go to different warps); each list of two or
+// more entries is ranked by the whole warp, an entry's place being the
+// count of smaller entries in its list (from shared memory up to
+// kRankStage entries).
+__global__ void __launch_bounds__(kBuildThreads)
+incidence_order_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ loose,
+                       int32_t* __restrict__ ent, int n_out) {
+  constexpr int kPer = kRankStage / 32;
+  __shared__ int stage[kBuildThreads / 32][kRankStage];
+  const int lane = threadIdx.x & 31;
+  const int64_t n_warps = (int64_t)gridDim.x * (kBuildThreads / 32);
+  const int64_t w = (int64_t)blockIdx.x * (kBuildThreads / 32) + (threadIdx.x >> 5);
+  int* st = stage[threadIdx.x >> 5];
+  const int64_t d = w + n_warps * lane;
+  int b = 0, e1 = 0;
+  if (d < n_out) {
+    b = ptr[d];
+    e1 = ptr[d + 1];
+  }
+  if (e1 - b == 1) ent[b] = loose[b];
+  unsigned todo = __ballot_sync(0xffffffffu, e1 - b > 1);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int lb = __shfl_sync(0xffffffffu, b, src), le = __shfl_sync(0xffffffffu, e1, src);
+    const int L = le - lb;
+    if (L <= kRankStage) {
+      for (int i = lane; i < L; i += 32) st[i] = loose[lb + i];
+      __syncwarp();
+      int x[kPer], rank[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        x[u] = lane + 32 * u < L ? st[lane + 32 * u] : 0x7fffffff;
+        rank[u] = 0;
+      }
+      const int used = (L + 31) / 32;
+      for (int j = 0; j < L; ++j) {
+        const int y = st[j];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u)
+          if (u < used) rank[u] += y < x[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if (lane + 32 * u < L) ent[lb + rank[u]] = x[u];
+      __syncwarp();  // st is read before the next list overwrites it
+    } else {
+      for (int i = lb + lane; i < le; i += 32) {
+        const int x = loose[i];
+        int rank = 0;
+        for (int j = lb; j < le; ++j) rank += loose[j] < x;
+        ent[lb + rank] = x;
+      }
+    }
+  }
 }
 
 inline unsigned int blocks_for(int64_t total) {
@@ -320,30 +578,53 @@ extern "C" int tm_gather_diff(const void* h, const void* past, const void* fut,
   return (int)cudaGetLastError();
 }
 
-// h: f32[n_rows, hidden]; scratch: f64[n_out, hidden], zeroed here on
-// `stream`; out: f32[n_out, hidden].  hidden % 4 == 0, every pointer
-// 16-byte aligned; past/fut of every masked-in row lie in [0, n_out), or
-// the kernel traps.
-extern "C" int tm_signed_segment_sum(const void* h, const void* past,
-                                     const void* fut, const void* mask,
-                                     void* scratch, void* out, int n_rows,
+// h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
+// inc_ptr: int32[n_out + 1], inc_ent: int32[n_ent] (entry k < n_rows: row k,
+// sign +1; else row k - n_rows, sign -1; destination d's in
+// inc_ent[inc_ptr[d] .. inc_ptr[d + 1])); out: f32[n_out, hidden], every
+// element written.
+// hidden % 4 == 0, h and out 16-byte aligned; past/fut of every masked-in
+// row lie in [0, n_out), and the incidence's offsets and rows in range, or
+// the kernel traps.  One launch.
+extern "C" int tm_signed_segment_sum(const void* h, const void* past, const void* fut,
+                                     const void* mask, const void* inc_ptr,
+                                     const void* inc_ent, int n_ent, void* out, int n_rows,
                                      int n_out, int hidden, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int h4 = hidden / 4;
-  const int64_t total4 = (int64_t)n_out * h4;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)total4 * 4 * sizeof(double), s);
+  if (n_out == 0 || hidden == 0) return (int)cudaSuccess;
+  const unsigned grid = (unsigned)((n_out + kPullRows - 1) / kPullRows);
+  signed_pull_kernel<<<grid, kPullThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
+      (const int32_t*)inc_ptr, (const int32_t*)inc_ent, n_ent, (float4*)out, n_rows, n_out,
+      hidden / 4);
+  return (int)cudaGetLastError();
+}
+
+// past, fut int32[n_rows]; writes ptr int32[n_out + 1] and the first
+// ptr[n_out] of ent int32[2 n_rows]; scratch int32[n_out + 2 n_rows].  One
+// call: a memset and four kernels on `stream`, no synchronisation.
+extern "C" int tm_segment_incidence(const void* past, const void* fut, void* ptr, void* ent,
+                                    void* scratch, int n_rows, int n_out, void* stream) {
+  if (n_rows < 0 || n_out < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t* p = (int32_t*)ptr;
+  int32_t* cur = (int32_t*)scratch;
+  int32_t* loose = cur + n_out;
+  const int32_t *pa = (const int32_t*)past, *fu = (const int32_t*)fut;
+  cudaError_t err = cudaMemsetAsync(p, 0, ((size_t)n_out + 1) * sizeof(int32_t), s);
   if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)n_rows * h4;
-  if (total > 0) {
-    signed_scatter_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-        (const float4*)h, (const int32_t*)past, (const int32_t*)fut,
-        (const uint8_t*)mask, (double*)scratch, total, h4, n_out);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (total4 == 0) return (int)cudaSuccess;
-  round_to_f32_kernel<<<blocks_for(total4), kThreads, 0, s>>>(
-      (const double2*)scratch, (float4*)out, total4);
+  // a thread for each entry
+  const unsigned per_entry =
+      (unsigned)((2 * (int64_t)n_rows + kBuildThreads - 1) / kBuildThreads);
+  if (per_entry > 0)
+    incidence_count_kernel<<<per_entry, kBuildThreads, 0, s>>>(pa, fu, p, n_rows, n_out);
+  incidence_scan_kernel<<<1, kScanThreads, 0, s>>>(p, cur, n_out);
+  if (per_entry > 0)
+    incidence_place_kernel<<<per_entry, kBuildThreads, 0, s>>>(pa, fu, cur, loose, n_rows,
+                                                               n_out);
+  // a warp for each 32 destinations
+  const unsigned per_dest = (unsigned)(((int64_t)n_out + kBuildThreads - 1) / kBuildThreads);
+  if (per_dest > 0)
+    incidence_order_kernel<<<per_dest, kBuildThreads, 0, s>>>(p, loose, (int32_t*)ent, n_out);
   return (int)cudaGetLastError();
 }
 

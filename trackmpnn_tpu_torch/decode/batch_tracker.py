@@ -38,6 +38,7 @@ from trackmpnn_tpu_torch.decode.tracker import (TrackerConfig, _bucketed, resolv
 from trackmpnn_tpu_torch.graph import engine
 from trackmpnn_tpu_torch.graph.view import GraphView, pack_slots
 from trackmpnn_tpu_torch.models import mpnn, weights
+from trackmpnn_tpu_torch.ops import mp
 
 
 class _SeqState:
@@ -171,6 +172,7 @@ class BatchedTracker:
             np.ascontiguousarray(np.concatenate([v[i] for v in views]), dtype)).to(dev)
         g = GraphView(is_det=put(0, bool), past=put(1, np.int32), fut=put(2, np.int32),
                       live=put(3, bool), new=put(4, bool), feat=put(5, np.float32))
+        g = g._replace(inc=mp.kernel_incidence(g.past, g.fut, g.capacity))
         h = None
         if src is not None:
             rows = put(6, np.int64)

@@ -7,15 +7,19 @@ slot ids of its two detection endpoints (`past`, `fut`); detections carry
 self-indices (inert under masks).  `live` masks the active window and `new`
 the rows introduced at the current step.  Message passing then never builds
 a matrix: node_adj @ h is a two-gather subtract, edge_adj @ h a signed
-segment-sum (ops/mp.py).
+segment-sum (ops/mp.py), pulled on the card through the view's incidence
+(`inc`, ops/mp.py::segment_incidence), built once a view where the kernel
+reads it (a CUDA view; None on the CPU, whose plain version reads none).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from trackmpnn_tpu_torch.ops import mp
 
 
 class GraphView(NamedTuple):
@@ -27,6 +31,10 @@ class GraphView(NamedTuple):
     live: torch.Tensor    # bool[N]  slot active at this step
     new: torch.Tensor     # bool[N]  slot introduced at this step
     feat: torch.Tensor    # f32[N,F] input features (zeros for edge slots)
+    # signed_segment_sum's incidence of past/fut (segment_incidence), shared
+    # by every branch and round over these slots; None on the CPU, or built
+    # per call
+    inc: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def capacity(self):
@@ -58,11 +66,13 @@ def pack_slots(g, X: np.ndarray, cap: int):
 
 def make_view(g, X: np.ndarray, n_new: int, cap: int, device) -> GraphView:
     """The Tracker's view of a RollingGraph: slots padded to `cap`, the
-    last `n_new` live rows marked new, every field on `device`."""
+    last `n_new` live rows marked new, every field on `device`, and the
+    incidence built there where the kernel reads it (mp.kernel_incidence)."""
     is_det, past, fut, feat = pack_slots(g, X, cap)
     idx = np.arange(cap)
     live = idx < g.n
     new = (idx >= g.n - n_new) & live
     put = lambda a: torch.from_numpy(a).to(device)
-    return GraphView(is_det=put(is_det), past=put(past), fut=put(fut),
-                     live=put(live), new=put(new), feat=put(feat))
+    past, fut = put(past), put(fut)
+    return GraphView(is_det=put(is_det), past=past, fut=fut, live=put(live), new=put(new),
+                     feat=put(feat), inc=mp.kernel_incidence(past, fut, cap))

@@ -146,7 +146,7 @@ def _factor_graph_gru(params, h, g: GraphView, nattheads, generator, keeps=None)
     em = g.edge_mask()
     eg = params["edge_gru"]
     if torch.is_grad_enabled():
-        edge_out = nn.gru_cell(eg, mp.gather_diff(h, g.past, g.fut, em), h)
+        edge_out = nn.gru_cell(eg, mp.gather_diff(h, g.past, g.fut, em, g.inc), h)
     else:  # the same function in one launch, which has no backward
         edge_out = mp.fused_edge_gru(h, g.past, g.fut, em, eg["w_ih"], eg["w_hh"],
                                      eg["b_ih"], eg["b_hh"])
@@ -155,7 +155,7 @@ def _factor_graph_gru(params, h, g: GraphView, nattheads, generator, keeps=None)
         edge_support = sum(_gat_head(hp, h, g, generator, k)
                            for hp, k in zip(params["gat"], keeps)) / nattheads
     else:
-        edge_support = mp.signed_segment_sum(h, g.past, g.fut, em, g.capacity)
+        edge_support = mp.signed_segment_sum(h, g.past, g.fut, em, g.capacity, g.inc)
     node_out = nn.gru_cell(params["node_gru"], edge_support, h)
     out = torch.where(g.is_det[:, None], node_out, edge_out)
     return torch.where(g.live[:, None], out, 0.0)

@@ -34,7 +34,8 @@ LIBRARIES = {
     "mp": (os.path.join(_PKG, "csrc", "mp_kernels.cu"),
            os.path.join(BUILD_DIR, "libtm_mp.so"),
            {"tm_gather_diff": [_P, _P, _P, _P, _P, _I, _I, _P],
-            "tm_signed_segment_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "tm_signed_segment_sum": [_P] * 6 + [_I, _P, _I, _I, _I, _P],
+            "tm_segment_incidence": [_P] * 5 + [_I, _I, _P],
             "tm_fused_edge_gru_setup": [_I, _P],
             "tm_fused_edge_gru": [_P] * 9 + [_I, _I, _I, _P]}),
     "block": (os.path.join(_PKG, "csrc", "block_kernels.cu"),
@@ -44,8 +45,7 @@ LIBRARIES = {
                "tm_block_round_bwd": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
                "tm_block_round_es_fwd": [_P] * 17 + [_I] * 6 + [_F, _P],
                "tm_block_round_es_bwd": [_P] * 22 + [_I] * 6 + [_F, _P],
-               "tm_window_scatter_smem_bytes": [_I, _I],
-               "tm_window_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}),
+               "tm_window_scatter": [_P] * 8 + [_I] * 9 + [_P]}),
     "gat": (os.path.join(_PKG, "csrc", "gat_kernels.cu"),
             os.path.join(BUILD_DIR, "libtm_gat.so"),
             {"tm_gat_smem_bytes": [_I] * 6,

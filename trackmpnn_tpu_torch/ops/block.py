@@ -24,6 +24,15 @@ batch on the host: for detection d, the slots q*(na + nt) + i of the rows i
 of blocks q where d is active and q*(na + nt) + na + j of the columns j of
 blocks q where d is new, in increasing order, so that a round over the first
 P blocks reads each list up to its first slot >= P*(na + nt).
+
+The window_scatter kernel is a pull over the same incidence: the es sum
+(window_scatter(..., inc=)) and the backward of window_gather2 (both
+cotangents in one launch) read each detection's rows and columns in list
+order.  The incidence lists only rows and columns of blocks with cells;
+every caller's values are exactly 0 at the other positions (masked round
+sums, their cotangents, attention at padded cells).  Without an incidence
+the CUDA wrapper builds the full one of the ids on the device for the call
+(window_incidence).  BUILDS[name] counts the incidence builds.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from trackmpnn_tpu_torch.ops import _build
 
 LAUNCHES = {"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0,
             "block_round_es_fwd": 0, "block_round_es_bwd": 0}
+BUILDS = {"block_incidence": 0, "window_incidence": 0}
 
 
 # -------------------------------------------------------------- references ----
@@ -147,14 +157,39 @@ def block_incidence(act, new, blk_na, blk_nt, n_rows):
     order = np.lexsort((slots, dets))
     ptr = np.zeros(n_rows + 1, np.int64)
     ptr[1:] = np.cumsum(np.bincount(dets, minlength=n_rows))
+    BUILDS["block_incidence"] += 1
     return ptr.astype(np.int32), slots[order].astype(np.int32)
+
+
+def window_incidence(idx_l, B, capD):
+    """The full incidence of window-local ids idx_l [P, n] on their device:
+    for row d = (p % B)*capD + idx_l[p, i], the slots p*n + i of every
+    position, increasing; a fixed sequence of tensor ops (a stable sort and
+    a search; no host synchronisation).  An id outside [0, capD) is not
+    listed (the kernel traps on it).  Returns (ptr int32[B*capD + 1], slot
+    int32[P*n])."""
+    P, n = idx_l.shape
+    if P * n >= 2 ** 31 or B * capD >= 2 ** 31 - 1:
+        raise ValueError(f"window_incidence: P * n = {P * n} overflows the int32 slots")
+    dev = idx_l.device
+    ok = (idx_l >= 0) & (idx_l < capD)
+    dest = (torch.arange(P, device=dev, dtype=torch.int32) % B * capD)[:, None] + idx_l
+    key = torch.where(ok, dest, B * capD).reshape(-1).to(torch.int32)
+    skey, slot = torch.sort(key, stable=True)
+    ptr = torch.searchsorted(skey, torch.arange(B * capD + 1, device=dev, dtype=torch.int32),
+                             out_int32=True)
+    BUILDS["window_incidence"] += 1
+    return ptr, slot.to(torch.int32)
 
 
 def incidence_sum_reference(src_a, src_b, inc_ptr, inc_slot, n_rows):
     """Per detection row d, the f64 sums of its incidence entries of the
     first P = src_a.shape[0] blocks: (rows, columns) = (sum of src_a[q, i],
     sum of src_b[q, j]), as two f64 [n_rows, F] tensors.  src_a [P, na, F],
-    src_b [P, nt, F]."""
+    src_b [P, nt, F] (na or nt may be 0).  With the window_scatter kernel's
+    incidences this is its plain version: vals [P, n, F] as src_a and an
+    empty src_b for the es sum, d ga and d gb for window_gather2's
+    backward."""
     P, na, F = src_a.shape
     nt = src_b.shape[1]
     dev = src_a.device
@@ -166,8 +201,10 @@ def incidence_sum_reference(src_a, src_b, inc_ptr, inc_slot, n_rows):
     live = q < P
     is_row = r < na
     qc = torch.where(live, q, 0)
-    va = src_a[qc, torch.where(is_row, r, 0)].double()
-    vb = src_b[qc, torch.where(is_row, 0, r - na)].double()
+    side = lambda src, i, w: (src[qc, i].double() if w else
+                              torch.zeros(slot.numel(), F, dtype=torch.float64, device=dev))
+    va = side(src_a, torch.where(is_row, r, 0), na)
+    vb = side(src_b, torch.where(is_row, 0, r - na), nt)
     zero = va.new_zeros(())
     va = torch.where((live & is_row)[:, None], va, zero)
     vb = torch.where((live & ~is_row)[:, None], vb, zero)
@@ -388,39 +425,89 @@ def _block_round_es_bwd_cuda(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_
             dw[n + 3 * H:n + 4 * H].view(H, 1))
 
 
-def _window_scatter_cuda(vals, idx_l, B, capD):
+def _window_pull_cuda(name, src_a, src_b, idx_a, idx_b, B, capD, inc, two):
+    """One launch of the window_scatter kernel: out_a = the rows (src_a
+    [P, na, Fa], ids idx_a [P, na]) of each detection's incidence and, with
+    `two`, out_b = its columns (src_b [P, nt, Fb], ids idx_b); else out_a
+    sums both (Fb = Fa).  inc: the batch's detection incidence over slots
+    q*(na + nt) + r, or None to build the full incidence of the ids here."""
+    P, na, Fa = src_a.shape
+    nt, Fb = (0, Fa) if src_b is None else src_b.shape[1:]
+    f32, i32 = torch.float32, torch.int32
+    dev = src_a.device
+    tensors = {"vals": (src_a, f32, (P, na, Fa)), "idx": (idx_a, i32, (P, na))}
+    if src_b is not None:
+        tensors.update(cols=(src_b, f32, (P, nt, Fb)), col_idx=(idx_b, i32, (P, nt)))
+    _check(name, dev, **tensors)
+    if not two and Fb != Fa:
+        raise ValueError(f"{name}: rows of width {Fa} and columns of width {Fb} in one output")
+    if Fa % 4 or Fb % 4 or any(t.data_ptr() % 16 for t in (src_a, src_b) if t is not None):
+        raise ValueError(f"{name}: widths {Fa}, {Fb} must be multiples of 4 and the values "
+                         "16-byte aligned")
+    if P * (na + nt) >= 2 ** 31:
+        raise ValueError(f"{name}: P * (na + nt) = {P * (na + nt)} overflows the int32 slots")
+    if inc is None:
+        ids = idx_a if src_b is None else torch.cat([idx_a, idx_b], 1)
+        inc = window_incidence(ids, B, capD)
+        longest = -(-P // B) * (na + nt)
+    else:
+        longest = -(-P // B) + 1  # one entry a block, and the first beyond P
+    ptr, slot = inc
+    if slot.dim() != 1:
+        raise TypeError(f"{name}: inc slots must be int32[n], got {list(slot.shape)}")
+    _check(name, dev, inc_ptr=(ptr, i32, (B * capD + 1,)), inc_slot=(slot, i32, tuple(slot.shape)))
+    outs = [torch.empty(B * capD, F, dtype=f32, device=dev) for F in ((Fa, Fb) if two else (Fa,))]
+    if B * capD == 0:
+        return outs
+    with torch.cuda.device(dev):
+        rc = _build.load("block").tm_window_scatter(
+            src_a.data_ptr(), 0 if src_b is None else src_b.data_ptr(), idx_a.data_ptr(),
+            0 if idx_b is None else idx_b.data_ptr(), ptr.data_ptr(), slot.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr() if two else 0, slot.numel(), P, na, nt, Fa,
+            Fb, B * capD, capD, longest, _stream())
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["window_scatter"] += 1
+    return outs
+
+
+def _window_scatter_cuda(vals, idx_l, B, capD, inc=None):
     if vals.dim() != 3:
         raise TypeError(f"window_scatter: vals must be [P, n, F], got {list(vals.shape)}")
-    P, n, F = vals.shape
-    _check("window_scatter", vals.device, vals=(vals, torch.float32, (P, n, F)),
-           idx_l=(idx_l, torch.int32, (P, n)))
-    if F % 4 != 0 or vals.data_ptr() % 16 != 0:
-        raise ValueError(f"window_scatter: F={F} must be a multiple of 4 and vals 16-byte aligned")
-    lib = _build.load("block")
-    need = lib.tm_window_scatter_smem_bytes(n, capD)
-    have = torch.cuda.get_device_properties(vals.device).shared_memory_per_block_optin
-    if need > have:
-        raise ValueError(f"window_scatter: capD={capD} needs {need} B of shared memory a "
-                         f"block, the card has {have}")
-    out = torch.empty(B * capD, F, dtype=torch.float32, device=vals.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(vals.device):
-        rc = lib.tm_window_scatter(vals.data_ptr(), idx_l.data_ptr(), out.data_ptr(),
-                                   P, n, F, B, capD, _stream())
-    if rc != 0:
-        raise RuntimeError(f"window_scatter kernel launch failed: CUDA error {rc}")
-    LAUNCHES["window_scatter"] += 1
-    return out
+    return _window_pull_cuda("window_scatter", vals, None, idx_l, None, B, capD, inc, False)[0]
 
 
-def window_scatter_raw(vals, idx_l, B, capD):
+def _window_gather2_bwd_cuda(dga, dgb, act_l, new_l, B, capD, inc=None):
+    """Both cotangents of window_gather2 in one launch, of any two widths."""
+    if dga.dim() != 3 or dgb.dim() != 3:
+        raise TypeError("window_gather2 backward: cotangents must be [P, n, F], got "
+                        f"{list(dga.shape)} and {list(dgb.shape)}")
+    return tuple(_window_pull_cuda("window_scatter", dga, dgb, act_l, new_l, B, capD, inc, True))
+
+
+def window_scatter_raw(vals, idx_l, B, capD, inc=None):
     """window_scatter without autograd: the kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  idx_l must lie in [0, capD); on the card
-    an id outside traps the kernel, and the next synchronisation raises."""
+    plain version on a CPU tensor.  inc: the batch's detection incidence
+    (block_incidence) over slots p*n + i of vals [P, n, F], where vals is 0
+    at every position it does not list; or None to build the full incidence
+    of idx_l on the card for the call.  idx_l must lie in [0, capD); on the
+    card an id outside traps the kernel, and the next synchronisation
+    raises."""
     if _on_cuda(vals):
-        return _window_scatter_cuda(vals, idx_l, B, capD)
+        return _window_scatter_cuda(vals, idx_l, B, capD, inc)
     return window_scatter_reference(vals, idx_l, B, capD)
+
+
+def window_gather2_backward_raw(dga, dgb, act_l, new_l, B, capD, inc=None):
+    """The backward of window_gather2 without autograd: (d ga_d, d gb_d) =
+    the window scatters of dga [P, na, F] by act_l and dgb [P, nt, F] by
+    new_l; one kernel launch for both on a CUDA tensor, the plain versions
+    on a CPU tensor.  inc as window_scatter_raw's, over slots q*(na + nt)
+    + r."""
+    if _on_cuda(dga):
+        return _window_gather2_bwd_cuda(dga, dgb, act_l, new_l, B, capD, inc)
+    return (window_scatter_reference(dga, act_l, B, capD),
+            window_scatter_reference(dgb, new_l, B, capD))
 
 
 def _zeros_if_none(g, shape, device):
@@ -461,37 +548,40 @@ class WindowScatter(torch.autograd.Function):
     """window_scatter_raw with its VJP, a plain gather (pallas_block.py:667)."""
 
     @staticmethod
-    def forward(ctx, vals, idx_l, B, capD):
+    def forward(ctx, vals, idx_l, B, capD, inc_ptr, inc_slot):
         ctx.save_for_backward(idx_l)
         ctx.B, ctx.capD = B, capD
-        return window_scatter_raw(vals, idx_l, B, capD)
+        inc = None if inc_ptr is None else (inc_ptr, inc_slot)
+        return window_scatter_raw(vals, idx_l, B, capD, inc)
 
     @staticmethod
     def backward(ctx, dout):
         (idx_l,) = ctx.saved_tensors
-        return dout[global_idx(idx_l, ctx.B, ctx.capD)], None, None, None
+        return dout[global_idx(idx_l, ctx.B, ctx.capD)], None, None, None, None, None
 
 
 class WindowGather2(torch.autograd.Function):
     """(ga_d[act], gb_d[new]): a plain gather forward; the backward scatters
-    both cotangents back to the detection layout through the window_scatter
-    kernel (pallas_block.py:696-704).  With msg 'diff' the caller passes one
-    tensor as both ga_d and gb_d, and autograd sums the two cotangents."""
+    both cotangents back to the detection layout in one launch of the
+    window_scatter kernel (pallas_block.py:696-704).  With msg 'diff' the
+    caller passes one tensor as both ga_d and gb_d, and autograd sums the
+    two cotangents."""
 
     @staticmethod
-    def forward(ctx, ga_d, gb_d, act_l, new_l, B, capD):
-        ctx.save_for_backward(act_l, new_l)
+    def forward(ctx, ga_d, gb_d, act_l, new_l, B, capD, inc_ptr, inc_slot):
+        ctx.save_for_backward(act_l, new_l, inc_ptr, inc_slot)
         ctx.B, ctx.capD = B, capD
         ctx.widths = (ga_d.shape[1], gb_d.shape[1])
         return window_gather2_reference(ga_d, gb_d, act_l, new_l, B, capD)
 
     @staticmethod
     def backward(ctx, dga, dgb):
-        act_l, new_l = ctx.saved_tensors
+        act_l, new_l, inc_ptr, inc_slot = ctx.saved_tensors
         dga = _zeros_if_none(dga, (*act_l.shape, ctx.widths[0]), act_l.device)
         dgb = _zeros_if_none(dgb, (*new_l.shape, ctx.widths[1]), new_l.device)
-        return (window_scatter_raw(dga, act_l, ctx.B, ctx.capD),
-                window_scatter_raw(dgb, new_l, ctx.B, ctx.capD), None, None, None, None)
+        inc = None if inc_ptr is None else (inc_ptr, inc_slot)
+        return (*window_gather2_backward_raw(dga, dgb, act_l, new_l, ctx.B, ctx.capD, inc),
+                None, None, None, None, None, None)
 
 
 class FusedBlockRoundEs(torch.autograd.Function):
@@ -533,12 +623,22 @@ def fused_block_round(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
     return FusedBlockRound.apply(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign)
 
 
-def window_scatter(vals, idx_l, B, capD):
-    return WindowScatter.apply(vals, idx_l, B, capD)
+def window_scatter(vals, idx_l, B, capD, inc=None):
+    """Sum vals[p, i] into row (p % B)*capD + idx_l[p, i] of a [B*capD, F]
+    output (window_scatter, pallas_block.py:639), differentiable in vals.
+    inc: the batch's detection incidence (BlockBatch.det_inc_ptr,
+    det_inc_slot) over slots p*n + i of vals [P, n, F], which must be 0 at
+    every position it does not list; without it the card builds the full
+    incidence of idx_l for the call."""
+    return WindowScatter.apply(vals, idx_l, B, capD, *(inc or (None, None)))
 
 
-def window_gather2(ga_d, gb_d, act_l, new_l, B, capD):
-    return WindowGather2.apply(ga_d, gb_d, act_l, new_l, B, capD)
+def window_gather2(ga_d, gb_d, act_l, new_l, B, capD, inc=None):
+    """(ga_d[act], gb_d[new]) per block (window_gather2,
+    pallas_block.py:677); the backward scatters both cotangents in one
+    launch.  inc: as window_scatter's, over slots q*(na + nt) + r (the
+    batch's incidence with act_l [P, na] and new_l [P, nt])."""
+    return WindowGather2.apply(ga_d, gb_d, act_l, new_l, B, capD, *(inc or (None, None)))
 
 
 def fused_block_round_es(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3, sign, B,

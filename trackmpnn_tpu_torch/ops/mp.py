@@ -18,6 +18,15 @@ tensor and its plain version on a CPU tensor.  Indices and masks get no
 gradient.  A forward launches its kernel once, a backward the other one
 once.
 
+The signed_segment_sum kernel pulls each destination row's terms through
+a destination-sorted incidence (segment_incidence): every edge row, at
+past(e) with sign +1 and at fut(e) with sign -1.  The
+kernel reads the mask itself, so a graph view (graph/view.py) or a step
+batch builds one incidence on the device and hands it to every round and
+branch (`inc=`); without one the CUDA wrapper builds it for the call.
+On the card one call of the build kernels makes it; a CPU view or batch
+builds none (kernel_incidence).  BUILDS[name] counts the incidence builds.
+
 fused_edge_gru (pallas_mp.py:84) is gather_diff and the edge GRU in one
 launch, forward only as on the TPU: it refuses to run where autograd would
 need its gradient.  The served forward (no gradient recorded) takes it in
@@ -34,6 +43,7 @@ import torch
 from trackmpnn_tpu_torch.ops import _build
 
 LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
+BUILDS = {"segment_incidence": 0}
 _EDGE_GRU_CTAS: dict = {}  # (device index, H) -> the kernel's grid cap, set up once
 
 
@@ -55,6 +65,87 @@ def signed_segment_sum_reference(h, past, fut, edge_mask, n):
     acc.index_add_(0, torch.where(m, past, n), hm)
     acc.index_add_(0, torch.where(m, fut, n), -hm)
     return acc[:n].to(h.dtype)
+
+
+def signed_segment_sum_pull_reference(h, edge_mask, inc, n):
+    """signed_segment_sum as its kernel computes it: per destination row d,
+    the f64 sum of sign * h[e] over d's incidence entries (segment_incidence)
+    whose row is masked in, rounded to f32 once."""
+    ptr, ent = inc
+    N = h.shape[0]
+    ent = ent[:int(ptr[-1])].long()
+    neg = ent >= N
+    rows = torch.where(neg, ent - N, ent)
+    owner = torch.repeat_interleave(torch.arange(n, device=h.device), (ptr[1:] - ptr[:-1]).long(),
+                                    output_size=ent.numel())
+    vals = torch.where(edge_mask.bool()[rows, None], h[rows].double(), 0.0)
+    vals = torch.where(neg[:, None], -vals, vals)
+    return vals.new_zeros(n, h.shape[1]).index_add_(0, owner, vals).to(h.dtype)
+
+
+def segment_incidence_reference(past, fut, n):
+    """The destination-sorted incidence of signed_segment_sum on the device
+    of past, in plain tensor ops (a stable sort and a search; no host
+    synchronisation): the build kernel's plain version.
+
+    Entry k < N is row k at destination past[k] with sign +1, entry k >= N
+    row k - N at fut[k - N] with sign -1 (the doubled incidence [past;
+    fut]).  Rows that point at themselves at both ends are left out: the
+    detection and padding rows graph/view.py::pack_slots writes, which are
+    never masked in (and would add +h - h to themselves if they were).  An
+    endpoint outside [0, n) is not listed (the kernel traps on it where the
+    row is masked in).  Inside a destination, the +1 entries come first,
+    then the -1 entries, each in row order.  Returns (ptr int32[n + 1], ent
+    int32[2N]): destination d's entries are ent[ptr[d]:ptr[d + 1]]; ent
+    beyond ptr[n] is unused."""
+    N = past.shape[0]
+    dev = past.device
+    rows = torch.arange(N, device=dev, dtype=torch.int32)
+    listed = (past != rows) | (fut != rows)
+    ends = torch.cat([past, fut])
+    key = torch.where(listed.repeat(2) & (ends >= 0) & (ends < n), ends, n)
+    skey, order = torch.sort(key, stable=True)
+    ptr = torch.searchsorted(skey, torch.arange(n + 1, device=dev, dtype=torch.int32),
+                             out_int32=True)
+    return ptr, order.to(torch.int32)
+
+
+def segment_incidence(past, fut, n):
+    """segment_incidence_reference's incidence of int32 past/fut [N] over n
+    destination rows: on a CUDA tensor one call of the build kernels (a
+    memset and four launches from C; bitwise the same; no host
+    synchronisation), on a CPU tensor the plain version.  Counted in
+    BUILDS."""
+    N = past.shape[0]
+    if 2 * N >= 2 ** 31 or n >= 2 ** 31 - 1:
+        raise ValueError(f"segment_incidence: {N} rows overflow the int32 entries")
+    if not _dispatch(past):
+        BUILDS["segment_incidence"] += 1
+        return segment_incidence_reference(past, fut, n)
+    for label, t in (("past", past), ("fut", fut)):
+        if t.device != past.device or t.dtype != torch.int32 or tuple(t.shape) != (N,):
+            raise TypeError(f"segment_incidence: {label} must be int32[{N}] on {past.device}, "
+                            f"got {t.dtype}{list(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"segment_incidence: {label} is not contiguous")
+    # ptr, ent and the kernel's scratch (cursors, unsorted lists) in one buffer
+    buf = torch.empty(2 * (n + 1 + 2 * N), dtype=torch.int32, device=past.device)
+    ptr, ent = buf[:n + 1], buf[n + 1:n + 1 + 2 * N]
+    at = buf.data_ptr()
+    with torch.cuda.device(past.device):
+        rc = _build.load().tm_segment_incidence(
+            past.data_ptr(), fut.data_ptr(), at, at + 4 * (n + 1), at + 4 * (n + 1 + 2 * N), N,
+            n, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_incidence kernel launch failed: CUDA error {rc}")
+    BUILDS["segment_incidence"] += 1
+    return ptr, ent
+
+
+def kernel_incidence(past, fut, n):
+    """segment_incidence where the signed_segment_sum kernel will read it
+    (past on a CUDA device), else None: the plain version reads none."""
+    return segment_incidence(past, fut, n) if past.device.type == "cuda" else None
 
 
 def edge_gru_reference(h, past, fut, edge_mask, w_ih, w_hh, b_ih, b_hh):
@@ -122,25 +213,42 @@ def gather_diff_raw(h, past, fut, edge_mask):
     return out
 
 
-def signed_segment_sum_raw(h, past, fut, edge_mask, n):
+def _check_incidence(name, h, inc, n):
+    ptr, ent = inc
+    for label, t in (("inc ptr", ptr), ("inc entries", ent)):
+        if t.device != h.device or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name}: {label} must be int32[...] on {h.device}, got "
+                            f"{t.dtype}{list(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} is not contiguous")
+    if ptr.shape[0] != n + 1:
+        raise ValueError(f"{name}: inc ptr has {ptr.shape[0]} offsets, expected {n + 1}")
+
+
+def signed_segment_sum_raw(h, past, fut, edge_mask, n, inc=None):
     """out[d] = sum over edges e with past(e)=d of h[e] minus the sum over
     edges with fut(e)=d; out is f32[n, H].  Without autograd: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor.  On the card the sums
-    run in f64 atomics into a scratch this wrapper allocates, rounded to f32
-    once.  past/fut of every edge row must lie in [0, n); on the card an
-    index outside traps the kernel, and the next synchronisation raises."""
+    a CUDA tensor, the plain version on a CPU tensor.  On the card the
+    kernel pulls each row's terms through `inc`, the segment_incidence of
+    past/fut (one launch; built here for the call when None) and sums them
+    in f64, rounded to f32 once.  past/fut of every edge row must lie in
+    [0, n); on the card an index outside traps the kernel, and the next
+    synchronisation raises."""
     if not _dispatch(h):
         return signed_segment_sum_reference(h, past, fut, edge_mask, n)
     _check_cuda_inputs("signed_segment_sum", h, past, fut, edge_mask)
     N, H = h.shape
+    if inc is None:
+        inc = segment_incidence(past, fut, n)
+    _check_incidence("signed_segment_sum", h, inc, n)
+    ptr, ent = inc
     out = torch.empty(n, H, dtype=torch.float32, device=h.device)
     if n == 0:
         return out
-    scratch = torch.empty(n, H, dtype=torch.float64, device=h.device)
     with torch.cuda.device(h.device):
         rc = _build.load().tm_signed_segment_sum(
-            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), N, n, H,
+            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(), ptr.data_ptr(),
+            ent.data_ptr(), ent.numel(), out.data_ptr(), N, n, H,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"signed_segment_sum kernel launch failed: CUDA error {rc}")
@@ -150,18 +258,20 @@ def signed_segment_sum_raw(h, past, fut, edge_mask, n):
 
 class GatherDiff(torch.autograd.Function):
     """gather_diff_raw; its VJP is the signed scatter of the cotangent back
-    to the endpoints (pallas_mp.py:247-253)."""
+    to the endpoints (pallas_mp.py:247-253), through `inc` where given."""
 
     @staticmethod
-    def forward(ctx, h, past, fut, edge_mask):
-        ctx.save_for_backward(past, fut, edge_mask)
+    def forward(ctx, h, past, fut, edge_mask, inc_ptr, inc_ent):
+        ctx.save_for_backward(past, fut, edge_mask, inc_ptr, inc_ent)
         ctx.n = h.shape[0]
         return gather_diff_raw(h, past, fut, edge_mask)
 
     @staticmethod
     def backward(ctx, g):
-        past, fut, edge_mask = ctx.saved_tensors
-        return signed_segment_sum_raw(g.contiguous(), past, fut, edge_mask, ctx.n), None, None, None
+        past, fut, edge_mask, inc_ptr, inc_ent = ctx.saved_tensors
+        inc = None if inc_ptr is None else (inc_ptr, inc_ent)
+        return (signed_segment_sum_raw(g.contiguous(), past, fut, edge_mask, ctx.n, inc),
+                None, None, None, None, None)
 
 
 class SignedSegmentSum(torch.autograd.Function):
@@ -172,28 +282,33 @@ class SignedSegmentSum(torch.autograd.Function):
     device."""
 
     @staticmethod
-    def forward(ctx, h, past, fut, edge_mask, n):
+    def forward(ctx, h, past, fut, edge_mask, n, inc_ptr, inc_ent):
         ctx.save_for_backward(past, fut, edge_mask)
-        return signed_segment_sum_raw(h, past, fut, edge_mask, n)
+        inc = None if inc_ptr is None else (inc_ptr, inc_ent)
+        return signed_segment_sum_raw(h, past, fut, edge_mask, n, inc)
 
     @staticmethod
     def backward(ctx, g):
         past, fut, edge_mask = ctx.saved_tensors
-        return gather_diff_raw(g.contiguous(), past, fut, edge_mask), None, None, None, None
+        return (gather_diff_raw(g.contiguous(), past, fut, edge_mask),
+                None, None, None, None, None, None)
 
 
-def gather_diff(h, past, fut, edge_mask):
-    """node_support, differentiable in h (GatherDiff)."""
-    return GatherDiff.apply(h, past, fut, edge_mask)
+def gather_diff(h, past, fut, edge_mask, inc=None):
+    """node_support, differentiable in h (GatherDiff).  inc: the
+    segment_incidence of past/fut, for the backward's signed_segment_sum."""
+    return GatherDiff.apply(h, past, fut, edge_mask, *(inc or (None, None)))
 
 
-def signed_segment_sum(h, past, fut, edge_mask, n):
+def signed_segment_sum(h, past, fut, edge_mask, n, inc=None):
     """edge_support, differentiable in h (SignedSegmentSum) where n equals
-    h's row count; for another n it raises if a gradient is wanted."""
+    h's row count; for another n it raises if a gradient is wanted.  inc:
+    the segment_incidence of past/fut over n rows (built for the call on the
+    card when None)."""
     if torch.is_grad_enabled() and h.requires_grad and n != h.shape[0]:
         raise ValueError(f"signed_segment_sum: a gradient needs n == N, got n {n}, "
                          f"N {h.shape[0]}")
-    return SignedSegmentSum.apply(h, past, fut, edge_mask, n)
+    return SignedSegmentSum.apply(h, past, fut, edge_mask, n, *(inc or (None, None)))
 
 
 def _check_gru_weights(h, w_ih, w_hh, b_ih, b_hh):

@@ -13,7 +13,8 @@ per-window layout [B*capD, H]:
     run in one kernel per step (ops.block.fused_block_round);
   * edge_support (signed incident sums per detection) is one scatter of
     the row sums (+) and column sums (-) into the detection layout
-    (ops.block.window_scatter).
+    (ops.block.window_scatter), a pull over the batch's detection incidence
+    (BlockBatch.det_inc_ptr / det_inc_slot), as is the gather's backward.
 
 With attention heads (cfg.nattheads > 0) edge_support is instead the mean
 over heads of attention-weighted signed sums (_block_gat_support): the
@@ -89,7 +90,8 @@ class BlockBatch(NamedTuple):
     edge_label: torch.Tensor  # i32[B*T, na_cap, nt_cap]
     step_valid: torch.Tensor  # bool[t_cap, B]
     # the detection incidence of the step-major blocks (ops/block.py::
-    # block_incidence), for the es round: i32[B*capD + 1], i32[n]
+    # block_incidence), for the es round and the window ops:
+    # i32[B*capD + 1], i32[n]
     det_inc_ptr: torch.Tensor
     det_inc_slot: torch.Tensor
 
@@ -392,7 +394,7 @@ def draw_att_keep(generator, nh, shape, device):
 
 
 def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_live,
-                       col_live, B, capD, att_keep=None):
+                       col_live, B, capD, att_keep=None, inc=None):
     """edge_support with attention heads, all heads at once (the stacked
     path of _block_gat_support, block.py:402-468; ref layers.py:7-46).
 
@@ -405,7 +407,8 @@ def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_l
     window-local detection ids; m3 [P, na, nt] f32 live cells; row_live /
     col_live [P, na] / [P, nt] the live rows and columns.  att_keep: the two
     keep masks of train-time dropout (draw_att_keep), or None for none.
-    Returns es [nD, H], the mean over heads."""
+    inc: the batch's detection incidence, for the window ops.  Returns es
+    [nD, H], the mean over heads."""
     nD = h_d_b.shape[0]
     nh = len(gat_params)
     seg = torch.cat([act.reshape(-1), new.reshape(-1)])
@@ -414,7 +417,7 @@ def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_l
     a_att = torch.cat([hp["a"] for hp in gat_params], dim=0)
     h_att = h_d_b @ w_att                                                 # [nD, nh*H]
     # h_att[act], h_att[new], with the window scatter kernel as backward
-    ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD)
+    ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD, inc)
     e, rmax, cmax, sal, sbl = gat_scores_stats(ha, hn, a_att, m3, mpnn.LEAKY_ALPHA, nh)
     # the softmax shift: per-head segment max over [rows | columns] (no
     # gradient, rmax and cmax carry none)
@@ -434,11 +437,11 @@ def _block_gat_support(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_l
     # attention is 0 at every padded cell, so rs / cs are 0 at padded rows
     # and columns and the unmasked window scatter is exact
     return window_scatter(torch.cat([rs, -cs], dim=1), torch.cat([act_l, new_l], dim=1),
-                          B, capD) / nh
+                          B, capD, inc) / nh
 
 
 def _block_gat_support_per_head(gat_params, h_d_b, h_e, act, new, act_l, new_l, m3, row_live,
-                                col_live, B, capD, att_keep=None):
+                                col_live, B, capD, att_keep=None, inc=None):
     """_block_gat_support one head at a time (the per-head loop of
     _block_gat_support, block.py:469-513; the JAX package's route with
     gat_fused=False): per head the detection projection, its window gather,
@@ -456,7 +459,7 @@ def _block_gat_support_per_head(gat_params, h_d_b, h_e, act, new, act_l, new_l, 
     acc = None
     for h, hp in enumerate(gat_params):
         h_att = h_d_b @ hp["W_att"]                                       # [nD, H]
-        ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD)
+        ha, hn = window_gather2(h_att, h_att, act_l, new_l, B, capD, inc)
         e, rmax, cmax, sal, sbl = gat_scores_stats_1h(ha, hn, hp["a"], m3, mpnn.LEAKY_ALPHA)
         m_d = segment_max(torch.cat([rmax.reshape(-1), cmax.reshape(-1)]), seg, nD, mask=vm)
         safe_m = torch.where(m_d > _NEG / 2, m_d, 0.0)                    # [nD]
@@ -466,7 +469,7 @@ def _block_gat_support_per_head(gat_params, h_d_b, h_e, act, new, act_l, new_l, 
         z = segment_sum(torch.cat([sa.reshape(-1), sb.reshape(-1)]), seg, nD, mask=vm)
         ka, kn = (m3, m3) if att_keep is None else (att_keep[0][h], att_keep[1][h])
         rs, cs = gat_aggregate_1h(e, m_row, m_col, z[act], z[new], h_e, m3, ka, kn, keep)
-        es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx, B, capD)
+        es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx, B, capD, inc)
         acc = es if acc is None else acc + es
     return acc / len(gat_params)
 
@@ -648,7 +651,7 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                     h_e[bi], act_l[:P], new_l[:P], ga_d, ga_d, eg["b_ih"], eg["w_hh"],
                     eg["b_hh"], w_ebs[bi], m3[s, :P], -1.0, B, capD, inc)
             else:
-                ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD)
+                ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD, inc)
                 edge_out, rs, cs, lg_b = fused_block_round(h_e[bi], ga_g + eg["b_ih"], gb,
                                                            eg["w_hh"], eg["b_hh"], w_ebs[bi],
                                                            m3[s, :P], -1.0)
@@ -656,9 +659,10 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                     # the round's rs / cs go unused: attention weighs the edges
                     es = gat_support(bp["gat"], h_d_b, h_e[bi], act[:P], new[:P], act_l[:P],
                                      new_l[:P], m3[s, :P], blk_live[s, :P, None] & row_m[:P],
-                                     blk_live[s, :P, None] & col_m[:P], B, capD, keeps[bi])
+                                     blk_live[s, :P, None] & col_m[:P], B, capD, keeps[bi],
+                                     inc)
                 else:
-                    es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD)
+                    es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD, inc)
             node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
             hd_parts.append(torch.where(det_live[s][:, None], node_out, 0.0))
             eo_parts.append(edge_out)

@@ -26,6 +26,7 @@ import torch
 from trackmpnn_tpu_torch.graph.view import GraphView
 from trackmpnn_tpu_torch.losses.losses import EPS, f1_counts, targets_and_ce
 from trackmpnn_tpu_torch.models import mpnn, nn
+from trackmpnn_tpu_torch.ops import mp
 from trackmpnn_tpu_torch.ops.round import fused_round, round_incidence
 from trackmpnn_tpu_torch.train.step import tree_map
 
@@ -47,6 +48,10 @@ class PackedBatch(NamedTuple):
     valid_host: np.ndarray    # bool[t_cap, B], step_valid on the host
     inc_ptr: torch.Tensor     # int32[B*cap + 1] the fused round's incidence
     inc_idx: torch.Tensor     # int32[n]         (ops/round.py::round_incidence)
+    # signed_segment_sum's incidence of past/fut for the unfused rounds
+    # (ops/mp.py::segment_incidence), built once a batch on the card; None
+    # on the CPU
+    seg_inc: tuple
 
     @property
     def n_windows(self) -> int:
@@ -76,12 +81,14 @@ def pack_schedules(schedules: List, cap: int, t_cap: int, device="cuda") -> Pack
     inc_ptr, inc_idx = round_incidence(static)
     valid = stack("step_valid", bool)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    past, fut = put(offset("past")), put(offset("fut"))
     return PackedBatch(
-        is_det=put(cat("is_det", bool)), past=put(offset("past")), fut=put(offset("fut")),
-        label=put(cat("label", np.int32)), feat=put(cat("feat", np.float32)),
+        is_det=put(cat("is_det", bool)), past=past, fut=fut, label=put(cat("label", np.int32)),
+        feat=put(cat("feat", np.float32)),
         window=put(np.repeat(np.arange(B, dtype=np.int32), cap)),
         n_before=put(stack("n_before", np.int32)), n_after=put(stack("n_after", np.int32)),
-        step_valid=put(valid), valid_host=valid, inc_ptr=put(inc_ptr), inc_idx=put(inc_idx))
+        step_valid=put(valid), valid_host=valid, inc_ptr=put(inc_ptr), inc_idx=put(inc_idx),
+        seg_inc=mp.kernel_incidence(past, fut, B * cap))
 
 
 def _per_window_bce(probs, targets, mask, n_windows):
@@ -175,7 +182,7 @@ def packed_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, pb: Packed
             out, stats = _forward_fused_round(params, stats, cfg, pb, idxw, live, new, h, train)
         else:
             g = GraphView(is_det=pb.is_det, past=pb.past, fut=pb.fut, live=live, new=new,
-                          feat=pb.feat)
+                          feat=pb.feat, inc=pb.seg_inc)
             out, stats = mpnn.forward(params, stats, cfg, g, h, train=train,
                                       generator=generator)
         targets, ce = targets_and_ce(out.logits, pb.label, pb.is_det, pb.past, pb.fut, live)

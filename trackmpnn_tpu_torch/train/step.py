@@ -24,6 +24,7 @@ import torch
 from trackmpnn_tpu_torch.graph.view import GraphView
 from trackmpnn_tpu_torch.losses.losses import step_losses
 from trackmpnn_tpu_torch.models import mpnn
+from trackmpnn_tpu_torch.ops import mp
 
 
 class ScheduleBatch(NamedTuple):
@@ -38,15 +39,22 @@ class ScheduleBatch(NamedTuple):
     n_before: np.ndarray      # int32[t_cap]  (host)
     n_after: np.ndarray       # int32[t_cap]  (host)
     step_valid: np.ndarray    # bool[t_cap]   (host)
+    # signed_segment_sum's incidence of past/fut (ops/mp.py::
+    # segment_incidence), built once here for every round and backward on
+    # the card; None on the CPU
+    inc: tuple
 
 
 def schedule_to_device(ws, device="cuda") -> ScheduleBatch:
+    """The schedule's arrays on `device`, with its incidence built there
+    where the kernel reads it (mp.kernel_incidence)."""
     put = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    past, fut = put(ws.past, np.int32), put(ws.fut, np.int32)
     return ScheduleBatch(
-        is_det=put(ws.is_det, bool), past=put(ws.past, np.int32), fut=put(ws.fut, np.int32),
-        label=put(ws.label, np.int32), feat=put(ws.feat, np.float32),
+        is_det=put(ws.is_det, bool), past=past, fut=fut, label=put(ws.label, np.int32),
+        feat=put(ws.feat, np.float32),
         n_before=np.asarray(ws.n_before, np.int32), n_after=np.asarray(ws.n_after, np.int32),
-        step_valid=np.asarray(ws.step_valid, bool))
+        step_valid=np.asarray(ws.step_valid, bool), inc=mp.kernel_incidence(past, fut, len(past)))
 
 
 def tree_map(fn, tree):
@@ -89,7 +97,7 @@ def window_forward(params, batch_stats, cfg: mpnn.ModelConfig, sb: ScheduleBatch
         live = idx < int(sb.n_after[s])
         new = (idx >= int(sb.n_before[s])) & live
         g = GraphView(is_det=sb.is_det, past=sb.past, fut=sb.fut, live=live, new=new,
-                      feat=sb.feat)
+                      feat=sb.feat, inc=sb.inc)
         out, stats = mpnn.forward(params, stats, cfg, g, h, train=train, generator=generator,
                                   att_keep=None if att_keep is None else att_keep[s])
         ce, f, (t_p, f_p, f_n), _ = step_losses(out.scores, out.logits, sb.label, sb.is_det,
