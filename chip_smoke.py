@@ -61,7 +61,14 @@ failure exits non-zero:
     against the plain pull over it and the call without an incidence)
     against their plain versions on the recorded inputs, each bitwise the
     same on a second launch, timed beside its plain version, its bound
-    and, for the scatter, one index_add_ over the same values.
+    (the round kernels also at the TF32 rate their 3xTF32 products run at:
+    3 x the f32 operations over 495 TFLOP/s) and, for the scatter, one
+    index_add_ over the same values.  Then the two round kernels once more
+    at P 16, na = nt = 64, H 128 on seeded inputs (a width the first design
+    refused), against their plain versions evaluated in f64 (at H 128 two
+    f32 evaluations differ by ~1e-5 in lg) with the same tolerances, and
+    one block step at nhidden 128 (phase 5's workload, first step only)
+    against its CPU rerun to phase 5's tolerances.
  7. GAT training: the block train step of phase 5 with one attention head
     (weights from torch.Generator seed 0) and real attention dropout.  The
     first step takes keep masks drawn on the card (att_keep) and records
@@ -128,7 +135,10 @@ failure exits non-zero:
     phase 18's fused_loss step's (three branches side by side, K = 192; it
     runs after phase 18); each bitwise the same on a second launch, timed
     beside its plain version and its bound (live cells only); no single
-    PyTorch call computes them (library: none).
+    PyTorch call computes them (library: none).  Then the es round's two
+    kernels at B 4, T 4, capD 128, na = nt = 64, H 128 on seeded inputs
+    (tests/torch_port_util.py::es_inputs) against their plain versions in
+    f64, as phase 6's wide rows.
 15. The embedding path (train/embed.py's EmbedTrainer, whose step and infer
     take packed arrays) at KITTI's input, 384 x 1280, for espv2, dla34 with
     dcn_max_offset 2.0 (every deform block through the DCN kernels) and
@@ -252,9 +262,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")  # build/ is git-ignored
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores,
+# dense TF32 on the tensor cores (the block round kernels' products, three
+# TF32 products for each f32 one: 3xTF32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 
 SERVE_TRACKS, SERVE_FRAMES, SERVE_SEEDS, WIN = 30, 100, (0, 1, 2), 5
 HIDDEN = 64
@@ -274,6 +287,12 @@ TRAIN_LR, TRAIN_WD = 1e-4, 5e-4
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 ROUND_FWD_ATOL = WSCATTER_ATOL = 1e-5
 ROUND_BWD_RTOL, ROUND_BWD_ATOL_SCALE = 1e-4, 1e-5
+# the block round kernels held once more at a width the first design
+# refused (its shared memory grew with H and na + nt), on seeded inputs, and
+# one block step at that hidden width card against CPU
+WIDE_HIDDEN = 128
+WIDE_ROUND = dict(P=16, na=64, nt=64, H=WIDE_HIDDEN)
+WIDE_ES = dict(B=4, T=4, capD=128, na=64, nt=64, H=WIDE_HIDDEN)
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-3, 1e-4
 # f32 operations a live cell of the round takes beyond its products: the
 # gate arithmetic per hidden unit (adds, sigmoid x2, tanh, the output mix)
@@ -337,6 +356,12 @@ def cuda_time_ms(fn, iters: int = 64, warmup: int = 20, queue_ahead: bool = True
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_tf32_ms(nbytes: float, flops: float):
+    """The bound at the rate the block round kernels run their products:
+    3 x the f32 operations (3xTF32) over the dense TF32 rate, or the bytes."""
+    return max(nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_PER_S) * 1e3
 
 
 def peak_window(seed: int):
@@ -1007,7 +1032,7 @@ def block_incidence_host(np, block_ops, bb, what):
 
 def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
                    fused_loss=False, features="2d", workload=None, gat_fused=True, timed=True,
-                   keep1=None):
+                   keep1=None, hidden=HIDDEN):
     """Phase 5 (heads = 0), 7, 13 (es_kernel, with or without fused_loss),
     18 (features 2d+temp+vis on `workload`: the default composition timed,
     es_kernel and fused_loss a first step) or 19 (the same with 3 heads on
@@ -1027,6 +1052,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         what = f"GAT training ({heads} head{'s' if heads > 1 else ''}, dropout {mpnn.ATT_DROPOUT})"
     if features != "2d":
         what = f"{what}, {features}"
+    if hidden != HIDDEN:
+        what = f"{what}, nhidden {hidden}"
     flags = [k for k, on in (("es_kernel", es_kernel), ("fused_loss", fused_loss),
                              ("per-head route", heads and not gat_fused)) if on]
     if flags:
@@ -1039,11 +1066,11 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
              f"{block_ops.BUILDS['block_incidence'] - built} times, expected once")
     block_incidence_host(np, block_ops, bb, what)
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
-    cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=HIDDEN, msg_type="diff",
+    cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=hidden, msg_type="diff",
                            nattheads=heads)
     nb = len(cfg.branches)
     print(f"{what} inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
-          f"nt_cap {bb.nt_cap}, H {HIDDEN}, branches {nb}, feature columns "
+          f"nt_cap {bb.nt_cap}, H {hidden}, branches {nb}, feature columns "
           f"{bb.det_feat.shape[1]}, P at the last step {bb.n_windows * t_cap}, "
           f"live edge rows a step {edges}, live cells in all blocks {live_cells}")
     params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
@@ -1135,7 +1162,7 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         "features": features, "branches": nb, "heads": heads, "gat_fused": gat_fused,
         "es_kernel": es_kernel, "fused_loss": fused_loss,
         "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
-        "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": HIDDEN, "edges_per_step": edges,
+        "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": hidden, "edges_per_step": edges,
         "live_cells": live_cells, "loss_first": float(loss1),
         "launches_first_step": first_launches,
     }
@@ -1197,30 +1224,38 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
     return summary, inputs, (loss1, aux1, grads1)
 
 
-def block_kernel_phase(torch, block_ops, inputs, launches):
-    """Each block kernel on the recorded widest inputs of the training step
-    against its plain version, twice (bitwise), and timed."""
-    H = HIDDEN
-    results = []
-    fwd_args = inputs["fwd"]
+def round_pair_rows(torch, block_ops, fwd_args, bwd_args, launches, exact=False):
+    """block_round_fwd (atol 1e-5) and block_round_bwd (rtol 1e-4, atol
+    1e-5 x each output's scale) against their plain versions (evaluated in
+    f64 with `exact`), each bitwise the same on a second launch, padded cells
+    exactly 0; timed beside the plain versions in f32, the f32 bound and the
+    bound at the TF32 rate the products run at."""
     he, ga, gb, whh, bhh, web, mask, sign = fwd_args
-    P, na, nt, _ = he.shape
+    P, na, nt, H = he.shape
     live = mask != 0
     cells = int(live.sum())
     rows_a = int(live.any(2).sum())
     cols_b = int(live.any(1).sum())
+    if exact:
+        if os.path.join(HERE, "tests") not in sys.path:
+            sys.path.insert(0, os.path.join(HERE, "tests"))
+        from torch_port_util import in_f64
+    plain = in_f64 if exact else (lambda f, *a: f(*a))
+    shape = f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}"
+    results = []
 
     got = block_ops._block_round_fwd_cuda(*fwd_args)
     again = block_ops._block_round_fwd_cuda(*fwd_args)
-    want = block_ops.block_round_reference(*fwd_args)
+    want = plain(block_ops.block_round_reference, *fwd_args)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     if err > ROUND_FWD_ATOL:
-        fail(f"block_round_fwd differs from its plain version by {err} (atol {ROUND_FWD_ATOL})")
+        fail(f"block_round_fwd ({shape}) differs from its plain version by {err} "
+             f"(atol {ROUND_FWD_ATOL})")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("block_round_fwd is not bitwise the same on a second launch")
+        fail(f"block_round_fwd ({shape}) is not bitwise the same on a second launch")
     if not (torch.all(got[0][~live] == 0) and torch.all(got[3][~live] == 0)):
-        fail("block_round_fwd wrote a nonzero edge_out or lg at a padded cell")
+        fail(f"block_round_fwd ({shape}) wrote a nonzero edge_out or lg at a padded cell")
     fwd_flops = cells * (2 * H * 3 * H + 2 * H + 2 * H + GATE_FLOPS_PER_UNIT * H)
     fwd_bytes = 4 * (cells * H + P * na * nt + (rows_a + cols_b) * 3 * H + H * 3 * H + 4 * H
                      + P * na * nt * (H + 1) + P * (na + nt) * H)
@@ -1235,24 +1270,25 @@ def block_kernel_phase(torch, block_ops, inputs, launches):
                                 queue_ahead=False),
         "plain_ms": cuda_time_ms(lambda: block_ops.block_round_reference(*fwd_args),
                                  iters=PLAIN_ITERS),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}",
+        "bound_ms": b, "bound_by": by, "bound_tf32_ms": bound_tf32_ms(fwd_bytes, fwd_flops),
+        "library_ms": None, "shape": shape,
     })
 
-    bwd_args = inputs["bwd"]
     got = block_ops._block_round_bwd_cuda(*bwd_args)
     again = block_ops._block_round_bwd_cuda(*bwd_args)
-    want = block_ops.block_round_backward_reference(*bwd_args)
+    want = plain(block_ops.block_round_backward_reference, *bwd_args)
     torch.cuda.synchronize()
     err = 0.0
     for name, a, w in zip(["dhe", "dga", "dgb", "dwhh", "dbhh", "dweb"], got, want):
         atol = ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)
         err = max(err, float((a - w).abs().max()))
         if not torch.allclose(a, w, rtol=ROUND_BWD_RTOL, atol=atol):
-            fail(f"block_round_bwd {name} differs from its plain version by "
+            fail(f"block_round_bwd ({shape}) {name} differs from its plain version by "
                  f"{float((a - w).abs().max()):.3g} (rtol {ROUND_BWD_RTOL}, atol {atol:.3g})")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("block_round_bwd is not bitwise the same on a second launch")
+        fail(f"block_round_bwd ({shape}) is not bitwise the same on a second launch")
+    if not torch.all(got[0][~live] == 0):
+        fail(f"block_round_bwd ({shape}) wrote a nonzero d h_e at a padded cell")
     bwd_flops = cells * (3 * 2 * H * 3 * H + 2 * GATE_FLOPS_PER_UNIT * H)
     bwd_bytes = 4 * (2 * cells * H + 2 * P * na * nt + (rows_a + cols_b) * (3 * H + H)
                      + H * 3 * H + 4 * H + P * na * nt * H + P * (na + nt) * 3 * H
@@ -1268,9 +1304,56 @@ def block_kernel_phase(torch, block_ops, inputs, launches):
                                 queue_ahead=False),
         "plain_ms": cuda_time_ms(lambda: block_ops.block_round_backward_reference(*bwd_args),
                                  iters=PLAIN_ITERS),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}",
+        "bound_ms": b, "bound_by": by, "bound_tf32_ms": bound_tf32_ms(bwd_bytes, bwd_flops),
+        "library_ms": None, "shape": shape,
     })
+    return results
+
+
+def print_kernel_row(r, suffix=""):
+    tf32 = "" if "bound_tf32_ms" not in r else f", at the TF32 rate {r['bound_tf32_ms'] * 1e3:.2f} us"
+    print(f"kernel {r['name']} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
+          f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+          f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}{tf32}, library "
+          f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}), "
+          f"max abs err {r['max_abs_err']:.3g}" + suffix)
+
+
+def round_problem(np, torch, seed, P, na, nt, H):
+    """Seeded inputs of the block round on the card: a rectangular live part
+    a block (padded cells of h_e 0, as the step makes them), the step's
+    scales, and cotangents."""
+    rng = np.random.default_rng(seed)
+    blk_na, blk_nt = rng.integers(0, na + 1, size=P), rng.integers(0, nt + 1, size=P)
+    m = ((np.arange(na)[None, :, None] < blk_na[:, None, None])
+         & (np.arange(nt)[None, None, :] < blk_nt[:, None, None])).astype(np.float32)
+    arrays = [rng.normal(size=(P, na, nt, H)) * m[..., None], rng.normal(size=(P, na, 3 * H)),
+              rng.normal(size=(P, nt, 3 * H)), rng.normal(size=(H, 3 * H)) * 0.3,
+              rng.normal(size=(3 * H,)) * 0.1, rng.normal(size=(H, 1)) * 0.4, m]
+    cots = [rng.normal(size=(P, na, nt, H)), rng.normal(size=(P, na, H)),
+            rng.normal(size=(P, nt, H)), rng.normal(size=(P, na, nt))]
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda")
+    return [put(a) for a in arrays], [put(c) for c in cots]
+
+
+def wide_round_rows(torch, np, block_ops):
+    """The block round kernels at P 16, na = nt = 64, H = WIDE_HIDDEN on
+    seeded inputs (a width the first design refused), held against the plain
+    versions in f64 and timed; outside the kernels line."""
+    args, cots = round_problem(np, torch, 11, **WIDE_ROUND)
+    no_launches = {"block_round_fwd": None, "block_round_bwd": None}
+    rows = round_pair_rows(torch, block_ops, args + [-1.0], args + [-1.0] + cots, no_launches,
+                           exact=True)
+    for r in rows:
+        print_kernel_row(r, " (vs the plain version in f64)")
+    return rows
+
+
+def block_kernel_phase(torch, block_ops, inputs, launches):
+    """Each block kernel on the recorded widest inputs of the training step
+    against its plain version, twice (bitwise), and timed."""
+    H = HIDDEN
+    results = round_pair_rows(torch, block_ops, inputs["fwd"], inputs["bwd"], launches)
 
     extra = {}
     for key in sorted(k for k in inputs if k.startswith(("scatter_F", "gather2_F"))):
@@ -1285,14 +1368,9 @@ def block_kernel_phase(torch, block_ops, inputs, launches):
     for r in extra.values():
         r["incidence_build"] = build
     for r in results + [extra[f"scatter_F{H}"]]:
-        print(f"kernel {r['name']} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
-              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
-              f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}), "
-              f"max abs err {r['max_abs_err']:.3g}"
-              + ("" if r["name"] != "window_scatter" else
-                 f"; its incidence's build {build['host_ms'] * 1e3:.1f} us on the host, "
-                 "once a batch"))
+        print_kernel_row(r, "" if r["name"] != "window_scatter" else
+                         f"; its incidence's build {build['host_ms'] * 1e3:.1f} us on the host, "
+                         "once a batch")
     return results, extra[f"scatter_F{H}"]
 
 
@@ -1606,7 +1684,8 @@ def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches, wide):
         if name == "block_round_es_fwd" and not (torch.all(got[0][m3 == 0] == 0)
                                                  and torch.all(got[1][m3 == 0] == 0)):
             fail("block_round_es_fwd wrote a nonzero edge_out or lg at a padded cell")
-        b, by = bound_ms(*es_loss_bounds(name, args))
+        cost = es_loss_bounds(name, args)
+        b, by = bound_ms(*cost)
         r = {"name": name, "route": "cuda",
              "source": ("trackmpnn_tpu_torch/csrc/block_kernels.cu" if name.startswith("block")
                         else "trackmpnn_tpu_torch/csrc/loss_kernels.cu"),
@@ -1621,16 +1700,75 @@ def es_loss_kernel_phase(torch, block_ops, loss_ops, inputs, launches, wide):
              "bound_ms": b, "bound_by": by, "library_ms": None,
              "shape": f"P {m3.shape[0]}, na {m3.shape[1]}, nt {m3.shape[2]}, "
                       f"live cells {int((m3 != 0).sum())}"}
+        if name.startswith("block_round_es"):
+            r["bound_tf32_ms"] = bound_tf32_ms(*cost)
         if name.startswith("edge_loss"):
             r["shape"] += f", K {args[0].shape[-1] if name != 'edge_loss_l2' else '-'}"
-        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
-              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
+        print_kernel_row(r)
         if name.startswith("edge_loss") and name not in narrow:
             narrow[name] = r  # the one-branch width; the kernels line takes K = 192
         else:
             rows.append(r)
     return rows, narrow
+
+
+def wide_es_rows(torch, np, block_ops):
+    """block_round_es_fwd (atol 1e-5) and _bwd (rtol 1e-4, atol 1e-5 x each
+    output's scale) at WIDE_ES on seeded inputs (tests/torch_port_util.py::
+    es_inputs, numpy and the port only) against their plain versions in
+    f64, bitwise on a second launch, padded cells exactly 0, timed beside
+    the plain versions in f32 and both bounds; outside the kernels line."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import es_inputs, in_f64
+
+    sign, B, capD = -1.0, WIDE_ES["B"], WIDE_ES["capD"]
+    act, new, blk_na, blk_nt, w, cot = es_inputs(7, sign, **WIDE_ES)
+    ip, islot = block_ops.block_incidence(act, new, blk_na, blk_nt, B * capD)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+    ga_d = put(w["ga_d"])  # 'diff': one tensor as both ga_d and gb_d
+    args = (put(w["h_e"] * w["mask3"][..., None]), put((act % capD).astype(np.int32)),
+            put((new % capD).astype(np.int32)), ga_d, ga_d, put(w["b_ih"]), put(w["w_hh"]),
+            put(w["b_hh"]), put(w["w_eb"]), put(w["mask3"]), sign, B, capD, put(ip), put(islot))
+    cots = (put(cot["g_eo"]), put(cot["g_lg"]), put(cot["g_es"]))
+    m3 = args[9]
+    rows = []
+    for name, kernel, plain, a in (
+            ("block_round_es_fwd", block_ops._block_round_es_fwd_cuda,
+             block_ops.block_round_es_reference, args),
+            ("block_round_es_bwd", block_ops._block_round_es_bwd_cuda,
+             block_ops.block_round_es_backward_reference, args + cots)):
+        got, again = kernel(*a), kernel(*a)
+        want = in_f64(plain, *a)
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (x, y) in enumerate(zip(got, want)):
+            diff = float((x - y).abs().max())
+            err = max(err, diff)
+            ok = (diff <= ROUND_FWD_ATOL if name.endswith("fwd") else
+                  torch.allclose(x, y, rtol=ROUND_BWD_RTOL,
+                                 atol=ROUND_BWD_ATOL_SCALE * max(float(y.abs().max()), 1e-30)))
+            if not ok:
+                fail(f"{name} (H {WIDE_HIDDEN}) output {k} differs from its plain version in "
+                     f"f64 by {diff:.3g}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} (H {WIDE_HIDDEN}) is not bitwise the same on a second launch")
+        if not torch.all(got[0][m3 == 0] == 0):
+            fail(f"{name} (H {WIDE_HIDDEN}) wrote a nonzero value at a padded cell")
+        cost = es_loss_bounds(name, a)
+        b, by = bound_ms(*cost)
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+             "replaces": ES_LOSS_REPLACES[name], "launches": None, "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*a)),
+             "call_ms": cuda_time_ms(lambda: kernel(*a), queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: plain(*a), iters=PLAIN_ITERS // 3),
+             "bound_ms": b, "bound_by": by, "bound_tf32_ms": bound_tf32_ms(*cost),
+             "library_ms": None,
+             "shape": f"P {m3.shape[0]}, na {m3.shape[1]}, nt {m3.shape[2]}, H {WIDE_HIDDEN}, "
+                      f"live cells {int((m3 != 0).sum())}"}
+        print_kernel_row(r, " (vs the plain version in f64)")
+        rows.append(r)
+    return rows
 
 
 # ------------------------------------------------------ row-layout training ----
@@ -3145,6 +3283,10 @@ def main():
     block_kernels, scatter_es = block_kernel_phase(torch, block_ops, inputs,
                                                    training["launches"])
     kernels += block_kernels
+    # the round kernels and one block step at a width the first design refused
+    block_wide = wide_round_rows(torch, np, block_ops)
+    training_wide, _, _ = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0,
+                                         hidden=WIDE_HIDDEN, timed=False)
     # 7. GAT training, 8. GAT kernels, 9. GAT serving: the attention path
     gat_training, gat_inputs, _ = training_phase(torch, np, block_ops, gat_ops, loss_ops,
                                                  heads=GAT_HEADS)
@@ -3179,6 +3321,7 @@ def main():
         torch, block_ops, loss_ops, es_inputs, compositions["es_kernel_fused_loss"]["launches"],
         loss_wide)
     kernels += es_loss_rows
+    es_wide = wide_es_rows(torch, np, block_ops)
     default_heads, gat1_inputs = default_heads_phase(torch, np, block_ops, gat_ops, loss_ops,
                                                      default_wl)
     kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
@@ -3213,7 +3356,8 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "fused_edge_gru_wide": edge_gru_wide,
-                       "window_scatter_es": scatter_es,
+                       "window_scatter_es": scatter_es, "block_round_wide": block_wide,
+                       "es_round_wide": es_wide, "training_wide": training_wide,
                        "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
@@ -3228,7 +3372,7 @@ def main():
     print(f"card: {card}")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "call_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ["note"] if k in r}
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ["bound_tf32_ms", "note"] if k in r}
                                   for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from torch_port_util import (DCN_KEYS, EDGE_LOSS_COUNTS, EDGE_LOSS_KEYS, ROUND_KEYS,
-                             dcn_inputs, edge_loss_inputs, es_inputs, gat_inputs, round_inputs)
+                             dcn_inputs, edge_loss_inputs, es_inputs, gat_inputs, in_f64,
+                             round_inputs)
 from trackmpnn_tpu_torch.ops import block, dcn, gat, loss, mp
 from trackmpnn_tpu_torch.ops import round as rnd
 
@@ -274,15 +275,19 @@ def assert_grads_close(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
-@pytest.mark.parametrize("P,na,nt,H", [(11, 8, 16, 16), (16, 24, 24, 64), (3, 5, 40, 32)])
+@pytest.mark.parametrize("P,na,nt,H", [(11, 8, 16, 16), (16, 24, 24, 64), (3, 5, 40, 32),
+                                        (16, 64, 64, 128), (4, 24, 24, 256), (3, 5, 40, 40)])
 def test_block_round_kernels_match_plain_versions(cuda, sign, P, na, nt, H):
     """Forward within atol 1e-5 (padded cells exactly 0), backward within
-    rtol 1e-4; both bitwise the same on a second launch."""
+    rtol 1e-4; both bitwise the same on a second launch.  H 128 at na = nt
+    = 64 and H 256 lie beyond the shared memory of the first design (one
+    CTA a block holding w_hh and every row's gate cotangents); H 40 is a
+    width that does not divide 256."""
     args, cots = round_problem(P + na, P, na, nt, H, cuda)
     before = dict(block.LAUNCHES)
     got = block._block_round_fwd_cuda(*args, sign)
     again = block._block_round_fwd_cuda(*args, sign)
-    want = block.block_round_reference(*args, sign)
+    want = in_f64(block.block_round_reference, *args, sign)
     torch.cuda.synchronize()
     for a, b, c in zip(got, want, again):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
@@ -291,7 +296,7 @@ def test_block_round_kernels_match_plain_versions(cuda, sign, P, na, nt, H):
     assert torch.all(got[0][m == 0] == 0) and torch.all(got[3][m == 0] == 0)
     gb = block._block_round_bwd_cuda(*args, sign, *cots)
     gb2 = block._block_round_bwd_cuda(*args, sign, *cots)
-    wb = block.block_round_backward_reference(*args, sign, *cots)
+    wb = in_f64(block.block_round_backward_reference, *args, sign, *cots)
     torch.cuda.synchronize()
     assert_grads_close(gb, wb)
     assert all(torch.equal(a, b) for a, b in zip(gb, gb2))
@@ -482,6 +487,12 @@ def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         block._block_round_fwd_cuda(args[0], args[1].cpu(), *args[2:], -1.0)
     with pytest.raises(ValueError):
         block._block_round_fwd_cuda(args[0].transpose(1, 2), *args[1:], -1.0)
+    for H in (12, 264):  # the width rule: multiples of 8 from 8 to 256
+        wide, cots = round_problem(0, 2, 3, 3, H, cuda)
+        with pytest.raises(ValueError, match=f"H={H}"):
+            block._block_round_fwd_cuda(*wide, -1.0)
+        with pytest.raises(ValueError, match=f"H={H}"):
+            block._block_round_bwd_cuda(*wide, -1.0, *cots)
     vals = torch.zeros(4, 3, 6, device=cuda)
     with pytest.raises(ValueError):
         block.window_scatter_raw(vals, torch.zeros(4, 3, dtype=torch.int32, device=cuda), 2, 8)
@@ -860,7 +871,10 @@ def test_round_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # ------------------------------------------------ es round and edge losses ----
 ES_SHAPES = [dict(B=3, T=3, capD=16, na=5, nt=6, H=8),
-             dict(B=8, T=15, capD=256, na=24, nt=24, H=64)]
+             dict(B=8, T=15, capD=256, na=24, nt=24, H=64),
+             dict(B=4, T=4, capD=128, na=64, nt=64, H=128),
+             dict(B=2, T=2, capD=64, na=24, nt=24, H=256),
+             dict(B=3, T=1, capD=48, na=5, nt=40, H=40)]
 
 
 def es_problem(seed, sign, device, P=None, **shape):
@@ -882,7 +896,7 @@ def es_problem(seed, sign, device, P=None, **shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
-@pytest.mark.parametrize("shape", ES_SHAPES, ids=["small", "training"])
+@pytest.mark.parametrize("shape", ES_SHAPES, ids=["small", "training", "h128", "h256", "h40"])
 def test_es_round_kernels_match_plain_versions(cuda, sign, shape):
     """block_round_es_fwd within atol 1e-5 (padded cells exactly 0), the
     backward within rtol 1e-4 and atol 1e-5 x each output's scale; both
@@ -893,7 +907,7 @@ def test_es_round_kernels_match_plain_versions(cuda, sign, shape):
         before = dict(block.LAUNCHES)
         got = block._block_round_es_fwd_cuda(*args)
         again = block._block_round_es_fwd_cuda(*args)
-        want = block.block_round_es_reference(*args)
+        want = in_f64(block.block_round_es_reference, *args)
         torch.cuda.synchronize()
         for a, b, c in zip(got, want, again):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
@@ -902,7 +916,7 @@ def test_es_round_kernels_match_plain_versions(cuda, sign, shape):
         assert torch.all(got[0][m == 0] == 0) and torch.all(got[1][m == 0] == 0)
         gb = block._block_round_es_bwd_cuda(*args, *cots)
         gb2 = block._block_round_es_bwd_cuda(*args, *cots)
-        wb = block.block_round_es_backward_reference(*args, *cots)
+        wb = in_f64(block.block_round_es_backward_reference, *args, *cots)
         torch.cuda.synchronize()
         assert_close_scaled(gb, wb, ["dhe", "dga_d", "dgb_d", "dbih", "dwhh", "dbhh", "dweb"])
         assert all(torch.equal(a, b) for a, b in zip(gb, gb2))

@@ -115,6 +115,17 @@ def round_inputs(seed, B=2, cap=64, H=64):
     return h, idxw, we, wn, cot
 
 
+def in_f64(plain, *args):
+    """A plain version (ops/*.py) evaluated in f64 and rounded to f32, the
+    reference for the block round kernels: at H 128 and 256 two f32
+    evaluations in different orders (the plain version's and the kernel's)
+    differ by about 1e-5 in lg, a sum of H products, so the kernels are held
+    to the exact function at the same tolerances."""
+    wide = lambda a: a.double() if hasattr(a, "is_floating_point") and a.is_floating_point() else a
+    out = plain(*map(wide, args))
+    return [o.float() for o in (out if isinstance(out, (tuple, list)) else [out])]
+
+
 def es_inputs(seed, sign, B=3, T=3, capD=16, na=5, nt=6, H=8):
     """numpy inputs and cotangents of the es round (ops/block.py::
     fused_block_round_es) over B*T step-major blocks (block q of window

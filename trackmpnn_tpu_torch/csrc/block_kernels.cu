@@ -14,35 +14,97 @@
 //     gi[i, j] = ga[i] + sign * gb[j];  r, z, n (torch order r | z | n)
 //     edge_out = mask * ((1 - z) * n + z * he_m);  lg = edge_out @ w_eb
 //     rs, cs = row / column sums of he_m
-//   Bound: f32 operations (2*H*3H multiply-adds a cell for gh against
-//   H*4 B read and written a cell: ~50 flop/B at H = 64, above the card's
-//   f32 ratio of 67 TFLOP/s over 3.35 TB/s = 20 flop/B).  Design: a block's
-//   cells split over kRoundSplits CTAs (tile t goes to CTA t mod
-//   kRoundSplits, row and column i to CTA i mod kRoundSplits for rs / cs),
-//   so that at P ~ 100 blocks several CTAs share each SM; w_hh sits in
-//   shared memory (49 KB at H = 64, past the 48 KB default, so the launch
-//   opts in to more) with its rows padded to 3H + 1 floats, so that both
-//   w_hh[k][h] (forward) and w_hh[h][k] (backward) reads by neighbouring h
-//   fall in different banks.  Cells go through in tiles of TC; thread
-//   (h, g) keeps the three gate sums of kCellsPerThread cells of column h
-//   in registers while he_m comes from shared memory as a broadcast.  A
-//   tile whose cells are all masked is written as zeros and skips the
-//   product, so the work follows the live cells.  rs and cs are reduced in
-//   the CTA in a fixed order at the end.  The product runs on the CUDA
-//   cores, not the tensor cores: a later step.
 //
 // block_round_bwd
-//   Replaces _bwd_kernel (the custom VJP of fused_block_round).  Per block
-//   it recomputes the gates and writes d h_e (masked), d ga (sum over j)
-//   and d gb (sign * sum over i), and a row of per-block partials
-//   [d w_hh | d b_hh | d w_eb]; a second small kernel sums the partials
-//   over the blocks in block order.  Bound: f32 operations (three [H, 3H]
-//   products a cell: gh again, d gh @ w_hh^T and he_m^T @ d gh).  The
-//   per-block d w_hh, d ga and d gb accumulate in shared memory, each entry
-//   owned by one thread, tile after tile, so no atomics are needed.  The
-//   products are bound by shared-memory loads on the CUDA cores, so each
-//   value loaded is used several times: a w_hh value for 8 cells, a d gh
-//   value for 8 rows of d w_hh.
+//   Replaces _bwd_kernel (the custom VJP of fused_block_round): recomputes
+//   gh and the gates and writes d h_e (masked), d ga (sum over j), d gb
+//   (sign * sum over i) and [d w_hh | d b_hh | d w_eb].  Three products a
+//   cell: gh again, d gh @ w_hh^T and he_m^T @ d gh.
+//
+// block_round_es_fwd / block_round_es_bwd
+//   Replace _es_fwd_kernel / _es_bwd_kernel (fused_block_round_es,
+//   pallas_block.py:333, :382): the same round with the input-gate gather
+//   and the edge-support reduction inside.  The round kernels take kGather
+//   true: they read the gates of row i and column j by index, ga_d[w*capD +
+//   act[q, i]] + b_ih and gb_d[w*capD + new[q, j]] (w = q % B, step-major
+//   blocks), and an id outside [0, capD) of a live cell traps the kernel.
+//   The forward writes the block's row and column sums to scratch and
+//   incidence_reduce_kernel, one thread per (detection, column), sums es[d]
+//   = the row sums of d's active rows minus the column sums of its new
+//   columns over the batch's incidence (block order, f64, rounded once,
+//   stopping at the first block >= P).  The backward takes the cotangents
+//   of the row and column sums as d es[act_i] and -d es[new_j], adds d b_ih
+//   (the sum of the d ga rows) to the partials, and incidence_reduce_kernel
+//   sums the per-block d ga / d gb rows into d ga_d, d gb_d [B*capD, 3H].
+//   The TPU kernels gather and scatter with one-hot matmuls over a window's
+//   capD rows (_onehot_t, :319), an MXU idiom; here a CTA loads its own
+//   indices.
+//
+// Bound of the four: f32 operations (2*H*3H multiply-adds a live cell a
+// product against ~H*4 B read and written a cell, ~50 flop/B at H = 64,
+// above the card's f32 ratio of 67 TFLOP/s over 3.35 TB/s = 20 flop/B).
+//
+// The first design ran the products on the CUDA cores from shared memory:
+// a whole w_hh padded to [H][3H + 1] resident in each CTA, the backward one
+// CTA a block holding its d w_hh and every row's d ga and column's d gb
+// (~178 KB at H 64, na = nt = 24: one CTA of 8 warps an SM, 120 CTAs on 132
+// SMs, 18 serial tiles each with four barriers and three serial reduction
+// passes), and each k of a product 11 shared loads for 24 FMAs.  At the
+// widest round of the block step (P 120, na = nt = 24, H 64, ~25k live
+// cells) it measured 148.78 / 602.44 us (fwd / bwd) and 174.81 / 650.68
+// (es), 15-22x the f32 bound, and it refused H 128 (514 KB of shared
+// memory) and na + nt > 114 at H 64.
+//
+// This design:
+//   * Tensor cores at f32-level error.  Each product runs as
+//     mma.sync.m16n8k8 .tf32 in the split-TF32 scheme CUTLASS calls
+//     3xTF32: x = big + small, big = tf32(x) (round to nearest on the int32
+//     view, ties away: (bits + 0x1000) & ~0x1fff), small = tf32(x - big)
+//     (x - big is exact), a*b ~ a.small*b.big + a.big*b.small + a.big*b.big.
+//     tf32 products are exact in f32; what is dropped (a.small*b.small, the
+//     rounding of the smalls) is below 2^-22 |a b| a product.  The tensor
+//     cores cut, not round, the low bits where they add into an
+//     accumulator, an error that grows with every mma into one sum; so each
+//     k step's three mmas go to a fresh accumulator and the CUDA cores add
+//     it in f32 (without that, H 128 missed the forward's 1e-5 by 1.5x).
+//     Against the plain version evaluated in f64 the kernels then err less
+//     than the plain version in f32 does (tests/test_torch_block_tiling.py
+//     emulates the arithmetic on the CPU; plain TF32 misses the bounds by
+//     more than 10x).
+//   * Forward and d h_e (round_fwd_kernel, round_dh_kernel): one CTA of
+//     kWarps warps a tile of kTile consecutive cells, 1,080 at the widest
+//     round; a tile whose cells are all masked is written as zeros and
+//     does nothing else.  A warp owns 16 cells (the mma's M) and the CTA
+//     steps through the unit chunks of 8 units: each step stages the next
+//     chunk's slab of w_hh ([3 gates][H][8], split into big and small once
+//     by the threads that copied it) with cp.async while the warps compute
+//     gh of this chunk (r, z, n: three n tiles, K = H) and the gates in
+//     registers (the accumulator's element (cell, unit) is the same thread's
+//     for r, z and n; ga, gb and b_hh are loaded before the product, which
+//     hides them).  The forward writes edge_out and sums lg in f64 (a fixed
+//     shuffle tree over a row's four lanes; lg sums H products).  d h_e
+//     forms d gh and adds d gh @ w_hh^T of the chunk from the same slab:
+//     the accumulator's columns 2t, 2t + 1 are the next A fragment's k
+//     slots t, t + 4 (the B rows read in the same order), so d gh never
+//     leaves registers; a warp holds 64 columns of d h_e (passes over the
+//     chunks where H > 64).  It leaves [d pre_r | d pre_z | d pre_n r |
+//     d pre_n | edge_out g_lg] of each live cell in a scratch.  Shared
+//     memory 42 KB a CTA at H 64 (165 KB at H 256).
+//   * d w_hh = he_m^T @ d gh (round_dw_kernel): a split-K product, one CTA
+//     a (block, split of at most 3 tiles of its cells) and 64 x 48 tile of
+//     [H, 3H], 1,440 at the widest round, cp.async double-buffered, the
+//     partials one row a (block, split).  The cell sums (round_sums_kernel,
+//     one thread an entry, cell order): d ga (over j), d gb (over i) and
+//     every 4 rows' sums for d b_hh, d w_eb and d b_ih.  They read only the
+//     scratch, so they run on a side stream beside the product, joined by
+//     events.  A masked cell is never read (its mask selects the address
+//     of the mask itself, which holds 0), so no load waits on a branch.
+//   * Fixed reduction order everywhere: sum_partials_kernel sums the
+//     partial rows in two levels (kSumGroups strided groups, then the groups
+//     in order) in one launch for d w_hh and the biases.  No atomics; every
+//     output is the same on a second launch.
+//   * Widths: shared memory depends on H only; any na, nt >= 1 and every H
+//     that is a multiple of 8 from 8 to kMaxH = 256.
 //
 // window_scatter
 //   Replaces _wscatter_kernel / window_scatter in pallas_block.py.
@@ -85,54 +147,127 @@
 //   checked over the grid: one outside [0, capD) traps the kernel (a sticky
 //   CUDA error that the next synchronisation raises), as do a negative slot
 //   and a list's offsets outside the slots.
-
-// block_round_es_fwd
-//   Replaces _es_fwd_kernel / fused_block_round_es in pallas_block.py:333,
-//   the round with the input-gate gather and the edge-support reduction
-//   inside.  Two launches: block_round_fwd_kernel<true>, which reads the
-//   gates of row i and column j by index, ga_d[w*capD + act[q, i]] + b_ih
-//   and gb_d[w*capD + new[q, j]] (w = q % B, step-major blocks), instead of
-//   per-block rows, and writes the block's row and column sums to scratch;
-//   then incidence_reduce_kernel, one thread per (detection, column): es[d]
-//   = the row sums of d's active rows minus the column sums of its new
-//   columns, walked in the order of the batch's incidence (block order),
-//   summed in f64 and rounded once, stopping at the first block >= P.  The
-//   TPU kernel gathers and scatters with one-hot matmuls over the window's
-//   capD rows (_onehot_t, :319), an MXU idiom; here a CTA loads its own
-//   indices, and an id outside [0, capD) traps the kernel.  Bound: f32
-//   operations, as block_round_fwd (the reduction moves P*(na+nt)*H floats).
-//
-// block_round_es_bwd
-//   Replaces _es_bwd_kernel (pallas_block.py:382).  block_round_bwd_kernel
-//   <true> recomputes the gates from the gathered rows, takes the
-//   cotangents of the row and column sums as d es[act_i] and -d es[new_j]
-//   read by index, and adds d b_ih (the sum of the block's d ga rows) to
-//   its per-block partials; sum_partials_kernel sums them in block order;
-//   incidence_reduce_kernel then sums the per-block d ga / d gb rows over
-//   the same incidence into d ga_d and d gb_d [B*capD, 3H], in f64, with
-//   no atomics.  Bound: f32 operations, as block_round_bwd.
 //
 // No kernel synchronises or allocates: the caller allocates every output
-// and scratch and every launch goes to the stream it is given.  Each entry
-// point returns cudaGetLastError() so the caller can raise on a refused
-// launch.
+// and scratch, and every launch goes to the stream it is given, but for the
+// round backward's cell sums, which go to a side stream of the device that
+// waits for the given stream and that the given stream waits for (events;
+// no host synchronisation).  Each entry point returns cudaGetLastError() so
+// the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreadsTarget = 256;
-constexpr int kCellsPerThread = 8;
-constexpr int kDwRows = 8;  // rows of d w_hh a backward thread sums at once (H % 8 == 0)
+constexpr int kWarps = 4;              // warps of a round CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;              // cells of a warp tile: the mma's M
+constexpr int kTile = kRows * kWarps;  // cells of a CTA tile
+constexpr int kMaxH = 256;
+constexpr int kChunk = 8;              // units of a chunk: one n tile each of r, z, n
+constexpr int kDheTiles = 8;           // n tiles (8 columns) of d h_e a warp holds
+constexpr int kDgs = 40;               // floats a cell and chunk of the d gh scratch
+constexpr int kDwRows = 16 * kWarps;   // rows (h) of a d w_hh CTA tile: an m tile a warp
+constexpr int kDwCols = 48;            // its columns: 6 n tiles
+constexpr int kAStride = 72;           // floats a staged cell of h_e's 64 rows (8 mod 32)
+constexpr int kBStride = 56;           // floats a staged cell of d gh's 48 columns (24 mod 32)
+constexpr int kSumRows = 4;            // rows (q, i) a sums thread takes
+constexpr int kSumGroups = 16;         // row groups of a partial-sum CTA
 constexpr int kWsThreads = 256;
 constexpr int kWsUnroll = 8;  // slots (then values) a lane has in flight
-constexpr int kRoundSplits = 4;  // CTAs a block's forward is split over
-
-// threads of a block-round CTA: H columns times G cell groups
-inline int round_groups(int H) { return H >= kThreadsTarget ? 1 : kThreadsTarget / H; }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+// ------------------------------------------------------------ 3xTF32 mma ----
+// x rounded to tf32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, on the int32 view; the low 13 bits 0.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+struct FragA {  // the A fragment of m16n8k8 .tf32, split
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  const float b = tf32_round(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(tf32_round(x - b));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two cross terms, then big * big.  The tensor
+// cores add the products of an mma into its accumulator without rounding to
+// nearest (the low bits are cut), an error that grows with every mma into
+// the same sum; so each k step goes to a fresh accumulator, and the CUDA
+// cores add it to c in f32, rounded to nearest.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(s, a.small, b.big);
+  mma_tf32(s, a.big, b.small);
+  mma_tf32(s, a.big, b.big);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] += s[k];
+}
+
+// A fragment from four values: rows g, g + 8 (lo, hi) at k slots t (x) and
+// t + 4 (y)
+__device__ __forceinline__ FragA frag_a(float lo_x, float hi_x, float lo_y, float hi_y) {
+  FragA a;
+  split_tf32(lo_x, a.big[0], a.small[0]);
+  split_tf32(hi_x, a.big[1], a.small[1]);
+  split_tf32(lo_y, a.big[2], a.small[2]);
+  split_tf32(hi_y, a.big[3], a.small[3]);
+  return a;
+}
+
+__device__ __forceinline__ FragB frag_b(float x, float y) {
+  FragB b;
+  split_tf32(x, b.big[0], b.small[0]);
+  split_tf32(y, b.big[1], b.small[1]);
+  return b;
+}
+
+// ------------------------------------------------------------- cp.async ----
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------ the round ----
+// floats a staged row of h_e: H plus padding to 4 mod 32, so that an A
+// fragment's loads (rows g, columns t) hit 32 banks
+__host__ __device__ __forceinline__ int he_stride(int H) { return H + (36 - H % 32) % 32; }
+
+// A unit chunk's slab of w_hh: [3 gates][H rows][8 columns] (columns gate*H
+// + u*8 .. + 8 of every row), split into big and small halves of slab_floats
+// each; conflict-free for both products that read it (rows t, columns g;
+// rows g, columns 2t and 2t + 1).
+__host__ __device__ __forceinline__ int slab_floats(int H) { return 3 * H * kChunk; }
+
+size_t tile_smem(int H) {  // forward and d h_e: a CTA tile and its masks, two slabs
+  return sizeof(float) * (kTile * (he_stride(H) + 1) + 2 * 2 * slab_floats(H));
+}
+size_t dw_smem() {  // two cell tiles of h_e and of d gh, their masks
+  return sizeof(float) * 2 * kTile * (kAStride + kBStride + 1);
+}
 
 // Where a round kernel reads the input gates of row i and column j of block
 // q.  kGather false: per-block rows ga[P, na, 3H], gb[P, nt, 3H] (b_ih
@@ -145,383 +280,685 @@ struct GateSrc {
   int B, capD;
 };
 
+// One cell of a thread's rows: its index among all P*na*nt cells (-1 past
+// the block's), its mask and, where live, its gate rows; da / dn the rows
+// of the cotangents of the row and column sums (detection rows where
+// kGather).
+struct Cell {
+  int64_t cell;
+  float m;
+  const float *ga, *gb;
+  int64_t da, dn;
+};
+
 template <bool kGather>
-__device__ __forceinline__ void gate_rows(const GateSrc& g, int64_t q, int i, int j, int na,
-                                          int nt, int H3, const float*& gai,
-                                          const float*& gbj, int64_t& da, int64_t& dn) {
+__device__ __forceinline__ Cell cell_at(const GateSrc& g, const float* __restrict__ mask,
+                                        int64_t q, int na, int nt, int H, int c) {
+  Cell r{-1, 0.f, nullptr, nullptr, 0, 0};
+  const int ncell = na * nt;
+  if (c >= ncell) return r;
+  r.cell = q * ncell + c;
+  r.m = mask[r.cell];
+  if (r.m == 0.f) return r;
+  const int i = c / nt, j = c - (c / nt) * nt;
   if constexpr (kGather) {
     const int a = g.act[q * na + i], n = g.nw[q * nt + j];
     if ((unsigned)a >= (unsigned)g.capD || (unsigned)n >= (unsigned)g.capD) __trap();
     const int64_t base = (q % g.B) * (int64_t)g.capD;
-    da = base + a;
-    dn = base + n;
-    gai = g.ga + da * H3;
-    gbj = g.gb + dn * H3;
+    r.da = base + a;
+    r.dn = base + n;
   } else {
-    da = q * na + i;
-    dn = q * nt + j;
-    gai = g.ga + da * H3;
-    gbj = g.gb + dn * H3;
+    r.da = q * na + i;
+    r.dn = q * nt + j;
   }
+  r.ga = g.ga + r.da * 3 * H;
+  r.gb = g.gb + r.dn * 3 * H;
+  return r;
 }
 
-// ga's gate k of the row at gai: plus b_ih where the kernel gathers
-template <bool kGather>
-__device__ __forceinline__ float ga_at(const GateSrc& g, const float* gai, int k) {
-  if constexpr (kGather) return gai[k] + g.bih[k];
-  return gai[k];
+__device__ __forceinline__ float2 ld2(const float* p) { return __ldg((const float2*)p); }
+
+// x where the mask at m is set, else m itself (which holds 0): a select of
+// addresses, not a branch, so that a loop's loads are in flight together
+__device__ __forceinline__ const float* masked(const float* m, const float* x) {
+  return *m != 0.f ? x : m;
 }
 
-struct RoundSmem {
-  float *w, *b, *web, *he, *m;
+// A live cell's gate inputs at units h, h + 1 (h even): gi = ga + sign * gb
+// (plus b_ih where kGather) and b_hh of r, z, n.  Loaded before the chunk's
+// product, so that the product hides their latency.
+struct GateIn {
+  float gi[3][2], bh[3][2];
 };
 
-__device__ __forceinline__ RoundSmem round_common_smem(float* smem, int H, int TC) {
-  RoundSmem s;
-  s.w = smem;                        // [H][3H + 1]
-  s.b = s.w + H * (3 * H + 1);       // [3H]
-  s.web = s.b + 3 * H;               // [H]
-  s.he = s.web + H;                  // [TC][H]  masked h_e of the tile
-  s.m = s.he + TC * H;               // [TC]     mask of the tile
-  return s;
-}
-
-__device__ void load_weights(const RoundSmem& s, const float* whh, const float* bhh,
-                             const float* web, int H) {
-  const int H3 = 3 * H, ws = H3 + 1;
-  for (int k = threadIdx.x; k < H * H3; k += blockDim.x) s.w[(k / H3) * ws + k % H3] = whh[k];
-  for (int k = threadIdx.x; k < H3; k += blockDim.x) s.b[k] = bhh[k];
-  for (int k = threadIdx.x; k < H; k += blockDim.x) s.web[k] = web[k];
-}
-
-// Loads the tile's masked h_e and mask; returns whether any cell is live
-// (a block-wide vote, so it also separates the tile from the one before).
-__device__ bool load_tile(const RoundSmem& s, const float* he, const float* mask,
-                          int64_t cell0, int t0, int ncell, int TC, int H) {
-  int live = 0;
-  for (int c = threadIdx.x; c < TC; c += blockDim.x) {
-    const float m = (t0 + c < ncell) ? mask[cell0 + t0 + c] : 0.f;
-    s.m[c] = m;
-    live |= (m != 0.f);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < TC * H; k += blockDim.x) {
-    const int c = k / H;
-    const float m = s.m[c];
-    s.he[k] = (m != 0.f) ? m * he[(cell0 + t0 + c) * H + k % H] : 0.f;
-  }
-  return __syncthreads_or(live) != 0;
-}
-
-// The three gh sums (without b_hh) of column h for this thread's cells.
-__device__ __forceinline__ void gate_products(const RoundSmem& s, int h, int g, int H,
-                                              float (&ar)[kCellsPerThread],
-                                              float (&az)[kCellsPerThread],
-                                              float (&an)[kCellsPerThread]) {
-  const int ws = 3 * H + 1;
+template <bool kGather>
+__device__ __forceinline__ GateIn gate_in(const GateSrc& g, const Cell& c, const float* bhh,
+                                          int H, int h, float sign) {
+  GateIn o;
 #pragma unroll
-  for (int cc = 0; cc < kCellsPerThread; ++cc) ar[cc] = az[cc] = an[cc] = 0.f;
-  const float* hrow = s.he + g * kCellsPerThread * H;
-  for (int k = 0; k < H; ++k) {
-    const float wr = s.w[k * ws + h], wz = s.w[k * ws + H + h], wn = s.w[k * ws + 2 * H + h];
+  for (int k = 0; k < 3; ++k) {
+    o.gi[k][0] = o.gi[k][1] = 0.f;
+    const float2 b = ld2(bhh + k * H + h);
+    o.bh[k][0] = b.x;
+    o.bh[k][1] = b.y;
+  }
+  if (c.m == 0.f) return o;
 #pragma unroll
-    for (int cc = 0; cc < kCellsPerThread; ++cc) {
-      const float x = hrow[cc * H + k];
-      ar[cc] = fmaf(x, wr, ar[cc]);
-      az[cc] = fmaf(x, wz, az[cc]);
-      an[cc] = fmaf(x, wn, an[cc]);
+  for (int k = 0; k < 3; ++k) {
+    float2 a = ld2(c.ga + k * H + h);
+    if constexpr (kGather) {
+      const float2 b = ld2(g.bih + k * H + h);
+      a.x += b.x;
+      a.y += b.y;
+    }
+    const float2 b = ld2(c.gb + k * H + h);
+    o.gi[k][0] = a.x + sign * b.x;
+    o.gi[k][1] = a.y + sign * b.y;
+  }
+  return o;
+}
+
+// The gates of units h, h + 1 from the chunk's products p[gate][e] (no
+// bias): r, z, n and gh_n = p_n + b_hh_n.
+struct Gates2 {
+  float r[2], z[2], n[2], ghn[2];
+};
+
+__device__ __forceinline__ Gates2 gates2(const GateIn& in, const float (&p)[3][2]) {
+  Gates2 o;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    o.r[e] = sigmoid_f(in.gi[0][e] + (p[0][e] + in.bh[0][e]));
+    o.z[e] = sigmoid_f(in.gi[1][e] + (p[1][e] + in.bh[1][e]));
+    o.ghn[e] = p[2][e] + in.bh[2][e];
+    o.n[e] = tanhf(in.gi[2][e] + o.r[e] * o.ghn[e]);
+  }
+  return o;
+}
+
+// Copies unit chunk u's slab of w_hh into big with cp.async (two 16-byte
+// pieces a slab row); split_slab then splits what the same thread copied.
+__device__ __forceinline__ void stage_slab(float* big, const float* __restrict__ whh, int H,
+                                           int u, int tid, int nthreads) {
+  for (int e = tid; e < 2 * 3 * H; e += nthreads) {
+    const int row = e >> 1, half = e & 1, gate = row / H, k = row - gate * H;
+    cp_async16(big + row * kChunk + 4 * half,
+               whh + (int64_t)k * 3 * H + gate * H + u * kChunk + 4 * half, true);
+  }
+}
+
+__device__ __forceinline__ void split_slab(float* big, int H, int tid, int nthreads) {
+  float* small = big + slab_floats(H);
+  for (int e = tid; e < 2 * 3 * H; e += nthreads) {
+    float4* pb = (float4*)(big + 4 * e);
+    const float4 v = *pb;
+    const float4 b = make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z),
+                                 tf32_round(v.w));
+    *pb = b;
+    *(float4*)(small + 4 * e) = make_float4(tf32_round(v.x - b.x), tf32_round(v.y - b.y),
+                                            tf32_round(v.z - b.z), tf32_round(v.w - b.w));
+  }
+}
+
+// acc[gate] = the 16 staged rows at hs, times their masks m_lo (rows 0-7)
+// and m_hi (8-15), @ the slab's gate columns (K = H), 3xTF32 with the
+// slab's split.  Thread (g, t) holds rows g, g + 8 and units u*8 + 2t, + 1 of
+// each gate.
+__device__ __forceinline__ void gate_chunk(const float* hs, int stride, const float* slab,
+                                           int H, int lane, float m_lo, float m_hi,
+                                           float (&acc)[3][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* small = slab + slab_floats(H);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
+  const float* lo = hs + g * stride + t;
+  const float* hi = lo + 8 * stride;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 8) {
+    const FragA a = frag_a(m_lo * lo[k0], m_hi * hi[k0], m_lo * lo[k0 + 4], m_hi * hi[k0 + 4]);
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate) {
+      const int i0 = (gate * H + k0 + t) * kChunk + g, i1 = i0 + 4 * kChunk;
+      FragB b;
+      b.big[0] = __float_as_uint(slab[i0]);
+      b.big[1] = __float_as_uint(slab[i1]);
+      b.small[0] = __float_as_uint(small[i0]);
+      b.small[1] = __float_as_uint(small[i1]);
+      mma3(acc[gate], a, b);
     }
   }
 }
 
-// Row and column sums of the masked rectangle of block q, in a fixed order:
-// rows and columns split + nsplit * k of it.
-__device__ void row_col_sums(const float* he, const float* mask, int64_t q, int na, int nt,
-                             int H, float* rs, float* cs, int split, int nsplit) {
+// Copies the live ones (mask_s[r] != 0) of the len cells from c0 of block
+// q's h_e into dst [kTile][stride] with cp.async; the rest of the tile is
+// zero-filled.
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ he, int64_t q,
+                                           int ncell, int c0, int len, int H, int stride,
+                                           const float* mask_s) {
+  const int per_row = H / 4;
+  for (int e = threadIdx.x; e < kTile * per_row; e += kThreads) {
+    const int r = e / per_row, c4 = e - r * per_row;
+    const bool valid = r < len && mask_s[r] != 0.f;
+    cp_async16(dst + r * stride + 4 * c4,
+               valid ? he + (q * ncell + c0 + r) * (int64_t)H + 4 * c4 : he, valid);
+  }
+}
+
+// whether any of the 16 cells from c0 is live (a warp-wide vote)
+__device__ __forceinline__ bool warp_tile_live(const float* __restrict__ mask, int64_t q,
+                                               int ncell, int c0, int lane) {
+  const int c = c0 + (lane & 15);
+  return __any_sync(0xffffffffu, c < ncell && mask[q * ncell + c] != 0.f);
+}
+
+// the mask of thread tid's cell of the len cells from c0 (0 past len)
+__device__ __forceinline__ float tile_mask(const float* __restrict__ mask, int64_t q, int ncell,
+                                           int c0, int len) {
+  return threadIdx.x < len ? mask[q * ncell + c0 + threadIdx.x] : 0.f;
+}
+
+// whether any of the len cells from c0 is live (a CTA-wide vote on m, each
+// thread's tile_mask); the masks go to mask_s [kTile]
+__device__ __forceinline__ bool cta_tile_live(float m, float* mask_s) {
+  if (threadIdx.x < kTile) mask_s[threadIdx.x] = m;
+  return __syncthreads_or(m != 0.f) != 0;
+}
+
+// Zeros rows [c0, c0 + rows) of a [.., H] output of block q (cells past
+// ncell left alone), threads tid, tid + nthreads, ...
+__device__ __forceinline__ void zero_rows(float* out, int64_t q, int ncell, int c0, int rows,
+                                          int H, int tid, int nthreads) {
+  rows = min(rows, ncell - c0);
+  float4* p = (float4*)(out + (q * ncell + c0) * H);
+  for (int k = tid; k < rows * H / 4; k += nthreads) p[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Row and column sums of the masked rectangle of block q, in a fixed order
+// (f64, rounded once): rows and columns split + nsplit * k of it.
+__device__ void row_col_sums(const float* __restrict__ he, const float* __restrict__ mask,
+                             int64_t q, int na, int nt, int H, float* __restrict__ rs,
+                             float* __restrict__ cs, int split, int nsplit) {
   const int64_t cell0 = q * na * nt;
   const int my_rows = (na - split + nsplit - 1) / nsplit, my_cols = (nt - split + nsplit - 1) / nsplit;
   for (int k = threadIdx.x; k < my_rows * H; k += blockDim.x) {
     const int i = split + nsplit * (k / H), h = k % H;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < nt; ++j) {
-      const int64_t cell = cell0 + (int64_t)i * nt + j;
-      acc += mask[cell] * he[cell * H + h];
-    }
-    rs[(q * na + i) * H + h] = acc;
+    double acc = 0.0;
+    const float* mrow = mask + cell0 + (int64_t)i * nt;
+    const float* hrow = he + (cell0 + (int64_t)i * nt) * H + h;
+#pragma unroll 8
+    for (int j = 0; j < nt; ++j) acc += (double)(mrow[j] * *masked(mrow + j, hrow + (int64_t)j * H));
+    rs[(q * na + i) * H + h] = (float)acc;
   }
   for (int k = threadIdx.x; k < my_cols * H; k += blockDim.x) {
     const int j = split + nsplit * (k / H), h = k % H;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < na; ++i) {
-      const int64_t cell = cell0 + (int64_t)i * nt + j;
-      acc += mask[cell] * he[cell * H + h];
-    }
-    cs[(q * nt + j) * H + h] = acc;
+    double acc = 0.0;
+    const float* mcol = mask + cell0 + j;
+    const float* hcol = he + (cell0 + j) * H + h;
+#pragma unroll 8
+    for (int i = 0; i < na; ++i)
+      acc += (double)(mcol[(int64_t)i * nt] * *masked(mcol + (int64_t)i * nt, hcol + (int64_t)i * nt * H));
+    cs[(q * nt + j) * H + h] = (float)acc;
   }
 }
 
-template <bool kGather>
-__global__ void block_round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc,
-                                       const float* __restrict__ whh,
-                                       const float* __restrict__ bhh,
-                                       const float* __restrict__ web,
-                                       const float* __restrict__ mask,
-                                       float* __restrict__ eo, float* __restrict__ rs,
-                                       float* __restrict__ cs, float* __restrict__ lg,
-                                       int na, int nt, int H, float sign) {
-  extern __shared__ float smem[];
-  const int G = blockDim.x / H, TC = G * kCellsPerThread;
-  const RoundSmem s = round_common_smem(smem, H, TC);
-  float* eo_s = s.m + TC;  // [TC][H]
-  const int H3 = 3 * H, h = threadIdx.x % H, g = threadIdx.x / H;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int64_t q = blockIdx.x;
-  const int split = blockIdx.y, nsplit = gridDim.y;  // this CTA's share of the block
-  const int ncell = na * nt;
-  const int64_t cell0 = q * ncell;
-  load_weights(s, whh, bhh, web, H);
-
-  for (int t0 = split * TC; t0 < ncell; t0 += nsplit * TC) {
-    if (!load_tile(s, he, mask, cell0, t0, ncell, TC, H)) {
-      for (int k = threadIdx.x; k < TC * H; k += blockDim.x)
-        if (t0 + k / H < ncell) eo[(cell0 + t0) * H + k] = 0.f;
-      for (int c = threadIdx.x; c < TC; c += blockDim.x)
-        if (t0 + c < ncell) lg[cell0 + t0 + c] = 0.f;
-      continue;
-    }
-    float ar[kCellsPerThread], az[kCellsPerThread], an[kCellsPerThread];
-    gate_products(s, h, g, H, ar, az, an);
-#pragma unroll
-    for (int cc = 0; cc < kCellsPerThread; ++cc) {
-      const int c = g * kCellsPerThread + cc, cell = t0 + c;
-      const float m = s.m[c];
-      float out = 0.f;
-      if (m != 0.f) {
-        const int i = cell / nt, j = cell % nt;
-        const float *gai, *gbj;
-        int64_t da, dn;
-        gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
-        const float hm = s.he[c * H + h];
-        const float r = sigmoid_f((ga_at<kGather>(gsrc, gai, h) + sign * gbj[h])
-                                  + (ar[cc] + s.b[h]));
-        const float z = sigmoid_f((ga_at<kGather>(gsrc, gai, H + h) + sign * gbj[H + h])
-                                  + (az[cc] + s.b[H + h]));
-        const float n = tanhf((ga_at<kGather>(gsrc, gai, 2 * H + h) + sign * gbj[2 * H + h])
-                              + r * (an[cc] + s.b[2 * H + h]));
-        out = m * ((1.f - z) * n + z * hm);
-      }
-      eo_s[c * H + h] = out;
-      if (cell < ncell) eo[(cell0 + cell) * H + h] = out;
-    }
+// The forward and d h_e kernels' walk: CTA (q, s) of grid (P, tiles) takes
+// the kTile cells from s * kTile of block q.  A live tile is staged with the
+// first chunk's slab; each step stages the next slab while every warp
+// computes on this one (its 16 cells), between two barriers.  step(hs, slab,
+// s, c0, live) runs steps s = 0 .. steps - 1 on chunk s % chunks, hs the
+// warp's rows (h_e unmasked), c0 its first cell; dead(c0) writes a tile of
+// masked cells.
+template <class Step, class Dead>
+__device__ __forceinline__ void for_cta_tile(const float* __restrict__ he,
+                                             const float* __restrict__ whh,
+                                             const float* __restrict__ mask, int64_t q,
+                                             int ncell, int H, int steps, Step step, Dead dead) {
+  extern __shared__ float4 smem4[];
+  const int stride = he_stride(H), chunks = H / kChunk, lane = threadIdx.x & 31;
+  float* tile_s = (float*)smem4;
+  float* mask_s = tile_s + kTile * stride;  // [kTile]
+  float* slabs = mask_s + kTile;            // [2][big | small]
+  const int c0 = blockIdx.y * kTile, len = min(kTile, ncell - c0);
+  if (!cta_tile_live(tile_mask(mask, q, ncell, c0, len), mask_s)) {
+    dead(c0);
+    return;
+  }
+  stage_tile(tile_s, he, q, ncell, c0, len, H, stride, mask_s);
+  stage_slab(slabs, whh, H, 0, threadIdx.x, kThreads);
+  cp_async_commit();
+  const int w0 = c0 + (threadIdx.x >> 5) * kRows;
+  const bool live = warp_tile_live(mask, q, ncell, w0, lane);
+  for (int s = 0; s < steps; ++s) {
+    float* slab = slabs + (s & 1) * 2 * slab_floats(H);
+    if (s + 1 < steps)
+      stage_slab(slabs + ((s + 1) & 1) * 2 * slab_floats(H), whh, H, (s + 1) % chunks,
+                 threadIdx.x, kThreads);
+    cp_async_commit();
+    cp_async_wait<1>();
+    split_slab(slab, H, threadIdx.x, kThreads);
     __syncthreads();
-    // head partial lg = edge_out @ w_eb: one warp per cell, lanes over h,
-    // a fixed shuffle tree
-    for (int c = warp; c < TC; c += nwarps) {
-      float acc = 0.f;
-      for (int k = lane; k < H; k += 32) acc = fmaf(eo_s[c * H + k], s.web[k], acc);
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0 && t0 + c < ncell) lg[cell0 + t0 + c] = acc;
-    }
+    step(tile_s + (threadIdx.x >> 5) * kRows * stride, slab, s, w0, live);
     __syncthreads();
   }
-  row_col_sums(he, mask, q, na, nt, H, rs, cs, split, nsplit);
+  cp_async_wait<0>();
 }
 
-// kGather: the gates as block_round_fwd_kernel<true> reads them, the
-// cotangents of the row and column sums read as grs[da] and -gcs[dn] (grs =
-// gcs = d es on the detection layout), and d b_ih (the sum of the block's d
-// ga rows) appended to the partials row.
+// Grid (P, tiles); CTA (q, s) also sums rows and columns s + tiles * k of
+// block q for rs and cs.
 template <bool kGather>
-__global__ void block_round_bwd_kernel(const float* __restrict__ he, const GateSrc gsrc,
-                                       const float* __restrict__ whh,
-                                       const float* __restrict__ bhh,
-                                       const float* __restrict__ web,
-                                       const float* __restrict__ mask,
-                                       const float* __restrict__ geo,
-                                       const float* __restrict__ grs,
-                                       const float* __restrict__ gcs,
-                                       const float* __restrict__ glg,
-                                       float* __restrict__ dhe, float* __restrict__ dga,
-                                       float* __restrict__ dgb, float* __restrict__ part,
-                                       int na, int nt, int H, float sign) {
-  extern __shared__ float smem[];
-  const int G = blockDim.x / H, TC = G * kCellsPerThread;
-  const RoundSmem s = round_common_smem(smem, H, TC);
-  const int H3 = 3 * H, ws = H3 + 1;
-  float* glg_s = s.m + TC;        // [TC]
-  float* dgh_s = glg_s + TC;      // [TC][3H]  d gh: r | z | n*r
-  float* dgn_s = dgh_s + TC * H3; // [TC][H]   d gi of n (= d pre_n)
-  float* dw_s = dgn_s + TC * H;   // [H][3H]   this block's d w_hh
-  float* dga_s = dw_s + H * H3;   // [na][3H]
-  float* dgb_s = dga_s + na * H3; // [nt][3H]
-  float* red_s = dgb_s + nt * H3; // [G][4H]   cross-group d b_hh | d w_eb
-  const int h = threadIdx.x % H, g = threadIdx.x / H;
+__global__ void __launch_bounds__(kThreads)
+round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* __restrict__ whh,
+                 const float* __restrict__ bhh, const float* __restrict__ web,
+                 const float* __restrict__ mask, float* __restrict__ eo, float* __restrict__ rs,
+                 float* __restrict__ cs, float* __restrict__ lg, int na, int nt, int H,
+                 float sign) {
   const int64_t q = blockIdx.x;
-  const int ncell = na * nt;
-  const int64_t cell0 = q * ncell;
-  load_weights(s, whh, bhh, web, H);
-  for (int k = threadIdx.x; k < H * H3; k += blockDim.x) dw_s[k] = 0.f;
-  for (int k = threadIdx.x; k < (na + nt) * H3; k += blockDim.x) dga_s[k] = 0.f;
-  float db_r = 0.f, db_z = 0.f, db_n = 0.f, dweb_acc = 0.f;
+  const int ncell = na * nt, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int stride = he_stride(H), chunks = H / kChunk;
+  Cell c[2];
+  double lgp[2];  // lg sums H products: f64, rounded once
+  auto step = [&](const float* hs, const float* slab, int u, int w0, bool live) {
+    if (u == 0) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        c[rr] = cell_at<kGather>(gsrc, mask, q, na, nt, H, w0 + g + 8 * rr);
+        lgp[rr] = 0.0;
+      }
+    }
+    if (!live) {
+      if (u == 0) {
+        zero_rows(eo, q, ncell, w0, kRows, H, lane, 32);
+        if (lane < kRows && w0 + lane < ncell) lg[q * ncell + w0 + lane] = 0.f;
+      }
+      return;
+    }
+    const int h = u * kChunk + 2 * t;
+    const float2 we = ld2(web + h);
+    const GateIn in[2] = {gate_in<kGather>(gsrc, c[0], bhh, H, h, sign),
+                          gate_in<kGather>(gsrc, c[1], bhh, H, h, sign)};
+    float acc[3][4];
+    gate_chunk(hs, stride, slab, H, lane, c[0].m, c[1].m, acc);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float out[2] = {0.f, 0.f};
+      if (c[rr].m != 0.f) {
+        const float p[3][2] = {{acc[0][2 * rr], acc[0][2 * rr + 1]},
+                               {acc[1][2 * rr], acc[1][2 * rr + 1]},
+                               {acc[2][2 * rr], acc[2][2 * rr + 1]}};
+        const Gates2 gt = gates2(in[rr], p);
+        const float2 hm = *(const float2*)(hs + (g + 8 * rr) * stride + h);
+        const float hme[2] = {c[rr].m * hm.x, c[rr].m * hm.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out[e] = c[rr].m * ((1.f - gt.z[e]) * gt.n[e] + gt.z[e] * hme[e]);
+      }
+      if (c[rr].cell >= 0) *(float2*)(eo + c[rr].cell * H + h) = make_float2(out[0], out[1]);
+      lgp[rr] = fma((double)out[1], (double)we.y, fma((double)out[0], (double)we.x, lgp[rr]));
+    }
+    if (u + 1 == chunks) {  // lg: the four lanes of a row, a fixed tree
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        double v = lgp[rr];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && c[rr].cell >= 0) lg[c[rr].cell] = (float)v;
+      }
+    }
+  };
+  auto dead = [&](int c0) {
+    zero_rows(eo, q, ncell, c0, kTile, H, threadIdx.x, kThreads);
+    if (threadIdx.x < kTile && c0 + threadIdx.x < ncell) lg[q * ncell + c0 + threadIdx.x] = 0.f;
+  };
+  for_cta_tile(he, whh, mask, q, ncell, H, chunks, step, dead);
+  row_col_sums(he, mask, q, na, nt, H, rs, cs, blockIdx.y, gridDim.y);
+}
 
-  for (int t0 = 0; t0 < ncell; t0 += TC) {
-    if (!load_tile(s, he, mask, cell0, t0, ncell, TC, H)) {
-      for (int k = threadIdx.x; k < TC * H; k += blockDim.x)
-        if (t0 + k / H < ncell) dhe[(cell0 + t0) * H + k] = 0.f;
-      continue;
+// d h_e = mask * (go * z + d gh @ w_hh^T + g_rs[i] + g_cs[j]) (kGather: g_rs
+// = d es at da, g_cs = -d es at dn).  Grid as round_fwd_kernel's.  A warp
+// holds kDheTiles n tiles (8 columns each) of d h_e; where H/8 is more, the
+// chunks run once a pass of columns.
+template <bool kGather>
+__global__ void __launch_bounds__(kThreads)
+round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* __restrict__ whh,
+                const float* __restrict__ bhh, const float* __restrict__ web,
+                const float* __restrict__ mask, const float* __restrict__ geo,
+                const float* __restrict__ grs, const float* __restrict__ gcs,
+                const float* __restrict__ glg, float* __restrict__ dhe, float* __restrict__ dgs,
+                int na, int nt, int H, float sign) {
+  const int64_t q = blockIdx.x;
+  const int ncell = na * nt, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int stride = he_stride(H), chunks = H / kChunk;
+  const int passes = (chunks + kDheTiles - 1) / kDheTiles;
+  const int per_pass = (chunks + passes - 1) / passes;
+  Cell c[2];
+  float gl[2];
+  float acc[kDheTiles][4];
+  auto step = [&](const float* hs, const float* slab, int s, int w0, bool live) {
+    const int u = s % chunks, n0 = (s / chunks) * per_pass, ncount = min(per_pass, chunks - n0);
+    if (!live) {
+      if (s == 0) zero_rows(dhe, q, ncell, w0, kRows, H, lane, 32);
+      return;
     }
-    for (int c = threadIdx.x; c < TC; c += blockDim.x)
-      glg_s[c] = (t0 + c < ncell) ? glg[cell0 + t0 + c] : 0.f;
-    __syncthreads();
-    float ar[kCellsPerThread], az[kCellsPerThread], an[kCellsPerThread];
-    gate_products(s, h, g, H, ar, az, an);
-    float direct[kCellsPerThread];  // go * z, the part of d he_m not through w_hh
+    if (s == 0) {
 #pragma unroll
-    for (int cc = 0; cc < kCellsPerThread; ++cc) {
-      const int c = g * kCellsPerThread + cc, cell = t0 + c;
-      const float m = s.m[c];
-      float d_r = 0.f, d_z = 0.f, d_n = 0.f, r = 0.f;
-      direct[cc] = 0.f;
-      if (m != 0.f) {
-        const int i = cell / nt, j = cell % nt;
-        const float *gai, *gbj;
-        int64_t da, dn;
-        gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
-        const float hm = s.he[c * H + h];
-        r = sigmoid_f((ga_at<kGather>(gsrc, gai, h) + sign * gbj[h]) + (ar[cc] + s.b[h]));
-        const float z = sigmoid_f((ga_at<kGather>(gsrc, gai, H + h) + sign * gbj[H + h])
-                                  + (az[cc] + s.b[H + h]));
-        const float ghn = an[cc] + s.b[2 * H + h];
-        const float n = tanhf((ga_at<kGather>(gsrc, gai, 2 * H + h) + sign * gbj[2 * H + h])
-                              + r * ghn);
-        const float gl = glg_s[c];
-        const float go = (geo[(cell0 + cell) * H + h] + gl * s.web[h]) * m;
-        const float out = m * ((1.f - z) * n + z * hm);
-        dweb_acc = fmaf(out, gl, dweb_acc);
-        const float dz = go * (hm - n);
-        d_n = go * (1.f - z) * (1.f - n * n);
-        d_r = d_n * ghn * r * (1.f - r);
-        d_z = dz * z * (1.f - z);
-        direct[cc] = go * z;
+      for (int rr = 0; rr < 2; ++rr) {
+        c[rr] = cell_at<kGather>(gsrc, mask, q, na, nt, H, w0 + g + 8 * rr);
+        gl[rr] = c[rr].m != 0.f ? glg[c[rr].cell] : 0.f;
       }
-      dgh_s[c * H3 + h] = d_r;
-      dgh_s[c * H3 + H + h] = d_z;
-      dgh_s[c * H3 + 2 * H + h] = d_n * r;
-      dgn_s[c * H + h] = d_n;
-      db_r += d_r;
-      db_z += d_z;
-      db_n += d_n * r;
     }
-    __syncthreads();
-    // d h_e = mask * (go * z + d gh @ w_hh^T + g_rs[i] + g_cs[j])
-    {
-      float acc[kCellsPerThread];
+    if (u == 0) {
 #pragma unroll
-      for (int cc = 0; cc < kCellsPerThread; ++cc) acc[cc] = 0.f;
-      const float* drow = dgh_s + g * kCellsPerThread * H3;
-      const float* wrow = s.w + h * ws;
-      for (int k = 0; k < H3; ++k) {
-        const float wk = wrow[k];
+      for (int n = 0; n < kDheTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    }
+    const int h = u * kChunk + 2 * t;
+    const float2 we = ld2(web + h);
+    const float wee[2] = {we.x, we.y};
+    const GateIn in[2] = {gate_in<kGather>(gsrc, c[0], bhh, H, h, sign),
+                          gate_in<kGather>(gsrc, c[1], bhh, H, h, sign)};
+    float2 ge[2];
 #pragma unroll
-        for (int cc = 0; cc < kCellsPerThread; ++cc) acc[cc] = fmaf(drow[cc * H3 + k], wk, acc[cc]);
+    for (int rr = 0; rr < 2; ++rr)
+      ge[rr] = c[rr].m != 0.f ? ld2(geo + c[rr].cell * H + h) : make_float2(0.f, 0.f);
+    float gh[3][4];
+    gate_chunk(hs, stride, slab, H, lane, c[0].m, c[1].m, gh);
+    float dgh[3][4], direct[4], dn[4], eg[4];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        dgh[0][2 * rr + e] = dgh[1][2 * rr + e] = dgh[2][2 * rr + e] = direct[2 * rr + e] =
+            dn[2 * rr + e] = eg[2 * rr + e] = 0.f;
+      if (c[rr].m == 0.f) continue;
+      const float p[3][2] = {{gh[0][2 * rr], gh[0][2 * rr + 1]},
+                             {gh[1][2 * rr], gh[1][2 * rr + 1]},
+                             {gh[2][2 * rr], gh[2][2 * rr + 1]}};
+      const Gates2 gt = gates2(in[rr], p);
+      const float2 hm = *(const float2*)(hs + (g + 8 * rr) * stride + h);
+      const float hme[2] = {c[rr].m * hm.x, c[rr].m * hm.y}, gee[2] = {ge[rr].x, ge[rr].y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float z = gt.z[e], n = gt.n[e], r = gt.r[e];
+        const float go = (gee[e] + gl[rr] * wee[e]) * c[rr].m;
+        const float d_n = go * (1.f - z) * (1.f - n * n);
+        dgh[0][2 * rr + e] = d_n * gt.ghn[e] * r * (1.f - r);
+        dgh[1][2 * rr + e] = go * (hme[e] - n) * z * (1.f - z);
+        dgh[2][2 * rr + e] = d_n * r;
+        direct[2 * rr + e] = go * z;
+        dn[2 * rr + e] = d_n;
+        eg[2 * rr + e] = c[rr].m * ((1.f - z) * n + z * hme[e]) * gl[rr];
       }
+    }
+    // the first pass leaves the chunk's [d pre_r | d pre_z | d pre_n r |
+    // d pre_n | edge_out g_lg] of each live cell to the weight-gradient
+    // kernels
+    if (s < chunks) {
 #pragma unroll
-      for (int cc = 0; cc < kCellsPerThread; ++cc) {
-        const int c = g * kCellsPerThread + cc, cell = t0 + c;
-        if (cell >= ncell) continue;
-        const float m = s.m[c];
-        float v = 0.f;
-        if (m != 0.f) {
-          const int i = cell / nt, j = cell % nt;
-          const float *gai, *gbj;
-          int64_t da, dn;
-          gate_rows<kGather>(gsrc, q, i, j, na, nt, H3, gai, gbj, da, dn);
+      for (int rr = 0; rr < 2; ++rr) {
+        if (c[rr].m == 0.f) continue;  // read as 0 by the mask
+        float* d = dgs + (c[rr].cell * chunks + u) * kDgs + 2 * t;
+        const int i = 2 * rr;
+        *(float2*)(d) = make_float2(dgh[0][i], dgh[0][i + 1]);
+        *(float2*)(d + kChunk) = make_float2(dgh[1][i], dgh[1][i + 1]);
+        *(float2*)(d + 2 * kChunk) = make_float2(dgh[2][i], dgh[2][i + 1]);
+        *(float2*)(d + 3 * kChunk) = make_float2(dn[i], dn[i + 1]);
+        *(float2*)(d + 4 * kChunk) = make_float2(eg[i], eg[i + 1]);
+      }
+    }
+    // the direct term lands on d h_e's n tile u (a select on every tile: an
+    // indexed add would put the accumulators in local memory)
+#pragma unroll
+    for (int n = 0; n < kDheTiles; ++n) {
+      const bool here = n == u - n0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[n][k] += here ? direct[k] : 0.f;
+    }
+    // d h_e += d gh (this chunk's 24 columns) @ w_hh[:, those]^T: the
+    // accumulator's columns 2t, 2t + 1 are the A fragment's k slots t, t + 4
+    const float* small = slab + slab_floats(H);
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate) {
+      const FragA a = frag_a(dgh[gate][0], dgh[gate][2], dgh[gate][1], dgh[gate][3]);
+#pragma unroll
+      for (int n = 0; n < kDheTiles; ++n) {
+        if (n >= ncount) continue;
+        const int i = (gate * H + (n0 + n) * kChunk + g) * kChunk + 2 * t;
+        const float2 bb = *(const float2*)(slab + i), bs = *(const float2*)(small + i);
+        FragB b;
+        b.big[0] = __float_as_uint(bb.x);
+        b.big[1] = __float_as_uint(bb.y);
+        b.small[0] = __float_as_uint(bs.x);
+        b.small[1] = __float_as_uint(bs.y);
+        mma3(acc[n], a, b);
+      }
+    }
+    if (u + 1 < chunks) return;
+#pragma unroll
+    for (int n = 0; n < kDheTiles; ++n) {
+      if (n >= ncount) continue;
+      const int hh = (n0 + n) * kChunk + 2 * t;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (c[rr].cell < 0) continue;
+        float2 v = make_float2(0.f, 0.f);
+        if (c[rr].m != 0.f) {
+          const float2 a = ld2(grs + c[rr].da * H + hh), b = ld2(gcs + c[rr].dn * H + hh);
+          const float m = c[rr].m;
           if constexpr (kGather) {
-            v = m * (((direct[cc] + acc[cc]) + grs[da * H + h]) + -gcs[dn * H + h]);
+            v = make_float2(m * ((acc[n][2 * rr] + a.x) + -b.x),
+                            m * ((acc[n][2 * rr + 1] + a.y) + -b.y));
           } else {
-            v = m * (((direct[cc] + acc[cc]) + grs[da * H + h]) + gcs[dn * H + h]);
+            v = make_float2(m * ((acc[n][2 * rr] + a.x) + b.x),
+                            m * ((acc[n][2 * rr + 1] + a.y) + b.y));
           }
         }
-        dhe[(cell0 + cell) * H + h] = v;
+        *(float2*)(dhe + c[rr].cell * H + hh) = v;
       }
     }
-    // d w_hh += he_m^T @ d gh over the tile: item (kk group of kDwRows rows,
-    // column) owned by one thread, its kDwRows sums in registers
-    for (int it = threadIdx.x; it < (H / kDwRows) * H3; it += blockDim.x) {
-      const int kk0 = (it / H3) * kDwRows, col = it % H3;
-      float acc[kDwRows];
+  };
+  auto dead = [&](int c0) { zero_rows(dhe, q, ncell, c0, kTile, H, threadIdx.x, kThreads); };
+  for_cta_tile(he, whh, mask, q, ncell, H, passes * chunks, step, dead);
+}
+
+// d w_hh = he_m^T @ d gh, split over K (the cells): grid (P * ksplit,
+// output tiles).  CTA (q * ksplit + s, o) sums split s of block q's cell
+// tiles (consecutive tiles of kTile cells) into output tile o: rows (h) of
+// a kDwRows block, columns of a kDwCols block of [H, 3H], one 16-row m tile
+// a warp; its entries of the partials row part[q * ksplit + s] = [H*3H].
+// d gh comes from the scratch dgs that round_dh_kernel wrote for its live
+// tiles; a masked cell reads as 0 (select), whatever the scratch holds.
+__global__ void __launch_bounds__(kThreads)
+round_dw_kernel(const float* __restrict__ he, const float* __restrict__ mask,
+                const float* __restrict__ dgs, float* __restrict__ part, int na, int nt, int H,
+                int ksplit) {
+  extern __shared__ float4 smem4[];
+  float* a_s = (float*)smem4;                  // [2][kTile][kAStride]: h_e of the rows
+  float* b_s = a_s + 2 * kTile * kAStride;     // [2][kTile][kBStride]: d gh of the columns
+  float* mask_s = b_s + 2 * kTile * kBStride;  // [2][kTile]
+  const int64_t q = blockIdx.x / ksplit;
+  const int split = blockIdx.x % ksplit, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, H3 = 3 * H, chunks = H / kChunk;
+  const int nblocks = (H3 + kDwCols - 1) / kDwCols;
+  const int h_base = (blockIdx.y / nblocks) * kDwRows, c_base = (blockIdx.y % nblocks) * kDwCols;
+  const int hcount = min(kDwRows, H - h_base);
+  const int ncell = na * nt, ntiles = (ncell + kTile - 1) / kTile;
+  const int per = (ntiles + ksplit - 1) / ksplit;
+  const int first = split * per, last = min(first + per, ntiles);
+  const auto stage = [&](int b, int c0, int len) {  // live cells only
+    const float* m_s = mask_s + b * kTile;
+    float* a = a_s + b * kTile * kAStride;
+    for (int e = tid; e < kTile * (kDwRows / 4); e += kThreads) {
+      const int r = e / (kDwRows / 4), p = e % (kDwRows / 4);
+      const bool valid = r < len && 4 * p < hcount && m_s[r] != 0.f;
+      cp_async16(a + r * kAStride + 4 * p,
+                 valid ? he + (q * ncell + c0 + r) * (int64_t)H + h_base + 4 * p : he, valid);
+    }
+    float* bb = b_s + b * kTile * kBStride;
+    for (int e = tid; e < kTile * (kDwCols / 4); e += kThreads) {
+      const int r = e / (kDwCols / 4), p = e % (kDwCols / 4);
+      const int col = c_base + 4 * p, col8 = col & ~7;  // the n tile's first column
+      const bool valid = r < len && col < H3 && m_s[r] != 0.f;
+      const int gate = col8 / H, unit = col8 - gate * H;
+      cp_async16(bb + r * kBStride + 4 * p,
+                 valid ? dgs + ((q * ncell + c0 + r) * chunks + unit / kChunk) * kDgs
+                             + gate * kChunk + (col - col8)
+                       : dgs,
+                 valid);
+    }
+  };
+  float acc[kDwCols / 8][4];
 #pragma unroll
-      for (int u = 0; u < kDwRows; ++u) acc[u] = 0.f;
-      for (int c = 0; c < TC; ++c) {
-        const float d = dgh_s[c * H3 + col];
-        const float4* hv = (const float4*)(s.he + c * H + kk0);
+  for (int n = 0; n < kDwCols / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int hl = warp * 16 + g;  // this thread's rows hl, hl + 8 of the tile
+  const bool lo_ok = hl < hcount, hi_ok = hl + 8 < hcount;
+
+  float m_next = first < last ? tile_mask(mask, q, ncell, first * kTile,
+                                          min(kTile, ncell - first * kTile)) : 0.f;
+  bool live = false;
+  for (int tile = first; tile <= last; ++tile) {
+    // stage tile (if live), then compute the one before
+    const int b = (tile - first) & 1;
+    bool live_here = false;
+    if (tile < last) {
+      const int c0 = tile * kTile, len = min(kTile, ncell - c0);
+      live_here = cta_tile_live(m_next, mask_s + b * kTile);
+      if (live_here) stage(b, c0, len);
+      if (tile + 1 < last)
+        m_next = tile_mask(mask, q, ncell, c0 + kTile, min(kTile, ncell - c0 - kTile));
+    }
+    cp_async_commit();
+    if (tile > first && live) {
+      const int pb = b ^ 1;
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* a = a_s + pb * kTile * kAStride;
+      const float* bb = b_s + pb * kTile * kBStride;
+      const float* m_s = mask_s + pb * kTile;
+      if (lo_ok) {
+        for (int k0 = 0; k0 < kTile; k0 += 8) {
+          const float m0 = m_s[k0 + t], m1 = m_s[k0 + t + 4];
+          const float* a0 = a + (k0 + t) * kAStride + hl;
+          const float* a1 = a0 + 4 * kAStride;
+          const auto mk = [](float m, float x) { return m != 0.f ? m * x : 0.f; };
+          const FragA fa = frag_a(mk(m0, a0[0]), hi_ok ? mk(m0, a0[8]) : 0.f, mk(m1, a1[0]),
+                                  hi_ok ? mk(m1, a1[8]) : 0.f);
+          const float* b0 = bb + (k0 + t) * kBStride + g;
 #pragma unroll
-        for (int u = 0; u < kDwRows / 4; ++u) {
-          const float4 x = hv[u];
-          acc[4 * u] = fmaf(x.x, d, acc[4 * u]);
-          acc[4 * u + 1] = fmaf(x.y, d, acc[4 * u + 1]);
-          acc[4 * u + 2] = fmaf(x.z, d, acc[4 * u + 2]);
-          acc[4 * u + 3] = fmaf(x.w, d, acc[4 * u + 3]);
+          for (int n = 0; n < kDwCols / 8; ++n)
+            mma3(acc[n], fa, frag_b(m0 != 0.f ? b0[8 * n] : 0.f,
+                                    m1 != 0.f ? b0[4 * kBStride + 8 * n] : 0.f));
         }
       }
+    }
+    __syncthreads();  // the buffer computed on is staged next
+    live = live_here;
+  }
+  cp_async_wait<0>();
+  float* prow = part + (int64_t)blockIdx.x * H * H3;
 #pragma unroll
-      for (int u = 0; u < kDwRows; ++u) dw_s[(kk0 + u) * H3 + col] += acc[u];
-    }
-    // d ga[i] += sum over the tile's cells of row i; d gb[j] likewise over column j
-    const int t1 = min(t0 + TC, ncell);
-    const int i_first = t0 / nt, rows = (t1 - 1) / nt - i_first + 1;
-    for (int k = threadIdx.x; k < rows * H3; k += blockDim.x) {
-      const int i = i_first + k / H3, col = k % H3;
-      const int c_lo = max(i * nt, t0) - t0, c_hi = min((i + 1) * nt, t1) - t0;
-      float acc = 0.f;
-      for (int c = c_lo; c < c_hi; ++c)
-        acc += col < 2 * H ? dgh_s[c * H3 + col] : dgn_s[c * H + col - 2 * H];
-      dga_s[i * H3 + col] += acc;
-    }
-    for (int k = threadIdx.x; k < nt * H3; k += blockDim.x) {
-      const int j = k / H3, col = k % H3;
-      float acc = 0.f;
-      for (int c = ((j - t0 % nt) + nt) % nt; t0 + c < t1; c += nt)
-        acc += col < 2 * H ? dgh_s[c * H3 + col] : dgn_s[c * H + col - 2 * H];
-      dgb_s[j * H3 + col] += acc;
-    }
-    __syncthreads();
-  }
-  for (int k = threadIdx.x; k < na * H3; k += blockDim.x) dga[q * na * H3 + k] = dga_s[k];
-  for (int k = threadIdx.x; k < nt * H3; k += blockDim.x) dgb[q * nt * H3 + k] = sign * dgb_s[k];
-  red_s[g * 4 * H + h] = db_r;
-  red_s[g * 4 * H + H + h] = db_z;
-  red_s[g * 4 * H + 2 * H + h] = db_n;
-  red_s[g * 4 * H + 3 * H + h] = dweb_acc;
-  __syncthreads();
-  const int width = H * H3 + 4 * H + (kGather ? H3 : 0);
-  float* prow = part + q * width;
-  for (int o = threadIdx.x; o < H * H3; o += blockDim.x) prow[o] = dw_s[o];
-  for (int k = threadIdx.x; k < 4 * H; k += blockDim.x) {
-    float acc = 0.f;
-    for (int gg = 0; gg < G; ++gg) acc += red_s[gg * 4 * H + k];
-    prow[H * H3 + k] = acc;
-  }
-  if constexpr (kGather) {
-    // d b_ih: the block's d ga rows summed in row order
-    for (int k = threadIdx.x; k < H3; k += blockDim.x) {
-      float acc = 0.f;
-      for (int i = 0; i < na; ++i) acc += dga_s[i * H3 + k];
-      prow[H * H3 + 4 * H + k] = acc;
-    }
+  for (int n = 0; n < kDwCols / 8; ++n) {
+    const int col = c_base + 8 * n + 2 * t;
+    if (col >= H3) continue;
+    if (lo_ok)
+      *(float2*)(prow + (int64_t)(h_base + hl) * H3 + col) = make_float2(acc[n][0], acc[n][1]);
+    if (hi_ok)
+      *(float2*)(prow + (int64_t)(h_base + hl + 8) * H3 + col) =
+          make_float2(acc[n][2], acc[n][3]);
   }
 }
 
-// out[k] = sum over blocks q in increasing order of part[q][k]
-__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int P, int width) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= width) return;
+// The sums of d gh's scratch over cells: for kSumRows rows (q, i) and a
+// scratch column, each over j: d ga [P, na, 3H] (d pre_r | d pre_z |
+// d pre_n) and the rows' part of the biases' gradients rsum [P*ceil(na /
+// kSumRows), 4H or 7H] = [d pre_r | d pre_z | d pre_n r | edge_out g_lg (|
+// d pre_r | d pre_z | d pre_n)]; for each column (q, j), over i: d gb =
+// sign * (d pre_r | d pre_z | d pre_n).  Masked cells read as 0.  Each sum
+// runs in cell order.
+template <bool kGather>
+__global__ void __launch_bounds__(256)
+round_sums_kernel(const float* __restrict__ mask, const float* __restrict__ dgs,
+                  float* __restrict__ dga, float* __restrict__ dgb, float* __restrict__ rsum,
+                  int P, int na, int nt, int H, float sign) {
+  const int chunks = H / kChunk, ncell = na * nt, H3 = 3 * H;
+  const int64_t id = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int groups = (na + kSumRows - 1) / kSumRows;
+  const int64_t nrow = (int64_t)P * groups * chunks * kDgs;
+  if (id < nrow) {
+    const int k = (int)(id % kDgs);
+    int64_t r = id / kDgs;
+    const int u = (int)(r % chunks);
+    r /= chunks;
+    const int grp = (int)(r % groups);
+    const int64_t q = r / groups;
+    const int kind = k / kChunk, unit = u * kChunk + k % kChunk;
+    float total = 0.f;
+    for (int i = grp * kSumRows; i < min(na, grp * kSumRows + kSumRows); ++i) {
+      const float* m = mask + q * ncell + (int64_t)i * nt;
+      const float* x = dgs + ((q * ncell + (int64_t)i * nt) * chunks + u) * kDgs + k;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < nt; ++j) acc += *masked(m + j, x + (int64_t)j * chunks * kDgs);
+      total += acc;
+      float* ga = dga + (q * na + i) * H3;
+      if (kind < 2) ga[kind * H + unit] = acc;         // d pre_r, d pre_z
+      else if (kind == 3) ga[2 * H + unit] = acc;      // d pre_n
+    }
+    float* rs = rsum + (q * groups + grp) * (kGather ? 7 * H : 4 * H);
+    if (kind < 2) {
+      rs[kind * H + unit] = total;
+      if (kGather) rs[(4 + kind) * H + unit] = total;
+    } else if (kind == 2) {
+      rs[2 * H + unit] = total;
+    } else if (kind == 3) {
+      if (kGather) rs[6 * H + unit] = total;
+    } else {
+      rs[3 * H + unit] = total;
+    }
+    return;
+  }
+  const int64_t c = id - nrow;
+  if (c >= (int64_t)P * nt * chunks * 3 * kChunk) return;
+  const int k = (int)(c % (3 * kChunk));
+  int64_t r = c / (3 * kChunk);
+  const int u = (int)(r % chunks);
+  r /= chunks;
+  const int j = (int)(r % nt);
+  const int64_t q = r / nt;
+  const float* m = mask + q * ncell + j;
+  const float* x = dgs + ((q * ncell + j) * chunks + u) * kDgs + (k < 2 * kChunk ? k : k + kChunk);
   float acc = 0.f;
-  for (int q = 0; q < P; ++q) acc += part[(int64_t)q * width + k];
-  out[k] = acc;
+#pragma unroll 8
+  for (int i = 0; i < na; ++i)
+    acc += *masked(m + (int64_t)i * nt, x + (int64_t)i * nt * chunks * kDgs);
+  dgb[(q * nt + j) * H3 + (k / kChunk) * H + u * kChunk + k % kChunk] = sign * acc;
+}
+
+// out[k] = the sum over rows q of part[q][k] (width columns, rows rows),
+// for two such arrays in one launch (CTAs from split on take the second):
+// group s of a CTA sums rows s, s + kSumGroups, ... in order, then the
+// groups are summed in order.
+__global__ void __launch_bounds__(32 * kSumGroups)
+sum_partials_kernel(const float* __restrict__ part_a, float* __restrict__ out_a, int rows_a,
+                    int width_a, const float* __restrict__ part_b, float* __restrict__ out_b,
+                    int rows_b, int width_b, int split) {
+  __shared__ float red[kSumGroups][32];
+  const bool second = (int)blockIdx.x >= split;
+  const float* part = second ? part_b : part_a;
+  float* out = second ? out_b : out_a;
+  const int rows = second ? rows_b : rows_a, width = second ? width_b : width_a;
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int k = ((int)blockIdx.x - (second ? split : 0)) * 32 + lane;
+  float acc = 0.f;
+  if (k < width) {
+#pragma unroll 8
+    for (int q = grp; q < rows; q += kSumGroups) acc += part[(int64_t)q * width + k];
+  }
+  red[grp][lane] = acc;
+  __syncthreads();
+  if (grp == 0 && k < width) {
+    float s = 0.f;
+    for (int gg = 0; gg < kSumGroups; ++gg) s += red[gg][lane];
+    out[k] = s;
+  }
 }
 
 // Per detection row d of nrows and column c of F: the sum of src_a rows
@@ -670,75 +1107,142 @@ int window_split(int64_t groups, int longest, int* split) {
   return (int)cudaSuccess;
 }
 
-size_t round_smem_bytes(int na, int nt, int H, bool backward) {
-  const size_t TC = (size_t)round_groups(H) * kCellsPerThread, H3 = 3 * (size_t)H;
-  size_t floats = H * (H3 + 1) + H3 + H + TC * H + TC;  // w_hh, b_hh, w_eb, tile, mask
-  if (!backward) return (floats + TC * H) * sizeof(float);  // + edge_out tile
-  floats += TC + TC * H3 + TC * H + H * H3 + (size_t)(na + nt) * H3
-            + (size_t)round_groups(H) * 4 * H;
-  return floats * sizeof(float);
+// A device's side stream for the backward's cell sums, which run beside the
+// d w_hh product; joined to the caller's stream by two events.
+struct SideStream {
+  cudaStream_t stream;
+  cudaEvent_t fork, join;
+};
+SideStream sides[64];
+
+// Once a device: every round kernel may take the shared memory it needs at
+// the widest H; the side stream and its events.
+cudaError_t configure_rounds() {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  SideStream& side = sides[dev];
+  err = cudaStreamCreateWithFlags(&side.stream, cudaStreamNonBlocking);
+  if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+  if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+  if (err != cudaSuccess) return err;
+  const void* kernels[] = {(const void*)round_fwd_kernel<false>, (const void*)round_fwd_kernel<true>,
+                           (const void*)round_dh_kernel<false>, (const void*)round_dh_kernel<true>,
+                           (const void*)round_dw_kernel};
+  for (int k = 0; k < 5; ++k) {
+    const int bytes = (int)(k < 4 ? tile_smem(kMaxH) : dw_smem());
+    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  done[dev] = true;
+  return cudaSuccess;
 }
 
-cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+bool round_width_ok(int na, int nt, int H) {
+  return na > 0 && nt > 0 && H >= kChunk && H <= kMaxH && H % kChunk == 0;
+}
+
+// the forward's and d h_e's grid: (P, a block's tiles)
+dim3 round_grid(int P, int na, int nt) { return dim3(P, (na * nt + kTile - 1) / kTile); }
+
+template <bool kGather>
+cudaError_t launch_fwd(const float* he, const GateSrc& g, const float* whh, const float* bhh,
+                       const float* web, const float* mask, float* eo, float* rs, float* cs,
+                       float* lg, int P, int na, int nt, int H, float sign, cudaStream_t s) {
+  const cudaError_t err = configure_rounds();
+  if (err != cudaSuccess) return err;
+  round_fwd_kernel<kGather><<<round_grid(P, na, nt), kThreads, tile_smem(H), s>>>(
+      he, g, whh, bhh, web, mask, eo, rs, cs, lg, na, nt, H, sign);
+  return cudaGetLastError();
+}
+
+// d h_e and the d gh scratch; d w_hh's partials and, on the side stream at
+// the same time, the cell sums (d ga, d gb, the biases' row parts); then the
+// partials and the row parts summed into dw = [d w_hh | d b_hh | d w_eb (|
+// d b_ih)]
+template <bool kGather>
+cudaError_t launch_bwd(const float* he, const GateSrc& g, const float* whh, const float* bhh,
+                       const float* web, const float* mask, const float* geo, const float* grs,
+                       const float* gcs, const float* glg, float* dhe, float* dga, float* dgb,
+                       float* dgs, float* wpart, int ksplit, float* rsum, float* dw, int P,
+                       int na, int nt, int H, float sign, cudaStream_t s) {
+  cudaError_t err = configure_rounds();
+  if (err != cudaSuccess) return err;
+  round_dh_kernel<kGather><<<round_grid(P, na, nt), kThreads, tile_smem(H), s>>>(
+      he, g, whh, bhh, web, mask, geo, grs, gcs, glg, dhe, dgs, na, nt, H, sign);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const SideStream& side = sides[dev];
+  err = cudaEventRecord(side.fork, s);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(side.stream, side.fork, 0);
+  if (err != cudaSuccess) return err;
+  const int groups = (na + kSumRows - 1) / kSumRows;
+  const int64_t items = (int64_t)P * (groups * 5 + nt * 3) * H;
+  round_sums_kernel<kGather><<<(unsigned)((items + 255) / 256), 256, 0, side.stream>>>(
+      mask, dgs, dga, dgb, rsum, P, na, nt, H, sign);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaEventRecord(side.join, side.stream);
+  if (err != cudaSuccess) return err;
+  const int H3 = 3 * H;
+  const dim3 dw_grid(P * ksplit, ((H + kDwRows - 1) / kDwRows) * ((H3 + kDwCols - 1) / kDwCols));
+  round_dw_kernel<<<dw_grid, kThreads, dw_smem(), s>>>(he, mask, dgs, wpart, na, nt, H, ksplit);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(s, side.join, 0);
+  if (err != cudaSuccess) return err;
+  const int rw = kGather ? 7 * H : 4 * H, split = (H * H3 + 31) / 32;
+  sum_partials_kernel<<<split + (rw + 31) / 32, 32 * kSumGroups, 0, s>>>(
+      wpart, dw, P * ksplit, H * H3, rsum, dw + H * H3, P * groups, rw, split);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of shared memory a CTA of the forward (backward = 0) or backward
-// kernel needs at these widths; -1 for a width the kernels do not take.
-extern "C" int tm_block_round_smem_bytes(int na, int nt, int H, int backward) {
-  if (H < kDwRows || H > kThreadsTarget || kThreadsTarget % H != 0) return -1;
-  return (int)round_smem_bytes(na, nt, H, backward != 0);
-}
-
 // h_e: f32[P, na, nt, H]; ga: f32[P, na, 3H]; gb: f32[P, nt, 3H];
 // w_hh: f32[H, 3H]; b_hh: f32[3H]; w_eb: f32[H]; mask: f32[P, na, nt];
 // out: edge_out f32[P, na, nt, H], rs f32[P, na, H], cs f32[P, nt, H],
-// lg f32[P, na, nt].  H divides 256 and is at least 8.
+// lg f32[P, na, nt].  H a multiple of 8 from 8 to 256 (else
+// cudaErrorInvalidValue).
 extern "C" int tm_block_round_fwd(const void* he, const void* ga, const void* gb,
                                   const void* whh, const void* bhh, const void* web,
                                   const void* mask, void* eo, void* rs, void* cs, void* lg,
                                   int P, int na, int nt, int H, float sign, void* stream) {
   if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
-  const size_t smem = round_smem_bytes(na, nt, H, false);
-  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel<false>, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
   const GateSrc g{(const float*)ga, (const float*)gb, nullptr, nullptr, nullptr, 1, 0};
-  block_round_fwd_kernel<false><<<dim3(P, kRoundSplits), H * round_groups(H), smem,
-                                  (cudaStream_t)stream>>>(
-      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
-      (const float*)mask, (float*)eo, (float*)rs, (float*)cs, (float*)lg, na, nt, H, sign);
-  return (int)cudaGetLastError();
+  return (int)launch_fwd<false>((const float*)he, g, (const float*)whh, (const float*)bhh,
+                                (const float*)web, (const float*)mask, (float*)eo, (float*)rs,
+                                (float*)cs, (float*)lg, P, na, nt, H, sign,
+                                (cudaStream_t)stream);
 }
 
 // Inputs as tm_block_round_fwd plus the cotangents g_eo, g_rs, g_cs, g_lg
 // (shapes of edge_out, rs, cs, lg).  Writes d h_e, d ga, d gb (shapes of
-// h_e, ga, gb), the per-block partials f32[P, H*3H + 4H] (scratch) and
-// dw f32[H*3H + 4H] = [d w_hh (H x 3H) | d b_hh (3H) | d w_eb (H)].
+// h_e, ga, gb) and dw f32[H*3H + 4H] = [d w_hh (H x 3H) | d b_hh (3H) |
+// d w_eb (H)], with the scratch dgs f32[P*na*nt*5H], wpart f32[P*ksplit,
+// H*3H] (ksplit >= 1 splits of a block's cells) and rsum f32[P*ceil(na/4),
+// 4H].
 extern "C" int tm_block_round_bwd(const void* he, const void* ga, const void* gb,
                                   const void* whh, const void* bhh, const void* web,
                                   const void* mask, const void* geo, const void* grs,
                                   const void* gcs, const void* glg, void* dhe, void* dga,
-                                  void* dgb, void* partials, void* dw, int P, int na,
-                                  int nt, int H, float sign, void* stream) {
+                                  void* dgb, void* dgs, void* wpart, void* rsum, void* dw,
+                                  int ksplit, int P, int na, int nt, int H, float sign,
+                                  void* stream) {
   if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = round_smem_bytes(na, nt, H, true);
-  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel<false>, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
   const GateSrc g{(const float*)ga, (const float*)gb, nullptr, nullptr, nullptr, 1, 0};
-  block_round_bwd_kernel<false><<<P, H * round_groups(H), smem, s>>>(
-      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
-      (const float*)mask, (const float*)geo, (const float*)grs, (const float*)gcs,
-      (const float*)glg, (float*)dhe, (float*)dga, (float*)dgb, (float*)partials, na, nt, H,
-      sign);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int width = 3 * H * H + 4 * H;
-  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials,
-                                                          (float*)dw, P, width);
-  return (int)cudaGetLastError();
+  return (int)launch_bwd<false>((const float*)he, g, (const float*)whh, (const float*)bhh,
+                                (const float*)web, (const float*)mask, (const float*)geo,
+                                (const float*)grs, (const float*)gcs, (const float*)glg,
+                                (float*)dhe, (float*)dga, (float*)dgb, (float*)dgs,
+                                (float*)wpart, ksplit, (float*)rsum, (float*)dw, P, na, nt, H,
+                                sign, (cudaStream_t)stream);
 }
 
 // The es round's forward.  h_e, w_hh, b_hh, w_eb, mask as tm_block_round_fwd;
@@ -755,16 +1259,13 @@ extern "C" int tm_block_round_es_fwd(const void* he, const void* act, const void
                                      const void* inc_slot, void* eo, void* rs, void* cs,
                                      void* lg, void* es, int P, int na, int nt, int H, int B,
                                      int capD, float sign, void* stream) {
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = round_smem_bytes(na, nt, H, false);
-  cudaError_t err = opt_in_smem((const void*)block_round_fwd_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
   const GateSrc g{(const float*)gad, (const float*)gbd, (const float*)bih,
                   (const int32_t*)act, (const int32_t*)nw, B, capD};
-  block_round_fwd_kernel<true><<<dim3(P, kRoundSplits), H * round_groups(H), smem, s>>>(
-      (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
-      (const float*)mask, (float*)eo, (float*)rs, (float*)cs, (float*)lg, na, nt, H, sign);
-  err = cudaGetLastError();
+  cudaError_t err = launch_fwd<true>((const float*)he, g, (const float*)whh, (const float*)bhh,
+                                     (const float*)web, (const float*)mask, (float*)eo,
+                                     (float*)rs, (float*)cs, (float*)lg, P, na, nt, H, sign, s);
   if (err != cudaSuccess) return (int)err;
   const int64_t n = (int64_t)B * capD * H;
   incidence_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
@@ -775,35 +1276,30 @@ extern "C" int tm_block_round_es_fwd(const void* he, const void* act, const void
 
 // The es round's backward.  Inputs as tm_block_round_es_fwd plus the
 // cotangents geo (of edge_out), glg (of lg) and ges f32[B*capD, H] (of es).
-// Writes d h_e, the scratch d ga f32[P, na, 3H], d gb f32[P, nt, 3H] and
-// partials f32[P, H*3H + 7H], dw f32[H*3H + 7H] = [d w_hh | d b_hh | d w_eb
-// | d b_ih], and d ga_d, d gb_d f32[B*capD, 3H].  P, na, nt > 0.
+// Writes d h_e, dw f32[H*3H + 7H] = [d w_hh | d b_hh | d w_eb | d b_ih] and
+// d ga_d, d gb_d f32[B*capD, 3H], with the scratch d ga f32[P, na, 3H], d gb
+// f32[P, nt, 3H], dgs, wpart and rsum f32[P*ceil(na/4), 7H] as
+// tm_block_round_bwd's.
+// P, na, nt > 0.
 extern "C" int tm_block_round_es_bwd(const void* he, const void* act, const void* nw,
                                      const void* gad, const void* gbd, const void* bih,
                                      const void* whh, const void* bhh, const void* web,
                                      const void* mask, const void* inc_ptr,
                                      const void* inc_slot, const void* geo, const void* glg,
                                      const void* ges, void* dhe, void* dga, void* dgb,
-                                     void* partials, void* dw, void* dgad, void* dgbd, int P,
+                                     void* dgs, void* wpart, void* rsum, void* dw, void* dgad,
+                                     void* dgbd, int ksplit, int P,
                                      int na, int nt, int H, int B, int capD, float sign,
                                      void* stream) {
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = round_smem_bytes(na, nt, H, true);
-  cudaError_t err = opt_in_smem((const void*)block_round_bwd_kernel<true>, smem);
-  if (err != cudaSuccess) return (int)err;
   const GateSrc g{(const float*)gad, (const float*)gbd, (const float*)bih,
                   (const int32_t*)act, (const int32_t*)nw, B, capD};
-  block_round_bwd_kernel<true><<<P, H * round_groups(H), smem, s>>>(
+  cudaError_t err = launch_bwd<true>(
       (const float*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
       (const float*)mask, (const float*)geo, (const float*)ges, (const float*)ges,
-      (const float*)glg, (float*)dhe, (float*)dga, (float*)dgb, (float*)partials, na, nt, H,
-      sign);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int width = 3 * H * H + 7 * H;
-  sum_partials_kernel<<<(width + 255) / 256, 256, 0, s>>>((const float*)partials,
-                                                          (float*)dw, P, width);
-  err = cudaGetLastError();
+      (const float*)glg, (float*)dhe, (float*)dga, (float*)dgb, (float*)dgs, (float*)wpart,
+      ksplit, (float*)rsum, (float*)dw, P, na, nt, H, sign, s);
   if (err != cudaSuccess) return (int)err;
   const int64_t n = (int64_t)B * capD * 3 * H;
   incidence_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(

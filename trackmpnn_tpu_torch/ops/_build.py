@@ -40,11 +40,10 @@ LIBRARIES = {
             "tm_fused_edge_gru": [_P] * 9 + [_I, _I, _I, _P]}),
     "block": (os.path.join(_PKG, "csrc", "block_kernels.cu"),
               os.path.join(BUILD_DIR, "libtm_block.so"),
-              {"tm_block_round_smem_bytes": [_I, _I, _I, _I],
-               "tm_block_round_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
-               "tm_block_round_bwd": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+              {"tm_block_round_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+               "tm_block_round_bwd": [_P] * 18 + [_I] * 5 + [_F, _P],
                "tm_block_round_es_fwd": [_P] * 17 + [_I] * 6 + [_F, _P],
-               "tm_block_round_es_bwd": [_P] * 22 + [_I] * 6 + [_F, _P],
+               "tm_block_round_es_bwd": [_P] * 24 + [_I] * 7 + [_F, _P],
                "tm_window_scatter": [_P] * 8 + [_I] * 9 + [_P]}),
     "gat": (os.path.join(_PKG, "csrc", "gat_kernels.cu"),
             os.path.join(BUILD_DIR, "libtm_gat.so"),

@@ -37,6 +37,8 @@ the CUDA wrapper builds the full one of the ids on the device for the call
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -268,17 +270,42 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _round_library(name, device, na, nt, H):
-    """The block library, once the round kernels' shared memory at these
-    widths is known to fit a block of the card."""
-    lib = _build.load("block")
-    for backward in (False, True):
-        need = lib.tm_block_round_smem_bytes(na, nt, H, int(backward))
-        have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-        if need < 0 or need > have:
-            raise ValueError(f"{name}: na={na}, nt={nt}, H={H} needs {need} B of shared "
-                             f"memory a block, the card has {have}")
-    return lib
+ROUND_WIDTHS = range(8, 257, 8)  # the hidden widths the round kernels take
+
+
+@functools.lru_cache(maxsize=None)
+def round_widths(na, nt, H):
+    """The round kernels' width rule, checked once for each (na, nt, H):
+    H a multiple of 8 from 8 to 256 and any na, nt >= 0 (the kernels'
+    shared memory depends on H alone).  Raises ValueError naming the width
+    it refuses; JAX's Pallas kernel keeps w_hh in VMEM and takes any H."""
+    if H not in ROUND_WIDTHS:
+        raise ValueError(f"the block round kernels take a hidden width H that is a multiple "
+                         f"of 8 from 8 to 256, not H={H}")
+    if na < 0 or nt < 0:
+        raise ValueError(f"the block round kernels take na, nt >= 0, not na={na}, nt={nt}")
+    return na, nt, H
+
+
+def _round_library(name, na, nt, H):
+    """The block library, once these widths pass round_widths."""
+    try:
+        round_widths(na, nt, H)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return _build.load("block")
+
+
+def _round_scratch(P, na, nt, H, rsum_width, device):
+    """The backward's scratch: d gh of each cell (5H floats), d w_hh's
+    partials (one row a block and split of its cells, at most 3 tiles of 64
+    cells a split) and the sums of every 4 rows for the biases' gradients."""
+    tiles = -(-na * nt // 64)
+    ksplit = -(-tiles // 3)
+    f32 = torch.float32
+    return (torch.empty(P * na * nt * 5 * H, dtype=f32, device=device),
+            torch.empty(P * ksplit, 3 * H * H, dtype=f32, device=device),
+            torch.empty(P * -(-na // 4), rsum_width, dtype=f32, device=device), ksplit)
 
 
 def _round_inputs(name, h_e, ga, gb, w_hh, b_hh, w_eb, mask3):
@@ -290,7 +317,7 @@ def _round_inputs(name, h_e, ga, gb, w_hh, b_hh, w_eb, mask3):
            gb=(gb, f32, (P, nt, 3 * H)), w_hh=(w_hh, f32, (H, 3 * H)),
            b_hh=(b_hh, f32, (3 * H,)), w_eb=(w_eb, f32, (H, 1)),
            mask3=(mask3, f32, (P, na, nt)))
-    return _round_library(name, h_e.device, na, nt, H), P, na, nt, H
+    return _round_library(name, na, nt, H), P, na, nt, H
 
 
 def _block_round_fwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
@@ -322,20 +349,19 @@ def _block_round_bwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign, g_eo, g_rs
     dhe = torch.empty_like(h_e)
     dga = torch.empty(P, na, 3 * H, dtype=f32, device=dev)
     dgb = torch.empty(P, nt, 3 * H, dtype=f32, device=dev)
-    width = H * 3 * H + 4 * H  # per-block partials: d w_hh | d b_hh | d w_eb
-    dw = torch.empty(width, dtype=f32, device=dev)
+    dw = torch.empty(H * 3 * H + 4 * H, dtype=f32, device=dev)  # d w_hh | d b_hh | d w_eb
     if P == 0 or na == 0 or nt == 0:
         dw.zero_()
         dhe.zero_(), dga.zero_(), dgb.zero_()
     else:
-        partials = torch.empty(P, width, dtype=f32, device=dev)
+        dgs, wpart, rsum, ksplit = _round_scratch(P, na, nt, H, 4 * H, dev)
         with torch.cuda.device(dev):
             rc = lib.tm_block_round_bwd(
                 h_e.data_ptr(), ga.data_ptr(), gb.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                 w_eb.data_ptr(), mask3.data_ptr(), g_eo.data_ptr(), g_rs.data_ptr(),
                 g_cs.data_ptr(), g_lg.data_ptr(), dhe.data_ptr(), dga.data_ptr(),
-                dgb.data_ptr(), partials.data_ptr(), dw.data_ptr(), P, na, nt, H,
-                float(sign), _stream())
+                dgb.data_ptr(), dgs.data_ptr(), wpart.data_ptr(), rsum.data_ptr(), dw.data_ptr(),
+                ksplit, P, na, nt, H, float(sign), _stream())
         if rc != 0:
             raise RuntimeError(f"block_round_bwd kernel launch failed: CUDA error {rc}")
         LAUNCHES["block_round_bwd"] += 1
@@ -361,7 +387,7 @@ def _es_inputs(name, h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask
            inc_slot=(inc_slot, i32, tuple(inc_slot.shape)))
     if P * (na + nt) >= 2 ** 31:
         raise ValueError(f"{name}: P * (na + nt) = {P * (na + nt)} overflows the int32 slots")
-    return _round_library(name, h_e.device, na, nt, H), P, na, nt, H
+    return _round_library(name, na, nt, H), P, na, nt, H
 
 
 def _block_round_es_fwd_cuda(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_eb, mask3,
@@ -399,24 +425,23 @@ def _block_round_es_bwd_cuda(h_e, act_l, new_l, ga_d, gb_d, b_ih, w_hh, b_hh, w_
     dhe = torch.empty_like(h_e)
     dgad = torch.empty(B * capD, 3 * H, dtype=f32, device=dev)
     dgbd = torch.empty(B * capD, 3 * H, dtype=f32, device=dev)
-    width = H * 3 * H + 7 * H  # d w_hh | d b_hh | d w_eb | d b_ih
-    dw = torch.empty(width, dtype=f32, device=dev)
+    dw = torch.empty(H * 3 * H + 7 * H, dtype=f32, device=dev)  # d w_hh | d b_hh | d w_eb | d b_ih
     if P == 0 or na == 0 or nt == 0 or B * capD == 0:
         for t in (dhe, dgad, dgbd, dw):
             t.zero_()
     else:
         dga = torch.empty(P, na, 3 * H, dtype=f32, device=dev)
         dgb = torch.empty(P, nt, 3 * H, dtype=f32, device=dev)
-        partials = torch.empty(P, width, dtype=f32, device=dev)
+        dgs, wpart, rsum, ksplit = _round_scratch(P, na, nt, H, 7 * H, dev)
         with torch.cuda.device(dev):
             rc = lib.tm_block_round_es_bwd(
                 h_e.data_ptr(), act_l.data_ptr(), new_l.data_ptr(), ga_d.data_ptr(),
                 gb_d.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                 w_eb.data_ptr(), mask3.data_ptr(), inc_ptr.data_ptr(), inc_slot.data_ptr(),
                 g_eo.data_ptr(), g_lg.data_ptr(), g_es.data_ptr(), dhe.data_ptr(),
-                dga.data_ptr(), dgb.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-                dgad.data_ptr(), dgbd.data_ptr(), P, na, nt, H, B, capD, float(sign),
-                _stream())
+                dga.data_ptr(), dgb.data_ptr(), dgs.data_ptr(), wpart.data_ptr(), rsum.data_ptr(),
+                dw.data_ptr(), dgad.data_ptr(), dgbd.data_ptr(), ksplit, P, na, nt, H, B, capD,
+                float(sign), _stream())
         if rc != 0:
             raise RuntimeError(f"block_round_es_bwd kernel launch failed: CUDA error {rc}")
         LAUNCHES["block_round_es_bwd"] += 1
