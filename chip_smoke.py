@@ -27,8 +27,10 @@ failure exits non-zero:
     timed with CUDA events beside its plain version, its memory/compute
     bound, for the scatter torch's index_add_ and for fused_edge_gru the
     route it replaces (gather_diff, then the GRU cell's two matmuls).
-    fused_edge_gru is held and timed once more at H = 128 (two unit blocks
-    and two k chunks of the weights), outside the kernels line.
+    fused_edge_gru is held and timed once more at H = 128 (the gates'
+    columns over 4 CTAs, 192 KiB of split weights each), outside the kernels
+    line; both rows carry bound_tf32_ms (its products run in 3xTF32 on the
+    tensor cores).
  3. Serving: the Tracker on cuda with random weights from a fixed seed (BN
     in eval mode) serves three 30-track x 100-frame sequences (features
     2d).  A served forward records no gradient, so it launches
@@ -273,7 +275,7 @@ SERVE_TRACKS, SERVE_FRAMES, SERVE_SEEDS, WIN = 30, 100, (0, 1, 2), 5
 HIDDEN = 64
 SCATTER_RTOL = SCATTER_ATOL = 1e-5
 EDGE_GRU_ATOL = 1e-5  # fused_edge_gru: 64-term f32 sums in another order, then sigmoid/tanh
-EDGE_GRU_WIDE = 128  # fused_edge_gru's second check: a width wider than one k chunk
+EDGE_GRU_WIDE = 128  # fused_edge_gru's second check: the gates' columns over 4 CTAs
 # the CLIs' default features (trackmpnn_tpu/utils/config.py:37), with espv2.
 # The machine with the card has PIL, so phase 4 reads real PNGs through the
 # embedding net; its frames are cut (not the input size) to keep the CLI's
@@ -359,8 +361,9 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def bound_tf32_ms(nbytes: float, flops: float):
-    """The bound at the rate the block round kernels run their products:
-    3 x the f32 operations (3xTF32) over the dense TF32 rate, or the bytes."""
+    """The bound at the rate the block round kernels and fused_edge_gru run
+    their products: 3 x the f32 operations (3xTF32) over the dense TF32
+    rate, or the bytes."""
     return max(nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_PER_S) * 1e3
 
 
@@ -497,21 +500,23 @@ def edge_gru_row(torch, mp, h, past, fut, em, live, where):
             fail(f"the replaced route ({where}) does not compute the same function")
         # each input read once (live rows of h, 9 B of index a row, the
         # weights), each output row written once; the products and gates
-        b_ms, by = bound_ms(live * (2 * H * 4 + 9) + 2 * (H + 1) * 3 * H * 4,
-                            live * (2 * 2 * H * 3 * H + GATE_FLOPS_PER_UNIT * H))
+        cost = (live * (2 * H * 4 + 9) + 2 * (H + 1) * 3 * H * 4,
+                live * (2 * 2 * H * 3 * H + GATE_FLOPS_PER_UNIT * H))
+        b_ms, by = bound_ms(*cost)
         r = {"name": "fused_edge_gru", "route": "cuda",
              "source": "trackmpnn_tpu_torch/csrc/mp_kernels.cu",
              "replaces": "trackmpnn_tpu/ops/pallas_mp.py:84", "max_abs_err": err,
              "ms": cuda_time_ms(kernel), "call_ms": cuda_time_ms(kernel, queue_ahead=False),
              "plain_ms": cuda_time_ms(plain, iters=PLAIN_ITERS), "bound_ms": b_ms,
-             "bound_by": by, "library_ms": None,
+             "bound_by": by, "bound_tf32_ms": bound_tf32_ms(*cost), "library_ms": None,
              "replaced_route_ms": cuda_time_ms(replaced, iters=PLAIN_ITERS), "where": where,
              "shape": f"N {N}, H {H}, live rows {live}, edge rows {int(em.sum())}"}
     print(f"kernel fused_edge_gru ({where}; {r['shape']}): device {r['ms'] * 1e3:.2f} us, per "
           f"call with the host's launch cost {r['call_ms'] * 1e3:.2f} us (plain "
           f"{r['plain_ms'] * 1e3:.2f} us, the replaced gather_diff + gru_cell "
-          f"{r['replaced_route_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {by}, library "
-          f"none), max abs err {err:.3g}, bitwise on a second launch")
+          f"{r['replaced_route_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {by}, at the TF32 "
+          f"rate {r['bound_tf32_ms'] * 1e3:.2f} us, library none), max abs err {err:.3g}, "
+          "bitwise on a second launch")
     return r
 
 
@@ -602,7 +607,7 @@ def kernel_phase(torch, np, mp, tracker_mod, view_mod):
                           build if name == "signed_segment_sum" else None)
             for name in MP_REPLACES] + [edge_gru_row(torch, mp, h, past, fut, em, g.n,
                                                      "serving")]
-    # a width of two unit blocks and two k chunks of the weights
+    # a width whose gate columns split over 4 CTAs
     h_wide = torch.randn(cap, EDGE_GRU_WIDE, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     wide = edge_gru_row(torch, mp, h_wide, past, fut, em, g.n, f"serving, H {EDGE_GRU_WIDE}")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import mm_3xtf32, mm_tf32, tf32
 from trackmpnn_tpu.ops import pallas_block as pb
 from trackmpnn_tpu_torch.ops import block
 
@@ -31,22 +32,6 @@ def _clear_jax_caches():
 
 
 FWD_ATOL, BWD_RTOL, BWD_ATOL_SCALE = 1e-5, 1e-4, 1e-5
-
-
-def tf32(x):
-    """x rounded to TF32 (10 explicit mantissa bits): to nearest, ties away
-    from zero, by adding half of the dropped 13 bits on the int32 view."""
-    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(torch.float32)
-
-
-def mm_3xtf32(a, b):
-    a_big, b_big = tf32(a), tf32(b)
-    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
-
-
-def mm_tf32(a, b):
-    return tf32(a) @ tf32(b)
 
 
 def round_problem(seed, P, na, nt, H):

@@ -207,18 +207,23 @@ def gru_problem(seed, n, h, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h", [(16384, 64), (300, 16), (1000, 32), (2000, 48), (777, 100),
-                                 (3000, 128)])
+                                 (3000, 128), (500, 4), (700, 12), (2000, 256), (5, 64),
+                                 (1000, 64), (200, 16), (600, 300), (200, 616)])
 def test_fused_edge_gru_matches_plain_version(cuda, n, h):
-    """Kernel #3 against its plain version within atol 1e-5 (H-term f32 sums
-    in another order, then sigmoid / tanh), bitwise on a second launch,
-    one launch counted a call.  H 48 leaves a CTA's units part idle; H 100
-    and 128 take two unit blocks and two k chunks of the weights."""
+    """Kernel #3 against its plain version evaluated in f64 within atol 1e-5
+    (3xTF32 tensor-core products; two f32 evaluations in different orders
+    differ by ~1e-6 at H 128), bitwise on a second launch, one launch counted
+    a call.  H 4 and 12 pad the k step and the n tile with zeros; 48 and 100
+    leave units of a CTA idle; 128 and 256 split the gates' columns over 4
+    and 16 CTAs; 300 holds its slab at 8 units a CTA; 616
+    restages its weights each tile (no CTA holds its slab above H 600); N 5
+    is below one tile, N 1000 and 200 end in a ragged one."""
     args = gru_problem(n, n, h, cuda)
     before = mp.LAUNCHES["fused_edge_gru"]
     with torch.no_grad():
         got, again = mp.fused_edge_gru(*args), mp.fused_edge_gru(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, mp.edge_gru_reference(*args), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, in_f64(mp.edge_gru_reference, *args)[0], rtol=0, atol=1e-5)
     assert torch.equal(got, again)
     assert mp.LAUNCHES["fused_edge_gru"] == before + 2
 

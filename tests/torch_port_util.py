@@ -115,6 +115,28 @@ def round_inputs(seed, B=2, cap=64, H=64):
     return h, idxw, we, wn, cot
 
 
+def tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits): to nearest, ties away
+    from zero, by adding half of the dropped 13 bits on the int32 view, as
+    the port's tensor-core kernels do (csrc/tf32_mma.cuh)."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b in split TF32 (3xTF32): a.small b.big + a.big b.small + a.big b.big,
+    summed in that order in f32."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def mm_tf32(a, b):
+    """a @ b in plain TF32: both operands rounded once."""
+    return tf32(a) @ tf32(b)
+
+
 def in_f64(plain, *args):
     """A plain version (ops/*.py) evaluated in f64 and rounded to f32, the
     reference for the block round kernels: at H 128 and 256 two f32

@@ -58,7 +58,8 @@
 // This design:
 //   * Tensor cores at f32-level error.  Each product runs as
 //     mma.sync.m16n8k8 .tf32 in the split-TF32 scheme CUTLASS calls
-//     3xTF32: x = big + small, big = tf32(x) (round to nearest on the int32
+//     3xTF32 (tf32_mma.cuh, shared with mp_kernels.cu's edge GRU):
+//     x = big + small, big = tf32(x) (round to nearest on the int32
 //     view, ties away: (bits + 0x1000) & ~0x1fff), small = tf32(x - big)
 //     (x - big is exact), a*b ~ a.small*b.big + a.big*b.small + a.big*b.big.
 //     tf32 products are exact in f32; what is dropped (a.small*b.small, the
@@ -158,6 +159,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"  // 3xTF32 mma, cp.async
+
 namespace {
 
 constexpr int kWarps = 4;              // warps of a round CTA
@@ -178,78 +181,6 @@ constexpr int kWsThreads = 256;
 constexpr int kWsUnroll = 8;  // slots (then values) a lane has in flight
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
-// ------------------------------------------------------------ 3xTF32 mma ----
-// x rounded to tf32 (10 explicit mantissa bits) to nearest, ties away from
-// zero, on the int32 view; the low 13 bits 0.
-__device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-struct FragA {  // the A fragment of m16n8k8 .tf32, split
-  uint32_t big[4], small[4];
-};
-struct FragB {
-  uint32_t big[2], small[2];
-};
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  const float b = tf32_round(x);
-  big = __float_as_uint(b);
-  small = __float_as_uint(tf32_round(x - b));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: the two cross terms, then big * big.  The tensor
-// cores add the products of an mma into its accumulator without rounding to
-// nearest (the low bits are cut), an error that grows with every mma into
-// the same sum; so each k step goes to a fresh accumulator, and the CUDA
-// cores add it to c in f32, rounded to nearest.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(s, a.small, b.big);
-  mma_tf32(s, a.big, b.small);
-  mma_tf32(s, a.big, b.big);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) c[k] += s[k];
-}
-
-// A fragment from four values: rows g, g + 8 (lo, hi) at k slots t (x) and
-// t + 4 (y)
-__device__ __forceinline__ FragA frag_a(float lo_x, float hi_x, float lo_y, float hi_y) {
-  FragA a;
-  split_tf32(lo_x, a.big[0], a.small[0]);
-  split_tf32(hi_x, a.big[1], a.small[1]);
-  split_tf32(lo_y, a.big[2], a.small[2]);
-  split_tf32(hi_y, a.big[3], a.small[3]);
-  return a;
-}
-
-__device__ __forceinline__ FragB frag_b(float x, float y) {
-  FragB b;
-  split_tf32(x, b.big[0], b.small[0]);
-  split_tf32(y, b.big[1], b.small[1]);
-  return b;
-}
-
-// ------------------------------------------------------------- cp.async ----
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // ------------------------------------------------------------ the round ----
 // floats a staged row of h_e: H plus padding to 4 mod 32, so that an A

@@ -75,25 +75,68 @@
 //     gi  = ns . w_ih + b_ih,  gh = h_i . w_hh + b_hh   ([H, 3H], blocks r|z|n)
 //     r, z = sigmoid(gi + gh) of their blocks,  n = tanh(gi_n + r * gh_n)
 //     out_i = (1 - z) * n + z * h_i
-//   Bound: f32 operations.  The two products take 2 * 2 * H * 3H a row
-//   (49,152 at H = 64) against ~4 * (3H + 3) bytes of traffic a row, ~60
-//   operations a byte, three times the card's f32 ridge (67 TFLOP/s over
-//   3.35 TB/s).  The TPU kernel holds all of h in VMEM and feeds 512-row
-//   tiles to the MXU.  Here a CTA owns UC hidden units (16, 32 or 64: the
-//   smallest that covers H, else 64; gridDim.y = ceil(H / UC)) and walks
-//   tiles of kGruTileRows rows in a persistent grid (as many CTAs as fit on
-//   the SMs).  The k loop runs in chunks of kGruKChunk: the chunk's rows of
-//   both weight matrices (their UC columns of each gate block) and the
-//   tile's h and gathered-difference columns go to opted-in dynamic shared
-//   memory.  Where H <= kGruKChunk there is one chunk and the weights are
-//   staged once a CTA (96 KiB at H = 64); wider widths (H = 128 would need
-//   384 KiB) restage each chunk a tile.  Each thread owns one unit u (the r,
-//   z and n columns of both products: six dot products) for kGruTileRows /
-//   (256 / UC) rows, so each weight read from shared memory feeds that many
-//   FMAs and each row value read is a broadcast.  Products on the CUDA
-//   cores in f32, every sum in k order inside one thread whatever the
-//   chunking: bitwise repeatable, no atomics.  Any N, any H % 4 == 0;
-//   H 16, 32 and 64 get instances with H known to the compiler.
+//   Every row is computed, as on the TPU; the caller keeps the edge rows.
+//   Bound: operations.  The two products take 2 * 2 * H * 3H a row (49,152
+//   at H = 64) against ~4 * (2H + 3) bytes of traffic a row.  At the serving
+//   window (16,384 rows, 11,437 live, H 64) the f32 bound is 8.72 us and
+//   34.22 us at H 128 (67 TFLOP/s); the products run on the tensor cores in
+//   3xTF32, three TF32 products for each f32 one, so the bound at that rate
+//   (495 TFLOP/s) is 3.54 / 13.89 us.  The TPU kernel holds all of h in
+//   VMEM and feeds 512-row tiles to the MXU.
+//   The first design ran the products on the CUDA cores in f32, a thread a
+//   hidden unit of 8 rows: 6 shared loads of weights and 16 broadcast loads
+//   of rows for 48 FMAs a k step, so issue slots went to loads (35.33 us at
+//   H 64, ~23 TFLOP/s); at H 128 it restaged two 64-row k chunks of both
+//   weight matrices every 32-row tile, ~196 MB through L2 a launch (152.45
+//   us).  This design:
+//   * Tensor cores at f32-level error: 3xTF32 (tf32_mma.cuh's split) as
+//     wgmma.m64nNk8 .tf32 with A from registers, every k step of 8 into a
+//     fresh accumulator added in f32 (the tensor cores cut the low bits
+//     where they accumulate).  mma.sync.m16n8k8 in the same scheme was
+//     slower: with two warps a scheduler its 3-deep mma chains, fragment
+//     loads and splits left the tensor pipe idle.
+//   * Weights resident and split once.  A persistent CTA owns U units of
+//     each gate (the widest of 32, 16, 8 whose slab fits: 32 at H 64 and
+//     H 128, 16 at H 256; gridDim.y = ceil(H / U)) and stages its columns of
+//     w_ih and w_hh, all Kp rows, once: each value read from global memory,
+//     split into big and small and stored K-major in 8 x 16-byte core
+//     matrices, the wgmmas' B operand (96 KiB at H 64, 192 KiB at H 128).  No weight byte is read again while the CTA
+//     walks its tiles; splitting once beats splitting at fragment load
+//     (~10 issue slots a product, as the block round kernels found) and
+//     the wgmmas read B only from shared memory.  Splitting straight from
+//     global memory beat copying the slab unsplit with cp.async first
+//     (18.32 against 19.12 us at H 64).
+//   * Rows.  The CTA's two warpgroups walk 64-row tiles on their own (no
+//     barrier between them after the weights).  A thread reads its A
+//     values straight from global memory (L2): h, h[past] and h[fut] at
+//     rows g and g + 8 of its warp, columns 2t and 2t + 1 of each k step
+//     (the B layout puts those k values in the fragment's slots t and t +
+//     4), one k step ahead of their use (a tile's first while the weights
+//     are staged); ns formed in f32, each value split once.  A first design
+//     staged the rows through shared memory with cp.async in two stages:
+//     its copies and barriers cost more than they saved, and they held the
+//     shared memory that now lets H 128 keep 32 units a CTA (4 CTA columns
+//     reading each row, not 8).
+//   * Per k step a warpgroup issues ns x [w_ih r|z|n] and h x [w_hh r|z|n]
+//     of its U units (N = 3U, three wgmmas each) as two commit groups and
+//     adds each fresh sum once its group is done (ns's while h's run): r
+//     and z take the ns part, then the h part (a K = 2H product of [ns | h]
+//     against [w_ih; w_hh]); gi_n and gh_n their own.  The gates in fast
+//     math (__expf, a reciprocal: ~1e-6).  Every row is computed, detection
+//     and padding rows too (the wgmmas sit on no branch, or ptxas
+//     serialises them).
+//   * Widths.  Any H % 4 == 0: k and the units pad to multiples of 8 with
+//     zeros; instances with H known to the compiler at 16, 32 and 64,
+//     4-6% faster than the generic one (5.47 / 8.16 / 18.32 against 5.81 /
+//     8.71 / 19.15 us).
+//     Above H 600 no slab of 8 units fits, and each warpgroup restages a
+//     32-row chunk of it (split again) every tile and chunk.
+//   * Fixed order, no atomics: bitwise the same on every launch.
+//   Shared memory 96.5 KiB at H 64, 192.5 KiB at H 128; ~238 registers a
+//   thread: one CTA of 8 warps an SM.  Measured 18.32 / 55.35 us at H 64 /
+//   128, 5.2x / 4.0x the TF32-rate bound (this note's times:
+//   trackmpnn_tpu_torch/tools/ab_edge_gru.py at phase 2's window size, NVIDIA
+//   H100 80GB HBM3 at 700 W).
 //
 // An endpoint index of a masked-in edge row outside the rows it addresses
 // traps the kernel (a sticky CUDA error that the next synchronisation
@@ -108,6 +151,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"  // the TF32 split, A fragments
 
 namespace {
 
@@ -393,173 +438,402 @@ inline unsigned int blocks_for(int64_t total) {
   return (unsigned int)((total + kThreads - 1) / kThreads);
 }
 
-constexpr int kGruThreads = 256;
-constexpr int kGruTileRows = 32;
-constexpr int kGruKChunk = 64;  // rows k of the weights staged at once
+// ------------------------------------------------------------- edge GRU ----
+constexpr int kGruWarps = 8;         // two warpgroups, each on its own tiles
+constexpr int kGruThreads = 32 * kGruWarps;
+constexpr int kGruWgThreads = 128;   // threads of a warpgroup
+constexpr int kGruRows = 64;         // rows of a tile: one warpgroup's, 16 a warp
+constexpr int kGruKC = 32;           // k values a restaged weight chunk holds (above H 600)
+constexpr int kGruSmemMax = 232448;  // the most dynamic shared memory a CTA may opt in to (sm_90)
+constexpr int kGruBlocks = 6;        // weight column blocks: w_ih r | z | n, then w_hh r | z | n
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-// Units a CTA owns: the smallest of 16, 32, 64 that covers H, else 64.
-inline int gru_units(int hidden) { return hidden <= 16 ? 16 : hidden <= 32 ? 32 : 64; }
-
-// Shared memory of a CTA: two weight chunks [ks][3][UC] and the tile's h and
-// ns columns [kGruTileRows][ks], ks = min(H, kGruKChunk).
-inline size_t gru_smem_bytes(int units, int hidden) {
-  const int ks = hidden < kGruKChunk ? hidden : kGruKChunk;
-  return (size_t)(2 * ks * 3 * units + 2 * kGruTileRows * ks) * sizeof(float);
+// The gates in fast math: __expf (~2 ulp plus ~1 ulp a unit of |x|) and a
+// reciprocal; at most ~1e-6 from the correctly rounded gate
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
 }
 
-// Grid (tile CTAs, ceil(H / UC)): blockIdx.y picks the units [u0, u0 + UC),
-// blockIdx.x walks tiles of kGruTileRows rows.  Each thread owns unit u of
-// its CTA and RPT rows of a tile; the k loop runs in chunks of kGruKChunk
-// (the chunk's weight rows, the tile's h and ns columns in shared memory).
-// HF is H where H == UC (16, 32, 64: strides and loop bounds known to the
-// compiler), else 0 (H from `hidden`).
-template <int UC, int HF>
-__global__ void __launch_bounds__(kGruThreads)
+// ------------------------------------------------------ wgmma (sm_90a) ----
+// Descriptor of a K-major B operand in shared memory without swizzle: core
+// matrices of 8 rows (n) x 16 bytes (4 tf32 along k), lbo bytes apart along
+// k and sbo bytes apart along n.
+__device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of d across the asm
+// statements around it (the wgmma writes d asynchronously)
+template <int M>
+__device__ __forceinline__ void wg_hold(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a b over one k step of 8: a 64 x 8 tf32 from registers (each warp
+// its 16 rows in the m16n8k8 A layout), b 8 x N from the descriptor; d in
+// the m16n8 C layout a warp and n tile of 8.  acc false: d = a b.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, bool acc);
+template <>
+__device__ __forceinline__ void wgmma_tf32<24>(float (&d)[12], const uint32_t (&a)[4],
+                                               uint64_t desc, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11}, "
+      "{%12,%13,%14,%15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],
+                                               uint64_t desc, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
+      "{%24,%25,%26,%27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&a)[4],
+                                               uint64_t desc, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, "
+      "{%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
+}
+
+// d = a b in 3xTF32 into a fresh accumulator: a.small b.big, then + a.big
+// b.small, then + a.big b.big
+template <int N>
+__device__ __forceinline__ void wgmma3(float (&d)[N / 2], const FragA& a, uint64_t desc_big,
+                                       uint64_t desc_small) {
+  wgmma_tf32<N>(d, a.small, desc_big, false);
+  wgmma_tf32<N>(d, a.big, desc_small, true);
+  wgmma_tf32<N>(d, a.big, desc_big, true);
+}
+
+// How a launch cuts the work for hidden width H.
+//   U: units of each gate a CTA owns (32, 16 or 8; gridDim.y = ceil(H / U));
+//      its wgmmas are N = 3U wide (the r, z and n columns of one matrix)
+//   Kp: H rounded up to 8 (the k slots past H are zeros)
+//   resident: the CTA's slab of both weight matrices, all Kp rows, stays in
+//      shared memory for the whole launch (widths to 600); else each
+//      warpgroup restages a kGruKC-row chunk of it every tile and chunk
+struct GruShape {
+  int U, Kp;
+  bool resident;
+  size_t smem;
+};
+
+// The split slab (all Kp rows, or a chunk a warpgroup) and the biases: B is
+// 8 bytes a value (big, small)
+inline size_t gru_smem(int U, int Kp, bool resident) {
+  const size_t w = (size_t)U * (resident ? Kp : 2 * kGruKC) * kGruBlocks * 8;
+  return w + (size_t)4 * U * sizeof(float);
+}
+
+// The widest U (32, 16, then 8) whose resident slab fits; no U is wider than
+// Kp, so that few units are padding.
+inline GruShape gru_shape(int H) {
+  GruShape s{};
+  s.Kp = (H + 7) / 8 * 8;
+  for (int U = 32; U >= 8; U /= 2) {
+    if (U > s.Kp && U > 8) continue;
+    s.U = U;
+    s.resident = true;
+    s.smem = gru_smem(U, s.Kp, true);
+    if (s.smem <= (size_t)kGruSmemMax) return s;
+  }
+  s.resident = false;  // U = 8
+  s.smem = gru_smem(s.U, s.Kp, false);
+  return s;
+}
+
+// Grid (tile CTAs, ceil(H / U)): blockIdx.y picks units [u0, u0 + U) of each
+// gate.  The CTA's two warpgroups share its weight slab and walk tiles of
+// kGruRows rows on their own (warpgroup w of CTA x takes tiles 2x + w, then
+// every 2 gridDim.x); warp i of a warpgroup owns rows 16i .. 16i + 15 of its
+// tile.  A thread reads its A fragments straight from global memory (L2):
+// columns 2t, 2t + 1 of k step ks of h, h[past], h[fut] at rows g and g + 8,
+// one k step ahead of their use; ns = h[past] - h[fut] in f32 (0 on a row
+// that is no edge); each value split once.  Per k step of 8 the warpgroup
+// issues ns x [w_ih r|z|n] and h x [w_hh r|z|n] of its U units (N = 3U) as
+// 3xTF32 wgmmas, each product into a fresh accumulator, waits, and adds them
+// in f32: the r and z sums take ns x w_ih, then h x w_hh (a K = 2H product
+// of [ns | h] against [w_ih; w_hh]), gi_n and gh_n their own.  Every row is
+// computed.  HF is H where the instance was built for one width (16, 32,
+// 64: loop bounds known to the compiler), else 0.
+template <int U, int HF>
+__global__ void __launch_bounds__(kGruThreads, 1)
 fused_edge_gru_kernel(const float* __restrict__ h, const int32_t* __restrict__ past,
                       const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
                       const float* __restrict__ w_ih, const float* __restrict__ w_hh,
                       const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-                      float* __restrict__ out, int n_rows, int hidden) {
+                      float* __restrict__ out, int n_rows, int hidden, bool resident) {
+  constexpr int NT = U / 8, R = kGruRows, DN = 3 * U / 2;  // n tiles a gate; floats of a product
+  constexpr int kPart = 3 * U * 32;  // bytes of a (k step, matrix) half of B
+  constexpr uint64_t kPartD = kPart >> 4;  // kPart in the descriptor's address units
   const int H = HF ? HF : hidden;
-  constexpr int RG = kGruThreads / UC;      // row groups: threads that share a unit
-  constexpr int RPT = kGruTileRows / RG;    // rows a thread
-  constexpr int UC4 = UC / 4;
-  static_assert(kGruThreads % UC == 0 && kGruTileRows % RG == 0, "tile shape");
-  extern __shared__ float4 smem4[];
-  const int H4 = H / 4;
-  const int ks = H < kGruKChunk ? H : kGruKChunk;  // k values a chunk holds
-  float* s_wih = reinterpret_cast<float*>(smem4);  // [ks][3][UC]: the chunk's rows, gate blocks
-  float* s_whh = s_wih + ks * 3 * UC;              // [ks][3][UC]
-  float* s_h = s_whh + ks * 3 * UC;                // [kGruTileRows][ks]: the tile's rows
-  float* s_ns = s_h + kGruTileRows * ks;           // [kGruTileRows][ks]: their differences
-  const int u0 = blockIdx.y * UC;
-  const int uw4 = (H - u0 < UC ? H - u0 : UC) / 4;  // live float4s of a gate block here
-  const int lu = threadIdx.x % UC, rg = threadIdx.x / UC;
-  const int u = u0 + lu;
-  const bool live = lu < uw4 * 4;
-  const float bir = live ? b_ih[u] : 0.f, biz = live ? b_ih[H + u] : 0.f;
-  const float bin = live ? b_ih[2 * H + u] : 0.f, bhr = live ? b_hh[u] : 0.f;
-  const float bhz = live ? b_hh[H + u] : 0.f, bhn = live ? b_hh[2 * H + u] : 0.f;
-  const float4* h4 = reinterpret_cast<const float4*>(h);
-  const float4* wih4 = reinterpret_cast<const float4*>(w_ih);
-  const float4* whh4 = reinterpret_cast<const float4*>(w_hh);
-  const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
-  const bool one_chunk = H <= kGruKChunk;
+  const int Kp = (H + 7) / 8 * 8;
+  const int KC = resident ? Kp : kGruKC;  // k values a weight chunk holds
+  const int nchunks = (Kp + KC - 1) / KC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wi = warp & 3, tw = threadIdx.x & (kGruWgThreads - 1);
+  const int g = lane >> 2, t = lane & 3;
+  const int u0 = blockIdx.y * U;
+  auto wg_sync = [&] { asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kGruWgThreads)); };
 
-  // Weight rows [k0, k0 + kc), columns [u0, u0 + UC) of each gate block;
-  // zero beyond H.  Offsets are multiples of 4 floats (H % 4 == 0, u0 % 16 == 0).
-  auto stage_weights = [&](int k0, int kc) {
-    for (int i = threadIdx.x; i < kc * 3 * UC4; i += kGruThreads) {
-      const int kk = i / (3 * UC4), rest = i - kk * 3 * UC4;
-      const int g = rest / UC4, c = rest - g * UC4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (c < uw4) {
-        const int64_t off = ((int64_t)(k0 + kk) * 3 * H + g * H + u0) / 4 + c;
-        a = __ldg(wih4 + off);
-        b = __ldg(whh4 + off);
+  extern __shared__ float4 smem4[];
+  // B of matrix mat (0: w_ih, 1: w_hh) at k step ks: big at s_w + (2 (2 ks +
+  // mat)) kPart bytes, small kPart bytes after it; each 3U x 8 (n x k, n =
+  // gate * U + unit) K-major in core matrices: n group i, k half kh at i *
+  // 256 + kh * 128 bytes, row n % 8 16 bytes apart, element c holding k =
+  // 8 ks + 2c + kh (the A fragments' k slots t and t + 4 are columns 2t and
+  // 2t + 1 of h).  Non-resident: one chunk for each warpgroup, chunk_bytes
+  // apart.
+  char* s_w = (char*)smem4;
+  const size_t chunk_bytes = (size_t)KC / 8 * 2 * 2 * kPart;
+  float* s_bias = (float*)(s_w + (resident ? chunk_bytes : 2 * chunk_bytes));
+
+  // b_ih + b_hh of r and of z, b_ih of n, b_hh of n, for the CTA's units
+  for (int i = threadIdx.x; i < U; i += kGruThreads) {
+    const int u = u0 + i;
+    const bool live = u < H;
+    s_bias[i] = live ? b_ih[u] + b_hh[u] : 0.f;
+    s_bias[U + i] = live ? b_ih[H + u] + b_hh[H + u] : 0.f;
+    s_bias[2 * U + i] = live ? b_ih[2 * H + u] : 0.f;
+    s_bias[3 * U + i] = live ? b_hh[2 * H + u] : 0.f;
+  }
+
+  // Weight rows [k0, k0 + kc) of the CTA's columns, read from global memory
+  // (L2), into the B layout at dst, split once into big and small, then made
+  // visible to the wgmmas; threads tid, tid + nthr, ...  A thread writes one
+  // 16-byte row of a core matrix: 4 k values of one unit (zeros past H).
+  auto split_weights = [&](char* dst0, int k0, int kc, int tid, int nthr) {
+    const int n = kc / 8 * 2 * 2 * 3 * U;  // (ks, mat, kh, n)
+#pragma unroll 4
+    for (int e = tid; e < n; e += nthr) {
+      const int nn = e % (3 * U), rest = e / (3 * U);
+      const int kh = rest & 1, mat = (rest >> 1) & 1, ks = rest >> 2;
+      const int gate = nn / U, u = u0 + nn % U;
+      const float* w = (mat ? w_hh : w_ih) + gate * H + u;
+      float4 big, small;
+      float* bp = &big.x;
+      float* sp = &small.x;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = k0 + 8 * ks + 2 * c + kh;
+        uint32_t b, s;
+        split_tf32(u < H && k < H ? __ldg(w + (int64_t)k * 3 * H) : 0.f, b, s);
+        bp[c] = __uint_as_float(b);
+        sp[c] = __uint_as_float(s);
       }
-      reinterpret_cast<float4*>(s_wih)[i] = a;
-      reinterpret_cast<float4*>(s_whh)[i] = b;
+      char* dst = dst0 + (size_t)(2 * (2 * ks + mat)) * kPart + (nn >> 3) * 256 + kh * 128 +
+                  (nn & 7) * 16;
+      *(float4*)dst = big;
+      *(float4*)(dst + kPart) = small;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  const int n_tiles = (n_rows + R - 1) / R;
+  const int gw = 2 * blockIdx.x + wg, n_gw = 2 * gridDim.x;  // the warpgroup among all
+  const float2 zero2 = make_float2(0.f, 0.f);
+  // rows g and g + 8 of the warp's 16 in a tile: h, h[past], h[fut] (null
+  // where there is no row or no edge: read as zeros)
+  const float *hr[2], *hp[2], *hf[2];
+  auto setup_rows = [&](int tile) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = tile * R + 16 * wi + g + 8 * rr;
+      const bool in = row < n_rows;
+      const bool m = in && mask[row] != 0;
+      const int32_t p = m ? __ldg(past + row) : 0, f = m ? __ldg(fut + row) : 0;
+      if (m && ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows)) __trap();
+      hr[rr] = in ? h + (int64_t)row * H + 2 * t : nullptr;
+      hp[rr] = m ? h + (int64_t)p * H + 2 * t : nullptr;
+      hf[rr] = m ? h + (int64_t)f * H + 2 * t : nullptr;
     }
   };
-  if (one_chunk) stage_weights(0, H);  // once a CTA: every tile reads the same weights
+  // the six float2 of k step ks (zeros past H: k slots 2t, 2t + 1 < H or both not)
+  auto fetch = [&](int ks, float2 (&v)[6]) {
+    const int c = 8 * ks;
+    const bool ok = c + 2 * t < H;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      v[rr] = ok && hr[rr] ? __ldg((const float2*)(hr[rr] + c)) : zero2;
+      v[2 + rr] = ok && hp[rr] ? __ldg((const float2*)(hp[rr] + c)) : zero2;
+      v[4 + rr] = ok && hf[rr] ? __ldg((const float2*)(hf[rr] + c)) : zero2;
+    }
+  };
+  float2 next[6];  // the A values of the next k step, fetched one step ahead
+  if (gw < n_tiles) {  // the first tile's, in flight while the weights are staged
+    setup_rows(gw);
+    fetch(0, next);
+  }
+  if (resident)  // once a CTA: every tile reads the same slab
+    split_weights(s_w, 0, Kp, threadIdx.x, kGruThreads);
+  __syncthreads();
+  char* w_chunk = resident ? s_w : s_w + wg * chunk_bytes;  // non-resident: this warpgroup's
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * kGruTileRows;
-    float ir[RPT], iz[RPT], in_[RPT], hr[RPT], hz[RPT], hn[RPT];
+  for (int tile = gw; tile < n_tiles; tile += n_gw) {
+    if (tile != gw) {
+      setup_rows(tile);
+      fetch(0, next);
+    }
+    const int wrow = tile * R + 16 * wi;  // the warp's first row
+    float acc[NT][4][4];  // per n tile: r, z, gi_n, gh_n in the m16n8 C layout
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) ir[j] = iz[j] = in_[j] = hr[j] = hz[j] = hn[j] = 0.f;
-    for (int k0 = 0; k0 < H; k0 += kGruKChunk) {
-      const int kc = H - k0 < kGruKChunk ? H - k0 : kGruKChunk, kc4 = kc / 4;
-      __syncthreads();  // weights staged; the previous chunk no longer read
-      if (!one_chunk) stage_weights(k0, kc);
-      for (int i = threadIdx.x; i < kGruTileRows * kc4; i += kGruThreads) {
-        const int r = i / kc4, c = i - r * kc4;
-        const int row = row0 + r;
-        float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), nv = hv;
-        if (row < n_rows) {
-          hv = __ldg(h4 + (int64_t)row * H4 + k0 / 4 + c);
-          if (mask[row]) {
-            const int32_t p = past[row], f = fut[row];
-            if ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows) __trap();
-            const float4 a = __ldg(h4 + (int64_t)p * H4 + k0 / 4 + c);
-            const float4 b = __ldg(h4 + (int64_t)f * H4 + k0 / 4 + c);
-            nv = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-          }
-        }
-        reinterpret_cast<float4*>(s_h)[r * (ks / 4) + c] = hv;
-        reinterpret_cast<float4*>(s_ns)[r * (ks / 4) + c] = nv;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][q][e] = 0.f;
+    for (int chunk = 0; chunk < nchunks; ++chunk) {
+      const int k0 = chunk * KC, kst = (Kp - k0 < KC ? Kp - k0 : KC) / 8;
+      if (!resident) {  // the previous chunk's wgmmas are waited for
+        wg_sync();
+        split_weights(w_chunk, k0, kst * 8, tw, kGruWgThreads);
+        wg_sync();
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kc; ++kk) {
-        const float* wi = s_wih + kk * 3 * UC;
-        const float* wh = s_whh + kk * 3 * UC;
-        const float wir = wi[lu], wiz = wi[UC + lu], win = wi[2 * UC + lu];
-        const float whr = wh[lu], whz = wh[UC + lu], whn = wh[2 * UC + lu];
+      // descriptor of matrix mat's big half at k step ks: desc0 + 2 (2 ks + mat) kPart
+      const uint64_t desc0 = wg_desc(resident ? s_w + (size_t)k0 / 8 * 2 * 2 * kPart : w_chunk,
+                                     128, 256);
+#pragma unroll 1
+      for (int ks = 0; ks < kst; ++ks) {
+        float2 v[6];
 #pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const int r = rg + j * RG;
-          const float x = s_ns[r * ks + kk], y = s_h[r * ks + kk];
-          ir[j] = fmaf(x, wir, ir[j]);
-          iz[j] = fmaf(x, wiz, iz[j]);
-          in_[j] = fmaf(x, win, in_[j]);
-          hr[j] = fmaf(y, whr, hr[j]);
-          hz[j] = fmaf(y, whz, hz[j]);
-          hn[j] = fmaf(y, whn, hn[j]);
-        }
+        for (int i = 0; i < 6; ++i) v[i] = next[i];
+        if (k0 / 8 + ks + 1 < Kp / 8) fetch(k0 / 8 + ks + 1, next);
+        const FragA ah = frag_a(v[0].x, v[1].x, v[0].y, v[1].y);
+        const FragA an = frag_a(v[2].x - v[4].x, v[3].x - v[5].x, v[2].y - v[4].y,
+                                v[3].y - v[5].y);
+        float dn[DN], dh[DN];  // ns x w_ih, h x w_hh: [r | z | n] of the U units
+        wg_hold(dn);
+        wg_hold(dh);
+        wg_fence();
+        const uint64_t ih = desc0 + 4 * ks * kPartD, hh = ih + 2 * kPartD;
+        // two commit groups: ns's sums are added while h's wgmmas run
+        wgmma3<3 * U>(dn, an, ih, ih + kPartD);
+        wg_commit();
+        wgmma3<3 * U>(dh, ah, hh, hh + kPartD);
+        wg_commit();
+        wg_wait<1>();
+        wg_hold(dn);
+        float tr[NT][4], tz[NT][4];  // r and z with the ns part: ns first, as in the K = 2H order
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tr[j][e] = acc[j][0][e] + dn[4 * j + e];
+            tz[j][e] = acc[j][1][e] + dn[4 * (NT + j) + e];
+            acc[j][2][e] += dn[4 * (2 * NT + j) + e];
+          }
+        wg_wait<0>();
+        wg_hold(dh);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[j][0][e] = tr[j][e] + dh[4 * j + e];
+            acc[j][1][e] = tz[j][e] + dh[4 * (NT + j) + e];
+            acc[j][3][e] += dh[4 * (2 * NT + j) + e];
+          }
       }
     }
-    if (!live) continue;
+
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int row = row0 + rg + j * RG;
-      if (row >= n_rows) continue;
-      const float rv = sigmoidf((ir[j] + bir) + (hr[j] + bhr));
-      const float zv = sigmoidf((iz[j] + biz) + (hz[j] + bhz));
-      const float nv = tanhf((in_[j] + bin) + rv * (hn[j] + bhn));
-      out[(int64_t)row * H + u] = (1.f - zv) * nv + zv * __ldg(h + (int64_t)row * H + u);
+    for (int j = 0; j < NT; ++j) {
+      const int ul = 8 * j + 2 * t, u = u0 + ul;
+      if (u >= H) continue;  // u even, H % 4 == 0: u + 1 < H too
+      const float2 br = *(const float2*)(s_bias + ul), bz = *(const float2*)(s_bias + U + ul);
+      const float2 bi = *(const float2*)(s_bias + 2 * U + ul);
+      const float2 bh = *(const float2*)(s_bias + 3 * U + ul);
+      const float b_r[2] = {br.x, br.y}, b_z[2] = {bz.x, bz.y};
+      const float b_in[2] = {bi.x, bi.y}, b_hn[2] = {bh.x, bh.y};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = wrow + g + 8 * rr;
+        if (row >= n_rows) continue;
+        const float2 hv = __ldg((const float2*)(h + (int64_t)row * H + u));
+        const float hx[2] = {hv.x, hv.y};
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * rr + e;
+          const float rv = sigmoid_fast(acc[j][0][i] + b_r[e]);
+          const float zv = sigmoid_fast(acc[j][1][i] + b_z[e]);
+          const float nv = tanh_fast((acc[j][2][i] + b_in[e]) + rv * (acc[j][3][i] + b_hn[e]));
+          o[e] = (1.f - zv) * nv + zv * hx[e];
+        }
+        *(float2*)(out + (int64_t)row * H + u) = make_float2(o[0], o[1]);
+      }
     }
   }
 }
 
-// Opt in to the kernel's shared memory on the current device (the most any
-// width of this instance takes); the most CTAs of this width resident at once.
-template <int UC, int HF>
-int setup_fused_edge_gru(int hidden, int* max_ctas) {
-  const size_t smem = gru_smem_bytes(UC, hidden);
-  cudaError_t err = cudaFuncSetAttribute(fused_edge_gru_kernel<UC, HF>,
+// Opt in to the most shared memory a CTA may use (any width of this
+// instance fits); the most CTAs of this width resident at once.
+template <int U, int HF>
+int setup_fused_edge_gru(const GruShape& sh, int* max_ctas) {
+  cudaError_t err = cudaFuncSetAttribute(fused_edge_gru_kernel<U, HF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)gru_smem_bytes(UC, HF ? HF : kGruKChunk));
+                                         kGruSmemMax);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_gru_kernel<UC, HF>,
-                                                           kGruThreads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_gru_kernel<U, HF>,
+                                                           kGruThreads, sh.smem)) != cudaSuccess)
     return (int)err;
   *max_ctas = sms * (per_sm > 0 ? per_sm : 1);
   return (int)cudaSuccess;
 }
 
-template <int UC, int HF>
-int launch_fused_edge_gru(const void* h, const void* past, const void* fut, const void* mask,
-                          const void* w_ih, const void* w_hh, const void* b_ih,
-                          const void* b_hh, void* out, int n_rows, int hidden, int max_ctas,
-                          cudaStream_t s) {
-  const int n_uc = (hidden + UC - 1) / UC;
-  const int n_tiles = (n_rows + kGruTileRows - 1) / kGruTileRows;
-  const int per_uc = max_ctas / n_uc > 0 ? max_ctas / n_uc : 1;
-  const dim3 grid(n_tiles < per_uc ? n_tiles : per_uc, n_uc);
-  fused_edge_gru_kernel<UC, HF><<<grid, kGruThreads, gru_smem_bytes(UC, hidden), s>>>(
+template <int U, int HF>
+int launch_fused_edge_gru(const GruShape& sh, const void* h, const void* past, const void* fut,
+                          const void* mask, const void* w_ih, const void* w_hh,
+                          const void* b_ih, const void* b_hh, void* out, int n_rows, int hidden,
+                          int max_ctas, cudaStream_t s) {
+  const int n_y = (hidden + sh.U - 1) / sh.U;
+  const int n_pairs = (n_rows + 2 * kGruRows - 1) / (2 * kGruRows);  // two tiles a CTA at once
+  const int per_y = max_ctas / n_y > 0 ? max_ctas / n_y : 1;
+  const dim3 grid(n_pairs < per_y ? n_pairs : per_y, n_y);
+  fused_edge_gru_kernel<U, HF><<<grid, kGruThreads, sh.smem, s>>>(
       (const float*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
       (const float*)w_ih, (const float*)w_hh, (const float*)b_ih, (const float*)b_hh,
-      (float*)out, n_rows, hidden);
+      (float*)out, n_rows, hidden, sh.resident);
   return (int)cudaGetLastError();
 }
+
+// Returns F<U, HF>(sh, ...) for the instance of width `hidden`: one built
+// for the width (16, 32, 64), else the generic one of its U.
+#define TM_EDGE_GRU_DISPATCH(F, sh, hidden, ...)   \
+  switch (hidden) {                                \
+    case 16: return F<16, 16>(sh, __VA_ARGS__);    \
+    case 32: return F<32, 32>(sh, __VA_ARGS__);    \
+    case 64: return F<32, 64>(sh, __VA_ARGS__);    \
+  }                                                \
+  if ((sh).U == 32) return F<32, 0>(sh, __VA_ARGS__); \
+  if ((sh).U == 16) return F<16, 0>(sh, __VA_ARGS__); \
+  return F<8, 0>(sh, __VA_ARGS__)
 
 }  // namespace
 
@@ -633,17 +907,9 @@ extern "C" int tm_segment_incidence(const void* past, const void* fut, void* ptr
 // *max_ctas.  hidden % 4 == 0 and > 0 (else cudaErrorInvalidValue).
 extern "C" int tm_fused_edge_gru_setup(int hidden, void* max_ctas) {
   if (hidden <= 0 || hidden % 4 != 0) return (int)cudaErrorInvalidValue;
+  const GruShape sh = gru_shape(hidden);
   int* cap = (int*)max_ctas;
-  switch (hidden) {
-    case 16: return setup_fused_edge_gru<16, 16>(hidden, cap);
-    case 32: return setup_fused_edge_gru<32, 32>(hidden, cap);
-    case 64: return setup_fused_edge_gru<64, 64>(hidden, cap);
-  }
-  switch (gru_units(hidden)) {
-    case 16: return setup_fused_edge_gru<16, 0>(hidden, cap);
-    case 32: return setup_fused_edge_gru<32, 0>(hidden, cap);
-    default: return setup_fused_edge_gru<64, 0>(hidden, cap);
-  }
+  TM_EDGE_GRU_DISPATCH(setup_fused_edge_gru, sh, hidden, cap);
 }
 
 // h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
@@ -657,19 +923,7 @@ extern "C" int tm_fused_edge_gru(const void* h, const void* past, const void* fu
                                  int hidden, int max_ctas, void* stream) {
   if (hidden <= 0 || hidden % 4 != 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define TM_EDGE_GRU(UC, HF)                                                            \
-  launch_fused_edge_gru<UC, HF>(h, past, fut, mask, w_ih, w_hh, b_ih, b_hh, out, n_rows, \
-                                hidden, max_ctas, s)
-  switch (hidden) {
-    case 16: return TM_EDGE_GRU(16, 16);
-    case 32: return TM_EDGE_GRU(32, 32);
-    case 64: return TM_EDGE_GRU(64, 64);
-  }
-  switch (gru_units(hidden)) {
-    case 16: return TM_EDGE_GRU(16, 0);
-    case 32: return TM_EDGE_GRU(32, 0);
-    default: return TM_EDGE_GRU(64, 0);
-  }
-#undef TM_EDGE_GRU
+  const GruShape sh = gru_shape(hidden);
+  TM_EDGE_GRU_DISPATCH(launch_fused_edge_gru, sh, hidden, h, past, fut, mask, w_ih, w_hh, b_ih,
+                       b_hh, out, n_rows, hidden, max_ctas, (cudaStream_t)stream);
 }

@@ -1,24 +1,27 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 Each source compiles into its own shared library under build/torch_kernels/
-at the root of the checkout, on first use and again whenever the source is
-newer than its library: csrc/mp_kernels.cu -> libtm_mp.so (serving ops,
-ops/mp.py), csrc/block_kernels.cu -> libtm_block.so (train-step ops,
-ops/block.py), csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the
-train step, ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused
-round of the packed row layout, ops/round.py), csrc/loss_kernels.cu ->
-libtm_loss.so (the fused edge losses of the block step, ops/loss.py),
-csrc/dcn_kernels.cu -> libtm_dcn.so (the bounded deformable convolution of
-the DLA-34 embedding backbone, ops/dcn.py).  build() starts one nvcc per
-stale source, all at once, and waits for them.  The sources include no
-PyTorch header, so a build takes seconds; ctypes loads the result.  Nothing
-here runs when the module is imported.
+at the root of the checkout, on first use and again whenever the source, or
+a header it includes with quotes, is newer than its library:
+csrc/mp_kernels.cu -> libtm_mp.so (serving ops, ops/mp.py),
+csrc/block_kernels.cu -> libtm_block.so (train-step ops, ops/block.py),
+csrc/gat_kernels.cu -> libtm_gat.so (attention heads of the train step,
+ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused round of the
+packed row layout, ops/round.py), csrc/loss_kernels.cu -> libtm_loss.so (the
+fused edge losses of the block step, ops/loss.py), csrc/dcn_kernels.cu ->
+libtm_dcn.so (the bounded deformable convolution of the DLA-34 embedding
+backbone, ops/dcn.py).  mp_kernels.cu and block_kernels.cu both include
+csrc/tf32_mma.cuh (the split-TF32 tensor-core products).  build() starts
+one nvcc per stale source, all at once, and waits for them.  The sources
+include no PyTorch header, so a build takes seconds; ctypes loads the
+result.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -92,24 +95,49 @@ def _nvcc() -> str:
     return found
 
 
-def _stale(name: str) -> bool:
-    source, library, _ = LIBRARIES[name]
-    return not (os.path.exists(library) and os.path.getmtime(library) >= os.path.getmtime(source))
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def inputs(source: str) -> list:
+    """`source` and every file it includes with quotes, recursively, each
+    resolved beside the file that includes it (as nvcc finds them)."""
+    seen, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        if os.path.exists(path):
+            with open(path) as f:
+                todo += [os.path.normpath(os.path.join(os.path.dirname(path), inc))
+                         for inc in _INCLUDE.findall(f.read())]
+    return seen
+
+
+def is_stale(source: str, library: str) -> bool:
+    """Whether `library` is missing or older than `source` or a header it
+    includes (a missing header counts as newer: nvcc then says what is
+    wrong)."""
+    if not os.path.exists(library):
+        return True
+    built = os.path.getmtime(library)
+    return any(not os.path.exists(p) or os.path.getmtime(p) > built for p in inputs(source))
 
 
 def build(names=None) -> dict:
     """Compile every library of `names` (default: all) that is missing or
-    older than its source, one nvcc process per source, run concurrently.
+    older than its source or one of its headers, one nvcc process per
+    source, run concurrently.
 
     Returns {name: {"built": bool, "seconds": float, "log": compiler output}}."""
     names = list(LIBRARIES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs, out = {}, {}
     for name in names:
-        if not _stale(name):
+        source, library, _ = LIBRARIES[name]
+        if not is_stale(source, library):
             out[name] = {"built": False, "seconds": 0.0, "log": ""}
             continue
-        source, library, _ = LIBRARIES[name]
         tmp = f"{library}.{os.getpid()}.tmp"
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
