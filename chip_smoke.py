@@ -84,7 +84,9 @@ failure exits non-zero:
     output's scale) against their plain versions at the widest round of
     phase 7 (1 head) and at the same shape with 3 heads on seeded inputs;
     each bitwise the same on a second launch, timed beside its plain
-    version and its bound.
+    version and its bound.  Then once more with 3 heads at P 4, na = nt =
+    128, H 64 on seeded inputs (GAT_WIDE: a width the first design refused
+    in both backwards), against the plain versions evaluated in f64.
  9. GAT serving: one 30-track x 100-frame sequence served by a random
     one-head model on the card (fused_edge_gru once a forward; the
     attention replaces signed_segment_sum) and on the CPU: identical
@@ -206,7 +208,10 @@ failure exits non-zero:
     versions (forwards rtol and atol 1e-5, backwards rtol 1e-4 with atol
     1e-5 x each output's scale) and against the stacked kernels at nh = 1
     on the same inputs, bitwise on a second launch, each timed beside its
-    plain version, that stacked kernel and its bound.
+    plain version, that stacked kernel and its bound.  Then once more at P
+    2, na = nt = 112, H 64 (GAT1_WIDE, refused by the first design's score
+    backward), against the plain versions in f64, bitwise equal to the
+    stacked kernels at nh = 1.
 
 21. Kernel #8 (gat0_scores_fwd / _bwd, the raw masked scores of
     pallas_gat.py::gat_scores, which no path calls) on phase 19's per-head
@@ -214,8 +219,9 @@ failure exits non-zero:
     backward rtol 1e-4 with atol 1e-5 x each output's scale), bitwise the
     same on a second launch and bitwise equal to gat1_scores_fwd's scores
     and to gat1_scores_bwd with zero statistic cotangents; timed beside its
-    plain version, gat1_* and its bound.  Every block training phase holds
-    its launches at 0.
+    plain version, gat1_* and its bound; once more at GAT1_WIDE against the
+    plain versions in f64, bitwise equal to gat1_*.  Every block training
+    phase holds its launches at 0.
 22. The batched validation tracker (decode/batch_tracker.py, pipeline=True)
     on phase 17's three sequences, model and weights: exactly 3
     fused_edge_gru and 3 signed_segment_sum launches and one incidence
@@ -239,7 +245,10 @@ failure exits non-zero:
     both gives identical tracks, MOTA and mAP; (d) --batch-windows 8
     --no-bf16, 1 epoch: the block route logged, T x 3 block_round_fwd and
     _bwd and 2T x 3 window_scatter launches every step, one BlockBatch
-    incidence a step.
+    incidence a step; (e) the same with --num-att-heads 3, 1 epoch: T x 3
+    launches of each stacked attention kernel (gat_scores_fwd / _bwd,
+    gat_aggregate_fwd / _bwd) and 3T x 3 window_scatter every step, no
+    single-head attention kernel, its ms a step.
 
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
@@ -1551,6 +1560,114 @@ def gat_kernel_phase(torch, gat_ops, inputs, launches):
             else:
                 wide[name] = r
     return rows, wide
+
+
+# the attention kernels held once more at widths the first design refused
+# (its shared memory grew with na, nt and nh), on seeded inputs
+# (tests/torch_port_util.py::gat_inputs), against their plain versions in f64
+GAT_WIDE = dict(P=4, na=128, nt=128, H=HIDDEN)   # GAT_HEADS_WIDE heads: both backwards refused it
+GAT1_WIDE = dict(P=2, na=112, nt=112, H=HIDDEN)  # one head: the score backward refused it
+
+
+def gat_wide_inputs(torch, seed, nh, P, na, nt, H):
+    """gat_inputs on the card, keep masks at 0.5."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import gat_inputs
+
+    x = gat_inputs(seed, nh, 0.5, P=P, na=na, nt=nt, H=H)
+    return {k: [torch.from_numpy(a).to("cuda") for a in v] for k, v in x.items()}
+
+
+def gat_wide_rows(torch, gat_ops, which):
+    """Phases 8 ("stacked": the four stacked kernels at GAT_HEADS_WIDE heads,
+    GAT_WIDE), 20 ("gat1": the four single-head kernels at GAT1_WIDE, also
+    bitwise equal to the stacked ones at nh = 1) and 21 ("gat0": kernel #8 at
+    GAT1_WIDE, bitwise equal to gat1_*): each against its plain version
+    evaluated in f64 (forwards rtol and atol GAT_FWD_*, backwards rtol 1e-4
+    with atol 1e-5 x each output's scale), bitwise the same on a second
+    launch, timed beside the plain version in f32 and its bound; outside the
+    kernels line."""
+    from torch_port_util import in_f64
+
+    nh = GAT_HEADS_WIDE if which == "stacked" else 1
+    dims = GAT_WIDE if which == "stacked" else GAT1_WIDE
+    x = gat_wide_inputs(torch, 13 if which == "stacked" else 14, nh, **dims)
+    s_args, a_args = tuple(x["scores"]), tuple(x["agg"])
+    ge, gsal, gsbl = x["scores_cot"]
+    g_rs, g_cs = x["agg_cot"]
+    if which == "stacked":
+        cases = {"gat_scores_fwd": ((*s_args, 0.2, nh), gat_ops.gat_scores_stats_reference, None),
+                 "gat_scores_bwd": ((*s_args, 0.2, nh, ge, gsal, gsbl),
+                                    gat_ops.gat_scores_stats_backward_reference, None),
+                 "gat_aggregate_fwd": ((*a_args, 0.5), gat_ops.gat_aggregate_reference, None),
+                 "gat_aggregate_bwd": ((*a_args, 0.5, g_rs, g_cs),
+                                       gat_ops.gat_aggregate_backward_reference, None)}
+    else:
+        one = tuple(t[0] for t in a_args[:5]) + a_args[5:7] + (a_args[7][0], a_args[8][0])
+        s1 = (*s_args, 0.2)
+        zeros = (torch.zeros_like(gsal[0]), torch.zeros_like(gsbl[0]))
+        if which == "gat1":
+            cases = {"gat1_scores_fwd": (s1, gat_ops.gat_scores_stats_1h_reference,
+                                         lambda: gat_ops._gat_scores_fwd_cuda(*s_args, 0.2, 1)),
+                     "gat1_scores_bwd": ((*s1, ge[0], gsal[0], gsbl[0]),
+                                         gat_ops.gat_scores_stats_1h_backward_reference,
+                                         lambda: gat_ops._gat_scores_bwd_cuda(*s_args, 0.2, 1, ge,
+                                                                              gsal, gsbl)),
+                     "gat1_aggregate_fwd": ((*one, 0.5), gat_ops.gat_aggregate_1h_reference,
+                                            lambda: gat_ops._gat_aggregate_fwd_cuda(*a_args, 0.5)),
+                     "gat1_aggregate_bwd": ((*one, 0.5, g_rs, g_cs),
+                                            gat_ops.gat_aggregate_1h_backward_reference,
+                                            lambda: gat_ops._gat_aggregate_bwd_cuda(
+                                                *a_args, 0.5, g_rs, g_cs))}
+        else:
+            cases = {"gat0_scores_fwd": (s1, gat_ops.gat_scores_reference,
+                                         lambda: gat_ops._gat1_scores_fwd_cuda(*s1)[:1]),
+                     "gat0_scores_bwd": ((*s1, ge[0]), gat_ops.gat_scores_backward_reference,
+                                         lambda: gat_ops._gat1_scores_bwd_cuda(*s1, ge[0], *zeros))}
+    P, na, nt, H = dims["P"], dims["na"], dims["nt"], dims["H"]
+    live = int((s_args[3] != 0).sum())
+    rows = []
+    for name, (args, ref, same) in cases.items():
+        cuda = getattr(gat_ops, f"_{name}_cuda")
+        kernel = (lambda: (cuda(*args),)) if name == "gat0_scores_fwd" else (lambda: cuda(*args))
+        got, again = kernel(), kernel()
+        want = in_f64(ref, *args)
+        torch.cuda.synchronize()
+        forward = name.endswith("fwd")
+        err = 0.0
+        for k, (a, w) in enumerate(zip(got, want)):
+            err = max(err, float((a - w).abs().max()))
+            ok = (torch.allclose(a, w, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL) if forward else
+                  torch.allclose(a, w, rtol=ROUND_BWD_RTOL,
+                                 atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)))
+            if not ok:
+                fail(f"{name} (nh {nh}, P {P}, na {na}, nt {nt}, H {H}) output {k} differs from "
+                     f"its plain version in f64 by {float((a - w).abs().max()):.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} (na {na}, nt {nt}) is not bitwise the same on a second launch")
+        if same is not None and not all(torch.equal(a, b.reshape(a.shape))
+                                        for a, b in zip(got, same())):
+            fail(f"{name} (na {na}, nt {nt}) is not bitwise equal to "
+                 f"{'the stacked kernel at nh 1' if which == 'gat1' else 'gat1_*'}")
+        if which == "gat0":
+            b, by = bound_ms(*gat0_bounds(name, args))
+        else:
+            st_name = name.replace("gat1_", "gat_")
+            st_args = args if which == "stacked" else (
+                (*s_args, 0.2, 1, ge, gsal, gsbl)[:len(args) + 1] if "scores" in name
+                else (*a_args, *args[9:]))
+            b, by = bound_ms(*gat_bounds(st_args, st_name, nh))
+        r = {"name": name, "max_abs_err_vs_f64": err, "ms": cuda_time_ms(kernel),
+             "plain_ms": cuda_time_ms(lambda: ref(*args), iters=PLAIN_ITERS),
+             "bound_ms": b, "bound_by": by,
+             "shape": f"nh {nh}, P {P}, na {na}, nt {nt}, H {H}, live cells {live}"}
+        print(f"kernel {name} at a width the first design refused ({r['shape']}): device "
+              f"{r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
+              f"{b * 1e3:.2f} us by {by}), max abs err vs f64 {err:.3g}, bitwise on a relaunch"
+              + ("" if same is None else ", bitwise equal to the kernel it shares a body with"))
+        rows.append(r)
+    return rows
 
 
 def gat_serving_phase(torch, np, mp):
@@ -2961,6 +3078,24 @@ def block_expect(nb):
     return expect
 
 
+def block_heads_expect(nb):
+    """block_expect with stacked attention heads: a round also launches each
+    of the four stacked attention kernels once and a third window_scatter
+    (the attention gather's backward); no single-head attention kernel."""
+    plain = block_expect(nb)
+
+    def expect(bb):
+        r = bb.t_cap * nb
+        want = {**plain(bb), "window_scatter": 3 * r}
+        for k in ("gat_scores_fwd", "gat_scores_bwd", "gat_aggregate_fwd", "gat_aggregate_bwd"):
+            want[k] = r
+        for k in ("gat1_scores_fwd", "gat1_scores_bwd", "gat1_aggregate_fwd",
+                  "gat1_aggregate_bwd", "gat0_scores_fwd", "gat0_scores_bwd"):
+            want[k] = 0
+        return want
+    return expect
+
+
 def read_log(out_dir):
     with open(os.path.join(out_dir, "logs.txt")) as f:
         return f.read()
@@ -3019,14 +3154,15 @@ def cli_chunk_profile(torch, np, argv, snapshot):
     return wall, device_profile(torch, run, wall)
 
 
-def train_cli_phase(torch, np, mp, block_ops):
+def train_cli_phase(torch, np, mp, block_ops, gat_ops):
     """Phase 23: the training CLI on the card, in process
     (cli.train.main(argv)), on the port's synthetic KITTI tree of real PNGs.
     (a) the defaults (2d+temp+vis, espv2 at 384 x 1280, nhidden 64, the
     batch-1 route), 2 epochs; (b) resumed from (a)'s epoch-1 checkpoint;
     (c) --feats 2d+temp, 1 epoch, on the card and on the CPU from one
     --snapshot, and one checkpoint validated on both; (d) --batch-windows 8
-    --no-bf16, 1 epoch."""
+    --no-bf16, 1 epoch; (e) the same with --num-att-heads 3 (the stacked
+    attention kernels), 1 epoch."""
     from trackmpnn_tpu_torch.backbones.weights import state_dict_from_jax
     from trackmpnn_tpu_torch.cli import train as cli
     from trackmpnn_tpu_torch.data.synthetic import write_kitti_tree
@@ -3229,6 +3365,34 @@ def train_cli_phase(torch, np, mp, block_ops):
           f"2T x {nb3} window_scatter, held on every step), {ev_d:.3f} ms (events) / "
           f"{host_d:.3f} ms (host) a step, wall {wall_d:.1f} s, losses {losses_d[0]:.5g} -> "
           f"{losses_d[-1]:.5g}, val MOTA {hist_d['val_mota']}")
+
+    # (e) the block route with three stacked attention heads a branch
+    heads = 3
+    what = f"train CLI (e) (--batch-windows 8 --no-bf16 --num-att-heads {heads})"
+    dir_e = os.path.join(base, "e")
+    rec = StepRecorder(torch, (block_ops.LAUNCHES, block_ops.BUILDS, gat_ops.LAUNCHES),
+                       block_heads_expect(nb3))
+    built = block_ops.BUILDS["block_incidence"]
+    t0 = time.perf_counter()
+    with patched(train_block, "make_block_train_step", rec.wrap):
+        hist_e = cli.main(common + ["--output-dir", dir_e, "--epochs", "1", "--batch-windows", "8",
+                                    "--no-bf16", "--num-att-heads", str(heads)])
+    wall_e = time.perf_counter() - t0
+    losses_e = rec.check(what)
+    if block_ops.BUILDS["block_incidence"] - built != len(rec.steps):
+        fail(f"{what}: {block_ops.BUILDS['block_incidence'] - built} BlockBatch incidences for "
+             f"{len(rec.steps)} steps, expected one a batch")
+    if "block-structured batched training: 8 windows/step" not in read_log(dir_e):
+        fail(f"{what}: the log does not say the block route ran")
+    ev_e, host_e = rec.ms()
+    out["e"] = {"steps": len(rec.steps), "heads": heads, "wall_s": wall_e, "history": hist_e,
+                "ms_per_step_events": ev_e, "ms_per_step_wall": host_e,
+                "launches_per_step": [s["launched"] for s in rec.steps[:3]]}
+    print(f"{what}: {len(rec.steps)} block steps (launches a step = T x {nb3} of each stacked "
+          f"attention kernel and round fwd/bwd, 3T x {nb3} window_scatter, no single-head "
+          f"kernel, held on every step), {ev_e:.3f} ms (events) / {host_e:.3f} ms (host) a step, "
+          f"wall {wall_e:.1f} s, losses {losses_e[0]:.5g} -> {losses_e[-1]:.5g}, val MOTA "
+          f"{hist_e['val_mota']}")
     return out
 
 
@@ -3297,6 +3461,7 @@ def main():
                                                  heads=GAT_HEADS)
     gat_kernels, gat_wide = gat_kernel_phase(torch, gat_ops, gat_inputs, gat_training["launches"])
     kernels += gat_kernels
+    gat_refused = gat_wide_rows(torch, gat_ops, "stacked")
     gat_serving = gat_serving_phase(torch, np, mp)
     # 10. batch-1 training, 11. packed training, 12. round kernels: the row layout
     packed_wl = packed_workload(np)
@@ -3331,10 +3496,12 @@ def main():
                                                      default_wl)
     kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
                                  default_heads["per_head"]["launches"])
+    gat_refused += gat_wide_rows(torch, gat_ops, "gat1")
     # 21. kernel #8 on the same inputs (every block training phase above held
     # its launches at 0: no path calls it)
     kernels += gat0_kernel_phase(torch, gat_ops, gat1_inputs,
                                  default_heads["per_head"]["launches"])
+    gat_refused += gat_wide_rows(torch, gat_ops, "gat0")
     # 15. the embedding path, 16. its DCN kernels
     embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
     kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
@@ -3345,7 +3512,7 @@ def main():
     batch_tracking = batch_tracker_phase(torch, np, mp, served, full)
     del served
     # 23. the training CLI
-    train_cli = train_cli_phase(torch, np, mp, block_ops)
+    train_cli = train_cli_phase(torch, np, mp, block_ops, gat_ops)
     # each serving kernel's launches on the path it runs on: gather_diff in
     # row-layout training (phase 10; a served forward takes fused_edge_gru),
     # signed_segment_sum serving (phase 3), fused_edge_gru the default
@@ -3363,7 +3530,8 @@ def main():
             json.dump({"card": card, "kernels": kernels, "fused_edge_gru_wide": edge_gru_wide,
                        "window_scatter_es": scatter_es, "block_round_wide": block_wide,
                        "es_round_wide": es_wide, "training_wide": training_wide,
-                       "gat_kernels_3_heads": gat_wide, "serving": serving, "cli": cli,
+                       "gat_kernels_3_heads": gat_wide, "gat_refused_widths": gat_refused,
+                       "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,
                        "gat_serving": gat_serving, "row_batch1": batch1,
                        "row_packed": packed_training, "block_compositions": compositions,

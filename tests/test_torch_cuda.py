@@ -524,16 +524,36 @@ def assert_close_scaled(got, want, names):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=name)
 
 
+# the widths the first design refused (its shared memory grew with na, nt and
+# nh) are held against the plain versions evaluated in f64: there an exp-sum
+# or a d a sums thousands of terms, and two f32 evaluations in different
+# orders differ by more than the tolerances allow the kernels
+WIDE_NA = 64
+
+
+def plain_for(plain, na, nt):
+    """The plain version, or at the wide widths the plain version in f64."""
+    if max(na, nt) < WIDE_NA:
+        return plain
+
+    def wide(*args):
+        out = in_f64(plain, *args)
+        return out[0] if len(out) == 1 else out
+    return wide
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nh", [1, 3])
 @pytest.mark.parametrize("P,na,nt,H,keep", [(17, 8, 16, 16, 0.5), (120, 24, 24, 64, 1.0),
-                                            (3, 5, 40, 32, 0.5)])
+                                            (3, 5, 40, 32, 0.5), (4, 128, 128, 64, 0.5)])
 def test_gat_kernels_match_plain_versions(cuda, nh, P, na, nt, H, keep):
     """The four attention kernels against their plain versions: forwards
     within rtol and atol 1e-5 (a score sums H products and an exp-sum up to
     nt terms, so the rounding of another summation order grows with the
     value), backwards within rtol 1e-4; each bitwise the same on a second
-    launch; all-masked rows give exactly 0."""
+    launch; all-masked rows give exactly 0.  na = nt = 128 (several bands,
+    column tiles and row tiles a block) is a width the first design refused
+    in both backward kernels; it is held against the plain versions in f64."""
     pr = gat_problem(P + nh, nh, P, na, nt, H, keep, cuda)
     s_args, a_args = pr["scores"], pr["agg"]
     before = dict(gat.LAUNCHES)
@@ -549,7 +569,7 @@ def test_gat_kernels_match_plain_versions(cuda, nh, P, na, nt, H, keep):
          False),
     ]
     for kernel, plain, args, names, forward in runs:
-        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        got, again, want = kernel(*args), kernel(*args), plain_for(plain, na, nt)(*args)
         torch.cuda.synchronize()
         if forward:
             for name, a, b in zip(names, got, want):
@@ -604,13 +624,16 @@ def gat1_problem(seed, P, na, nt, H, keep, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,na,nt,H,keep", [(17, 8, 16, 16, 0.5), (120, 24, 24, 64, 1.0),
-                                            (120, 24, 24, 64, 0.5), (3, 5, 40, 32, 0.5)])
+                                            (120, 24, 24, 64, 0.5), (3, 5, 40, 32, 0.5),
+                                            (2, 112, 112, 64, 0.5)])
 def test_gat1_kernels_match_plain_versions_and_the_stacked_kernels(cuda, P, na, nt, H, keep):
     """The four single-head kernels (#9 and #10) against their plain
     versions (forwards rtol and atol 1e-5, backwards rtol 1e-4 with atol
     1e-5 x each output's scale), bitwise the same on a second launch, and
     bitwise equal to the stacked kernels at nh = 1, which compute the same
-    function; one launch of each a call."""
+    function; one launch of each a call.  na = nt = 112 is a width the first
+    design refused in the score backward (held against the plain versions in
+    f64)."""
     pr = gat1_problem(P, P, na, nt, H, keep, cuda)
     s_args, a_args = pr["scores"], pr["agg"]
     stacked_agg = [t[None] for t in a_args[:5]] + a_args[5:7] + [t[None] for t in a_args[7:]]
@@ -630,7 +653,8 @@ def test_gat1_kernels_match_plain_versions_and_the_stacked_kernels(cuda, P, na, 
          ["de", "dm_row", "dm_col", "dz_row", "dz_col", "dhe"], False),
     ]
     for kernel, plain, args, stacked, st_args, names, forward in runs:
-        got, again, want, st = kernel(*args), kernel(*args), plain(*args), stacked(*st_args)
+        got, again, st = kernel(*args), kernel(*args), stacked(*st_args)
+        want = plain_for(plain, na, nt)(*args)
         torch.cuda.synchronize()
         if forward:
             for name, a, b in zip(names, got, want):
@@ -692,6 +716,50 @@ def test_gat1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         gat._gat1_aggregate_bwd_cuda(e, mr, mc, zr, zc, he, m3, ka, kn, 0.5,
                                      pr["agg_cot"][0][:, :4], pr["agg_cot"][1])
+
+
+def unaligned(t):
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary (the aggregate kernels then load one float a lane)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,na,nt,nh,H,keep,shift", [(3, 70, 9, 2, 6, 0.5, False),
+                                                     (2, 9, 33, 1, 130, 1.0, False),
+                                                     (2, 33, 65, 2, 72, 0.5, True)])
+def test_gat_kernels_take_any_width(cuda, P, na, nt, nh, H, keep, shift):
+    """Widths the training paths do not reach: H not a multiple of 4 or
+    beyond one staged chunk of 64 units, several bands, column tiles and row
+    tiles a block, and (shift) h_e and the cotangents off a 16-byte boundary,
+    so one float a lane: each attention kernel against its plain version in
+    f64 (forwards rtol and atol 1e-5, backwards rtol 1e-4 with atol 1e-5 x
+    each output's scale), bitwise the same on a second launch."""
+    pr = gat_problem(P * nh + H, nh, P, na, nt, H, keep, cuda)
+    s_args, a_args, cots = pr["scores"], list(pr["agg"]), list(pr["agg_cot"])
+    if shift:
+        a_args[5] = unaligned(a_args[5])
+        cots = [unaligned(c) for c in cots]
+    runs = [
+        (gat._gat_scores_fwd_cuda, gat.gat_scores_stats_reference, (*s_args, 0.2, nh), True),
+        (gat._gat_scores_bwd_cuda, gat.gat_scores_stats_backward_reference,
+         (*s_args, 0.2, nh, *pr["scores_cot"]), False),
+        (gat._gat_aggregate_fwd_cuda, gat.gat_aggregate_reference, (*a_args, keep), True),
+        (gat._gat_aggregate_bwd_cuda, gat.gat_aggregate_backward_reference,
+         (*a_args, keep, *cots), False),
+    ]
+    for kernel, plain, args, forward in runs:
+        got, again, want = kernel(*args), kernel(*args), in_f64(plain, *args)
+        torch.cuda.synchronize()
+        if forward:
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert_close_scaled(got, want, [str(k) for k in range(len(want))])
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -1172,13 +1240,15 @@ def test_dcn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,na,nt,H", [(17, 8, 16, 16), (120, 24, 24, 64), (3, 5, 40, 32)])
+@pytest.mark.parametrize("P,na,nt,H", [(17, 8, 16, 16), (120, 24, 24, 64), (3, 5, 40, 32),
+                                       (2, 112, 112, 64)])
 def test_gat0_kernels_match_plain_versions_and_gat1(cuda, P, na, nt, H):
     """Kernel #8 (gat0_scores_fwd / _bwd) against its plain versions
     (forward rtol and atol 1e-5, backward rtol 1e-4 with atol 1e-5 x each
     output's scale), bitwise the same on a second launch, and bitwise equal
     to #9's gat1_* on the same inputs: its scores, and its backward with
-    zero statistic cotangents."""
+    zero statistic cotangents.  na = nt = 112, a width the first design
+    refused, is held against the plain versions in f64."""
     pr = gat1_problem(P + 7, P, na, nt, H, 1.0, cuda)
     ha, hn, a, m = pr["scores"]
     ge = pr["scores_cot"][0]
@@ -1190,10 +1260,10 @@ def test_gat0_kernels_match_plain_versions_and_gat1(cuda, P, na, nt, H):
     e1 = gat._gat1_scores_fwd_cuda(ha, hn, a, m, 0.2)[0]
     g1 = gat._gat1_scores_bwd_cuda(ha, hn, a, m, 0.2, ge, *zeros)
     torch.cuda.synchronize()
-    torch.testing.assert_close(e, gat.gat_scores_reference(ha, hn, a, m, 0.2), rtol=1e-5,
-                               atol=1e-5)
-    assert_close_scaled(g, gat.gat_scores_backward_reference(ha, hn, a, m, 0.2, ge),
-                        ["dha", "dhn", "da"])
+    torch.testing.assert_close(e, plain_for(gat.gat_scores_reference, na, nt)(ha, hn, a, m, 0.2),
+                               rtol=1e-5, atol=1e-5)
+    assert_close_scaled(g, plain_for(gat.gat_scores_backward_reference, na, nt)(
+        ha, hn, a, m, 0.2, ge), ["dha", "dhn", "da"])
     assert torch.equal(e, e2) and all(torch.equal(x, y) for x, y in zip(g, g2))
     assert torch.equal(e, e1) and all(torch.equal(x, y) for x, y in zip(g, g1))
     assert torch.all(e[m == 0] == 0)

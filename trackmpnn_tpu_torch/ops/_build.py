@@ -50,15 +50,15 @@ LIBRARIES = {
                "tm_window_scatter": [_P] * 8 + [_I] * 9 + [_P]}),
     "gat": (os.path.join(_PKG, "csrc", "gat_kernels.cu"),
             os.path.join(BUILD_DIR, "libtm_gat.so"),
-            {"tm_gat_smem_bytes": [_I] * 6,
-             "tm_gat_scores_fwd": [_P] * 9 + [_I] * 5 + [_F, _P],
+            {"tm_gat_scratch_floats": [_I] * 8 + [_P],
+             "tm_gat_scores_fwd": [_P] * 10 + [_I] * 5 + [_F, _P],
              "tm_gat_scores_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-             "tm_gat_aggregate_fwd": [_P] * 11 + [_I] * 6 + [_F, _P],
-             "tm_gat_aggregate_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
-             "tm_gat1_scores_fwd": [_P] * 9 + [_I] * 4 + [_F, _P],
+             "tm_gat_aggregate_fwd": [_P] * 12 + [_I] * 6 + [_F, _P],
+             "tm_gat_aggregate_bwd": [_P] * 18 + [_I] * 6 + [_F, _P],
+             "tm_gat1_scores_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
              "tm_gat1_scores_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
-             "tm_gat1_aggregate_fwd": [_P] * 11 + [_I] * 4 + [_F, _P],
-             "tm_gat1_aggregate_bwd": [_P] * 17 + [_I] * 4 + [_F, _P],
+             "tm_gat1_aggregate_fwd": [_P] * 12 + [_I] * 4 + [_F, _P],
+             "tm_gat1_aggregate_bwd": [_P] * 18 + [_I] * 4 + [_F, _P],
              "tm_gat0_scores_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
              "tm_gat0_scores_bwd": [_P] * 9 + [_I] * 4 + [_F, _P]}),
     "round": (os.path.join(_PKG, "csrc", "round_kernels.cu"),

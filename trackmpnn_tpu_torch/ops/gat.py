@@ -44,6 +44,9 @@ needs the statistics with the scores), so no path of the port does yet.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from trackmpnn_tpu_torch.ops import _build
@@ -210,13 +213,40 @@ def gat_aggregate_1h_backward_reference(e, m_row, m_col, z_row, z_col, h_e, mask
 
 
 # ---------------------------------------------------------------- wrappers ----
-def _smem_fits(name, lib, device, kind, na, nt, nh, H):
-    have = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    for backward in (0, 1):
-        need = lib.tm_gat_smem_bytes(kind, na, nt, nh, H, backward)
-        if need > have:
-            raise ValueError(f"{name}: na={na}, nt={nt}, nh={nh}, H={H} needs {need} B of "
-                             f"shared memory a block, the card has {have}")
+C_INT_MAX = 2 ** 31 - 1  # the kernels' C interface passes every width as an int
+
+
+@functools.lru_cache(maxsize=None)
+def attention_widths(H):
+    """The attention kernels' width rule, checked once for each H: any
+    hidden width from 0 to C_INT_MAX.  Every kernel tiles its rectangle and
+    walks H in chunks, so its shared memory is fixed by the tile, whatever
+    P, na, nt, nh and H are.  Raises ValueError naming the width it refuses;
+    JAX's Pallas kernels take any H."""
+    if not 0 <= H <= C_INT_MAX:
+        raise ValueError(f"the attention kernels take a hidden width H from 0 to {C_INT_MAX}, "
+                         f"not H={H}")
+    return H
+
+
+def _gat_library(name, H):
+    """The gat library, once H passes attention_widths."""
+    try:
+        attention_widths(H)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return _build.load("gat")
+
+
+def _scratch(lib, device, kind, P, na, nt, nh, H, backward, stats=True):
+    """One f32 tensor holding the scratch a call's kernels need: the score
+    kernels (kind 0) or the aggregate kernels (kind 1), as
+    tm_gat_scratch_floats counts it for these widths (often none: an empty
+    tensor, whose pointer the kernels never read)."""
+    n = ctypes.c_int64(0)
+    lib.tm_gat_scratch_floats(kind, P, na, nt, nh, H, int(backward), int(stats),
+                              ctypes.addressof(n))
+    return torch.empty(n.value, dtype=torch.float32, device=device)
 
 
 def _score_inputs(name, ha, hn, a, mask3, nh):
@@ -230,9 +260,7 @@ def _score_inputs(name, ha, hn, a, mask3, nh):
     f32 = torch.float32
     _check(name, ha.device, ha=(ha, f32, (P, na, HH)), hn=(hn, f32, (P, nt, HH)),
            a=(a, f32, (HH, 1)), mask3=(mask3, f32, (P, na, nt)))
-    lib = _build.load("gat")
-    _smem_fits(name, lib, ha.device, 0, na, nt, nh, HH // nh)
-    return lib, P, na, nt, HH // nh
+    return _gat_library(name, HH // nh), P, na, nt, HH // nh
 
 
 def _gat_scores_fwd_cuda(ha, hn, a, mask3, alpha, nh):
@@ -241,10 +269,11 @@ def _gat_scores_fwd_cuda(ha, hn, a, mask3, alpha, nh):
     out = (new(nh, P, na, nt), new(nh, P, na), new(nh, P, nt), new(nh, P, na), new(nh, P, nt))
     if P == 0 or na == 0 or nt == 0:
         return tuple(t.zero_() for t in out)
+    scratch = _scratch(lib, ha.device, 0, P, na, nt, nh, H, False)
     with torch.cuda.device(ha.device):
         rc = lib.tm_gat_scores_fwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
-                                   *(t.data_ptr() for t in out), P, na, nt, nh, H,
-                                   float(alpha), _stream())
+                                   *(t.data_ptr() for t in out), scratch.data_ptr(), P, na, nt,
+                                   nh, H, float(alpha), _stream())
     if rc != 0:
         raise RuntimeError(f"gat_scores_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat_scores_fwd"] += 1
@@ -260,11 +289,11 @@ def _gat_scores_bwd_cuda(ha, hn, a, mask3, alpha, nh, ge, gsal, gsbl):
     da = torch.empty(nh * H, 1, dtype=f32, device=ha.device)
     if P == 0 or na == 0 or nt == 0:
         return dha.zero_(), dhn.zero_(), da.zero_()
-    partials = torch.empty(P, nh * H, dtype=f32, device=ha.device)
+    scratch = _scratch(lib, ha.device, 0, P, na, nt, nh, H, True)
     with torch.cuda.device(ha.device):
         rc = lib.tm_gat_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
                                    ge.data_ptr(), gsal.data_ptr(), gsbl.data_ptr(),
-                                   dha.data_ptr(), dhn.data_ptr(), partials.data_ptr(),
+                                   dha.data_ptr(), dhn.data_ptr(), scratch.data_ptr(),
                                    da.data_ptr(), P, na, nt, nh, H, float(alpha), _stream())
     if rc != 0:
         raise RuntimeError(f"gat_scores_bwd kernel launch failed: CUDA error {rc}")
@@ -287,9 +316,7 @@ def _aggregate_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn):
            z_col=(z_col, f32, (nh, P, nt)), h_e=(h_e, f32, (P, na, nt, H)),
            mask3=(mask3, f32, (P, na, nt)), ka=(ka, f32, (nk, P, na, nt)),
            kn=(kn, f32, (nk, P, na, nt)))
-    lib = _build.load("gat")
-    _smem_fits(name, lib, e.device, 1, na, nt, nh, H)
-    return lib, nh, P, na, nt, H, nk
+    return _gat_library(name, H), nh, P, na, nt, H, nk
 
 
 def _gat_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
@@ -299,10 +326,11 @@ def _gat_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, k
     cs = torch.empty(P, nt, H, dtype=torch.float32, device=e.device)
     if P == 0 or na == 0 or nt == 0:
         return rs.zero_(), cs.zero_()
+    scratch = _scratch(lib, e.device, 1, P, na, nt, nh, H, False)
     with torch.cuda.device(e.device):
         rc = lib.tm_gat_aggregate_fwd(*(t.data_ptr() for t in args), rs.data_ptr(),
-                                      cs.data_ptr(), P, na, nt, nh, H, nk, float(keep),
-                                      _stream())
+                                      cs.data_ptr(), scratch.data_ptr(), P, na, nt, nh, H, nk,
+                                      float(keep), _stream())
     if rc != 0:
         raise RuntimeError(f"gat_aggregate_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat_aggregate_fwd"] += 1
@@ -319,10 +347,12 @@ def _gat_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, k
            torch.empty_like(z_row), torch.empty_like(z_col), torch.empty_like(h_e))
     if P == 0 or na == 0 or nt == 0:
         return tuple(t.zero_() for t in out)
+    scratch = _scratch(lib, e.device, 1, P, na, nt, nh, H, True)
     with torch.cuda.device(e.device):
         rc = lib.tm_gat_aggregate_bwd(*(t.data_ptr() for t in args), g_rs.data_ptr(),
                                       g_cs.data_ptr(), *(t.data_ptr() for t in out),
-                                      P, na, nt, nh, H, nk, float(keep), _stream())
+                                      scratch.data_ptr(), P, na, nt, nh, H, nk, float(keep),
+                                      _stream())
     if rc != 0:
         raise RuntimeError(f"gat_aggregate_bwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat_aggregate_bwd"] += 1
@@ -335,10 +365,11 @@ def _gat1_scores_fwd_cuda(ha, hn, a, mask3, alpha):
     out = (new(P, na, nt), new(P, na), new(P, nt), new(P, na), new(P, nt))
     if P == 0 or na == 0 or nt == 0:
         return tuple(t.zero_() for t in out)
+    scratch = _scratch(lib, ha.device, 0, P, na, nt, 1, H, False)
     with torch.cuda.device(ha.device):
         rc = lib.tm_gat1_scores_fwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
-                                    *(t.data_ptr() for t in out), P, na, nt, H, float(alpha),
-                                    _stream())
+                                    *(t.data_ptr() for t in out), scratch.data_ptr(), P, na, nt,
+                                    H, float(alpha), _stream())
     if rc != 0:
         raise RuntimeError(f"gat1_scores_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat1_scores_fwd"] += 1
@@ -354,11 +385,11 @@ def _gat1_scores_bwd_cuda(ha, hn, a, mask3, alpha, ge, gsal, gsbl):
     da = torch.empty(H, 1, dtype=f32, device=ha.device)
     if P == 0 or na == 0 or nt == 0:
         return dha.zero_(), dhn.zero_(), da.zero_()
-    partials = torch.empty(P, H, dtype=f32, device=ha.device)
+    scratch = _scratch(lib, ha.device, 0, P, na, nt, 1, H, True)
     with torch.cuda.device(ha.device):
         rc = lib.tm_gat1_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
                                     ge.data_ptr(), gsal.data_ptr(), gsbl.data_ptr(),
-                                    dha.data_ptr(), dhn.data_ptr(), partials.data_ptr(),
+                                    dha.data_ptr(), dhn.data_ptr(), scratch.data_ptr(),
                                     da.data_ptr(), P, na, nt, H, float(alpha), _stream())
     if rc != 0:
         raise RuntimeError(f"gat1_scores_bwd kernel launch failed: CUDA error {rc}")
@@ -388,11 +419,11 @@ def _gat0_scores_bwd_cuda(ha, hn, a, mask3, alpha, ge):
     da = torch.empty(H, 1, dtype=f32, device=ha.device)
     if P == 0 or na == 0 or nt == 0:
         return dha.zero_(), dhn.zero_(), da.zero_()
-    partials = torch.empty(P, H, dtype=f32, device=ha.device)
+    scratch = _scratch(lib, ha.device, 0, P, na, nt, 1, H, True, stats=False)
     with torch.cuda.device(ha.device):
         rc = lib.tm_gat0_scores_bwd(ha.data_ptr(), hn.data_ptr(), a.data_ptr(), mask3.data_ptr(),
                                     ge.data_ptr(), dha.data_ptr(), dhn.data_ptr(),
-                                    partials.data_ptr(), da.data_ptr(), P, na, nt, H,
+                                    scratch.data_ptr(), da.data_ptr(), P, na, nt, H,
                                     float(alpha), _stream())
     if rc != 0:
         raise RuntimeError(f"gat0_scores_bwd kernel launch failed: CUDA error {rc}")
@@ -411,9 +442,7 @@ def _aggregate_1h_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn
            z_col=(z_col, f32, (P, nt)), h_e=(h_e, f32, (P, na, nt, H)),
            mask3=(mask3, f32, (P, na, nt)), ka=(ka, f32, (P, na, nt)),
            kn=(kn, f32, (P, na, nt)))
-    lib = _build.load("gat")
-    _smem_fits(name, lib, e.device, 1, na, nt, 1, H)
-    return lib, P, na, nt, H
+    return _gat_library(name, H), P, na, nt, H
 
 
 def _gat1_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
@@ -423,9 +452,11 @@ def _gat1_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, 
     cs = torch.empty(P, nt, H, dtype=torch.float32, device=e.device)
     if P == 0 or na == 0 or nt == 0:
         return rs.zero_(), cs.zero_()
+    scratch = _scratch(lib, e.device, 1, P, na, nt, 1, H, False)
     with torch.cuda.device(e.device):
         rc = lib.tm_gat1_aggregate_fwd(*(t.data_ptr() for t in args), rs.data_ptr(),
-                                       cs.data_ptr(), P, na, nt, H, float(keep), _stream())
+                                       cs.data_ptr(), scratch.data_ptr(), P, na, nt, H,
+                                       float(keep), _stream())
     if rc != 0:
         raise RuntimeError(f"gat1_aggregate_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat1_aggregate_fwd"] += 1
@@ -442,10 +473,11 @@ def _gat1_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, 
            torch.empty_like(z_row), torch.empty_like(z_col), torch.empty_like(h_e))
     if P == 0 or na == 0 or nt == 0:
         return tuple(t.zero_() for t in out)
+    scratch = _scratch(lib, e.device, 1, P, na, nt, 1, H, True)
     with torch.cuda.device(e.device):
         rc = lib.tm_gat1_aggregate_bwd(*(t.data_ptr() for t in args), g_rs.data_ptr(),
                                        g_cs.data_ptr(), *(t.data_ptr() for t in out),
-                                       P, na, nt, H, float(keep), _stream())
+                                       scratch.data_ptr(), P, na, nt, H, float(keep), _stream())
     if rc != 0:
         raise RuntimeError(f"gat1_aggregate_bwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["gat1_aggregate_bwd"] += 1
