@@ -155,8 +155,9 @@ failure exits non-zero:
     bounded route records the DCN kernels' widest inputs), 2 warm-up steps,
     10 steps timed by CUDA events with the DCN launch counters set to 0
     before and read after (16 of each kernel a step on the bounded route;
-    none elsewhere), one profiled step; ms/step, frames/s, busy share and
-    peak memory.  The first step must see TF32 off (the trainer pins full
+    none elsewhere), one profiled step (on the bounded route also the device
+    ms inside DeformConvShift's forward and backward over the 16 blocks, and
+    of the dcn_* kernels); ms/step, frames/s, busy share and peak memory.  The first step must see TF32 off (the trainer pins full
     f32 whatever the process's flags) and leave the flags as they were.
     Then infer on a 32-frame sequence (the chunk four times; eval runs whole
     sequences), timed, with its peak memory: every slice's features equal
@@ -167,12 +168,14 @@ failure exits non-zero:
     rtol 1e-3 with atol 1e-4 x the largest |grad|, BN buffers unchanged
     (frozen BN).
 16. The DCN kernels: dcn_fwd (atol 1e-5 x the output's scale),
-    dcn_bwd_sample and dcn_bwd_dx (rtol 1e-4, atol 1e-5 x each output's
-    scale) against their plain versions on phase 15's widest deform block
-    (4 x 96 x 320, 64 channels) and on seeded inputs of that shape with
-    fractional, integer and beyond-bound offsets; each bitwise the same on
-    a second launch, timed beside its plain version and its bound; no
-    PyTorch call computes a deformable convolution (library: none).
+    dcn_bwd_sample (d weight, d offset, d mask) and dcn_bwd_dx (rtol 1e-4,
+    atol 1e-5 x each output's scale) against their plain versions evaluated
+    in f64 on phase 15's widest deform block (8 x 96 x 320, 64 channels)
+    and on seeded inputs of that shape with fractional, integer and
+    beyond-bound offsets; each bitwise the same on a second launch, timed
+    beside its plain version and its bounds at the f32 and the TF32 rate
+    (dcn_fwd and dcn_bwd_sample run their products as 3xTF32); no PyTorch
+    call computes a deformable convolution (library: none).
 17. The default configuration served at full width: features 2d+temp+vis,
     nhidden 64, 128 vis features from ESPNetv2 at 384 x 1280, random
     weights from fixed seeds, on phase 3's three sequences.  Each
@@ -678,12 +681,14 @@ def serve(tracker, seqs, np):
     return runs, fwd_ms, walls
 
 
-def device_profile(torch, run, wall_s):
+def device_profile(torch, run, wall_s, ranges=(), match=None):
     """Device time by kernel over one profiled call of `run`, and the busy
     share of `wall_s`, the same work's wall time without the profiler: the
     union of the device-side intervals (kernels, copies, memsets; not the
     user annotations such as Optimizer.step, whose device span covers
-    kernels counted already) over the wall."""
+    kernels counted already) over the wall.  ranges: user ranges (names)
+    whose device spans are summed (ranges_ms); match: a substring of the
+    kernel names whose device time is summed (matched_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -710,8 +715,16 @@ def device_profile(torch, run, wall_s):
           f"{wall_s * 1e3:.1f} ms wall (busy share {share:.4f}); top device time:")
     for key, ms, count in rows[:10]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    return {"device_busy_ms": busy_ms, "device_events_ms": kernel_ms, "busy_share": share,
-            "top": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+    out = {"device_busy_ms": busy_ms, "device_events_ms": kernel_ms, "busy_share": share,
+           "top": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+    if ranges:
+        out["ranges_ms"] = dict.fromkeys(ranges, 0.0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name in out["ranges_ms"]:
+                out["ranges_ms"][e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    if match is not None:
+        out["matched_ms"] = sum(ms for key, ms, _ in rows if match in key)
+    return out
 
 
 def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=None):
@@ -2340,6 +2353,7 @@ def embedding_phase(torch, np, dcn_ops):
     on the CPU.  Returns (summaries, the DCN kernels' widest inputs)."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_port_util import calibrate_dcn_offsets
+    from trackmpnn_tpu_torch.tools.ab_dcn import dcn_ranges
     from trackmpnn_tpu_torch.train.embed import RECIPES, EmbedTrainer
 
     summaries, inputs = {}, {}
@@ -2365,7 +2379,7 @@ def embedding_phase(torch, np, dcn_ops):
         torch.cuda.reset_peak_memory_stats()
         with contextlib.ExitStack() as rec:
             if cfg.get("dcn_max_offset") is not None:
-                # widest: the most input elements (4 x 96 x 320 x 64 at KITTI's size)
+                # widest: the most input elements (8 x 96 x 320 x 64 at KITTI's size)
                 rec.enter_context(record_widest(dcn_ops, "_fwd_cuda", inputs, lambda a: "dcn_fwd",
                                                 blocks=lambda a: a[0].numel()))
                 rec.enter_context(record_widest(dcn_ops, "_sample_cuda", inputs,
@@ -2412,7 +2426,22 @@ def embedding_phase(torch, np, dcn_ops):
         losses = torch.stack(losses).cpu().numpy()
         if not np.all(np.isfinite(losses)):
             fail(f"{what}: loss not finite: {losses}")
-        profile = device_profile(torch, lambda: tr.step(*chunk), wall_ms / 1e3)
+        # the bounded route's DCN share: device spans inside DeformConvShift's
+        # forward and backward (the kernels and the dcols product), and the
+        # dcn_* kernels alone
+        with dcn_ranges(dcn_ops) if per_step else contextlib.nullcontext():
+            profile = device_profile(torch, lambda: tr.step(*chunk), wall_ms / 1e3,
+                                     ranges=("dcn_forward", "dcn_backward") if per_step else (),
+                                     match="dcn_" if per_step else None)
+        dcn_ms = None
+        if per_step and profile is not None:
+            dcn_ms = {"ranges_ms": profile["ranges_ms"],
+                      "total_ms": sum(profile["ranges_ms"].values()),
+                      "dcn_kernels_ms": profile["matched_ms"]}
+            print(f"{what}: DCN device ms in the profiled step {dcn_ms['total_ms']:.3f} "
+                  f"(forward {profile['ranges_ms']['dcn_forward']:.3f}, backward "
+                  f"{profile['ranges_ms']['dcn_backward']:.3f}; the dcn_* kernels "
+                  f"{dcn_ms['dcn_kernels_ms']:.3f}) over the {DCN_BLOCKS} deform blocks")
         infer = infer_sequence(torch, tr, chunk, what, dcn_ops, per_step)
         print(f"{what}: {EMBED_T} x {EMBED_HW[0]} x {EMBED_HW[1]} frames, {n} detections, "
               f"{EMBED_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
@@ -2469,7 +2498,7 @@ def embedding_phase(torch, np, dcn_ops):
             "check_loss_cpu": float(loss_c), "max_grad_err_vs_cpu": worst, "grad_scale": gscale,
             "cpu_step_s": cpu_step_s, "tf32_flags_before": list(before), "infer": infer,
             "device_busy_share_step": None if profile is None else profile["busy_share"],
-            "profile_step": profile}
+            "profile_step": profile, "dcn_device_ms_step": dcn_ms}
         del card, cpu
         torch.cuda.empty_cache()
     off = inputs["dcn_fwd"][3]
@@ -2481,21 +2510,24 @@ def embedding_phase(torch, np, dcn_ops):
 
 
 def dcn_bounds(torch, name, args):
-    """(bytes, f32 operations) a DCN kernel needs on these inputs: each input
-    read once and each output written once; the contraction 2 x 9 x C x O and
-    the sampling (four neighbours' multiply-adds) 8 x 9 x C a pixel in
-    dcn_fwd; dcn_bwd_sample 17 x 9 x C a pixel (the sample, the columns and
-    four dot products); dcn_bwd_dx one multiply-add a channel for each
-    non-zero (pixel, tap, neighbour) weight that lands in the image."""
+    """(bytes, product operations, other f32 operations) a DCN kernel needs
+    on these inputs: each input read once and each output written once; the
+    products (2 x 9 x C x O a pixel: dcn_fwd's contraction, dcn_bwd_sample's
+    d weight = columns^T g), which both kernels run on the tensor cores as
+    3xTF32; the sampling on the CUDA cores: dcn_fwd 8 x 9 x C a pixel (four
+    neighbours' multiply-adds), dcn_bwd_sample 17 x 9 x C (the sample, the
+    mask and four dot products), dcn_bwd_dx one multiply-add a channel for
+    each non-zero (pixel, tap, neighbour) weight that lands in the image."""
     f = lambda *ts: 4 * sum(t.numel() for t in ts if t is not None)
     if name == "dcn_fwd":
         x, w, b, off, m, _ = args
         P, C, O = x.numel() // x.shape[3], x.shape[3], w.shape[1]
-        return f(x, w, b, off, m) + 4 * P * O, P * (2 * 9 * C * O + 8 * 9 * C)
+        return f(x, w, b, off, m) + 4 * P * O, P * 2 * 9 * C * O, P * 8 * 9 * C
     if name == "dcn_bwd_sample":
-        x, off, m, dcols, _ = args
-        P, C = x.numel() // x.shape[3], x.shape[3]
-        return f(x, off, m, dcols) + f(dcols, off, m), P * 17 * 9 * C
+        x, off, m, dcols, g, _ = args
+        P, C, O = x.numel() // x.shape[3], x.shape[3], g.shape[3]
+        return (f(x, off, m, dcols, g) + f(off, m) + 4 * 9 * C * O, P * 2 * 9 * C * O,
+                P * 17 * 9 * C)
     off, m, dcols, bound = args
     N, H, W, C9 = dcols.shape
     d = off.reshape(N, H, W, 9, 2).clamp(-bound, bound)
@@ -2512,15 +2544,15 @@ def dcn_bounds(torch, name, args):
             inside = ((ys + a >= 0) & (ys + a < H) & (xs + b >= 0) & (xs + b < W)
                       & (wy * wx * m != 0))
             hits += int(inside.sum())
-    return f(off, m, dcols) + 4 * N * H * W * (C9 // 9), 2 * (C9 // 9) * hits
+    return f(off, m, dcols) + 4 * N * H * W * (C9 // 9), 0, 2 * (C9 // 9) * hits
 
 
 def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
     """Phase 16: the three DCN kernels on phase 15's widest deform block and
     on seeded inputs of the same shape with mixed fractional, integer and
-    beyond-bound offsets, against their plain versions, twice (bitwise), and
-    timed on the recorded inputs."""
-    from torch_port_util import DCN_KEYS, dcn_inputs
+    beyond-bound offsets, against their plain versions evaluated in f64,
+    twice (bitwise), and timed on the recorded inputs."""
+    from torch_port_util import DCN_KEYS, dcn_inputs, in_f64
 
     x, w, b, off, m, bound = inputs["dcn_fwd"]
     N, H, W, C = x.shape
@@ -2531,7 +2563,8 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
         "dcn_fwd": (dcn_ops._fwd_cuda, dcn_ops.dcn_forward_reference,
                     [seeded[k] for k in DCN_KEYS[:5]] + [bound]),
         "dcn_bwd_sample": (dcn_ops._sample_cuda, dcn_ops.dcn_sample_backward_reference,
-                           [seeded["x"], seeded["offset"], seeded["mask"], dcols, bound]),
+                           [seeded["x"], seeded["offset"], seeded["mask"], dcols, seeded["g"],
+                            bound]),
         "dcn_bwd_dx": (dcn_ops._dx_cuda, dcn_ops.dcn_dx_reference,
                        [seeded["offset"], seeded["mask"], dcols, bound]),
     }
@@ -2545,7 +2578,8 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
     for name, (kernel, plain, seeded_args) in cases.items():
         err = 0.0
         for which, args in (("recorded", inputs[name]), ("seeded", seeded_args)):
-            got, again, want = (as_list(fn(*args)) for fn in (kernel, kernel, plain))
+            got, again = (as_list(kernel(*args)) for _ in range(2))
+            want = in_f64(plain, *args)
             torch.cuda.synchronize()
             for k, (a, v) in enumerate(zip(got, want)):
                 diff = float((a - v).abs().max())
@@ -2555,11 +2589,15 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
                       torch.allclose(a, v, rtol=ROUND_BWD_RTOL, atol=ROUND_BWD_ATOL_SCALE * scale))
                 if not ok:
                     fail(f"{name} ({which} inputs) output {k} differs from its plain version "
-                         f"by {diff:.3g} (scale {scale:.3g})")
+                         f"(f64) by {diff:.3g} (scale {scale:.3g})")
             if not all(torch.equal(a, v) for a, v in zip(got, again)):
                 fail(f"{name} ({which} inputs) is not bitwise the same on a second launch")
+            del got, again, want
         args = inputs[name]
-        bnd, by = bound_ms(*dcn_bounds(torch, name, args))
+        nbytes, product, other = dcn_bounds(torch, name, args)
+        bnd, by = bound_ms(nbytes, product + other)
+        bnd_tf32 = max(nbytes / PEAK_BYTES_PER_S, 3 * product / PEAK_TF32_PER_S,
+                       other / PEAK_F32_PER_S) * 1e3
         r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/dcn_kernels.cu",
              "replaces": DCN_REPLACES[name], "launches": launches[name], "max_abs_err": err,
              "ms": cuda_time_ms(lambda: kernel(*args), iters=32, warmup=5),
@@ -2570,12 +2608,12 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
              # not the host, sets their pace)
              "plain_ms": cuda_time_ms(lambda: plain(*args), iters=3, warmup=1,
                                       queue_ahead=False),
-             "bound_ms": bnd, "bound_by": by, "library_ms": None,
+             "bound_ms": bnd, "bound_by": by, "bound_tf32_ms": bnd_tf32, "library_ms": None,
              "shape": f"N {N}, H {H}, W {W}, C {C}, O {w.shape[1]}"}
         print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
               f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library none), max abs err "
-              f"{err:.3g}")
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, at the TF32 rate "
+              f"{bnd_tf32 * 1e3:.2f} us, library none), max abs err {err:.3g}")
         rows.append(r)
     return rows
 

@@ -1136,7 +1136,13 @@ def test_es_round_and_edge_loss_wrappers_refuse_what_the_kernels_do_not_take(cud
 
 # ------------------------------------------------ bounded deformable conv ----
 DCN_SHAPES = [dict(N=2, H=7, W=9, C=5, O=4), dict(N=2, H=13, W=21, C=64, O=64),
-              dict(N=1, H=12, W=40, C=512, O=256), dict(N=4, H=24, W=80, C=128, O=64)]
+              dict(N=1, H=12, W=40, C=512, O=256), dict(N=4, H=24, W=80, C=128, O=64),
+              dict(N=8, H=96, W=320, C=64, O=64), dict(N=8, H=12, W=40, C=512, O=256)]
+# DCN_SHAPES from here on: the widest deform block and the widest projection
+# of the bounded DLA-34 step at 8 x 384 x 1280, held against the plain
+# versions evaluated in f64 (sums of 9 x 512 products and of 245,760 pixels
+# in two f32 orders differ by about the tolerances)
+DCN_WIDE = 4
 
 
 def dcn_problem(seed, device, kind="mixed", max_offset=2.0, **shape):
@@ -1144,32 +1150,38 @@ def dcn_problem(seed, device, kind="mixed", max_offset=2.0, **shape):
     return [torch.from_numpy(x[k]).to(device) for k in DCN_KEYS]
 
 
-def dcn_kernel_outputs(xs, w, b, off, m, g, max_offset, plain):
+def dcn_kernel_outputs(xs, w, b, off, m, g, max_offset, plain, wide=False):
+    """[out, d weight, d offset, d mask, d x] of the kernels, or of their
+    plain versions (in f64 where wide)."""
     N, H, W, C = xs.shape
     dcols = (g.reshape(-1, w.shape[1]) @ w.t()).reshape(N, H, W, 9 * C)
     if plain:
-        return ([dcn.dcn_forward_reference(xs, w, b, off, m, max_offset)]
-                + list(dcn.dcn_sample_backward_reference(xs, off, m, dcols, max_offset))
-                + [dcn.dcn_dx_reference(off, m, dcols, max_offset)])
+        run = (lambda fn, *a: in_f64(fn, *a)) if wide else (
+            lambda fn, *a: list(fn(*a)) if fn is dcn.dcn_sample_backward_reference else [fn(*a)])
+        return (run(dcn.dcn_forward_reference, xs, w, b, off, m, max_offset)
+                + run(dcn.dcn_sample_backward_reference, xs, off, m, dcols, g, max_offset)
+                + run(dcn.dcn_dx_reference, off, m, dcols, max_offset))
     return ([dcn._fwd_cuda(xs, w, b, off, m, max_offset)]
-            + list(dcn._sample_cuda(xs, off, m, dcols, max_offset))
+            + list(dcn._sample_cuda(xs, off, m, dcols, g, max_offset))
             + [dcn._dx_cuda(off, m, dcols, max_offset)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,max_offset", [("mixed", 2.0), ("int", 2.0), ("beyond", 1.5),
                                              ("frac", 0.0)])
-@pytest.mark.parametrize("shape", DCN_SHAPES, ids=["tiny", "c64", "c512", "c128"])
+@pytest.mark.parametrize("shape", DCN_SHAPES,
+                         ids=["tiny", "c64", "c512", "c128", "widest", "widest_proj"])
 def test_dcn_kernels_match_plain_versions(cuda, shape, kind, max_offset):
-    """dcn_fwd within atol 1e-5 x the output's scale; the columns, d offset,
-    d mask and d x within rtol 1e-4, atol 1e-5 x each output's scale; each
-    bitwise the same on a second launch; d offset exactly 0 at integer
-    offsets."""
+    """dcn_fwd within atol 1e-5 x the output's scale; d weight, d offset, d
+    mask and d x within rtol 1e-4, atol 1e-5 x each output's scale (the
+    wide shapes against the plain versions in f64); each bitwise the same
+    on a second launch; d offset exactly 0 at integer offsets."""
     args = dcn_problem(3, cuda, kind, max_offset, **shape)
+    wide = DCN_SHAPES.index(shape) >= DCN_WIDE
     before = dict(dcn.LAUNCHES)
     got = dcn_kernel_outputs(*args, max_offset, plain=False)
     again = dcn_kernel_outputs(*args, max_offset, plain=False)
-    want = dcn_kernel_outputs(*args, max_offset, plain=True)
+    want = dcn_kernel_outputs(*args, max_offset, plain=True, wide=wide)
     torch.cuda.synchronize()
     assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 2)
     for i, (a, b) in enumerate(zip(got, want)):
@@ -1234,7 +1246,10 @@ def test_dcn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="max_offset"):
         dcn._dx_cuda(off, m, torch.zeros(2, 7, 9, 45, device=cuda), -1.0)
     with pytest.raises(TypeError):
-        dcn._sample_cuda(xs, off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)
+        dcn._sample_cuda(xs, off, m, torch.zeros(2, 7, 9, 44, device=cuda), g, 2.0)
+    with pytest.raises(TypeError):
+        dcn._sample_cuda(xs, off, m, torch.zeros(2, 7, 9, 45, device=cuda),
+                         g[:, :, :-1].contiguous(), 2.0)
     with pytest.raises(TypeError):
         dcn._dx_cuda(off, m, torch.zeros(2, 7, 9, 44, device=cuda), 2.0)
 

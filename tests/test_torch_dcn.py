@@ -117,16 +117,19 @@ def test_backward_matches_jax_vjp(kind):
 
 
 def test_plain_backward_pieces_agree_with_autograd_of_the_plain_forward():
-    """d x and d mask of the hand-written plain backward against torch
-    autograd through the plain shift-sum forward (fractional offsets)."""
+    """d x, d offset, d mask and d weight of the hand-written plain backward
+    against torch autograd through the plain shift-sum forward (fractional
+    offsets)."""
     x = dcn_inputs(3, N=1, H=6, W=8, C=4, O=3, kind="frac")
     xs, w, b, off, m = (t(x[k], grad=True) for k in DCN_KEYS[:5])
     out = dcn.dcn_forward_reference(xs, w, b, off, m, 2.0)
-    gx, goff, gm = torch.autograd.grad(out, (xs, off, m), t(x["g"]))
+    gx, gw, goff, gm = torch.autograd.grad(out, (xs, w, off, m), t(x["g"]))
     dcols = (t(x["g"]).reshape(-1, 3) @ w.detach().t()).reshape(1, 6, 8, 36)
-    _, doff, dmask = dcn.dcn_sample_backward(xs.detach(), off.detach(), m.detach(), dcols, 2.0)
+    dweight, doff, dmask = dcn.dcn_sample_backward(xs.detach(), off.detach(), m.detach(), dcols,
+                                                   t(x["g"]), 2.0)
     dx = dcn.dcn_dx(off.detach(), m.detach(), dcols, 2.0)
-    for name, got, want in (("x", dx, gx), ("offset", doff, goff), ("mask", dmask, gm)):
+    for name, got, want in (("x", dx, gx), ("offset", doff, goff), ("mask", dmask, gm),
+                            ("weight", dweight, gw)):
         close_scaled(got.numpy(), want.numpy(), 1e-4, 1e-5, name)
 
 

@@ -457,31 +457,6 @@ __device__ __forceinline__ float tanh_fast(float x) {
 }
 
 // ------------------------------------------------------ wgmma (sm_90a) ----
-// Descriptor of a K-major B operand in shared memory without swizzle: core
-// matrices of 8 rows (n) x 16 bytes (4 tf32 along k), lbo bytes apart along
-// k and sbo bytes apart along n.
-__device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
-  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// waits until at most N of this warpgroup's committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of d across the asm
-// statements around it (the wgmma writes d asynchronously)
-template <int M>
-__device__ __forceinline__ void wg_hold(float (&d)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (+)= a b over one k step of 8: a 64 x 8 tf32 from registers (each warp
 // its 16 rows in the m16n8k8 A layout), b 8 x N from the descriptor; d in
 // the m16n8 C layout a warp and n tile of 8.  acc false: d = a b.

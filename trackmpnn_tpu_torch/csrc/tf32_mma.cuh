@@ -1,7 +1,8 @@
-// Split-TF32 tensor-core products and cp.async staging, shared by the
-// kernels that run f32 products on the tensor cores (block_kernels.cu: the
-// block round; mp_kernels.cu: the served edge GRU).  ops/_build.py rebuilds
-// a library when this header is newer than it.
+// Split-TF32 tensor-core products (mma.sync and wgmma) and cp.async staging,
+// shared by the kernels that run f32 products on the tensor cores
+// (block_kernels.cu: the block round; mp_kernels.cu: the served edge GRU;
+// dcn_kernels.cu: the deformable convolution's forward and d weight).
+// ops/_build.py rebuilds a library when this header is newer than it.
 //
 // 3xTF32 (CUTLASS's name for the scheme): x = big + small, big = tf32(x)
 // (round to nearest on the int32 view, ties away: (bits + 0x1000) &
@@ -83,8 +84,40 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
 }
+// 4 bytes likewise (through L1)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------ wgmma (sm_90a) ----
+// Descriptor of a K-major operand (A or B) in shared memory without
+// swizzle: core matrices of 8 rows (m or n) x 16 bytes (4 tf32 along k), lbo
+// bytes apart along k and sbo bytes apart along m or n.
+__device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of d across the asm
+// statements around it (the wgmma writes d asynchronously)
+template <int M>
+__device__ __forceinline__ void wg_hold(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }

@@ -10,8 +10,8 @@ ops/gat.py), csrc/round_kernels.cu -> libtm_round.so (the fused round of the
 packed row layout, ops/round.py), csrc/loss_kernels.cu -> libtm_loss.so (the
 fused edge losses of the block step, ops/loss.py), csrc/dcn_kernels.cu ->
 libtm_dcn.so (the bounded deformable convolution of the DLA-34 embedding
-backbone, ops/dcn.py).  mp_kernels.cu and block_kernels.cu both include
-csrc/tf32_mma.cuh (the split-TF32 tensor-core products).  build() starts
+backbone, ops/dcn.py).  mp_kernels.cu, block_kernels.cu and dcn_kernels.cu
+include csrc/tf32_mma.cuh (the split-TF32 tensor-core products).  build() starts
 one nvcc per stale source, all at once, and waits for them.  The sources
 include no PyTorch header, so a build takes seconds; ctypes loads the
 result.  Nothing here runs when the module is imported.
@@ -75,8 +75,10 @@ LIBRARIES = {
               "tm_edge_loss_bwd": [_P] * 15 + [_I] * 4 + [_P]}),
     "dcn": (os.path.join(_PKG, "csrc", "dcn_kernels.cu"),
             os.path.join(BUILD_DIR, "libtm_dcn.so"),
-            {"tm_dcn_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
-             "tm_dcn_bwd_sample": [_P] * 7 + [_I] * 4 + [_F, _P],
+            {"tm_dcn_fwd_scratch_floats": [_I] * 5 + [_P],
+             "tm_dcn_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+             "tm_dcn_bwd_sample_scratch_floats": [_I] * 5 + [_P],
+             "tm_dcn_bwd_sample": [_P] * 9 + [_I] * 5 + [_F, _P],
              "tm_dcn_bwd_dx": [_P] * 4 + [_I] * 5 + [_F, _P]}),
 }
 

@@ -12,12 +12,13 @@ are contracted with the weight.
 
 Three kernels (csrc/dcn_kernels.cu):
   dcn_fwd         sample, mask and contract in one pass, plus the bias;
-  dcn_bwd_sample  the columns again, d offset and d mask from the columns'
-                  cotangent g @ weight.T;
-  dcn_dx          d x, gathered over the output pixels that can reach each
+  dcn_bwd_sample  d weight = columns^T g with the columns built on chip, and
+                  d offset and d mask from the columns' cotangent
+                  g @ weight.T;
+  dcn_bwd_dx      d x, gathered over the output pixels that can reach each
                   input pixel (no atomics).
-d weight, d bias and the columns' cotangent are matrix products
-(torch.matmul), as XLA's products are in the JAX package.
+d bias and the columns' cotangent are torch.matmul / sum, as XLA's products
+are in the JAX package.
 
 Each kernel has
   * a plain PyTorch version (`*_reference`): the shift-sum formula of the
@@ -37,6 +38,7 @@ the exact gather).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -121,9 +123,17 @@ def dcn_forward_reference(x, weight, bias, offset, mask, max_offset):
     return out if bias is None else out + bias
 
 
-def dcn_sample_backward_reference(x, offset, mask, dcols, max_offset):
-    """(cols [N, H, W, 9*C], d offset [N, H, W, 18], d mask [N, H, W, 9])
-    for the columns' cotangent dcols [N, H, W, 9*C]."""
+def dcn_sample_backward_reference(x, offset, mask, dcols, g, max_offset):
+    """(d weight [9*C, O], d offset [N, H, W, 18], d mask [N, H, W, 9]) for
+    the columns' cotangent dcols [N, H, W, 9*C] and the output's g [N, H, W,
+    O]: the columns as the forward samples them, then columns^T g."""
+    cols, doff, dmask = _sample_transpose(x, offset, mask, dcols, max_offset)
+    C9, O = cols.shape[-1], g.shape[-1]
+    return cols.reshape(-1, C9).t() @ g.reshape(-1, O), doff, dmask
+
+
+def _sample_transpose(x, offset, mask, dcols, max_offset):
+    """(cols [N, H, W, 9*C], d offset, d mask) of the shift-sum formula."""
     N, H, W, C = x.shape
     R = reach(max_offset)
     S = 2 * R + 2
@@ -182,6 +192,22 @@ def _dims(name, x, offset, mask):
     return N, H, W, C
 
 
+def _pixels(N, H, W):
+    """The kernels index pixels with 32-bit integers (an offset array of 2^31
+    pixels would alone take 154 GB)."""
+    if N * H * W >= 2**31:
+        raise ValueError(f"dcn: {N} x {H} x {W} pixels; the kernels take fewer than 2^31")
+
+
+def _scratch(query, device, *dims):
+    """The scratch a kernel asks for on this device (at least one float)."""
+    n = ctypes.c_int64(0)
+    rc = query(*dims, ctypes.addressof(n))
+    if rc != 0:
+        raise RuntimeError(f"dcn scratch query failed: CUDA error {rc}")
+    return torch.empty(max(n.value, 1), dtype=torch.float32, device=device)
+
+
 def _launch(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -200,30 +226,41 @@ def _fwd_cuda(x, weight, bias, offset, mask, max_offset):
     out = torch.empty(N, H, W, O, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    _pixels(N, H, W)
     with torch.cuda.device(x.device):
-        rc = _build.load("dcn").tm_dcn_fwd(
+        lib = _build.load("dcn")
+        scratch = _scratch(lib.tm_dcn_fwd_scratch_floats, x.device, N, H, W, C, O)
+        rc = lib.tm_dcn_fwd(
             x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-            offset.data_ptr(), mask.data_ptr(), out.data_ptr(), N, H, W, C, O,
-            float(max_offset), _stream())
+            offset.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, H, W, C,
+            O, float(max_offset), _stream())
     _launch("dcn_fwd", rc)
     return out
 
 
-def _sample_cuda(x, offset, mask, dcols, max_offset):
+def _sample_cuda(x, offset, mask, dcols, g, max_offset):
     N, H, W, C = _dims("dcn_bwd_sample", x, offset, mask)
-    _check("dcn_bwd_sample", x.device, dcols=(dcols, torch.float32, (N, H, W, TAPS * C)))
+    if g.dim() != 4:
+        raise TypeError(f"dcn_bwd_sample: g must be f32[N, H, W, O], got {list(g.shape)}")
+    O = g.shape[3]
+    _check("dcn_bwd_sample", x.device, dcols=(dcols, torch.float32, (N, H, W, TAPS * C)),
+           g=(g, torch.float32, (N, H, W, O)))
     reach(max_offset)
-    cols = torch.empty_like(dcols)
+    dweight = torch.empty(TAPS * C, O, dtype=torch.float32, device=x.device)
     doff = torch.empty_like(offset)
     dmask = torch.empty_like(mask)
-    if x.numel() == 0:
-        return cols, doff.zero_(), dmask.zero_()
+    if x.numel() == 0 or O == 0:  # no sample, or no cotangent: every gradient is 0
+        return dweight.zero_(), doff.zero_(), dmask.zero_()
+    _pixels(N, H, W)
     with torch.cuda.device(x.device):
-        rc = _build.load("dcn").tm_dcn_bwd_sample(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), dcols.data_ptr(), cols.data_ptr(),
-            doff.data_ptr(), dmask.data_ptr(), N, H, W, C, float(max_offset), _stream())
+        lib = _build.load("dcn")
+        scratch = _scratch(lib.tm_dcn_bwd_sample_scratch_floats, x.device, N, H, W, C, O)
+        rc = lib.tm_dcn_bwd_sample(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), dcols.data_ptr(), g.data_ptr(),
+            dweight.data_ptr(), doff.data_ptr(), dmask.data_ptr(), scratch.data_ptr(), N, H, W,
+            C, O, float(max_offset), _stream())
     _launch("dcn_bwd_sample", rc)
-    return cols, doff, dmask
+    return dweight, doff, dmask
 
 
 def _dx_cuda(offset, mask, dcols, max_offset):
@@ -254,11 +291,11 @@ def dcn_forward(x, weight, bias, offset, mask, max_offset):
     return fn(x, weight, bias, offset, mask, max_offset)
 
 
-def dcn_sample_backward(x, offset, mask, dcols, max_offset):
-    """(cols, d offset, d mask): the kernel on a CUDA tensor, the plain
+def dcn_sample_backward(x, offset, mask, dcols, g, max_offset):
+    """(d weight, d offset, d mask): the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     fn = _sample_cuda if _on_cuda(x) else dcn_sample_backward_reference
-    return fn(x, offset, mask, dcols, max_offset)
+    return fn(x, offset, mask, dcols, g, max_offset)
 
 
 def dcn_dx(offset, mask, dcols, max_offset):
@@ -283,11 +320,11 @@ class DeformConvShift(torch.autograd.Function):
         x, weight, offset, mask = ctx.saved_tensors
         N, H, W, C = x.shape
         O = weight.shape[1]
-        g2 = g.contiguous().reshape(-1, O)
+        g = g.contiguous()
+        g2 = g.reshape(-1, O)
         dcols = (g2 @ weight.t()).reshape(N, H, W, TAPS * C)
-        cols, doff, dmask = dcn_sample_backward(x, offset, mask, dcols, ctx.max_offset)
+        dweight, doff, dmask = dcn_sample_backward(x, offset, mask, dcols, g, ctx.max_offset)
         dx = dcn_dx(offset, mask, dcols, ctx.max_offset)
-        dweight = cols.reshape(-1, TAPS * C).t() @ g2
         dbias = g2.sum(0) if ctx.has_bias else None
         return dx, dweight, dbias, doff, dmask, None
 
