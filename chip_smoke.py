@@ -113,14 +113,20 @@ failure exits non-zero:
     final hidden state rtol 1e-3 / atol 1e-4) and its CPU rerun agrees to
     phase 5's tolerances.  3 warm-up and 20 timed steps: each of the four
     round kernels once a valid step; one profiled step.  Then
-    make_packed_train_step (the unfused path, kernels 1 and 2 under
-    autograd) timed on the same batch, its first step recording and then
-    checking both mp kernels' widest inputs as in phase 10.
+    one fused first step at nhidden WIDE_HIDDEN (a width the round
+    kernels' first design refused) against its CPU rerun, each round kernel
+    once a valid step.  Then make_packed_train_step (the unfused path,
+    kernels 1 and 2 under autograd) timed on the same batch, its first step
+    recording and then checking both mp kernels' widest inputs as in phase
+    10.
 12. Round kernels: round_fwd (atol 1e-5) and round_bwd_gru, round_bwd_dw,
     round_bwd_dh (rtol 1e-4, atol 1e-5 x each output's scale) against their
     plain versions on phase 11's widest round, each bitwise the same on a
-    second launch, timed beside its plain version and its bound (live rows
-    only); no single PyTorch call computes the round (library: none).
+    second launch, timed beside its plain version and its bounds at the f32
+    and the TF32 rate (live rows only; the products run as 3xTF32); no
+    single PyTorch call computes the round (library: none).  Then the four
+    at H WIDE_HIDDEN and NARROW_ROUND_HIDDEN on seeded rounds of the same
+    shape against their plain versions in f64 (--json's round_wide).
 13. The block step's two other compositions, at phase 5's workload and
     weights: (a) es_kernel=True (the es round, kernel #7, in place of the
     gather, block_round_fwd/bwd and the window scatter), (b) es_kernel and
@@ -175,7 +181,10 @@ failure exits non-zero:
     beyond-bound offsets; each bitwise the same on a second launch, timed
     beside its plain version and its bounds at the f32 and the TF32 rate
     (dcn_fwd and dcn_bwd_sample run their products as 3xTF32); no PyTorch
-    call computes a deformable convolution (library: none).
+    call computes a deformable convolution (library: none).  Then
+    dcn_bwd_dx at max_offset MAX_REACH (8) on seeded mixed offsets of the
+    widest block, against its plain version in f64 (--json's
+    dcn_bwd_dx_max_reach).
 17. The default configuration served at full width: features 2d+temp+vis,
     nhidden 64, 128 vis features from ESPNetv2 at 384 x 1280, random
     weights from fixed seeds, on phase 3's three sequences.  Each
@@ -305,6 +314,7 @@ ROUND_BWD_RTOL, ROUND_BWD_ATOL_SCALE = 1e-4, 1e-5
 # refused (its shared memory grew with H and na + nt), on seeded inputs, and
 # one block step at that hidden width card against CPU
 WIDE_HIDDEN = 128
+NARROW_ROUND_HIDDEN = 48  # phase 12: a width the fused round's first design refused
 WIDE_ROUND = dict(P=16, na=64, nt=64, H=WIDE_HIDDEN)
 WIDE_ES = dict(B=4, T=4, capD=128, na=64, nt=64, H=WIDE_HIDDEN)
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-3, 1e-4
@@ -1928,10 +1938,10 @@ def packed_workload(np):
     return packed, cap, t_cap, [live_edges(np, ws) for ws in packed]
 
 
-def row_model(torch):
+def row_model(torch, hidden=HIDDEN):
     from trackmpnn_tpu_torch.models import mpnn
 
-    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="diff")
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=hidden, msg_type="diff")
     return cfg, mpnn.init_params(torch.Generator().manual_seed(0), cfg), mpnn.init_batch_stats(cfg)
 
 
@@ -2134,6 +2144,38 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
           f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
           f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
 
+    # the first step at WIDE_HIDDEN (a width the first design refused), card
+    # against its CPU rerun, each round kernel once a valid step
+    cfg_w, params_w0, stats_w0 = row_model(torch, WIDE_HIDDEN)
+    params_w = train_block.trainable(to_device(params_w0, "cuda"))
+    opt_w = optim.make_optimizer(train_block.param_leaves(params_w), TRAIN_LR, TRAIN_WD)
+    zero_counters((round_ops.LAUNCHES,))
+    opt_w.zero_grad(set_to_none=True)
+    loss_w, aux_w = packed.packed_window_forward(params_w, to_device(stats_w0, "cuda"), cfg_w, pb,
+                                                 False, fused_round=True)
+    loss_w.backward()
+    torch.cuda.synchronize()
+    launched_w = dict(round_ops.LAUNCHES)
+    if launched_w != dict.fromkeys(round_ops.LAUNCHES, valid):
+        fail(f"{what} at nhidden {WIDE_HIDDEN}: round kernels launched {launched_w} in one "
+             f"step, expected {valid} each")
+    grads_w = [p.grad.detach().clone() for p in train_block.param_leaves(params_w)]
+    params_wc = train_block.trainable(params_w0)
+    t0 = time.perf_counter()
+    loss_wc, aux_wc = packed.packed_window_forward(params_wc, stats_w0, cfg_w, pb_c, False,
+                                                   fused_round=True)
+    loss_wc.backward()
+    cpu_wide_s = time.perf_counter() - t0
+    worst_w, gscale_w = first_step_agrees(torch, train_block, loss_w, aux_w, grads_w, loss_wc,
+                                          aux_wc, params_wc, f"{what} at nhidden {WIDE_HIDDEN}")
+    print(f"{what} at nhidden {WIDE_HIDDEN} vs CPU: loss {float(loss_w)!r} / {float(loss_wc)!r}, "
+          f"tp/fp/fn equal, worst grad diff {worst_w:.3g} (largest |grad| {gscale_w:.3g}); "
+          f"launches {launched_w}; CPU step {cpu_wide_s:.2f} s")
+    wide_first = {"hidden": WIDE_HIDDEN, "loss": float(loss_w), "cpu_loss": float(loss_wc),
+                  "max_grad_err_vs_cpu": worst_w, "grad_scale": gscale_w,
+                  "launches": launched_w, "cpu_step_s": cpu_wide_s}
+    del params_w, opt_w, grads_w, params_wc
+
     # the TM_PACKED path: make_packed_train_step, unfused, on the same batch
     step_u = packed.make_packed_train_step(cfg, tp_classifier=False)
     params_u = train_block.trainable(to_device(params0, "cuda"))
@@ -2169,7 +2211,7 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
         "loss_first": float(loss1), "loss_last": float(losses[-1]),
         "unfused_forward_loss": float(loss_u), "hidden_max_diff_vs_unfused": hidden_err,
         "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst_grad, "grad_scale": gscale,
-        "cpu_step_s": cpu_step_s,
+        "cpu_step_s": cpu_step_s, "wide_first_step": wide_first,
         "device_busy_share_step": None if profile is None else profile["busy_share"],
         "profile_step": profile,
         "unfused": {"mp_kernels": mp_rows,
@@ -2248,19 +2290,92 @@ def round_kernel_phase(torch, round_ops, inputs, launches):
             dead = (idxw[..., 2] == 0) & (idxw[..., 3] == 0)
             if not (torch.all(got[0][dead] == 0) and torch.all(got[1][dead] == 0)):
                 fail("round_fwd wrote a nonzero out or xin at a dead row")
-        b, by = bound_ms(*round_bounds(name, args, H))
+        cost = round_bounds(name, args, H)
+        b, by = bound_ms(*cost)
         r = {"name": name, "route": "cuda",
              "source": "trackmpnn_tpu_torch/csrc/round_kernels.cu",
              "replaces": ROUND_REPLACES[name], "launches": launches[name], "max_abs_err": err,
              "ms": cuda_time_ms(lambda: kernel(*args)),
              "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
              "plain_ms": cuda_time_ms(lambda: plain(*args), iters=PLAIN_ITERS),
-             "bound_ms": b, "bound_by": by, "library_ms": None,
-             "shape": f"B {B}, cap {cap}, H {H}, live rows {live_rows(idxw)}"}
-        print(f"kernel {name} ({r['shape']}): device {r['ms'] * 1e3:.2f} us, per call "
-              f"{r['call_ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), max abs err {err:.3g}")
+             "bound_ms": b, "bound_by": by, "bound_tf32_ms": bound_tf32_ms(*cost),
+             "library_ms": None, "shape": f"B {B}, cap {cap}, H {H}, live rows {live_rows(idxw)}"}
+        print_kernel_row(r)
         rows.append(r)
+    return rows
+
+
+def wide_round_kernel_rows(torch, round_ops, B, cap):
+    """Phase 12 at the widths the first design refused (H WIDE_HIDDEN and
+    NARROW_ROUND_HIDDEN), on seeded rounds of phase 11's widest shape: each
+    kernel against its plain version evaluated in f64, twice (bitwise), and
+    timed; outside the kernels line."""
+    import numpy as np
+    from torch_port_util import round_inputs
+
+    rows = []
+    for H in (WIDE_HIDDEN, NARROW_ROUND_HIDDEN):
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+        h, idxw, we, wn, g = round_inputs(H, B, cap, H)
+        ip, ii = (put(a) for a in round_ops.round_incidence(idxw))
+        h, idxw, g = put(h), put(idxw), put(g)
+        we, wn = ({k: put(v) for k, v in w.items()} for w in (we, wn))
+        w64 = lambda w: {k: v.double() for k, v in w.items()}
+        xin = round_ops.round_fwd_reference(h, idxw, we, wn)[1]
+        d4, dxin, ddir = round_ops.round_bwd_gru_reference(h, idxw, xin, g, we, wn)
+        flat = lambda out: [v for part in out for v in (part.values() if isinstance(part, dict)
+                                                        else [part])]
+        cases = {
+            "round_fwd": (lambda: round_ops._round_fwd_cuda(h, idxw, ip, ii, we, wn),
+                          lambda: round_ops.round_fwd_reference(h, idxw, we, wn),
+                          lambda: round_ops.round_fwd_reference(h.double(), idxw, w64(we),
+                                                                w64(wn)), [h, idxw, ip, ii]),
+            "round_bwd_gru": (lambda: round_ops._round_bwd_gru_cuda(h, idxw, xin, g, we, wn),
+                              lambda: round_ops.round_bwd_gru_reference(h, idxw, xin, g, we, wn),
+                              lambda: round_ops.round_bwd_gru_reference(
+                                  h.double(), idxw, xin.double(), g.double(), w64(we), w64(wn)),
+                              [h, idxw]),
+            "round_bwd_dw": (lambda: flat(round_ops._round_bwd_dw_cuda(h, idxw, xin, d4)),
+                             lambda: flat(round_ops.round_bwd_dw_reference(h, idxw, xin, d4)),
+                             lambda: flat(round_ops.round_bwd_dw_reference(
+                                 h.double(), idxw, xin.double(), d4.double())), [h, idxw]),
+            "round_bwd_dh": (lambda: [round_ops._round_bwd_dh_cuda(idxw, ip, ii, dxin, ddir)],
+                             lambda: round_ops.round_bwd_dh_reference(idxw, dxin, ddir),
+                             lambda: [round_ops.round_bwd_dh_reference(idxw, dxin.double(),
+                                                                       ddir.double())],
+                             [idxw]),
+        }
+        for name, (kernel, plain, exact, cost_args) in cases.items():
+            as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
+            got, again = as_list(kernel()), as_list(kernel())
+            want = [w.float() for w in as_list(exact())]
+            torch.cuda.synchronize()
+            err = 0.0
+            for k, (a, w) in enumerate(zip(got, want)):
+                diff = float((a - w).abs().max())
+                err = max(err, diff)
+                ok = (diff <= ROUND_FWD_ATOL if name == "round_fwd" else
+                      torch.allclose(a, w, rtol=ROUND_BWD_RTOL,
+                                     atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)))
+                if not ok:
+                    fail(f"{name} at H {H} output {k} differs from its plain version (f64) by "
+                         f"{diff:.3g}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name} at H {H} is not bitwise the same on a second launch")
+            cost = round_bounds(name, [None, idxw] if name != "round_bwd_dh" else [idxw], H)
+            b, by = bound_ms(*cost)
+            r = {"name": name, "route": "cuda",
+                 "source": "trackmpnn_tpu_torch/csrc/round_kernels.cu",
+                 "replaces": ROUND_REPLACES[name], "launches": None, "max_abs_err": err,
+                 "ms": cuda_time_ms(kernel), "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+                 "plain_ms": cuda_time_ms(plain, iters=PLAIN_ITERS // 3),
+                 "bound_ms": b, "bound_by": by, "bound_tf32_ms": bound_tf32_ms(*cost),
+                 "library_ms": None,
+                 "shape": f"B {B}, cap {cap}, H {H}, live rows {live_rows(idxw)} (seeded)"}
+            print_kernel_row(r, " (vs the plain version in f64)")
+            rows.append(r)
+        del h, idxw, g, we, wn, xin, d4, dxin, ddir
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2616,6 +2731,42 @@ def dcn_kernel_phase(torch, dcn_ops, inputs, launches):
               f"{bnd_tf32 * 1e3:.2f} us, library none), max abs err {err:.3g}")
         rows.append(r)
     return rows
+
+
+def dcn_dx_reach_row(torch, dcn_ops, shape):
+    """dcn_bwd_dx at the widest reach the kernels take (max_offset MAX_REACH)
+    on seeded mixed offsets of phase 16's widest block: against its plain
+    version in f64, twice (bitwise), and timed; outside the kernels line."""
+    from torch_port_util import DCN_KEYS, dcn_inputs, in_f64
+
+    N, H, W, C, O = shape
+    bound = float(dcn_ops.MAX_REACH)
+    x = dict(zip(DCN_KEYS, (torch.from_numpy(a).cuda() for a in dcn_inputs(
+        1, N=N, H=H, W=W, C=C, O=O, kind="mixed", max_offset=bound).values())))
+    dcols = (x["g"].reshape(-1, O) @ x["weight"].t()).reshape(N, H, W, 9 * C)
+    args = [x["offset"], x["mask"], dcols, bound]
+    got, again = dcn_ops._dx_cuda(*args), dcn_ops._dx_cuda(*args)
+    want = in_f64(dcn_ops.dcn_dx_reference, *args)[0]
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), max(float(want.abs().max()), 1e-30)
+    if not torch.allclose(got, want, rtol=ROUND_BWD_RTOL, atol=ROUND_BWD_ATOL_SCALE * scale):
+        fail(f"dcn_bwd_dx at reach {int(bound)} differs from its plain version (f64) by {err:.3g}")
+    if not torch.equal(got, again):
+        fail(f"dcn_bwd_dx at reach {int(bound)} is not bitwise the same on a second launch")
+    nbytes, _, other = dcn_bounds(torch, "dcn_bwd_dx", args)
+    bnd, by = bound_ms(nbytes, other)
+    r = {"name": "dcn_bwd_dx", "route": "cuda",
+         "source": "trackmpnn_tpu_torch/csrc/dcn_kernels.cu",
+         "replaces": DCN_REPLACES["dcn_bwd_dx"], "launches": None, "max_abs_err": err,
+         "ms": cuda_time_ms(lambda: dcn_ops._dx_cuda(*args), iters=32, warmup=5),
+         "call_ms": cuda_time_ms(lambda: dcn_ops._dx_cuda(*args), iters=32, warmup=5,
+                                 queue_ahead=False),
+         "plain_ms": cuda_time_ms(lambda: dcn_ops.dcn_dx_reference(*args), iters=3, warmup=1,
+                                  queue_ahead=False),
+         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+         "shape": f"N {N}, H {H}, W {W}, C {C}, max_offset {bound} (seeded mixed)"}
+    print_kernel_row(r, " (vs the plain version in f64)")
+    return r
 
 
 # ----------------------------------------- the default configuration, served ----
@@ -3506,6 +3657,7 @@ def main():
     batch1 = batch1_phase(torch, np, mp, round_ops, packed_wl)
     packed_training, round_inputs = packed_phase(torch, np, mp, round_ops, packed_wl)
     kernels += round_kernel_phase(torch, round_ops, round_inputs, packed_training["launches"])
+    round_wide = wide_round_kernel_rows(torch, round_ops, *round_inputs["round_fwd"][1].shape[:2])
     # 13. the block step's other compositions, 14. their kernels (after 18)
     compositions = {}
     for key, flags in (("es_kernel", dict(es_kernel=True)),
@@ -3544,6 +3696,8 @@ def main():
     embedding, dcn_inputs = embedding_phase(torch, np, dcn_ops)
     kernels += dcn_kernel_phase(torch, dcn_ops, dcn_inputs,
                                 embedding["dla34_bounded"]["launches"])
+    x_dcn, w_dcn = dcn_inputs["dcn_fwd"][0], dcn_inputs["dcn_fwd"][1]
+    dx_reach = dcn_dx_reach_row(torch, dcn_ops, (*x_dcn.shape, w_dcn.shape[1]))
     # 17. the default configuration served at full width
     full, served = full_serving_phase(torch, np, mp)
     # 22. the batched validation tracker on phase 17's sequences
@@ -3568,6 +3722,7 @@ def main():
             json.dump({"card": card, "kernels": kernels, "fused_edge_gru_wide": edge_gru_wide,
                        "window_scatter_es": scatter_es, "block_round_wide": block_wide,
                        "es_round_wide": es_wide, "training_wide": training_wide,
+                       "round_wide": round_wide, "dcn_bwd_dx_max_reach": dx_reach,
                        "gat_kernels_3_heads": gat_wide, "gat_refused_widths": gat_refused,
                        "serving": serving, "cli": cli,
                        "training": training, "gat_training": gat_training,

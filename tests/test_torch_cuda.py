@@ -826,33 +826,46 @@ def round_problem_on(seed, B, cap, H, device):
             {k: put(v) for k, v in wn.items()}, put(cot))
 
 
+def round_plain_f64(h, idxw, xin, d4, dxin, ddir, g, we, wn):
+    """The four round stages' plain versions evaluated in f64, rounded to
+    f32: at H 128 two f32 evaluations in different orders differ by about
+    the tolerances."""
+    w64 = lambda w: {k: v.double() for k, v in w.items()}
+    we64, wn64 = w64(we), w64(wn)
+    return {
+        "round_fwd": in_f64(lambda a, b: rnd.round_fwd_reference(a, b, we64, wn64), h, idxw),
+        "round_bwd_gru": in_f64(lambda a, b, c, d: rnd.round_bwd_gru_reference(
+            a, b, c, d, we64, wn64), h, idxw, xin, g),
+        "round_bwd_dw": in_f64(lambda a, b, c, d: [v for w in rnd.round_bwd_dw_reference(
+            a, b, c, d) for v in w.values()], h, idxw, xin, d4),
+        "round_bwd_dh": in_f64(rnd.round_bwd_dh_reference, idxw, dxin, ddir),
+    }
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,cap,H", [(2, 64, 64), (3, 300, 32), (1, 129, 16), (8, 1024, 64)])
+@pytest.mark.parametrize("B,cap,H", [(2, 64, 64), (3, 300, 32), (1, 129, 16), (8, 1024, 64),
+                                     (2, 256, 128), (2, 128, 48)])
 def test_round_kernels_match_plain_versions(cuda, B, cap, H):
-    """The four kernels of the fused round against their plain versions:
-    the forward (out and xin) within atol 1e-5, dead rows exactly 0; the
-    backward stages within rtol 1e-4 and an atol of 1e-5 x each output's
-    scale; each bitwise the same on a second launch."""
+    """The four kernels of the fused round against their plain versions
+    evaluated in f64: the forward (out and xin) within atol 1e-5, dead rows
+    exactly 0; the backward stages within rtol 1e-4 and an atol of 1e-5 x
+    each output's scale; each bitwise the same on a second launch.  H 128
+    and 48 are widths the first design refused."""
     h, idxw, (ip, ii), we, wn, g = round_problem_on(B * cap + H, B, cap, H, cuda)
     before = dict(rnd.LAUNCHES)
-    runs = [
-        ("round_fwd", lambda: rnd._round_fwd_cuda(h, idxw, ip, ii, we, wn),
-         lambda: rnd.round_fwd_reference(h, idxw, we, wn), True),
-    ]
     out, xin = rnd.round_fwd_reference(h, idxw, we, wn)
     d4, dxin, ddir = rnd.round_bwd_gru_reference(h, idxw, xin, g, we, wn)
-    runs += [
-        ("round_bwd_gru", lambda: rnd._round_bwd_gru_cuda(h, idxw, xin, g, we, wn),
-         lambda: rnd.round_bwd_gru_reference(h, idxw, xin, g, we, wn), False),
+    plain = round_plain_f64(h, idxw, xin, d4, dxin, ddir, g, we, wn)
+    runs = [
+        ("round_fwd", lambda: rnd._round_fwd_cuda(h, idxw, ip, ii, we, wn), True),
+        ("round_bwd_gru", lambda: rnd._round_bwd_gru_cuda(h, idxw, xin, g, we, wn), False),
         ("round_bwd_dw",
          lambda: [v for w in rnd._round_bwd_dw_cuda(h, idxw, xin, d4) for v in w.values()],
-         lambda: [v for w in rnd.round_bwd_dw_reference(h, idxw, xin, d4) for v in w.values()],
          False),
-        ("round_bwd_dh", lambda: (rnd._round_bwd_dh_cuda(idxw, ip, ii, dxin, ddir),),
-         lambda: (rnd.round_bwd_dh_reference(idxw, dxin, ddir),), False),
+        ("round_bwd_dh", lambda: (rnd._round_bwd_dh_cuda(idxw, ip, ii, dxin, ddir),), False),
     ]
-    for name, kernel, plain, forward in runs:
-        got, again, want = kernel(), kernel(), plain()
+    for name, kernel, forward in runs:
+        got, again, want = kernel(), kernel(), plain[name]
         torch.cuda.synchronize()
         for k, (a, b) in enumerate(zip(got, want)):
             if forward:
@@ -931,11 +944,12 @@ def test_round_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rnd._round_fwd_cuda(h.transpose(0, 1), idxw, ip, ii, we, wn)
     with pytest.raises(TypeError):
         rnd._round_fwd_cuda(h, idxw, ip[:-1], ii, we, wn)
-    with pytest.raises(ValueError):  # a width the kernels are not built for
-        h48 = torch.zeros(2, 64, 48, device=cuda)
-        w48 = {k: torch.zeros(s, device=cuda) for k, s in
-               zip(ROUND_KEYS, [(48, 144), (48, 144), (144,), (144,)])}
-        rnd._round_fwd_cuda(h48, idxw, ip, ii, w48, w48)
+    for H in (12, 264):  # widths the kernels do not take: not a multiple of 8, above 256
+        hh = torch.zeros(2, 64, H, device=cuda)
+        ww = {k: torch.zeros(s, device=cuda) for k, s in
+              zip(ROUND_KEYS, [(H, 3 * H), (H, 3 * H), (3 * H,), (3 * H,)])}
+        with pytest.raises(ValueError, match=f"H={H}"):
+            rnd._round_fwd_cuda(hh, idxw, ip, ii, ww, ww)
     with pytest.raises(TypeError):
         rnd._round_bwd_gru_cuda(h, idxw, h, g[:, :8], we, wn)
     with pytest.raises(TypeError):
@@ -1193,6 +1207,26 @@ def test_dcn_kernels_match_plain_versions(cuda, shape, kind, max_offset):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     if kind == "int" or max_offset == 0.0:
         assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [DCN_SHAPES[1], DCN_SHAPES[4]], ids=["c64", "widest"])
+@pytest.mark.parametrize("kind", ["mixed", "int"])
+def test_dcn_bwd_dx_at_reach_8(cuda, shape, kind):
+    """dcn_bwd_dx at the widest reach the kernels take (max_offset 8: a halo
+    of 27 x 35 pixels a tile) against its plain version in f64, rtol 1e-4,
+    atol 1e-5 x the scale, and bitwise the same on a second launch."""
+    xs, w, b, off, m, g = dcn_problem(7, cuda, kind, float(dcn.MAX_REACH), **shape)
+    N, H, W, C = xs.shape
+    dcols = (g.reshape(-1, w.shape[1]) @ w.t()).reshape(N, H, W, 9 * C)
+    before = dcn.LAUNCHES["dcn_bwd_dx"]
+    got = dcn._dx_cuda(off, m, dcols, float(dcn.MAX_REACH))
+    again = dcn._dx_cuda(off, m, dcols, float(dcn.MAX_REACH))
+    want = in_f64(dcn.dcn_dx_reference, off, m, dcols, float(dcn.MAX_REACH))[0]
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES["dcn_bwd_dx"] - before == 2
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

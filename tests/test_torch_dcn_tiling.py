@@ -21,8 +21,16 @@ the same numpy-made inputs.
   * The plain dcn_sample_backward_reference (the columns, then columns^T g)
     against the same VJP at integer, fractional, beyond-bound and mixed
     offsets.
+  * dcn_bwd_dx's order: per 8 x 16 tile of input pixels and tap, the
+    neighbours and weights (hat_y * hat_x) * mask of every output pixel of
+    the tile's halo (R + 2 before, R + 1 after), each target's list of
+    (weight, dcols row) in halo order, the target's sum taps outer; against
+    jax.vjp's d x at R 1, 2 and 8 (integer, fractional, beyond-bound and
+    mixed offsets at R 2) on maps whose height and width are not whole
+    tiles, rtol 1e-4 and atol 1e-5 x the scale.
 """
 
+import functools
 import math
 
 import jax
@@ -241,3 +249,87 @@ def test_plain_sample_backward_matches_jax_vjp(kind):
         close_scaled(got.numpy(), want, 1e-4, 1e-5, name)
     if kind == "int":
         assert not doff.any()
+
+
+DX_TH, DX_TW = 8, 16  # dcn_bwd_dx's tile of input pixels
+
+
+@functools.lru_cache(maxsize=None)
+def bounded_vjp(bound):
+    """shift_vjp at another max_offset."""
+    if bound == BOUND:
+        return shift_vjp
+    return jax.jit(lambda args, g: (lambda out, vjp: (out, vjp(g)))(
+        *jax.vjp(lambda *a: DC.deform_conv2d_shift(*a, max_offset=bound), *args)))
+
+
+def dx_emulated(off, mask, dcols, bound):
+    """dcn_bwd_dx's arithmetic: for each tile and tap, the halo pixels'
+    entries (target, weight, dcols row) in halo order, each target's list
+    summed in order into its accumulator (taps outer)."""
+    N, H, W, C9 = dcols.shape
+    C = C9 // 9
+    R = dcn.reach(bound)
+    d = off.reshape(N, H, W, 9, 2).clamp(-bound, bound)
+    m = mask.reshape(N, H, W, 9)
+    g = dcols.reshape(N, H, W, 9, C)
+    dx = torch.zeros(N, H, W, C)
+    for n in range(N):
+        for ty0 in range(0, H, DX_TH):
+            for tx0 in range(0, W, DX_TW):
+                oy, ox = ty0 - R - 2, tx0 - R - 2
+                hy = torch.arange(DX_TH + 2 * R + 3)[:, None] + oy
+                hx = torch.arange(DX_TW + 2 * R + 3)[None, :] + ox
+                hy, hx = torch.broadcast_to(hy, (hy.shape[0], hx.shape[1])).reshape(-1), \
+                    torch.broadcast_to(hx, (hy.shape[0], hx.shape[1])).reshape(-1)
+                inside = (hy >= 0) & (hy < H) & (hx >= 0) & (hx < W)
+                py, px = hy[inside], hx[inside]  # the halo's pixels, row-major
+                acc = torch.zeros(DX_TH * DX_TW, C)
+                for k in range(9):
+                    dy, dxo = d[n, py, px, k, 0], d[n, py, px, k, 1]
+                    fy0, fx0 = torch.floor(dy), torch.floor(dxo)
+                    fy, fx = dy - fy0, dxo - fx0
+                    y0 = py - 1 + k // 3 + fy0.long() - ty0
+                    x0 = px - 1 + k % 3 + fx0.long() - tx0
+                    targets, weights, src = [], [], []
+                    for j in range(4):
+                        yy, xx = y0 + (j >> 1), x0 + (j & 1)
+                        wt = (fy if j >> 1 else 1 - fy) * (fx if j & 1 else 1 - fx) * m[n, py, px, k]
+                        ok = ((yy >= 0) & (yy < DX_TH) & (xx >= 0) & (xx < DX_TW)
+                              & (ty0 + yy < H) & (tx0 + xx < W) & (wt != 0))
+                        targets.append(torch.where(ok, yy * DX_TW + xx, -1))
+                        weights.append(wt)
+                        src.append(torch.arange(len(py)))
+                    # entries in halo order (pixel, then neighbour)
+                    t = torch.stack(targets, 1).reshape(-1)
+                    w = torch.stack(weights, 1).reshape(-1)
+                    i = torch.stack(src, 1).reshape(-1)
+                    keep = t >= 0
+                    t, w, i = t[keep], w[keep], i[keep]
+                    order = torch.sort(t, stable=True).indices
+                    t, w, i = t[order], w[order], i[order]
+                    start = torch.searchsorted(t, t, right=False)
+                    rank = torch.arange(len(t)) - start
+                    rows = g[n, py[i], px[i], k]
+                    for r in range(int(rank.max()) + 1 if len(t) else 0):
+                        sel = rank == r
+                        acc[t[sel]] = acc[t[sel]] + w[sel, None] * rows[sel]
+                ys, xs = torch.meshgrid(torch.arange(DX_TH) + ty0, torch.arange(DX_TW) + tx0,
+                                        indexing="ij")
+                ok = ((ys < H) & (xs < W)).reshape(-1)
+                dx[n, ys.reshape(-1)[ok], xs.reshape(-1)[ok]] = acc[ok]
+    return dx
+
+
+@pytest.mark.parametrize("kind,bound", [("int", 2.0), ("frac", 2.0), ("beyond", 2.0),
+                                        ("mixed", 2.0), ("mixed", 1.0), ("mixed", 8.0)])
+def test_dx_emulation_matches_jax_vjp(kind, bound):
+    """dcn_bwd_dx's halo lists and target sums on an 11 x 19 map (2 x 2
+    tiles, both ragged) against jax.vjp's d x."""
+    x = dcn_inputs(14, N=2, H=11, W=19, C=5, O=4, kind=kind, max_offset=bound)
+    args = tuple(jnp.asarray(x[k]) for k in DCN_KEYS[:5])
+    _, (want, *_) = bounded_vjp(bound)(args, jnp.asarray(x["g"]))
+    xs, w, off, m, g = (t(x[k]) for k in ("x", "weight", "offset", "mask", "g"))
+    N, H, W, C = xs.shape
+    dcols = (g.reshape(-1, w.shape[1]) @ w.t()).reshape(N, H, W, 9 * C)
+    close_scaled(dx_emulated(off, m, dcols, bound).numpy(), want, 1e-4, 1e-5, "d x")

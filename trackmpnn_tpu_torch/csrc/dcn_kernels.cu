@@ -24,7 +24,7 @@
 // most two hat weights a dimension are non-zero, floor(dy) and floor(dy)+1,
 // so the sum is the 4-neighbour bilinear sample with zeros outside the
 // image: the kernels read those four neighbours directly, and no cost grows
-// with R except the candidate scan of dcn_bwd_dx.  The masked sample of
+// with R except dcn_bwd_dx's halo.  The masked sample of
 // (p, k, c) is sum_j (w_j * mask) * x[nb_j, c], j in neighbour order, in
 // both kernels that build it.
 //
@@ -102,13 +102,43 @@
 //   its operands transposed into shared memory, was slower: PERF.md.)
 //
 // dcn_bwd_dx
-//   d x without atomics, as a gather: one warp an input pixel q, lanes over
-//   channels (4 a lane, 128-channel chunks).  For each tap, the (2R+2)^2
-//   output pixels whose clamped sample can reach q (the shifts of the JAX
-//   VJP) are scanned 32 at a time, one a lane; a ballot collects those
-//   whose bilinear weight on q is non-zero, and the warp adds weight * mask
-//   * dcols[p, k, :] for each, in lane order.  Bound: bytes (the cotangent,
-//   read once, and d x written).
+//   d x without atomics, as a gather over per-target lists.  d x[q, c] is
+//   the sum over the (output pixel p, tap k) whose bilinear sample reaches
+//   q of weight * dcols[p, k, c]; the JAX VJP forms it as the dense
+//   "unshift" over the (2R+2)^2 shifts (backbones/deform_conv.py:222-232).
+//   Bound: bytes (dcols, 566 MB at the widest block, read once; d x
+//   written).  The first design gave each input pixel q a warp that scanned,
+//   for each tap, the (2R+2)^2 output pixels that can reach it (324 (pixel,
+//   tap) probes a pixel at R 2, each reading two offsets and a mask at a
+//   72-byte stride), served each hit alone (a ballot, two shuffles, then a
+//   dependent dcols load) with half of its 128-channel lanes idle at C 64,
+//   and fetched each dcols row in the ~4 warps of the pixels it reaches:
+//   862.69 us at 8 x 96 x 320, C 64, 4.4x its bound, latency and issue bound.
+//   Design: a CTA of 512 threads owns a block of kDxTH x kDxTW input
+//   pixels (the targets) and 64 channels.  For each tap it resolves once,
+//   into shared memory, the four neighbours and weights of every output
+//   pixel of the tile's halo (R + 2 pixels before it, R + 1 after, on both
+//   axes: 345 at R 2, 945 at R 8; the first halo row and column can only
+//   reach the tile with a zero weight, as in the first design's scan), its
+//   offsets and mask read once a CTA, and the chunk of the dcols row of
+//   each pixel with an entry prefetched into L2 (its read from device
+//   memory then overlaps the list stages); builds the targets' lists by count,
+//   scan and place in halo order (warp ranks by __match_any_sync, no
+//   atomics); then a half-warp owns four targets and walks their lists as
+//   one, two dcols rows in flight (four and eight were slower: registers),
+//   16 lanes of 16-byte loads over the 64 channels, and adds weight * row
+//   with fmaf.  The rows a list names are
+//   those the tile's neighbour samples touch, so each dcols row is read by
+//   the one CTA its neighbours lie in (two to four at a tile's edge), the
+//   other neighbours' reads of it hitting L1.  The sum keeps the first
+//   design's order (taps outer, sources row-major, the weight formed as
+//   (hat_y * hat_x) * mask, fmaf): the result is bitwise the first design's.
+//   Shared memory 64 bytes a halo pixel (22 KB at R 2, 59 KB at R 8) plus 9
+//   KB.  What holds it (PERF.md §6): each tap's four list stages and the
+//   sum run one after the other in a CTA, so the sum's dcols reads (the
+//   bytes bound) overlap only other CTAs' list building; and the lists are
+//   rebuilt for every 64-channel chunk of wider maps, which at C 512 makes
+//   it slower than the first design.
 //
 // No kernel synchronises the device or allocates; each entry point returns
 // the first CUDA error (cudaGetLastError() after the launches) so the caller
@@ -124,8 +154,15 @@
 namespace {
 
 constexpr int kTaps = 9;
-constexpr int kWarpThreads = 256;  // dcn_bwd_dx
-constexpr int kDxChunk = 128;      // channels a pass of dcn_bwd_dx (4 a lane)
+// dcn_bwd_dx: a CTA's targets (an image block) and channels
+constexpr int kDxTH = 8, kDxTW = 16, kDxTargets = kDxTH * kDxTW;
+constexpr int kDxThreads = 512, kDxWarps = kDxThreads / 32;
+constexpr int kDxChan = 64;                                  // 16 lanes of 4 channels
+constexpr int kDxSlots = kDxTargets / (kDxThreads / 16);     // targets a half-warp owns
+constexpr int kDxNone = 0xff;                                // no target
+constexpr int kDxPer = 2;  // halo pixels a thread resolves: 945 at R 8 over 512 threads
+constexpr int kDxInFlight = 2;  // dcols rows a half-warp has in flight (4 and 8 were slower)
+constexpr int kMaxReach = 8;                                 // ops/dcn.py's MAX_REACH
 constexpr int kSumThreads = 256;   // the partial sums
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -709,73 +746,229 @@ dcn_bwd_sum_kernel(const float* __restrict__ part, int slices, int64_t nw,
 }
 
 // ---------------------------------------------------------- dcn_bwd_dx ----
-// the bilinear weight of tap k of pixel p on an input row/column at integer
-// shift u from the tap's base: 1 - f at floor(d), f at floor(d) + 1
-__device__ __forceinline__ float hat_weight(float d, int u) {
-  const float f0 = floorf(d);
-  const int u0 = (int)f0;
-  return u == u0 ? 1.f - (d - f0) : (u == u0 + 1 ? d - f0 : 0.f);
+// The CTA's halo for reach R: the output pixels whose taps can sample a
+// target of its kDxTH x kDxTW tile, R + 2 rows and columns before the tile
+// and R + 1 after it (tap rows and columns 0 .. 2, shifts -R .. R + 1)
+__host__ __device__ __forceinline__ int dx_halo_h(int R) { return kDxTH + 2 * R + 3; }
+__host__ __device__ __forceinline__ int dx_halo_w(int R) { return kDxTW + 2 * R + 3; }
+
+// Shared memory of a CTA for reach R: per halo pixel its four weights and
+// target bytes, per (halo pixel, neighbour) its rank and list slot (weight,
+// dcols row, target), the per-warp counts and the targets' list bounds
+size_t dx_smem(int R) {
+  const size_t nh = (size_t)dx_halo_h(R) * dx_halo_w(R);
+  return nh * (16 + 4 + 4 * (4 + 4 + 1 + 2)) +
+         sizeof(int) * (kDxWarps * kDxTargets + 2 * kDxTargets + kDxWarps);
 }
 
-__global__ void __launch_bounds__(kWarpThreads)
+// Grid (tiles of N x ceil(H / kDxTH) x ceil(W / kDxTW), channel chunks of
+// kDxChan).  Per tap k, in four barrier-separated stages:
+//   1. resolve: each halo pixel p in the image (row-major halo index i) reads
+//      its tap's offsets and mask once, clamps them and finds its four
+//      neighbours and weights (hat_y * hat_x) * mask; a neighbour that lies
+//      in the tile (and the image) with a non-zero weight is an entry for
+//      that target, its byte in tgt[i] (kDxNone otherwise);
+//   2. rank: warp w takes the halo indices of its segment [w seg, (w + 1)
+//      seg) in order, 32 entries (i, j) at a time; an entry's rank among the
+//      warp's entries for its target is the warp's count so far plus its
+//      peers below it (__match_any_sync), and the last peer adds the group;
+//   3. scan: each target's counts over the warps in order, then the targets'
+//      totals over the tile (warp shuffles): the lists' bounds, and where
+//      each warp's entries for a target start;
+//   4. place: each warp puts its entries (i, j) at its start for their
+//      target plus their rank, so each target's list holds its entries in
+//      halo order, each as (weight, dcols row p * 9 + k, target);
+//   5. sum: half-warp s owns targets kDxSlots s .. kDxSlots (s + 1) - 1
+//      (their lists lie next to each other), each lane four channels of the
+//      chunk; it walks the lists as one, kDxInFlight dcols rows in flight,
+//      and adds weight * row with fmaf in list order into the running
+//      target's sum.
+// The accumulators stay in registers over the taps, so each target's sum
+// runs taps outer, then its sources in row-major order: the first design's
+// order, and bitwise its result.
+__global__ void __launch_bounds__(kDxThreads, 2)
 dcn_bwd_dx_kernel(const float* __restrict__ off, const float* __restrict__ mask,
-                  const float* __restrict__ dcols, float* __restrict__ dx, int64_t P, int H,
-                  int W, int C, int R, float bound) {
-  const int64_t q = ((int64_t)blockIdx.x * kWarpThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (q >= P) return;
-  const int64_t hw = (int64_t)H * W;
-  const int64_t n = q / hw;
-  const int rem = (int)(q - n * hw);
-  const int qy = rem / W, qx = rem - (rem / W) * W;
-  const int S = 2 * R + 2, ncand = S * S;
+                  const float* __restrict__ dcols, float* __restrict__ dx, int N, int H, int W,
+                  int C, int R, float bound, int tiles_y, int tiles_x, bool vec) {
+  extern __shared__ float4 smem4[];
+  const int HX = dx_halo_w(R), NH = dx_halo_h(R) * HX;
+  float4* wts = smem4;                              // [NH] weights of the four neighbours
+  uint32_t* tgt = (uint32_t*)(wts + NH);            // [NH] their target bytes
+  float* lw = (float*)(tgt + NH);                   // [4 NH] the lists' weights,
+  int* lrow = (int*)(lw + 4 * NH);                  // [4 NH] dcols rows p * 9 + k,
+  uint8_t* lt = (uint8_t*)(lrow + 4 * NH);          // [4 NH] and targets
+  uint16_t* rank = (uint16_t*)(lt + 4 * NH);        // [4 NH] entry (i, j)'s rank
+  int* cnt = (int*)(rank + 4 * NH);                 // [kDxWarps][kDxTargets]
+  int* lo = cnt + kDxWarps * kDxTargets;            // [kDxTargets] list bounds
+  int* hi = lo + kDxTargets;
+  int* wsum = hi + kDxTargets;                      // [kDxWarps] scan scratch
 
-  for (int c0 = 0; c0 < C; c0 += kDxChunk) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < kTaps; ++k) {
-      const int kh = k / 3, kw = k % 3;
-      for (int base = 0; base < ncand; base += 32) {
-        const int i = base + lane;
-        float wt = 0.f;
-        int64_t p = 0;
-        if (i < ncand) {
-          const int py = qy - kh - R + i / S, px = qx - kw - R + i % S;
-          if (py >= 0 && py < H && px >= 0 && px < W) {
-            p = n * hw + (int64_t)py * W + px;
-            const float dy = clampf(off[p * 18 + 2 * k], bound);
-            const float dxo = clampf(off[p * 18 + 2 * k + 1], bound);
-            wt = hat_weight(dy, qy - (py - 1 + kh)) * hat_weight(dxo, qx - (px - 1 + kw)) *
-                 mask[p * kTaps + k];
-          }
-        }
-        unsigned hits = __ballot_sync(kFull, wt != 0.f);
-        while (hits) {
-          const int src = __ffs(hits) - 1;
-          hits &= hits - 1;
-          const float ws = __shfl_sync(kFull, wt, src);
-          const int64_t ps = __shfl_sync(kFull, (long long)p, src);
-          const float* g = dcols + (ps * kTaps + k) * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per_image = tiles_y * tiles_x;
+  const int n = blockIdx.x / per_image, rem = blockIdx.x - n * per_image;
+  const int ty0 = rem / tiles_x * kDxTH, tx0 = (rem % tiles_x) * kDxTW;
+  const int oy = ty0 - R - 2, ox = tx0 - R - 2;  // the halo's first row and column
+  const int half = tid >> 4, hl = tid & 15;
+  const int cl = blockIdx.y * kDxChan + 4 * hl, nc = min(4, C - cl);  // this lane's channels
+  const int seg = (NH + kDxWarps - 1) / kDxWarps;
+  const int e_lo = warp * seg * 4, e_hi = min(NH, (warp + 1) * seg) * 4;  // the warp's entries
+  float4 acc[kDxSlots];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < C) acc[j] = fmaf(ws, g[c], acc[j]);
+  for (int s = 0; s < kDxSlots; ++s) acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this thread's halo pixels tid + q kDxThreads: their pixel (-1 outside
+  // the map or the halo) and tile-relative row and column
+  int pix[kDxPer], prow[kDxPer], pcol[kDxPer];
+#pragma unroll
+  for (int q = 0; q < kDxPer; ++q) {
+    const int i = tid + q * kDxThreads, hy = i / HX, py = oy + hy, px = ox + (i - hy * HX);
+    pix[q] = i < NH && py >= 0 && py < H && px >= 0 && px < W ? (n * H + py) * W + px : -1;
+    prow[q] = py - ty0;
+    pcol[q] = px - tx0;
+  }
+
+  for (int k = 0; k < kTaps; ++k) {
+    const int kh = k / 3, kw = k % 3;
+    // 1. resolve
+#pragma unroll
+    for (int q = 0; q < kDxPer; ++q) {
+      const int i = tid + q * kDxThreads;
+      if (i >= NH) break;
+      uint32_t tg = 0xffffffffu;
+      float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (pix[q] >= 0) {
+        const float dy = clampf(__ldg(off + (int64_t)pix[q] * 18 + 2 * k), bound);
+        const float dxo = clampf(__ldg(off + (int64_t)pix[q] * 18 + 2 * k + 1), bound);
+        const float m = __ldg(mask + (int64_t)pix[q] * kTaps + k);
+        const float fy0 = floorf(dy), fx0 = floorf(dxo);
+        const float fy = dy - fy0, fx = dxo - fx0;
+        const int y0 = prow[q] - 1 + kh + (int)fy0, x0 = pcol[q] - 1 + kw + (int)fx0;
+        float* wp = &w4.x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int yy = y0 + (j >> 1), xx = x0 + (j & 1);
+          const float wt = ((j >> 1) ? fy : 1.f - fy) * ((j & 1) ? fx : 1.f - fx) * m;
+          if (yy >= 0 && yy < kDxTH && xx >= 0 && xx < kDxTW && ty0 + yy < H && tx0 + xx < W &&
+              wt != 0.f) {
+            tg = (tg & ~(0xffu << (8 * j))) | ((uint32_t)(yy * kDxTW + xx) << (8 * j));
+            wp[j] = wt;
           }
         }
       }
+      tgt[i] = tg;
+      wts[i] = w4;
+      if (tg != 0xffffffffu) {  // the pixel's dcols row of the chunk into L2 now, so that
+                                // its read from device memory overlaps the list stages
+        const float* src = dcols + ((int64_t)pix[q] * kTaps + k) * C + blockIdx.y * kDxChan;
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src));
+        if (C - (int)blockIdx.y * kDxChan > 32)
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src + 32));
+      }
     }
+    for (int e = tid; e < kDxWarps * kDxTargets; e += kDxThreads) cnt[e] = 0;
+    __syncthreads();
+    // 2. rank
+    int* wc = cnt + warp * kDxTargets;
+    for (int e = e_lo; e < e_hi; e += 32) {
+      const int ee = e + lane;
+      const int t = ee < e_hi ? (int)((tgt[ee >> 2] >> (8 * (ee & 3))) & 0xffu) : kDxNone;
+      const unsigned peers = __match_any_sync(kFull, t);
+      if (t != kDxNone) rank[ee] = (uint16_t)(wc[t] + __popc(peers & ((1u << lane) - 1u)));
+      __syncwarp();
+      if (t != kDxNone && lane == 31 - __clz(peers)) wc[t] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // 3. scan
+    int tot = 0, incl = 0;
+    if (tid < kDxTargets) {
+      for (int w = 0; w < kDxWarps; ++w) {
+        const int c = cnt[w * kDxTargets + tid];
+        cnt[w * kDxTargets + tid] = tot;
+        tot += c;
+      }
+      incl = tot;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < C) dx[q * C + c] = acc[j];
+      for (int sh = 1; sh < 32; sh <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, sh);
+        if (lane >= sh) incl += v;
+      }
+      if (lane == 31) wsum[warp] = incl;
+    }
+    __syncthreads();
+    if (tid < kDxTargets) {
+      int base = incl - tot;
+      for (int w = 0; w < warp; ++w) base += wsum[w];
+      lo[tid] = base;
+      hi[tid] = base + tot;
+      for (int w = 0; w < kDxWarps; ++w) cnt[w * kDxTargets + tid] += base;
+    }
+    __syncthreads();
+    // 4. place: each warp its own entries
+    for (int ee = e_lo + lane; ee < e_hi; ee += 32) {
+      const int i = ee >> 2, j = ee & 3;
+      const int t = (int)((tgt[i] >> (8 * j)) & 0xffu);
+      if (t == kDxNone) continue;
+      const int pos = wc[t] + rank[ee];
+      const int hy = i / HX;
+      lrow[pos] = ((n * H + oy + hy) * W + ox + (i - hy * HX)) * kTaps + k;
+      lw[pos] = (&wts[i].x)[j];
+      lt[pos] = (uint8_t)t;
+    }
+    __syncthreads();
+    // 5. sum
+    if (nc > 0) {
+      const int t0 = kDxSlots * half, e1 = hi[t0 + kDxSlots - 1];
+      int cur_s = -1;
+      float4 cur = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int e = lo[t0]; e < e1; e += kDxInFlight) {
+        float4 v[kDxInFlight];
+        float wv[kDxInFlight];
+        int sv[kDxInFlight];
+#pragma unroll
+        for (int u = 0; u < kDxInFlight; ++u) {
+          if (e + u >= e1) break;
+          wv[u] = lw[e + u];
+          sv[u] = lt[e + u] - t0;
+          v[u] = ld4(dcols + (int64_t)lrow[e + u] * C + cl, nc, vec);
+        }
+#pragma unroll
+        for (int u = 0; u < kDxInFlight; ++u) {
+          if (e + u >= e1) break;
+          if (sv[u] != cur_s) {  // the lists are in target order: park the sum, take the next
+#pragma unroll
+            for (int s = 0; s < kDxSlots; ++s)
+              if (s == cur_s) acc[s] = cur;
+#pragma unroll
+            for (int s = 0; s < kDxSlots; ++s)
+              if (s == sv[u]) cur = acc[s];
+            cur_s = sv[u];
+          }
+          cur = fma4(wv[u], v[u], cur);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kDxSlots; ++s)
+        if (s == cur_s) acc[s] = cur;
+    }
+    __syncthreads();  // the next tap restages every array
+  }
+  if (nc <= 0) return;
+#pragma unroll
+  for (int s = 0; s < kDxSlots; ++s) {
+    const int t = kDxSlots * half + s;
+    const int yy = ty0 + t / kDxTW, xx = tx0 + t % kDxTW;
+    if (yy >= H || xx >= W) continue;
+    float* o = dx + ((int64_t)(n * H + yy) * W + xx) * C + cl;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = acc[s];
+    } else {
+      const float a[4] = {acc[s].x, acc[s].y, acc[s].z, acc[s].w};
+      for (int c = 0; c < nc; ++c) o[c] = a[c];
     }
   }
 }
 
 // ----------------------------------------------------------------- host ----
-unsigned warp_blocks(int64_t items) {
-  return (unsigned)((items * 32 + kWarpThreads - 1) / kWarpThreads);
-}
-
 unsigned sum_blocks(int64_t n) { return (unsigned)((n + kSumThreads - 1) / kSumThreads); }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -801,6 +994,9 @@ cudaError_t device_config(const Device** out) {
       err = cudaFuncSetAttribute(dcn_bwd_sample_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)sizeof(BwdSmem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dcn_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)dx_smem(kMaxReach));
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.bwd_per_sm, dcn_bwd_sample_kernel,
@@ -952,13 +1148,21 @@ extern "C" int tm_dcn_bwd_sample(const void* x, const void* off, const void* mas
   return (int)cudaGetLastError();
 }
 
-// off, mask, dcols as tm_dcn_bwd_sample; R = ceil(bound).  Writes dx
-// f32[N, H, W, C].
+// off, mask, dcols as tm_dcn_bwd_sample; R = ceil(bound), 0 <= R <= 8.
+// Writes dx f32[N, H, W, C].  N*H*W > 0, C > 0.
 extern "C" int tm_dcn_bwd_dx(const void* off, const void* mask, const void* dcols, void* dx,
                              int N, int H, int W, int C, int R, float bound, void* stream) {
-  const int64_t P = (int64_t)N * H * W;
-  dcn_bwd_dx_kernel<<<warp_blocks(P), kWarpThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)off, (const float*)mask, (const float*)dcols, (float*)dx, P, H, W, C, R,
-      bound);
+  const Device* d = nullptr;
+  cudaError_t err = pixels_ok(N, H, W);
+  // the lists name dcols rows p * 9 + k as int
+  if (err == cudaSuccess && (R < 0 || R > kMaxReach || C <= 0 || (int64_t)N * H * W * kTaps > 0x7fffffff))
+    err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = device_config(&d);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_y = (H + kDxTH - 1) / kDxTH, tiles_x = (W + kDxTW - 1) / kDxTW;
+  const dim3 grid((unsigned)((int64_t)N * tiles_y * tiles_x), (unsigned)((C + kDxChan - 1) / kDxChan));
+  dcn_bwd_dx_kernel<<<grid, kDxThreads, dx_smem(R), (cudaStream_t)stream>>>(
+      (const float*)off, (const float*)mask, (const float*)dcols, (float*)dx, N, H, W, C, R, bound,
+      tiles_y, tiles_x, C % 4 == 0 && aligned16(dcols) && aligned16(dx));
   return (int)cudaGetLastError();
 }

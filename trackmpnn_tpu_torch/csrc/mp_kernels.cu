@@ -152,7 +152,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"  // the TF32 split, A fragments
+#include "tf32_mma.cuh"  // the TF32 split, A fragments, wgmma3
 
 namespace {
 
@@ -454,54 +454,6 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
 }
 __device__ __forceinline__ float tanh_fast(float x) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
-}
-
-// ------------------------------------------------------ wgmma (sm_90a) ----
-// d (+)= a b over one k step of 8: a 64 x 8 tf32 from registers (each warp
-// its 16 rows in the m16n8k8 A layout), b 8 x N from the descriptor; d in
-// the m16n8 C layout a warp and n tile of 8.  acc false: d = a b.
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
-                                           uint64_t desc, bool acc);
-template <>
-__device__ __forceinline__ void wgmma_tf32<24>(float (&d)[12], const uint32_t (&a)[4],
-                                               uint64_t desc, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11}, "
-      "{%12,%13,%14,%15}, %16, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
-}
-template <>
-__device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],
-                                               uint64_t desc, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
-      "{%24,%25,%26,%27}, %28, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
-}
-template <>
-__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&a)[4],
-                                               uint64_t desc, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, "
-      "{%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)acc));
-}
-
-// d = a b in 3xTF32 into a fresh accumulator: a.small b.big, then + a.big
-// b.small, then + a.big b.big
-template <int N>
-__device__ __forceinline__ void wgmma3(float (&d)[N / 2], const FragA& a, uint64_t desc_big,
-                                       uint64_t desc_small) {
-  wgmma_tf32<N>(d, a.small, desc_big, false);
-  wgmma_tf32<N>(d, a.big, desc_small, true);
-  wgmma_tf32<N>(d, a.big, desc_big, true);
 }
 
 // How a launch cuts the work for hidden width H.

@@ -63,10 +63,11 @@ LIBRARIES = {
              "tm_gat0_scores_bwd": [_P] * 9 + [_I] * 4 + [_F, _P]}),
     "round": (os.path.join(_PKG, "csrc", "round_kernels.cu"),
               os.path.join(BUILD_DIR, "libtm_round.so"),
-              {"tm_round_fwd": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 3 + [_P],
+              {"tm_round_rows_ints": [_I],
+               "tm_round_fwd": [_P] * 4 + [_I] + [_P] * 11 + [_I] * 3 + [_P],
                "tm_round_bwd_gru": [_P] * 16 + [_I] * 3 + [_P],
-               "tm_round_dw_chunks": [_I],
-               "tm_round_bwd_dw": [_P] * 6 + [_I] * 2 + [_P],
+               "tm_round_dw_slices": [_I, _I],
+               "tm_round_bwd_dw": [_P] * 7 + [_I] * 3 + [_P],
                "tm_round_bwd_dh": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P]}),
     "loss": (os.path.join(_PKG, "csrc", "loss_kernels.cu"),
              os.path.join(BUILD_DIR, "libtm_loss.so"),

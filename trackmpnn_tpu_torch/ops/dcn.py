@@ -15,8 +15,8 @@ Three kernels (csrc/dcn_kernels.cu):
   dcn_bwd_sample  d weight = columns^T g with the columns built on chip, and
                   d offset and d mask from the columns' cotangent
                   g @ weight.T;
-  dcn_bwd_dx      d x, gathered over the output pixels that can reach each
-                  input pixel (no atomics).
+  dcn_bwd_dx      d x, gathered for each block of input pixels over lists of
+                  the output pixels whose samples reach it (no atomics).
 d bias and the columns' cotangent are torch.matmul / sum, as XLA's products
 are in the JAX package.
 

@@ -33,6 +33,8 @@ them.  The kernels find a detection's incident edges in a CSR incidence
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -40,7 +42,7 @@ from trackmpnn_tpu_torch.ops import _build
 from trackmpnn_tpu_torch.ops.block import _check, _on_cuda, _stream
 
 LAUNCHES = {"round_fwd": 0, "round_bwd_gru": 0, "round_bwd_dw": 0, "round_bwd_dh": 0}
-KERNEL_WIDTHS = (16, 32, 64)  # hidden widths the kernels are compiled for
+ROUND_WIDTHS = range(8, 257, 8)  # the hidden widths the kernels take
 _WEIGHTS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
@@ -197,14 +199,43 @@ def round_bwd_dh_reference(idxw, dxin, ddir):
 
 
 # ---------------------------------------------------------------- wrappers ----
+@functools.lru_cache(maxsize=None)
+def round_widths(H):
+    """The round kernels' width rule, checked once for each H: a multiple of
+    8 from 8 to 256 (the product kernels stage a slab of U units of each
+    gate, U * H <= 2048, and read the rows in k steps of 8).  Raises
+    ValueError naming the width it refuses; JAX's Pallas kernels keep both
+    GRUs in VMEM and take any H."""
+    if H not in ROUND_WIDTHS:
+        raise ValueError(f"the fused round kernels take a hidden width H that is a multiple of 8 "
+                         f"from 8 to 256, not H={H}")
+    return H
+
+
 def _dims(name, x, label="h"):
     """(B, cap, H) of an f32[B, cap, H] input, H a width the kernels take."""
     if x.dim() != 3:
         raise TypeError(f"{name}: {label} must be f32[B, cap, H], got {list(x.shape)}")
     B, cap, H = x.shape
-    if H not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: the kernels take hidden widths {KERNEL_WIDTHS}, got {H}")
+    try:
+        round_widths(H)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if B * cap >= 2**31:
+        raise ValueError(f"{name}: {B} x {cap} rows; the kernels take fewer than 2^31")
     return B, cap, H
+
+
+def _aligned(name, **tensors):
+    """The kernels read and write rows as 8- and 16-byte vectors."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def _rows_scratch(lib, nrows, device):
+    """The per-kind row lists and chunk counts a launch builds."""
+    return torch.empty(lib.tm_round_rows_ints(nrows), dtype=torch.int32, device=device)
 
 
 def _check_index(name, device, idxw, B, cap, inc=None):
@@ -239,11 +270,14 @@ def _round_fwd_cuda(h, idxw, inc_ptr, inc_idx, we, wn):
     out, xin = torch.empty_like(h), torch.empty_like(h)
     if h.numel() == 0:
         return out, xin
+    _aligned("round_fwd", h=h)
     with torch.cuda.device(h.device):
-        rc = _build.load("round").tm_round_fwd(
+        lib = _build.load("round")
+        rows = _rows_scratch(lib, B * cap, h.device)
+        rc = lib.tm_round_fwd(
             h.data_ptr(), idxw.data_ptr(), inc_ptr.data_ptr(), inc_idx.data_ptr(),
             inc_idx.numel(), *_ptrs(we), *_ptrs(wn), out.data_ptr(), xin.data_ptr(),
-            B, cap, H, _stream())
+            rows.data_ptr(), B, cap, H, _stream())
     if rc != 0:
         raise RuntimeError(f"round_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["round_fwd"] += 1
@@ -261,11 +295,13 @@ def _round_bwd_gru_cuda(h, idxw, xin, g, we, wn):
     dxin, ddir = torch.empty_like(h), torch.empty_like(h)
     if h.numel() == 0:
         return d4, dxin, ddir
-    wt = torch.empty(4, 3 * H, H, dtype=torch.float32, device=h.device)  # transposes
+    _aligned("round_bwd_gru", h=h, xin=xin, g=g)
     with torch.cuda.device(h.device):
-        rc = _build.load("round").tm_round_bwd_gru(
+        lib = _build.load("round")
+        rows = _rows_scratch(lib, B * cap, h.device)
+        rc = lib.tm_round_bwd_gru(
             h.data_ptr(), idxw.data_ptr(), xin.data_ptr(), g.data_ptr(), *_ptrs(we),
-            *_ptrs(wn), wt.data_ptr(), d4.data_ptr(), dxin.data_ptr(), ddir.data_ptr(),
+            *_ptrs(wn), d4.data_ptr(), dxin.data_ptr(), ddir.data_ptr(), rows.data_ptr(),
             B, cap, H, _stream())
     if rc != 0:
         raise RuntimeError(f"round_bwd_gru kernel launch failed: CUDA error {rc}")
@@ -282,13 +318,17 @@ def _round_bwd_dw_cuda(h, idxw, xin, d4):
     width = 2 * H * 3 * H + 2 * 3 * H  # d w_ih | d w_hh | d b_ih | d b_hh
     dw = torch.zeros(2, width, dtype=f32, device=h.device)
     if h.numel() > 0:
-        lib = _build.load("round")
-        chunks = lib.tm_round_dw_chunks(B * cap)
-        partials = torch.empty(chunks, 2, width, dtype=f32, device=h.device)
+        _aligned("round_bwd_dw", h=h, xin=xin, d4=d4)
         with torch.cuda.device(h.device):
+            lib = _build.load("round")
+            slices = lib.tm_round_dw_slices(B * cap, H)
+            if slices < 1:
+                raise RuntimeError(f"round_bwd_dw slice query failed: CUDA error {-slices}")
+            rows = _rows_scratch(lib, B * cap, h.device)
+            partials = torch.empty(slices * width + 1, dtype=f32, device=h.device)
             rc = lib.tm_round_bwd_dw(h.data_ptr(), idxw.data_ptr(), xin.data_ptr(),
-                                     d4.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-                                     B * cap, H, _stream())
+                                     d4.data_ptr(), rows.data_ptr(), partials.data_ptr(),
+                                     dw.data_ptr(), B * cap, H, slices, _stream())
         if rc != 0:
             raise RuntimeError(f"round_bwd_dw kernel launch failed: CUDA error {rc}")
         LAUNCHES["round_bwd_dw"] += 1

@@ -1,7 +1,7 @@
 """Time the bounded deformable convolution's kernels (#15 dcn_fwd, #15b
-dcn_bwd_sample), as built from several source trees, in one process on one
-card, on the same seeded inputs; optionally also the bounded DLA-34
-embedding step of each tree.
+dcn_bwd_sample, #15c dcn_bwd_dx), as built from several source trees, in one
+process on one card, on the same seeded inputs; optionally also the bounded
+DLA-34 embedding step of each tree.
 
     python -m trackmpnn_tpu_torch.tools.ab_dcn NAME=DIR [NAME=DIR ...]
         [--rounds 6] [--step] [--profile] [--json PATH]
@@ -19,8 +19,10 @@ projection (N 8, 12 x 40, C 512, O 256), max_offset 2, seeded inputs with
 fractional offsets up to 1.5 past the bound (about 43% beyond it).  Every
 tree's outputs are held against this checkout's plain versions (ops/dcn.py)
 evaluated in f64 (the forward within atol 1e-5 x the output's scale, d
-weight, d offset and d mask rtol 1e-4 with atol 1e-5 x each output's scale)
-and must be bitwise the same on a second launch.  Each round times every tree in turn,
+weight, d offset, d mask and d x rtol 1e-4 with atol 1e-5 x each output's
+scale) and must be bitwise the same on a second launch; d x (whose C
+interface has not changed) is also compared bitwise across the trees, as
+the kernels keep one summation order.  Each round times every tree in turn,
 the order reversed every other round: 16 calls back to back behind a
 device-side sleep, between CUDA events (device time).  Prints each tree's
 µs a call in every round and their median.
@@ -115,7 +117,7 @@ def launchers(lib, x):
     dweight = torch.empty(9 * C, O, device="cuda")
     doff, dmask = torch.empty_like(x["offset"]), torch.empty_like(x["mask"])
     fwd_in = [P(x[k]) for k in ("x", "weight", "bias", "offset", "mask")]
-    lib.tm_dcn_fwd.restype = lib.tm_dcn_bwd_sample.restype = ctypes.c_int
+    lib.tm_dcn_fwd.restype = lib.tm_dcn_bwd_sample.restype = lib.tm_dcn_bwd_dx.restype = ctypes.c_int
     if lib.fused:
         fs = _scratch(lib, "tm_dcn_fwd_scratch_floats", dims)
         bs = _scratch(lib, "tm_dcn_bwd_sample_scratch_floats", dims)
@@ -146,8 +148,15 @@ def launchers(lib, x):
             torch.matmul(cols.reshape(-1, 9 * C).t(), g2, out=dweight)
             return [dweight, doff, dmask]
         keep = (cols,)
+    dx = torch.empty_like(x["x"])
+
+    def dxf():
+        check(lib.tm_dcn_bwd_dx(P(x["offset"]), P(x["mask"]), P(x["dcols"]), P(dx),
+                                *map(ctypes.c_int, dims[:4]), ctypes.c_int(dcn.reach(BOUND)),
+                                *tail, stream()))
+        return [dx]
     fwd.keep = bwd.keep = keep  # scratch alive as long as the launchers
-    return {"fwd": fwd, "bwd": bwd}
+    return {"fwd": fwd, "bwd": bwd, "dx": dxf}
 
 
 def check(rc):
@@ -161,7 +170,8 @@ def plain_f64(x):
     fwd = dcn.dcn_forward_reference(d["x"], d["weight"], d["bias"], d["offset"], d["mask"], BOUND)
     bwd = dcn.dcn_sample_backward_reference(d["x"], d["offset"], d["mask"], d["dcols"], d["g"],
                                             BOUND)
-    return {"fwd": [fwd.float()], "bwd": [t.float() for t in bwd]}
+    dx = dcn.dcn_dx_reference(d["offset"], d["mask"], d["dcols"], BOUND)
+    return {"fwd": [fwd.float()], "bwd": [t.float() for t in bwd], "dx": [dx.float()]}
 
 
 def hold(tree, name, got, again, want):
@@ -330,12 +340,19 @@ def main(argv=None) -> int:
             x = problem(*shape)
             want = plain_f64(x)
             runs = {tree: launchers(lib, x) for tree, lib in libs.items()}
-            for kind in ("fwd", "bwd"):
+            for kind in ("fwd", "bwd", "dx"):
+                first = None
                 for tree, run in runs.items():
                     got = [t.clone() for t in run[kind]()]
                     again = run[kind]()
                     torch.cuda.synchronize()
                     hold(tree, kind, got, again, want[kind])
+                    if kind == "dx":
+                        first = first or (tree, got)
+                        same = all(torch.equal(a, b) for a, b in zip(got, first[1]))
+                        result.setdefault("dx_bitwise", {})[f"{shape_name} {tree}"] = same
+                        print(f"dx {shape_name} {tree}: bitwise equal to {first[0]}'s: {same}",
+                              flush=True)
                 times = {tree: [] for tree in runs}
                 order = list(runs)
                 for r in range(args.rounds):
