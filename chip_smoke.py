@@ -148,7 +148,12 @@ failure exits non-zero:
     PyTorch call computes them (library: none).  Then the es round's two
     kernels at B 4, T 4, capD 128, na = nt = 64, H 128 on seeded inputs
     (tests/torch_port_util.py::es_inputs) against their plain versions in
-    f64, as phase 6's wide rows.
+    f64, as phase 6's wide rows; and the three loss kernels at P 4, na = nt
+    = 128, K 192 on seeded inputs (tests/torch_port_util.py::
+    edge_loss_inputs; a block the first design held whole in shared memory)
+    against their plain versions, the logits and the backward evaluated in
+    f64, L1's row statistics from its own logits (--json's
+    edge_losses_wide).
 15. The embedding path (train/embed.py's EmbedTrainer, whose step and infer
     take packed arrays) at KITTI's input, 384 x 1280, for espv2, dla34 with
     dcn_max_offset 2.0 (every deform block through the DCN kernels) and
@@ -1912,6 +1917,83 @@ def wide_es_rows(torch, np, block_ops):
              "shape": f"P {m3.shape[0]}, na {m3.shape[1]}, nt {m3.shape[2]}, H {WIDE_HIDDEN}, "
                       f"live cells {int((m3 != 0).sum())}"}
         print_kernel_row(r, " (vs the plain version in f64)")
+        rows.append(r)
+    return rows
+
+
+WIDE_LOSS = dict(P=4, na=128, nt=128, K=3 * HIDDEN, nD=2048)
+WIDE_LOSS_SEED = 4  # a seed whose blocks hold detections with live rows and no positive edge
+
+
+def wide_loss_rows(torch, np, loss_ops):
+    """edge_loss_l1, _l2 (atol 1e-5, the counts exact) and _bwd (rtol 1e-4,
+    atol 1e-5 x each output's scale) at WIDE_LOSS on seeded inputs
+    (tests/torch_port_util.py::edge_loss_inputs; the glue and the spread
+    weight from the plain versions) against their plain versions (the logits
+    and the backward in f64, L1's row statistics those of its own logits in
+    f64), bitwise on a second launch, timed beside the plain versions in f32
+    and their bound; outside the kernels line."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import EDGE_LOSS_KEYS, edge_loss_inputs, in_f64
+
+    x, d_part = edge_loss_inputs(WIDE_LOSS_SEED, **WIDE_LOSS)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+    h_eo, w_e, b_e, lbl, m3, ebnt, bna, act, act_m = (put(x[k]) for k in EDGE_LOSS_KEYS[:9])
+    d_part, nD = put(d_part), WIDE_LOSS["nD"]
+    logits, r_min, m_r, s_r = loss_ops.edge_loss_l1_reference(h_eo, w_e, b_e, lbl, m3, ebnt)
+    glue = loss_ops.edge_loss_glue(r_min, m_r, s_r, m3, ebnt, act, act_m, nD)
+    wg = loss_ops.edge_loss_spread(r_min, glue[0], glue[2], d_part, act, act_m, nD).contiguous()
+    as_list = lambda out: list(out) if isinstance(out, (tuple, list)) else [out]
+    cases = {"edge_loss_l1": (loss_ops._l1_cuda, loss_ops.edge_loss_l1_reference,
+                              (h_eo, w_e, b_e, lbl, m3, ebnt)),
+             "edge_loss_l2": (loss_ops._l2_cuda, loss_ops.edge_loss_l2_reference,
+                              (logits, lbl, m3, ebnt, bna, *glue)),
+             "edge_loss_bwd": (loss_ops._bwd_cuda, loss_ops.edge_loss_bwd_reference,
+                               (h_eo, w_e, logits, lbl, m3, ebnt, bna, *glue, wg, d_part))}
+    rows = []
+    for name, (kernel, plain, args) in cases.items():
+        got, again = as_list(kernel(*args)), as_list(kernel(*args))
+        # L2 sums in f64 the f32 terms its plain version forms too (in f64
+        # the terms would move a block's BCE sum of ~10^4 by ulps of its
+        # f32); L1's row statistics from its own logits (at nt 128 an f32
+        # logit's rounding alone moves s_r by ~1e-5)
+        if name == "edge_loss_l2":
+            want = as_list(plain(*args))
+        elif name == "edge_loss_l1":
+            want = in_f64(plain, *args)[:1] + in_f64(loss_ops.edge_loss_row_stats, got[0],
+                                                     *args[3:])
+        else:
+            want = in_f64(plain, *args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (a, w) in enumerate(zip(got, want)):
+            diff = float((a - w).abs().max())
+            err = max(err, diff)
+            ok = (diff <= ROUND_FWD_ATOL if name != "edge_loss_bwd" else
+                  torch.allclose(a, w, rtol=ROUND_BWD_RTOL,
+                                 atol=ROUND_BWD_ATOL_SCALE * max(float(w.abs().max()), 1e-30)))
+            if not ok:
+                fail(f"{name} (na = nt = {WIDE_LOSS['na']}) output {k} differs from its plain "
+                     f"version in f64 by {diff:.3g}")
+        if name == "edge_loss_l2" and not torch.equal(got[0][:, EDGE_LOSS_COUNTS],
+                                                      want[0][:, EDGE_LOSS_COUNTS]):
+            fail("edge_loss_l2's counts (bce_count, tp, fp, fn) differ from its plain version's "
+                 f"(na = nt = {WIDE_LOSS['na']})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name} (na = nt = {WIDE_LOSS['na']}) is not bitwise the same on a second "
+                 f"launch")
+        b, by = bound_ms(*es_loss_bounds(name, args))
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/loss_kernels.cu",
+             "replaces": ES_LOSS_REPLACES[name], "launches": None, "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args)),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: plain(*args), iters=PLAIN_ITERS),
+             "bound_ms": b, "bound_by": by, "library_ms": None,
+             "shape": f"P {WIDE_LOSS['P']}, na {WIDE_LOSS['na']}, nt {WIDE_LOSS['nt']}, "
+                      f"K {WIDE_LOSS['K'] if name != 'edge_loss_l2' else '-'}, live cells "
+                      f"{int((m3 != 0).sum())} (seeded)"}
+        print_kernel_row(r, "" if name == "edge_loss_l2" else " (vs the plain version in f64)")
         rows.append(r)
     return rows
 
@@ -3682,6 +3764,7 @@ def main():
         loss_wide)
     kernels += es_loss_rows
     es_wide = wide_es_rows(torch, np, block_ops)
+    loss_wide_rows = wide_loss_rows(torch, np, loss_ops)
     default_heads, gat1_inputs = default_heads_phase(torch, np, block_ops, gat_ops, loss_ops,
                                                      default_wl)
     kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
@@ -3729,6 +3812,7 @@ def main():
                        "gat_serving": gat_serving, "row_batch1": batch1,
                        "row_packed": packed_training, "block_compositions": compositions,
                        "edge_losses_one_branch": loss_narrow,
+                       "edge_losses_wide": loss_wide_rows,
                        "default_training": default_training, "default_heads": default_heads,
                        "embedding": embedding, "full_serving": full,
                        "batch_tracker": batch_tracking, "train_cli": train_cli,

@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from torch_port_util import (DCN_KEYS, EDGE_LOSS_COUNTS, EDGE_LOSS_KEYS, ROUND_KEYS,
-                             dcn_inputs, edge_loss_inputs, es_inputs, gat_inputs, in_f64,
-                             round_inputs)
+                             dcn_inputs, edge_loss_inputs, es_inputs, gat_inputs,
+                             hub_round_inputs, in_f64, round_inputs)
 from trackmpnn_tpu_torch.ops import block, dcn, gat, loss, mp
 from trackmpnn_tpu_torch.ops import round as rnd
 
@@ -882,6 +882,31 @@ def test_round_kernels_match_plain_versions(cuda, B, cap, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128, 256])
+def test_round_bwd_dh_walks_a_detection_with_many_incident_edges(cuda, H):
+    """round_bwd_dh at a round whose detection row 0 has 72 incident edges
+    (a listed edge dead at this step), so a row's entries cross several
+    staged lists (of 16 lanes at H 64, 32 above): against the plain version
+    evaluated in f64 within rtol 1e-4 and atol 1e-5 x scale, bitwise the
+    same on a second launch, one launch a call."""
+    h, idxw, we, wn, cot, ip, ii = hub_round_inputs(H, H=H)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    h, idxw, g, ip, ii = put(h), put(idxw), put(cot), put(ip), put(ii)
+    we, wn = ({k: put(v) for k, v in w.items()} for w in (we, wn))
+    assert int(ip[1] - ip[0]) > 64
+    xin = rnd.round_fwd_reference(h, idxw, we, wn)[1]
+    _, dxin, ddir = rnd.round_bwd_gru_reference(h, idxw, xin, g, we, wn)
+    before = rnd.LAUNCHES["round_bwd_dh"]
+    got, again = (rnd._round_bwd_dh_cuda(idxw, ip, ii, dxin, ddir) for _ in range(2))
+    (want,) = in_f64(rnd.round_bwd_dh_reference, idxw, dxin, ddir)
+    torch.cuda.synchronize()
+    assert rnd.LAUNCHES["round_bwd_dh"] == before + 2
+    assert_close_scaled([got], [want], ["d h"])
+    assert torch.equal(got, again)
+    assert float((got[0, 0] - ddir[0, 0]).abs().max()) > 0
+
+
+@pytest.mark.cuda
 def test_fused_round_autograd_on_the_card_matches_the_cpu(cuda):
     """Through FusedRound, as the packed step calls it: one launch of each
     kernel, and the CPU's gradients (rtol 1e-4, atol 1e-5 x scale)."""
@@ -954,6 +979,9 @@ def test_round_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rnd._round_bwd_gru_cuda(h, idxw, h, g[:, :8], we, wn)
     with pytest.raises(TypeError):
         rnd._round_bwd_dh_cuda(idxw, ip, ii, h, h[:, :, :8].contiguous())
+    shifted = torch.empty(h.numel() + 1, device=cuda)[1:].view(h.shape)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rnd._round_bwd_dh_cuda(idxw, ip, ii, shifted, h)
 
 
 # ------------------------------------------------ es round and edge losses ----
@@ -1019,28 +1047,44 @@ def edge_loss_problem(seed, device, **shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [dict(P=11, na=8, nt=8, K=16, nD=32),
-                                   dict(P=120, na=24, nt=24, K=64, nD=2048),
-                                   dict(P=120, na=24, nt=24, K=192, nD=2048),
-                                   dict(P=13, na=8, nt=8, K=48, nD=32),
-                                   dict(P=11, na=8, nt=8, K=384, nD=32)],
-                         ids=["small", "training", "three_branches", "k48", "k384"])
-def test_edge_loss_kernels_match_plain_versions(cuda, shape):
+@pytest.mark.parametrize("seed,shape", [(3, dict(P=11, na=8, nt=8, K=16, nD=32)),
+                                        (3, dict(P=120, na=24, nt=24, K=64, nD=2048)),
+                                        (3, dict(P=120, na=24, nt=24, K=192, nD=2048)),
+                                        (3, dict(P=13, na=8, nt=8, K=48, nD=32)),
+                                        (3, dict(P=11, na=8, nt=8, K=384, nD=32)),
+                                        (4, dict(P=4, na=128, nt=128, K=192, nD=2048)),
+                                        (3, dict(P=5, na=37, nt=29, K=50, nD=2048))],
+                         ids=["small", "training", "three_branches", "k48", "k384", "wide128",
+                              "ragged_k50"])
+def test_edge_loss_kernels_match_plain_versions(cuda, seed, shape):
     """L1 and L2 within atol 1e-5 (the counts exact), the backward within
-    rtol 1e-4 and atol 1e-5 x each output's scale; each bitwise the same on
-    a second launch, each launched once a call.  The head width K = nb*H:
-    one branch at H 16 and 64, three at H 64 (192), and widths that do not
-    divide the backward's 256 threads (48) or exceed them (384)."""
+    rtol 1e-4 and atol 1e-5 x each output's scale; the logits and the
+    backward against their plain versions evaluated in f64 (a block of 128 x
+    128 sums tens of thousands of terms, and two f32 orders differ by about
+    the tolerances), L1's row statistics against the plain version's of the
+    kernel's logits in f64, L2 against its plain version, which sums in f64 the f32
+    terms the kernel forms (in f64 the terms would move a block's BCE sum
+    of ~10^4 by several ulps of its f32 result); each bitwise the same on a
+    second launch, each launched once a call.  The head width
+    K = nb*H: one branch at H 16 and 64, three at H 64 (192), and widths that
+    do not divide the backward's 256 threads (48, 50) or exceed them (384);
+    na = nt = 128 (a block the first design held whole in shared memory: the
+    kernels' shared memory grows with nt only), and na 37, nt 29 (a last
+    tile of one row, K % 4 != 0)."""
     (h_eo, w_e, b_e, lbl, m3, ebnt, bna, act, act_m, nD), d_part = edge_loss_problem(
-        3, cuda, **shape)
+        seed, cuda, **shape)
     before = dict(loss.LAUNCHES)
     l1 = [loss._l1_cuda(h_eo, w_e, b_e, lbl, m3, ebnt) for _ in range(2)]
-    want = loss.edge_loss_l1_reference(h_eo, w_e, b_e, lbl, m3, ebnt)
+    # the logits against the plain version in f64, the row statistics against
+    # the plain version's of the kernel's own logits in f64 (at nt 128 an f32
+    # logit's rounding alone moves s_r by ~1e-5)
+    want = in_f64(loss.edge_loss_l1_reference, h_eo, w_e, b_e, lbl, m3, ebnt)[:1] + in_f64(
+        loss.edge_loss_row_stats, l1[0][0], lbl, m3, ebnt)
     torch.cuda.synchronize()
     for a, b, c in zip(l1[0], want, l1[1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
         assert torch.equal(a, c)
-    logits, r_min, m_r, s_r = want
+    logits, r_min, m_r, s_r = loss.edge_loss_l1_reference(h_eo, w_e, b_e, lbl, m3, ebnt)
     glue = loss.edge_loss_glue(r_min, m_r, s_r, m3, ebnt, act, act_m, nD)
     l2 = [loss._l2_cuda(logits, lbl, m3, ebnt, bna, *glue) for _ in range(2)]
     want2 = loss.edge_loss_l2_reference(logits, lbl, m3, ebnt, bna, *glue)
@@ -1051,7 +1095,7 @@ def test_edge_loss_kernels_match_plain_versions(cuda, shape):
     wg = loss.edge_loss_spread(r_min, glue[0], glue[2], d_part, act, act_m, nD)
     bargs = (h_eo, w_e, logits, lbl, m3, ebnt, bna, *glue, wg, d_part)
     gb = [loss._bwd_cuda(*bargs) for _ in range(2)]
-    wb = loss.edge_loss_bwd_reference(*bargs)
+    wb = in_f64(loss.edge_loss_bwd_reference, *bargs)
     torch.cuda.synchronize()
     assert_close_scaled(gb[0], wb, ["dheo", "dwe", "dbe"])
     assert all(torch.equal(a, b) for a, b in zip(*gb))

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from torch_port_util import ROUND_KEYS as KEYS
-from torch_port_util import mm_3xtf32, round_inputs
+from torch_port_util import hub_round_inputs, mm_3xtf32, round_inputs
 from trackmpnn_tpu.ops import pallas_round as PR
 from trackmpnn_tpu_torch.ops import round as rnd
 
@@ -201,3 +201,72 @@ def test_round_width_rule_is_evaluated_once_per_width():
         rnd.round_widths(48)
     info = rnd.round_widths.cache_info()
     assert (info.misses, info.hits) == (2, 4)
+
+
+DH_AHEAD = 8  # round_bwd_dh_kernel: entries whose d xin rows load before any is added
+
+
+def dh_lanes(H):
+    """round_bwd_dh_kernel's lanes a row: 8 to H 32, 16 to H 64, else 32."""
+    return 8 if H <= 32 else 16 if H <= 64 else 32
+
+
+def dh_walk_emulated(idxw, inc_ptr, inc_idx, dxin, ddir):
+    """round_bwd_dh_kernel's walk, in f64 rounded once: per row ddir, at an
+    edge row + d es[past] - d es[fut], then the incident entries staged L at
+    a time (entry e + s by lane s, its coefficient from the step's idxw) and
+    added in CSR order, DH_AHEAD entries a chunk, skipping coefficient 0."""
+    B, cap, H = dxin.shape
+    L = dh_lanes(H)
+    idx = idxw.reshape(-1, 4).long()
+    dx = dxin.reshape(-1, H).double()
+    dh = ddir.reshape(-1, H).double().clone()
+    kind = lambda q: 2 if q[3] != 0 else 1 if q[2] != 0 else 0
+    for row in range(B * cap):
+        base, r = row - row % cap, row % cap
+        q = idx[row]
+        if kind(q) == 1:
+            if kind(idx[base + q[0]]) == 2:
+                dh[row] = dh[row] + dx[base + q[0]]
+            if kind(idx[base + q[1]]) == 2:
+                dh[row] = dh[row] - dx[base + q[1]]
+        e0, e1 = int(inc_ptr[row]), int(inc_ptr[row + 1])
+        for e in range(e0, e1, L):
+            staged = []
+            for s in range(min(L, e1 - e)):
+                kk = int(inc_idx[e + s])
+                qk = idx[base + kk]
+                coef = int(qk[0] == r) - int(qk[1] == r) if kind(qk) == 1 else 0
+                staged.append((kk, coef))
+            for u0 in range(0, len(staged), DH_AHEAD):
+                for kk, coef in staged[u0:u0 + DH_AHEAD]:
+                    if coef != 0:
+                        dh[row] = dh[row] + coef * dx[base + kk]
+    return dh.float().reshape(B, cap, H)
+
+
+def test_dh_walk_over_a_detection_with_many_incident_edges(interpret_mode):
+    """A detection with more than 64 incident edges (three staged lists of
+    32 at H 128): the emulated walk against round_bwd_dh_reference on the
+    plain backward's d xin and ddir, and against interpret-mode fused_round's
+    VJP (rtol 1e-4, atol 1e-5 x scale)."""
+    H = 128
+    h, idxw, we, wn, cot, inc_ptr, inc_idx = hub_round_inputs(9, H=H)
+    assert inc_ptr[1] - inc_ptr[0] > 64 and dh_lanes(H) == 32
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    th, tidx, tg = t(h), t(idxw), t(cot)
+    twe, twn = ({k: t(v) for k, v in w.items()} for w in (we, wn))
+    xin = rnd.round_fwd_reference(th, tidx, twe, twn)[1]
+    _, dxin, ddir = rnd.round_bwd_gru_reference(th, tidx, xin, tg, twe, twn)
+    got = dh_walk_emulated(tidx, t(inc_ptr), t(inc_idx), dxin, ddir)
+    plain = rnd.round_bwd_dh_reference(tidx, dxin, ddir)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=BWD_RTOL, atol=BWD_ATOL_SCALE * scale)
+    assert float((got[0, 0] - ddir[0, 0]).abs().max()) > 0  # the hub's walk adds something
+    jwe, jwn = (jax.tree_util.tree_map(jnp.asarray, w) for w in (we, wn))
+    _, pull = jax.vjp(lambda x: PR.fused_round(x, jnp.asarray(idxw), jwe, jwn, None, 32),
+                      jnp.asarray(h))
+    (want,) = pull(jnp.asarray(cot))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BWD_RTOL,
+                               atol=BWD_ATOL_SCALE * np.abs(want).max())

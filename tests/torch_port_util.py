@@ -115,6 +115,29 @@ def round_inputs(seed, B=2, cap=64, H=64):
     return h, idxw, we, wn, cot
 
 
+def hub_round_inputs(seed, B=1, cap=96, H=128, hub_edges=72):
+    """round_inputs with detection row 0 of window 0 incident to hub_edges
+    edges (rows 1 .. hub_edges, past or fut 0 at random; a few self-loops
+    through the other end), the incidence built on that idxw, then edge row 5
+    dead at this step (the kernels skip a listed edge the step does not
+    flag).  Returns round_inputs' five and (inc_ptr, inc_idx)."""
+    from trackmpnn_tpu_torch.ops.round import round_incidence
+
+    h, idxw, we, wn, cot = round_inputs(seed, B, cap, H)
+    rng = np.random.default_rng(seed + 1)
+    edges = np.arange(1, hub_edges + 1)
+    idxw[0, 0, 2:] = (0, 1)
+    idxw[0, edges, 2:] = (1, 0)
+    side = rng.random(hub_edges) < 0.5
+    idxw[0, edges, 0] = np.where(side, 0, idxw[0, edges, 0])
+    idxw[0, edges, 1] = np.where(side, idxw[0, edges, 1], 0)
+    h[0, :hub_edges + 1] = 0.5 * rng.normal(size=(hub_edges + 1, H))
+    inc_ptr, inc_idx = round_incidence(idxw)
+    idxw[0, 5, 2:] = 0
+    h[0, 5] = 0.0
+    return h, idxw, we, wn, cot, inc_ptr, inc_idx
+
+
 def tf32(x):
     """x rounded to TF32 (10 explicit mantissa bits): to nearest, ties away
     from zero, by adding half of the dropped 13 bits on the int32 view, as

@@ -95,12 +95,25 @@
 // (two [H, 3H] products), 8 H 3H for the GRU backward; as 3xTF32 three
 // TF32 products for each f32 one, against the dense TF32 rate.
 //
-// round_bwd_dh (the first design's, kept; any H up to 256)
-//   Replaces _bwd_a_kernel (:268-299).  One thread per (row, column):
-//   d h = ddir + (at an edge row) d es[past] - d es[fut] + the signed sum of
-//   d ns over the row's incident edges, in f64, rounded once.  Bound: bytes
-//   (a gather over the incidence).  Instances for H 16, 32, 64 and 128 (the
-//   first design's three and 128) and a generic one.
+// round_bwd_dh
+//   Replaces _bwd_a_kernel (:268-299): d h = ddir + (at an edge row) d
+//   es[past] - d es[fut] + the signed sum of d ns over the row's incident
+//   edges, in f64, rounded once.  Bound: bytes (a gather over the
+//   incidence), but a row's sums wait on a chain of dependent loads (idx,
+//   then the endpoints' idx, then d xin; the CSR offsets, then the entries,
+//   then their idx and d xin).  The first design ran one thread per (row,
+//   column), so each of a row's H threads repeated both chains and walked
+//   the incident entries one at a time (36.04 us at phase 11's widest
+//   round, H 64, against a 6.35 us bound).  This one takes a row per group
+//   of lanes, columns as float4, loads each chain's last two levels
+//   together and stages the incident entries a group's width at a time
+//   (the kernel's note below).  At phase 11's widest round (H 64: 25,245
+//   edge rows, 1,622 detections with 31 incident edges on average, 68 at
+//   most) the detections' walks take two thirds of its time: without them
+//   it ran 6.5 us.  Tried and slower or no faster: 2 or 8 entries' loads
+//   ahead, a second chunk in flight, 3 or 5 CTAs an SM, 8 lanes a row at H
+//   64, the lists' rows prefetched into L1 or L2, and a stage of 16 or 8
+//   rows copied into shared memory by cp.async (PERF.md §6, §7).
 //
 // An index outside the window (an edge's endpoint, an incidence entry, a
 // CSR offset outside inc_idx) traps the kernel: a sticky CUDA error that
@@ -907,42 +920,129 @@ __global__ void round_dw_sum_kernel(const float* __restrict__ part, float* __res
 }
 
 // ------------------------------------------------------------------ d h ----
-// One thread per (row, column), 256 / H rows a CTA.  HF is H where the
-// instance was built for one width (16, 32, 64, 128), else 0.
-template <int HF>
-__global__ void __launch_bounds__(kThreads)
+// A group of L lanes a row (8 for H <= 32, 16 for H <= 64, 32 above), lane
+// s owning the row's float4 columns s, s + L, ... (CPL of them), f64 sums.
+// The row's index, CSR offsets and ddir come first; at an edge row its
+// endpoints' idx and d xin rows load together (the rows are used only at a
+// detection).  The incident entries are staged L at a time: lane s loads
+// entry e + s, checks it, loads its edge's idx and forms its coefficient;
+// the group then walks them in CSR order, kDhAhead entries' d xin rows
+// loaded (their rows broadcast by shuffle) before any is added, the
+// entry's coefficient formed only then so that its idx load overlaps the
+// first rows'.  The rows of a warp walk side by side: its loops run to the
+// longest list among them.  The sums run in the first design's order
+// (ddir, d es[past] - d es[fut], the entries in CSR order), so d h is
+// bitwise the first design's.
+constexpr int kDhAhead = 4;  // divides every L
+
+template <int L, int CPL>
+__global__ void __launch_bounds__(kThreads, CPL == 1 ? 4 : 2)
 round_bwd_dh_kernel(const int4* __restrict__ idx, const int* __restrict__ inc_ptr,
-                    const int* __restrict__ inc_idx, int n_inc, const float* __restrict__ dxin,
-                    const float* __restrict__ ddir, float* __restrict__ dh, int cap,
-                    int64_t nrows, int hidden) {
-  const int H = HF ? HF : hidden;
-  const int rows_per_cta = kThreads / H;
-  if ((int)threadIdx.x >= rows_per_cta * H) return;
-  const int j = threadIdx.x % H;
-  const int64_t row = (int64_t)blockIdx.x * rows_per_cta + threadIdx.x / H;
-  if (row >= nrows) return;
-  const int64_t base = row - row % cap;
+                    const int* __restrict__ inc_idx, int n_inc, const float4* __restrict__ dxin,
+                    const float4* __restrict__ ddir, float4* __restrict__ dh, int cap,
+                    int64_t nrows, int H4) {
+  const int lane = threadIdx.x & 31, s = lane & (L - 1);
+  const int64_t row = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / L;
+  const bool live = row < nrows;  // a whole group; the warp stays whole for its shuffles
+  const int64_t base = live ? row - row % cap : 0;
   const int r = (int)(row - base);
-  const int4 q = idx[row];
-  double acc = ddir[row * H + j];
+  const int4* idxb = idx + base;               // the row's window
+  const float4* dxb = dxin + base * H4 + s;    // its d xin, at the lane's first column
+  const int4 q = live ? idx[row] : make_int4(0, 0, 0, 0);
+  const int e0 = live ? inc_ptr[row] : 0, e1 = live ? inc_ptr[row + 1] : 0;
+  double acc[CPL][4];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int k = s + c * L;
+    const float4 v = live && k < H4 ? ddir[row * H4 + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[c][0] = v.x;
+    acc[c][1] = v.y;
+    acc[c][2] = v.z;
+    acc[c][3] = v.w;
+  }
   if (kind_of(q) == 1) {  // through es: an edge row gets d es of its endpoints
     check_row(q.x, cap);  // (d xin at a detection; es is used nowhere else)
     check_row(q.y, cap);
-    if (kind_of(idx[base + q.x]) == 2) acc += dxin[(base + q.x) * H + j];
-    if (kind_of(idx[base + q.y]) == 2) acc -= dxin[(base + q.y) * H + j];
+    const int4 qa = idxb[q.x], qb = idxb[q.y];
+    float4 va[CPL], vb[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (s + c * L < H4) {
+        va[c] = dxb[q.x * H4 + c * L];
+        vb[c] = dxb[q.y * H4 + c * L];
+      }
+    }
+    if (kind_of(qa) == 2) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        acc[c][0] += va[c].x;
+        acc[c][1] += va[c].y;
+        acc[c][2] += va[c].z;
+        acc[c][3] += va[c].w;
+      }
+    }
+    if (kind_of(qb) == 2) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        acc[c][0] -= vb[c].x;
+        acc[c][1] -= vb[c].y;
+        acc[c][2] -= vb[c].z;
+        acc[c][3] -= vb[c].w;
+      }
+    }
   }
-  // through ns: every row gets the signed d ns of its incident edges
-  const int e0 = inc_ptr[row], e1 = inc_ptr[row + 1];
+  // through ns: every row gets the signed d ns of its incident edges.  The
+  // stages and chunks run to the longest list of the warp's rows, so that
+  // the rows of a warp walk side by side (a loop of each group's own length
+  // would run them one after another)
   if (e0 < 0 || e1 < e0 || e1 > n_inc) __trap();
-  for (int e = e0; e < e1; ++e) {
-    const int kk = inc_idx[e];
-    check_row(kk, cap);
-    const int4 qk = idx[base + kk];
-    if (kind_of(qk) != 1) continue;
-    const int coef = (qk.x == r) - (qk.y == r);
-    if (coef != 0) acc += coef * (double)dxin[(base + kk) * H + j];
+  int stages = e1 - e0;
+#pragma unroll
+  for (int off = 16; off >= L; off >>= 1) stages = max(stages, __shfl_xor_sync(kFull, stages, off));
+  for (int e = 0; e < stages; e += L) {
+    const int n = min(L, e1 - e0 - e);  // this row's entries of the stage (may be <= 0)
+    int kk = 0;
+    int4 qk = make_int4(0, 0, 0, 0);
+    if (s < n) {
+      kk = inc_idx[e0 + e + s];
+      check_row(kk, cap);
+      qk = idxb[kk];
+    }
+    const int width = min(L, stages - e);
+    for (int u0 = 0; u0 < width; u0 += kDhAhead) {
+      float4 v[kDhAhead][CPL];
+#pragma unroll
+      for (int u = 0; u < kDhAhead; ++u) {
+        const int ku = __shfl_sync(kFull, kk, u0 + u, L);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+          if (u0 + u < n && s + c * L < H4) v[u][c] = dxb[ku * H4 + c * L];
+      }
+      // the staged edge's coefficient, formed where it is first needed so
+      // that its idx load overlaps the first rows' loads
+      const int coef = kind_of(qk) == 1 ? (qk.x == r) - (qk.y == r) : 0;
+#pragma unroll
+      for (int u = 0; u < kDhAhead; ++u) {
+        const int cu = __shfl_sync(kFull, coef, u0 + u, L);
+        if (u0 + u < n && cu != 0) {
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            acc[c][0] += cu * (double)v[u][c].x;
+            acc[c][1] += cu * (double)v[u][c].y;
+            acc[c][2] += cu * (double)v[u][c].z;
+            acc[c][3] += cu * (double)v[u][c].w;
+          }
+        }
+      }
+    }
   }
-  dh[row * H + j] = (float)acc;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int k = s + c * L;
+    if (live && k < H4)
+      dh[row * H4 + k] = make_float4((float)acc[c][0], (float)acc[c][1], (float)acc[c][2],
+                                     (float)acc[c][3]);
+  }
 }
 
 // ----------------------------------------------------------------- host ----
@@ -1145,27 +1245,25 @@ extern "C" int tm_round_bwd_dw(const void* h, const void* idx, const void* xin, 
 }
 
 // idx, inc_ptr, inc_idx as tm_round_fwd; dxin, ddir from tm_round_bwd_gru;
-// dh f32[B, cap, H], every element written.
+// dh f32[B, cap, H], every element written; dxin, ddir and dh 16-byte
+// aligned.
 extern "C" int tm_round_bwd_dh(const void* idx, const void* inc_ptr, const void* inc_idx,
                                int n_inc, const void* dxin, const void* ddir, void* dh, int B,
                                int cap, int H, void* stream) {
   if (!width_ok(H)) return (int)cudaErrorInvalidValue;
   if (B == 0 || cap == 0) return (int)cudaSuccess;
   const int64_t nrows = (int64_t)B * cap;
-  const int rows_per_cta = kThreads / H;
-  const unsigned grid = (unsigned)((nrows + rows_per_cta - 1) / rows_per_cta);
   const cudaStream_t s = (cudaStream_t)stream;
-  const auto launch = [&](auto kernel) {
+  const auto launch = [&](auto kernel, int L) {
+    const int rows_per_cta = kThreads / L;
+    const unsigned grid = (unsigned)((nrows + rows_per_cta - 1) / rows_per_cta);
     kernel<<<grid, kThreads, 0, s>>>((const int4*)idx, (const int*)inc_ptr, (const int*)inc_idx,
-                                     n_inc, (const float*)dxin, (const float*)ddir, (float*)dh,
-                                     cap, nrows, H);
+                                     n_inc, (const float4*)dxin, (const float4*)ddir,
+                                     (float4*)dh, cap, nrows, H / 4);
     return (int)cudaGetLastError();
   };
-  switch (H) {
-    case 16: return launch(round_bwd_dh_kernel<16>);
-    case 32: return launch(round_bwd_dh_kernel<32>);
-    case 64: return launch(round_bwd_dh_kernel<64>);
-    case 128: return launch(round_bwd_dh_kernel<128>);
-    default: return launch(round_bwd_dh_kernel<0>);
-  }
+  if (H <= 32) return launch(round_bwd_dh_kernel<8, 1>, 8);
+  if (H <= 64) return launch(round_bwd_dh_kernel<16, 1>, 16);
+  if (H <= 128) return launch(round_bwd_dh_kernel<32, 1>, 32);
+  return launch(round_bwd_dh_kernel<32, 2>, 32);
 }

@@ -71,8 +71,10 @@ LIBRARIES = {
                "tm_round_bwd_dh": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P]}),
     "loss": (os.path.join(_PKG, "csrc", "loss_kernels.cu"),
              os.path.join(BUILD_DIR, "libtm_loss.so"),
-             {"tm_edge_loss_l1": [_P] * 10 + [_I] * 4 + [_P],
-              "tm_edge_loss_l2": [_P] * 9 + [_I] * 3 + [_P],
+             {"tm_edge_loss_l2_tiles": [_I],
+              "tm_edge_loss_bwd_scratch_floats": [_I] * 4,
+              "tm_edge_loss_l1": [_P] * 10 + [_I] * 4 + [_P],
+              "tm_edge_loss_l2": [_P] * 10 + [_I] * 3 + [_P],
               "tm_edge_loss_bwd": [_P] * 15 + [_I] * 4 + [_P]}),
     "dcn": (os.path.join(_PKG, "csrc", "dcn_kernels.cu"),
             os.path.join(BUILD_DIR, "libtm_dcn.so"),

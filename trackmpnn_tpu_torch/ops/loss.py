@@ -70,13 +70,19 @@ def edge_loss_l1_reference(h_eo, w_e, b_e, lbl, mask3, ebnt):
     pallas_loss.py:88)."""
     P, na, nt, K = h_eo.shape
     logits = ((h_eo.reshape(-1, K) @ w_e).reshape(P, na, nt) + b_e) * mask3
+    return (logits, *edge_loss_row_stats(logits, lbl, mask3, ebnt))
+
+
+def edge_loss_row_stats(logits, lbl, mask3, ebnt):
+    """L1's row statistics (r_min, m_r, s_r [P, na]) of the logits."""
+    P, na, nt = logits.shape
     lblb = (lbl * mask3) > 0.5
     r_min = torch.where(lblb, _rowid(ebnt, na, nt), BIG).amin(2)
     mb = mask3 > 0.5
     m_r = torch.where(mb, logits, NEG).amax(2)
     safe_r = torch.where(m_r > NEG / 2, m_r, 0.0)
     s_r = torch.where(mb, torch.exp(logits - safe_r[:, :, None]), 0.0).sum(2)
-    return logits, r_min, m_r, s_r
+    return r_min, m_r, s_r
 
 
 def edge_loss_glue(r_min, m_r, s_r, mask3, ebnt, active_idx, act_m, nD):
@@ -214,11 +220,16 @@ def _l2_cuda(logits, lbl, mask3, ebnt, bna, sel1g, lsedg, sizedg):
     out = torch.empty(P, 8, dtype=f32, device=mask3.device)
     if logits.numel() == 0:
         return out.zero_()
+    lib = _build.load("loss")
+    # the column tiles' f64 sums where a block takes more than one CTA
+    tiles = lib.tm_edge_loss_l2_tiles(nt)
+    scratch = torch.empty(P * tiles * 8 if tiles > 1 else 1, dtype=torch.float64,
+                          device=mask3.device)
     with torch.cuda.device(mask3.device):
-        rc = _build.load("loss").tm_edge_loss_l2(
+        rc = lib.tm_edge_loss_l2(
             logits.data_ptr(), lbl.data_ptr(), mask3.data_ptr(), ebnt.data_ptr(),
             bna.data_ptr(), sel1g.data_ptr(), lsedg.data_ptr(), sizedg.data_ptr(),
-            out.data_ptr(), P, na, nt, _stream())
+            out.data_ptr(), scratch.data_ptr(), P, na, nt, _stream())
     _launch("edge_loss_l2", rc)
     return out
 
@@ -241,13 +252,16 @@ def _bwd_cuda(h_eo, w_e, logits, lbl, mask3, ebnt, bna, sel1g, lsedg, sizedg, wg
     if logits.numel() == 0:
         dheo.zero_(), dw.zero_()
     else:
-        partials = torch.empty(P, K + 1, dtype=f32, device=dev)
+        lib = _build.load("loss")
+        # the column statistics and the per-tile partials of d w_e | d b_e
+        scratch = torch.empty(lib.tm_edge_loss_bwd_scratch_floats(P, na, nt, K), dtype=f32,
+                              device=dev)
         with torch.cuda.device(dev):
-            rc = _build.load("loss").tm_edge_loss_bwd(
+            rc = lib.tm_edge_loss_bwd(
                 h_eo.data_ptr(), w_e.data_ptr(), logits.data_ptr(), lbl.data_ptr(),
                 mask3.data_ptr(), ebnt.data_ptr(), bna.data_ptr(), sel1g.data_ptr(),
                 lsedg.data_ptr(), sizedg.data_ptr(), wg.data_ptr(), d_partials.data_ptr(),
-                dheo.data_ptr(), partials.data_ptr(), dw.data_ptr(), P, na, nt, K, _stream())
+                dheo.data_ptr(), scratch.data_ptr(), dw.data_ptr(), P, na, nt, K, _stream())
         _launch("edge_loss_bwd", rc)
     return dheo, dw[:K].view(K, 1), dw[K:].view(1, 1)
 

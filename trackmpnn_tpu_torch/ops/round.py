@@ -343,6 +343,7 @@ def _round_bwd_dh_cuda(idxw, inc_ptr, inc_idx, dxin, ddir):
     _check("round_bwd_dh", dxin.device, dxin=(dxin, torch.float32, (B, cap, H)),
            ddir=(ddir, torch.float32, (B, cap, H)))
     _check_index("round_bwd_dh", dxin.device, idxw, B, cap, (inc_ptr, inc_idx))
+    _aligned("round_bwd_dh", dxin=dxin, ddir=ddir)
     dh = torch.empty_like(dxin)
     if dh.numel() == 0:
         return dh

@@ -3,7 +3,7 @@ round_bwd_dh), as built from several source trees, in one process on one
 card, on the same inputs.
 
     python -m trackmpnn_tpu_torch.tools.ab_round NAME=DIR [NAME=DIR ...]
-        [--hidden 64 128] [--rounds 6] [--profile] [--json PATH]
+        [--hidden 64 128] [--rounds 6] [--profile] [--step] [--json PATH]
 
 DIR is a directory holding trackmpnn_tpu_torch/csrc/round_kernels.cu and the
 headers it includes: a checkout's root, or the parent's from `git archive`.
@@ -23,12 +23,20 @@ h, idxw, incidence and GRU weights), its cotangent g is seeded, and the
 backward kernels' other inputs come from the plain versions.  Every tree's
 outputs are held against this checkout's plain versions evaluated in f64
 (the forward within atol 1e-5, the backward rtol 1e-4 with atol 1e-5 x each
-output's scale) and must be bitwise the same on a second launch.  Each round
+output's scale) and must be bitwise the same on a second launch; d h is
+also compared bitwise across the trees (round_bwd_dh keeps one summation
+order).  Each round
 times every tree's four kernels in turn, the order of the trees reversed
 every other round: 32 calls back to back behind a device-side sleep,
 between CUDA events (device time).  Prints each tree's µs a call in every
 round and their median, and writes them to --json; --profile also splits
 each tree's call between its launches by torch.profiler.
+
+--step also runs, for each tree in a process of its own with that tree's
+package on the path, chip_smoke.py's phase 11 step (the packed fused step at
+H 64): 3 warm-up steps, 10 between CUDA events, one profiled step
+(chip_smoke.py's device_profile: device busy ms and the round kernels'
+device ms).  Trees run in the order given, then reversed.
 """
 
 from __future__ import annotations
@@ -230,20 +238,86 @@ def kernel_us(fn, calls=5):
     return out
 
 
+# ------------------------------------------------------------ the packed step ----
+STEP_WARMUP, STEP_STEPS = 3, 10
+
+
+def step_worker() -> dict:
+    """chip_smoke.py's phase 11 step (packed_window_forward(fused_round=True),
+    its backward and Adam, H 64) of the tree whose package is on the path."""
+    import time
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import optim, packed
+
+    schedules, cap, t_cap, _ = cs.packed_workload(np)
+    pb = packed.pack_schedules(schedules, cap, t_cap, device="cuda")
+    cfg, params, stats = cs.row_model(torch)
+    params = train_block.trainable(cs.to_device(params, "cuda"))
+    stats = cs.to_device(stats, "cuda")
+    opt = optim.make_optimizer(train_block.param_leaves(params), cs.TRAIN_LR, cs.TRAIN_WD)
+
+    def step():
+        nonlocal stats
+        opt.zero_grad(set_to_none=True)
+        loss, aux = packed.packed_window_forward(params, stats, cfg, pb, False,
+                                                 fused_round=True)
+        loss.backward()
+        opt.step()
+        stats = aux["batch_stats"]
+        return loss.detach()
+
+    for _ in range(STEP_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEP_STEPS):
+        loss = step()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / STEP_STEPS
+    prof = cs.device_profile(torch, step, wall, match="round_")
+    return {"ms_per_step_events": start.elapsed_time(end) / STEP_STEPS,
+            "ms_per_step_wall": wall * 1e3, "device_busy_ms": prof["device_busy_ms"],
+            "round_kernels_ms": prof["matched_ms"], "loss": float(loss)}
+
+
+def run_step(tree: str) -> dict:
+    """step_worker() in a process of its own with `tree`'s package first on
+    the path (and its own build directory)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-worker"],
+                          cwd=os.path.abspath(tree), env=env, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"the packed step of tree {tree} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="+", help="NAME=DIR")
+    ap.add_argument("trees", nargs="*", help="NAME=DIR")
     ap.add_argument("--hidden", type=int, nargs="+", default=[64, 128])
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--profile", action="store_true",
                     help="also split each call between its launches by torch.profiler")
+    ap.add_argument("--step", action="store_true",
+                    help="also time each tree's packed fused step (chip_smoke.py phase 11)")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--step-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
+    if args.step_worker:
+        print(json.dumps(step_worker()))
+        return 0
     trees = dict(t.split("=", 1) for t in args.trees)
     libs = build_trees(trees, os.path.join(_build.BUILD_DIR, "ab_round"))
-    result = {"card": torch.cuda.get_device_name(0), "us": {}}
+    result = {"card": torch.cuda.get_device_name(0), "us": {}, "step": {}}
     with torch.inference_mode():
         for H in args.hidden:
             rargs, live = widest_round(H)
@@ -256,12 +330,19 @@ def main(argv=None) -> int:
                       if lib.current or H in FIRST_DESIGN_WIDTHS}
             runs = {name: launchers(lib, rargs, g, xin, d4, dxin, ddir)
                     for name, lib in usable.items()}
+            first_dh = None
             for name, fns in runs.items():
                 for k in KERNELS:
                     got = [t.clone() for t in fns[k]()]
                     again = fns[k]()
                     torch.cuda.synchronize()
                     hold(name, k, got, again, want[k])
+                    if k == "round_bwd_dh":  # one summation order in every tree
+                        first_dh = first_dh or (name, got[0])
+                        same = torch.equal(got[0], first_dh[1])
+                        result.setdefault("dh_bitwise", {})[f"H {H} {name}"] = same
+                        print(f"round_bwd_dh H {H} {name}: d h bitwise equal to "
+                              f"{first_dh[0]}'s: {same}", flush=True)
             shape = f"B {h.shape[0]}, cap {h.shape[1]}, H {H}, live rows {live}"
             print(f"H {H}: {shape}; trees {list(runs)} hold their plain versions (f64) and are "
                   f"bitwise on a second launch", flush=True)
@@ -286,6 +367,15 @@ def main(argv=None) -> int:
                               flush=True)
             del runs, rargs, h, idxw, g, xin, d4, dxin, ddir, want
             torch.cuda.empty_cache()
+    if args.step:
+        order = list(trees)
+        for tree in order + order[::-1]:
+            r = run_step(trees[tree])
+            result["step"].setdefault(tree, []).append(r)
+            print(f"step {tree}: {r['ms_per_step_events']:.3f} ms/step (events), "
+                  f"{r['ms_per_step_wall']:.3f} (host wall), device busy "
+                  f"{r['device_busy_ms']:.3f} ms, round kernels {r['round_kernels_ms']:.3f} ms, "
+                  f"loss {r['loss']:.6g}", flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
