@@ -266,11 +266,33 @@ failure exits non-zero:
     launches of each stacked attention kernel (gat_scores_fwd / _bwd,
     gat_aggregate_fwd / _bwd) and 3T x 3 window_scatter every step, no
     single-head attention kernel, its ms a step.
+24. Msg concat (the edge GRU's input [h[past] | h[fut]], w_ih [2H, 3H]):
+    (b) phase 3's first sequence served with a concat model (features 2d,
+    nhidden 64, seeded weights): one gather_concat (#1's concat mode) and
+    one signed_segment_sum launch a branch and forward, no fused_edge_gru
+    or gather_diff, tracks identical to the CPU's, scores within 1e-4;
+    (c) phase 10's batch-1 step with concat: the first step card against
+    CPU to phase 5's tolerances, 20 timed steps after 3, each valid round
+    exactly one gather_concat, one signed_segment_sum, one
+    segment_sum_halves (#2's halves mode, gather_concat's backward) and one
+    gather_diff (signed_segment_sum's backward); (a) gather_concat bitwise
+    equal to its plain version and segment_sum_halves within atol / rtol
+    1e-5 of its plain version, each bitwise on a relaunch and timed beside
+    its plain version and bound (the halves also beside one index_add_), at
+    (c)'s widest round and at phase 2's window; (d) phase 18's block step at
+    the default features with concat (sign +1, ga and gb the two halves of
+    w_ih): the default composition timed with 45 / 45 / 90 block launches a
+    step, es_kernel and fused_loss a first step each, all three card
+    against CPU; (e) the training CLI with --msg-type concat, one epoch on
+    phase 23's tree (launches held on every step, validation through
+    gather_concat), then the infer CLI on its best checkpoint over phase 4's
+    test tree (two result files, gather_concat launched, no fused_edge_gru).
 
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
-fused_edge_gru phase 17's; the single-head attention kernels phase 19's
-per-head route; kernel #8's rows say 0 with a note.  A line gives the
+fused_edge_gru phase 17's, gather_concat and segment_sum_halves (rows at
+phase 2's window) phase 24 (c)'s; the single-head attention kernels phase
+19's per-head route; kernel #8's rows say 0 with a note.  A line gives the
 incidence builds (device or host time, counts a path).  The line before
 the last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
@@ -638,7 +660,7 @@ def kernel_phase(torch, np, mp, tracker_mod, view_mod):
     h_wide = torch.randn(cap, EDGE_GRU_WIDE, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     wide = edge_gru_row(torch, mp, h_wide, past, fut, em, g.n, f"serving, H {EDGE_GRU_WIDE}")
-    return rows, wide
+    return rows, wide, (h, past, fut, em, cap, view.inc)
 
 
 @contextlib.contextmanager
@@ -742,12 +764,19 @@ def device_profile(torch, run, wall_s, ranges=(), match=None):
     return out
 
 
+def served_edge_gru(cfg):
+    """The kernel a served forward's edge GRU launches once a branch:
+    fused_edge_gru with msg 'diff', gather_concat (beside gru_cell's
+    products) with 'concat'."""
+    return "gather_concat" if cfg.msg_type == "concat" else "fused_edge_gru"
+
+
 def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=None):
     """Serve `seqs` with the Tracker on the card, the launch counters set to
     0 just before and read just after: each feature branch launches
-    fused_edge_gru and signed_segment_sum once a forward (no gradient is
-    recorded) and gather_diff never, and each forward's view builds one
-    incidence, which its branches share.  Profile the first sequence, then rerun
+    fused_edge_gru (gather_concat with msg 'concat') and signed_segment_sum
+    once a forward (no gradient is recorded), and gather_diff never, and
+    each forward's view builds one incidence, which its branches share.  Profile the first sequence, then rerun
     all on the CPU, where the plain versions run: identical tracks and
     per-step scores within STEP_SCORE_ATOL.  `warm` (X, y) runs first
     (cuBLAS handles, the allocator).  Returns the summary; `keep`, a dict,
@@ -764,8 +793,8 @@ def serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, what, keep=No
     launches = {**mp.LAUNCHES, **mp.BUILDS}
     forwards = sum(len(steps) for steps, _ in runs)
     nb = len(cfg.branches)
-    expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
-                "fused_edge_gru": nb * forwards, "segment_incidence": forwards}
+    expected = {**dict.fromkeys(mp.LAUNCHES, 0), "signed_segment_sum": nb * forwards,
+                served_edge_gru(cfg): nb * forwards, "segment_incidence": forwards}
     if launches != expected:
         fail(f"{what}: launches and incidence builds {launches} in {forwards} forwards of {nb} "
              f"branches, expected {expected}")
@@ -1074,11 +1103,12 @@ def block_incidence_host(np, block_ops, bb, what):
 
 def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
                    fused_loss=False, features="2d", workload=None, gat_fused=True, timed=True,
-                   keep1=None, hidden=HIDDEN):
+                   keep1=None, hidden=HIDDEN, msg_type="diff"):
     """Phase 5 (heads = 0), 7, 13 (es_kernel, with or without fused_loss),
     18 (features 2d+temp+vis on `workload`: the default composition timed,
-    es_kernel and fused_loss a first step) or 19 (the same with 3 heads on
-    either attention route): the block train step on bench.py's workload.
+    es_kernel and fused_loss a first step), 19 (the same with 3 heads on
+    either attention route) or 24 (d) (phase 18 with msg_type 'concat'):
+    the block train step on bench.py's workload.
     The first step's launches are counted (the counters set to 0 just
     before, read just after) and must be one step's expected launches; with
     `timed`, 3 warm-up steps, 20 timed steps counted the same way and a
@@ -1096,6 +1126,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         what = f"{what}, {features}"
     if hidden != HIDDEN:
         what = f"{what}, nhidden {hidden}"
+    if msg_type != "diff":
+        what = f"{what}, msg {msg_type}"
     flags = [k for k, on in (("es_kernel", es_kernel), ("fused_loss", fused_loss),
                              ("per-head route", heads and not gat_fused)) if on]
     if flags:
@@ -1108,7 +1140,7 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
              f"{block_ops.BUILDS['block_incidence'] - built} times, expected once")
     block_incidence_host(np, block_ops, bb, what)
     live_cells = int((bb.blk_na * bb.blk_nt).sum())
-    cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=hidden, msg_type="diff",
+    cfg = mpnn.ModelConfig(features=features, ncategories=3, nhidden=hidden, msg_type=msg_type,
                            nattheads=heads)
     nb = len(cfg.branches)
     print(f"{what} inputs: B {bb.n_windows}, T {t_cap}, capD {bb.capD}, na_cap {bb.na_cap}, "
@@ -1720,7 +1752,7 @@ def gat_serving_phase(torch, np, mp):
     runs, fwd_ms, walls = serve(gpu, seq, np)
     launches = dict(mp.LAUNCHES)
     forwards = len(runs[0][0])
-    if launches != {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": forwards}:
+    if launches != {**dict.fromkeys(mp.LAUNCHES, 0), "fused_edge_gru": forwards}:
         fail(f"GAT serving: launches {launches} over {forwards} forwards, expected "
              "fused_edge_gru once a forward, no gather_diff and no signed_segment_sum")
     cpu_runs, _, _ = serve(Tracker(params, stats, cfg, tcfg, device="cpu"), seq, np)
@@ -2096,8 +2128,7 @@ def batch1_phase(torch, np, mp, round_ops, packed_wl):
 
     losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES, mp.BUILDS,
                                                                     round_ops.LAUNCHES))
-    check_launches(what, launches, {"gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
-                                    "fused_edge_gru": 0, "segment_incidence": 0,
+    check_launches(what, launches, {**row_step_launches("diff", valid), "segment_incidence": 0,
                                     **dict.fromkeys(round_ops.LAUNCHES, 0)})
     if not np.all(np.isfinite(losses)):
         fail(f"{what} loss not finite: {losses}")
@@ -2275,8 +2306,7 @@ def packed_phase(torch, np, mp, round_ops, packed_wl):
     losses_u, events_u, wall_u, launches_u = timed_steps(torch, run_u, counters)
     check_launches("packed training (unfused)", launches_u,
                    {**dict.fromkeys(round_ops.LAUNCHES, 0),
-                    "gather_diff": 2 * valid, "signed_segment_sum": 2 * valid,
-                    "fused_edge_gru": 0, "segment_incidence": 0})
+                    **row_step_launches("diff", valid), "segment_incidence": 0})
     if not np.all(np.isfinite(losses_u)):
         fail(f"packed training (unfused) loss not finite: {losses_u}")
     print(f"packed training (unfused, make_packed_train_step): {events_u:.3f} ms/step (CUDA "
@@ -3176,7 +3206,7 @@ def batch_tracker_phase(torch, np, mp, served, full):
     wall = time.perf_counter() - t0  # run returns after the last scores came back
     phase_s = dict(tracker.phase_s)
     launches, forwards, nb = {**mp.LAUNCHES, **mp.BUILDS}, tracker.n_forwards, len(cfg.branches)
-    expected = {"gather_diff": 0, "signed_segment_sum": nb * forwards,
+    expected = {**dict.fromkeys(mp.LAUNCHES, 0), "signed_segment_sum": nb * forwards,
                 "fused_edge_gru": nb * forwards, "segment_incidence": forwards}
     if launches != expected:
         fail(f"{what}: launches and incidence builds {launches} in {forwards} cohort forwards "
@@ -3326,15 +3356,25 @@ class ChunkRecorder:
                 float(np.mean([h for _, h in self.calls])) * 1e3)
 
 
-def batch1_expect(nb):
+def batch1_expect(nb, msg_type="diff"):
     """The batch-1 step's launches: gather_diff and signed_segment_sum once a
-    branch and valid step forward and once as each other's backward; no
-    incidence build (the step batch's serves every round)."""
+    branch and valid step forward and once as each other's backward; with
+    msg 'concat' gather_concat in gather_diff's place, its backward
+    segment_sum_halves, and gather_diff only as signed_segment_sum's
+    backward; no incidence build (the step batch's serves every round)."""
     def expect(sb):
-        v = 2 * nb * int(sb.step_valid.sum())
-        return {"gather_diff": v, "signed_segment_sum": v, "fused_edge_gru": 0,
-                "segment_incidence": 0}
+        v = nb * int(sb.step_valid.sum())
+        return {**row_step_launches(msg_type, v), "segment_incidence": 0}
     return expect
+
+
+def row_step_launches(msg_type, v):
+    """mp's launches in a row-layout step of v valid branch rounds."""
+    if msg_type == "concat":
+        return {"gather_diff": v, "signed_segment_sum": v, "fused_edge_gru": 0,
+                "gather_concat": v, "segment_sum_halves": v}
+    return {"gather_diff": 2 * v, "signed_segment_sum": 2 * v, "fused_edge_gru": 0,
+            "gather_concat": 0, "segment_sum_halves": 0}
 
 
 def block_expect(nb):
@@ -3485,7 +3525,7 @@ def train_cli_phase(torch, np, mp, block_ops, gat_ops):
     val_fwd = sum(hist["val_forwards"])
     trained = {k: sum(s["launched"][k] for s in steps.steps) for k in launches}
     # one incidence a step batch (built before its step) and a validation forward
-    want = {"gather_diff": trained["gather_diff"],
+    want = {**dict.fromkeys(mp.LAUNCHES, 0), "gather_diff": trained["gather_diff"],
             "signed_segment_sum": trained["signed_segment_sum"] + nb3 * val_fwd,
             "fused_edge_gru": nb3 * val_fwd, "segment_incidence": len(steps.steps) + val_fwd}
     if launches != want or val_fwd == 0:
@@ -3667,6 +3707,224 @@ def train_cli_phase(torch, np, mp, block_ops, gat_ops):
     return out
 
 
+# msg concat's two kernels compute what the JAX package leaves to XLA: the
+# node support's concatenation and its VJP (trackmpnn_tpu/models/mpnn.py)
+CONCAT_REPLACES = "trackmpnn_tpu/models/mpnn.py:125"
+CONCAT_NOTES = {
+    "gather_concat": "kernel #1's concat mode (gather_rows_kernel<true>): msg concat's node "
+                     "support, which the JAX package computes in XLA",
+    "segment_sum_halves": "kernel #2's halves mode (signed_pull_kernel<true>): gather_concat's "
+                          "VJP, which the JAX package takes by XLA's autodiff"}
+
+
+def concat_kernel_rows(torch, mp, concat_args, halves_args, where):
+    """Phase 24 (a): gather_concat on concat_args (h, past, fut, mask)
+    bitwise equal to its plain version, segment_sum_halves on halves_args
+    (g, past, fut, mask, n, inc) within SCATTER_RTOL / ATOL of its plain
+    version (f64 sums in another order, rounded once), each bitwise the same
+    on a second launch; timed beside its plain version, its bytes bound and,
+    for the halves, one index_add_ over the doubled incidence.  Returns the
+    two rows."""
+    rows = []
+    h, past, fut, em = concat_args
+    N, H = h.shape
+    kernel = lambda: mp.gather_concat_raw(h, past, fut, em)
+    plain = lambda: mp.gather_concat_reference(h, past, fut, em)
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        fail(f"gather_concat ({where}) is not bitwise its plain version "
+             f"({float((got - want).abs().max())}) or a second launch")
+    endpoints = int(torch.unique(torch.cat([past[em], fut[em]])).numel())
+    # the endpoints' rows of h and 9 B of index and mask a row read, out written
+    b, by = bound_ms(9 * N + endpoints * H * 4 + N * 2 * H * 4, 0)
+    rows.append({"name": "gather_concat", "shape": f"N {N}, H {H}, edge rows {int(em.sum())}",
+                 "max_abs_err": 0.0, "ms": cuda_time_ms(kernel),
+                 "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+                 "plain_ms": cuda_time_ms(plain), "bound_ms": b, "bound_by": by,
+                 "library_ms": None})
+    g, past, fut, em, n, inc = halves_args
+    N, H = g.shape[0], g.shape[1] // 2
+    n_edges = int(em.sum())
+    kernel = lambda: mp.segment_sum_halves_raw(g, past, fut, em, n, inc)
+    plain = lambda: mp.segment_sum_halves_reference(g, past, fut, em, n)
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SCATTER_RTOL, atol=SCATTER_ATOL):
+        fail(f"segment_sum_halves ({where}) differs from its plain version by {err} (atol "
+             f"{SCATTER_ATOL}, rtol {SCATTER_RTOL})")
+    if not torch.equal(got, again):
+        fail(f"segment_sum_halves ({where}) is not bitwise the same on a second launch")
+    # yardstick: one f32 index_add_ of [g[:, :H]; g[:, H:]] at [past; fut]
+    # (its atomics' f32 order: held at 1e-4, as signed_segment_sum's)
+    idx2 = torch.cat([torch.where(em, past, n), torch.where(em, fut, n)]).long()
+    vals2 = torch.cat([g[:, :H], g[:, H:]])
+    library = lambda: torch.zeros(n + 1, H, device="cuda").index_add_(0, idx2, vals2)
+    if not torch.allclose(library()[:n], want, rtol=1e-4, atol=1e-4):
+        fail(f"index_add_ yardstick ({where}) does not compute the same function")
+    # g's edge rows and 9 B of index and mask a row read once, out written once
+    b, by = bound_ms(9 * N + n_edges * 2 * H * 4 + n * H * 4, 2 * n_edges * H)
+    rows.append({"name": "segment_sum_halves", "shape": f"N {N}, n {n}, H {H}, edge rows "
+                 f"{n_edges}", "max_abs_err": err, "ms": cuda_time_ms(kernel),
+                 "call_ms": cuda_time_ms(kernel, queue_ahead=False),
+                 "plain_ms": cuda_time_ms(plain), "bound_ms": b, "bound_by": by,
+                 "library_ms": cuda_time_ms(library)})
+    for r in rows:
+        r.update(route="cuda", source="trackmpnn_tpu_torch/csrc/mp_kernels.cu",
+                 replaces=CONCAT_REPLACES, note=CONCAT_NOTES[r["name"]], where=where)
+        lib = r["library_ms"]
+        print(f"kernel {r['name']} ({where}; {r['shape']}): device {r['ms'] * 1e3:.2f} us, per "
+              f"call with the host's launch cost {r['call_ms'] * 1e3:.2f} us (plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']}, library {'-' if lib is None else '%.2f us' % (lib * 1e3)}), "
+              f"max abs err {r['max_abs_err']:.3g}, bitwise on a second launch")
+    return rows
+
+
+def concat_phase(torch, np, mp, block_ops, gat_ops, loss_ops, packed_wl, default_wl,
+                 serving_in):
+    """Phase 24, msg concat: (b) one phase-3 sequence served (features 2d),
+    card against CPU; (c) phase 10's batch-1 step, the first step card
+    against CPU, then timed; (a) the two concat kernels at (c)'s widest
+    round and at phase 2's window (serving_in); (d) phase 18's block step
+    in its three compositions, card against CPU; (e) the training CLI, one
+    epoch on phase 23's tree, then the infer CLI on its checkpoint over
+    phase 4's test tree.  Returns (summary, the kernels line's two rows)."""
+    from trackmpnn_tpu_torch.cli import infer
+    from trackmpnn_tpu_torch.cli import train as cli
+    from trackmpnn_tpu_torch.data.synthetic import make_sequence
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+    from trackmpnn_tpu_torch.train import optim
+    from trackmpnn_tpu_torch.train import step as train_step
+
+    out = {}
+    cfg = mpnn.ModelConfig(features="2d", ncategories=3, nhidden=HIDDEN, msg_type="concat")
+    params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
+    stats0 = mpnn.init_batch_stats(cfg)
+
+    # (b) serving
+    X, bp, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=SERVE_FRAMES, ncategories=3,
+                             seed=SERVE_SEEDS[0])
+    Xw, bpw, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=12, seed=99)
+    out["serving"] = serve_and_check(torch, np, mp, cfg, params0, stats0,
+                                     [(X, bp[:, :2].astype(np.int64))],
+                                     (Xw, bpw[:, :2].astype(np.int64)), "serving (msg concat)")
+
+    # (c) the batch-1 step
+    what = "row-layout training, batch 1 (msg concat)"
+    schedules, cap, t_cap, edges = packed_wl
+    ws, edges = schedules[0], edges[0]
+    valid = int(ws.step_valid.sum())
+    step = train_step.make_train_step(cfg, tp_classifier=False)
+    sb = train_step.schedule_to_device(ws, device="cuda")
+    params = train_block.trainable(to_device(params0, "cuda"))
+    stats = to_device(stats0, "cuda")
+    opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
+    widest = {}
+    edge_rows = lambda a: int(a[3].sum())
+    with record_widest(mp, "gather_concat_raw", widest, lambda a: "concat", edge_rows), \
+            record_widest(mp, "segment_sum_halves_raw", widest, lambda a: "halves", edge_rows):
+        params, stats, loss1, aux1 = step(params, stats, opt, sb)
+    grads1 = [p.grad.detach().clone() for p in train_block.param_leaves(params)]
+    torch.cuda.synchronize()
+
+    def run():
+        nonlocal params, stats
+        params, stats, loss, _ = step(params, stats, opt, sb)
+        return loss
+
+    losses, events_ms, wall_ms, launches = timed_steps(torch, run, (mp.LAUNCHES, mp.BUILDS))
+    check_launches(what, launches, {**row_step_launches("concat", valid), "segment_incidence": 0})
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what} loss not finite: {losses}")
+    profile = device_profile(torch, run, wall_ms / 1e3)
+    params_c = train_block.trainable(params0)
+    opt_c = optim.make_optimizer(train_block.param_leaves(params_c), TRAIN_LR, TRAIN_WD)
+    params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c,
+                                      train_step.schedule_to_device(ws, device="cpu"))
+    total = lambda aux: {**aux, **{k: aux[k].sum() for k in ("tp", "fp", "fn")}}
+    worst, gscale = first_step_agrees(torch, train_block, loss1, total(aux1), grads1, loss_c,
+                                      total(aux_c), params_c, what)
+    out["batch1"] = {"valid_steps": valid, "steps": TRAIN_STEPS, "ms_per_step_events": events_ms,
+                     "ms_per_step_wall": wall_ms, "edges_per_s": edges / (wall_ms / 1e3),
+                     "launches": launches, "loss_first": float(loss1),
+                     "cpu_loss_first": float(loss_c), "max_grad_err_vs_cpu": worst,
+                     "grad_scale": gscale, "profile_step": profile}
+    print(f"{what}: {TRAIN_STEPS} steps, {events_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} "
+          f"ms/step (host wall); launches a step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; vs CPU: loss "
+          f"{float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn equal, worst grad diff {worst:.3g} "
+          f"(largest |grad| {gscale:.3g})")
+
+    # (a) the kernels at (c)'s widest round and at phase 2's window
+    out["kernels_batch1"] = concat_kernel_rows(torch, mp, widest["concat"], widest["halves"],
+                                               "row layout, batch 1, msg concat")
+    h, past, fut, em, n, inc = serving_in
+    g = torch.randn(n, 2 * HIDDEN, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(24))
+    rows = concat_kernel_rows(torch, mp, (h, past, fut, em), (g, past, fut, em, n, inc),
+                              "serving")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+
+    # (d) the block step at the default features, three compositions
+    out["block"] = {}
+    for key, flags in (("default", {}), ("es_kernel", dict(es_kernel=True)),
+                       ("fused_loss", dict(fused_loss=True))):
+        summary, _, _ = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0,
+                                       features=DEFAULT_FEATS, workload=default_wl,
+                                       timed=key == "default", msg_type="concat", **flags)
+        out["block"][key] = summary
+
+    # (e) the training CLI, one epoch, then the infer CLI on its checkpoint
+    what = "train CLI (msg concat)"
+    root = os.path.join(WORK, "train_cli", "kitti")  # phase 23's tree
+    dir_e = os.path.join(WORK, "train_cli", "concat")
+    nb3 = len(mpnn.ModelConfig(features=DEFAULT_FEATS).branches)
+    rec = StepRecorder(torch, (mp.LAUNCHES, mp.BUILDS), batch1_expect(nb3, "concat"))
+    zero_counters((mp.LAUNCHES, mp.BUILDS))
+    t0 = time.perf_counter()
+    with patched(train_step, "make_train_step", rec.wrap):
+        hist = cli.main(["--dataset-root-path", root, "--detections", "rrc", "--log-schedule",
+                         "50", "--output-dir", dir_e, "--epochs", "1", "--msg-type", "concat"])
+    wall = time.perf_counter() - t0
+    losses = rec.check(what)
+    trained = {k: sum(s["launched"][k] for s in rec.steps) for k in mp.LAUNCHES}
+    val_fwd = sum(hist["val_forwards"])
+    want = {**trained, "gather_concat": trained["gather_concat"] + nb3 * val_fwd,
+            "signed_segment_sum": trained["signed_segment_sum"] + nb3 * val_fwd}
+    if dict(mp.LAUNCHES) != want or val_fwd == 0 or want["fused_edge_gru"] != 0:
+        fail(f"{what}: launches {dict(mp.LAUNCHES)}, expected {want} ({len(rec.steps)} train "
+             f"steps, {val_fwd} validation forwards of {nb3} branches)")
+    ev, host = rec.ms()
+    zero_counters((mp.LAUNCHES, mp.BUILDS))
+    infer_dir = os.path.join(WORK, "concat_infer")
+    t1 = time.perf_counter()
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        infer.main(["--snapshot", os.path.join(dir_e, "track-mpnn_best.npz"),
+                    "--dataset-root-path", os.path.join(WORK, "kitti"), "--output-dir",
+                    infer_dir, "--hungarian"])
+    infer_s = time.perf_counter() - t1
+    files = sorted(f for f in os.listdir(infer_dir) if f.endswith(".txt"))
+    lines = sum(len(open(os.path.join(infer_dir, f)).read().splitlines()) for f in files)
+    inferred = dict(mp.LAUNCHES)
+    if files != ["0000.txt", "0001.txt"] or lines == 0:
+        fail(f"{what}: the infer CLI wrote {files} ({lines} lines)")
+    if inferred["gather_concat"] == 0 or inferred["fused_edge_gru"] or inferred["gather_diff"]:
+        fail(f"{what}: the infer CLI launched {inferred}, expected gather_concat and no "
+             "fused_edge_gru or gather_diff")
+    out["cli"] = {"steps": len(rec.steps), "wall_s": wall, "history": hist,
+                  "ms_per_step_events": ev, "ms_per_step_wall": host,
+                  "infer_s": infer_s, "infer_lines": lines, "infer_launches": inferred}
+    print(f"{what}: {len(rec.steps)} batch-1 steps (launches held on every step), {ev:.3f} ms "
+          f"(events) / {host:.3f} ms (host) a step, wall {wall:.1f} s, losses {losses[0]:.5g} "
+          f"-> {losses[-1]:.5g}, val MOTA {hist['val_mota']}; the infer CLI on its checkpoint: "
+          f"{len(files)} result files ({lines} lines) in {infer_s:.1f} s, launches {inferred}")
+    return out, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -3715,7 +3973,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     # 2. kernels, 3. serving, 4. CLI: the serving path
-    kernels, edge_gru_wide = kernel_phase(torch, np, mp, tracker_mod, view_mod)
+    kernels, edge_gru_wide, serving_in = kernel_phase(torch, np, mp, tracker_mod, view_mod)
     serving = serving_phase(torch, np, mp)
     cli = cli_phase(torch, np)
     # 5. training, 6. block kernels: the training path
@@ -3788,6 +4046,10 @@ def main():
     del served
     # 23. the training CLI
     train_cli = train_cli_phase(torch, np, mp, block_ops, gat_ops)
+    # 24. msg concat: serving, the batch-1 step, its kernels, the block step, the CLIs
+    concat, concat_rows = concat_phase(torch, np, mp, block_ops, gat_ops, loss_ops, packed_wl,
+                                       default_wl, serving_in)
+    kernels += concat_rows
     # each serving kernel's launches on the path it runs on: gather_diff in
     # row-layout training (phase 10; a served forward takes fused_edge_gru),
     # signed_segment_sum serving (phase 3), fused_edge_gru the default
@@ -3816,6 +4078,7 @@ def main():
                        "default_training": default_training, "default_heads": default_heads,
                        "embedding": embedding, "full_serving": full,
                        "batch_tracker": batch_tracking, "train_cli": train_cli,
+                       "msg_concat": concat,
                        "incidence": INCIDENCE},
                       f, indent=1)
     print(f"incidence builds: {json.dumps(INCIDENCE)}")

@@ -157,15 +157,81 @@ def test_train_steps_lower_the_loss():
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("kw", [{"msg_type": "concat"},
-                                {"msg_type": "concat", "features": "2d vis"},
-                                {"msg_type": "concat", "features": "2d temp"}])
-def test_unported_configs_raise(kw):
-    """msg 'concat' is not ported, with one feature branch or more (the
-    branches themselves train: tests/test_torch_block_branches.py)."""
-    cfg = mpnn.ModelConfig(nhidden=HIDDEN)._replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block.make_block_train_step(cfg, tp_classifier=True)
+# ------------------------------------------------------------- msg concat ----
+VIS = 8
+CONCAT_KW = [{"msg_type": "concat"}, {"msg_type": "concat", "features": "2d vis"},
+             {"msg_type": "concat", "features": "2d temp"}]
+
+
+def feature_batches(features, n=2, seed0=3):
+    """batches()' windows with, per branch of `features` beyond 2d, the temp
+    columns (each detection's frame through data/common.py::
+    temporal_features) and VIS seeded normal vis columns."""
+    from trackmpnn_tpu_torch.data.common import temporal_features
+
+    rng = np.random.default_rng(seed0)
+    chunks = []
+    for X, y in training_chunks(n, seed0):
+        cols = [X]
+        if "temp" in features:
+            cols.append(temporal_features(y[:, :1].astype(np.float32)))
+        if "vis" in features:
+            cols.append(rng.normal(size=(len(X), VIS)))
+        chunks.append((np.concatenate(cols, 1).astype(np.float32), y))
+    j = [jschedule.build_window_schedule(X, y, cap=CAP, t_cap=TCAP) for X, y in chunks]
+    t = [schedule.build_window_schedule(X, y, cap=CAP, t_cap=TCAP) for X, y in chunks]
+    return jblock.build_block_batch(j, TCAP), block.build_block_batch(t, TCAP, device="cpu")
+
+
+@pytest.fixture(scope="module", params=CONCAT_KW,
+                ids=["2d", "2d vis", "2d temp"])
+def concat_case(request):
+    """JAX's loss, aux and grads of its block step (its XLA round, which
+    concatenates the endpoints into a 2H input) with msg 'concat', and the
+    inputs both packages share."""
+    base = dict(features="2d", ncategories=3, nhidden=HIDDEN, num_vis_feats=VIS)
+    jcfg = jmpnn.ModelConfig(**{**base, **request.param})
+    cfg = mpnn.ModelConfig(**{**base, **request.param})
+    jbb, tbb = feature_batches(cfg.features)
+    p_np, s_np = spread_weights(cfg, 11)
+
+    def f(p):
+        return jblock.block_window_forward(p, s_np, jcfg, jbb, True, defer_loss=True)
+
+    out = jax.jit(jax.value_and_grad(f, has_aux=True))(jax.tree_util.tree_map(jnp.asarray, p_np))
+    yield cfg, tbb, p_np, s_np, out
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("composition", ["default", "es_kernel", "fused_loss"])
+def test_concat_step_matches_jax(concat_case, composition):
+    """msg 'concat' (the round's input gates from the two halves of w_ih
+    with sign +1, JAX block.py:854-860) with one, or two feature branches,
+    in each composition: make_block_train_step's first step's loss, aux,
+    every gradient and the BN stats against JAX's block step."""
+    cfg, tbb, p_np, s_np, ((jl, jaux), jg) = concat_case
+    params, stats = weights.from_jax_params(p_np, s_np, cfg)
+    params = block.trainable(params)
+    opt = optim.make_optimizer(block.param_leaves(params), 1e-3, 5e-4)
+    step = block.make_block_train_step(cfg, True, es_kernel=composition == "es_kernel",
+                                       fused_loss=composition == "fused_loss")
+    params, new_stats, tl, taux = step(params, stats, opt, tbb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+    for k in ("loss_ce", "loss_f"):
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]), rtol=1e-4, atol=1e-6)
+    for k in ("tp", "fp", "fn"):
+        assert int(taux[k]) == int(jaux[k]), k
+    grads = weights.map_shaped(lambda leaf, s, path: leaf.grad, params, weights.param_shapes(cfg))
+    pairs = list(zip(leaves_np(grads, cfg), leaves_np(jg, cfg)))
+    for (path, a), (_, b) in pairs:
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=3e-5, err_msg=path)
+    w_ih = dict(p for p, _ in pairs)["branches/0/edge_gru/w_ih"]
+    assert w_ih.shape == (2 * HIDDEN, 3 * HIDDEN) and np.abs(w_ih[HIDDEN:]).max() > 0
+    got_stats = weights.map_shaped(lambda leaf, s, path: leaf, new_stats,
+                                   weights.stats_shapes(cfg))
+    for (path, a), (_, b) in zip(leaves_np(got_stats, cfg, weights.stats_shapes),
+                                 leaves_np(jaux["batch_stats"], cfg, weights.stats_shapes)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=3e-5, err_msg=path)
 
 
 # ------------------------------------------------------------ attention heads ----

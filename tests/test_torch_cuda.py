@@ -151,6 +151,8 @@ def test_segment_incidence_kernel_matches_its_plain_version(cuda, layout, cap, n
     "mp.signed_segment_sum(h, idx, bad, mask, 8)",
     "mp.signed_segment_sum(h, idx, bad, mask, 8, mp.segment_incidence(idx, bad, 8))",
     "mp.fused_edge_gru(h16, idx, bad, mask, w, w, b, b)",
+    "mp.gather_concat(h, bad, idx, mask)",
+    "mp.segment_sum_halves_raw(h16[:, :8].contiguous(), idx, bad, mask, 8)",
 ])
 def test_out_of_range_endpoint_traps_the_kernel(cuda, call):
     """An endpoint outside the rows is a CUDA error at the next
@@ -193,6 +195,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             mp.signed_segment_sum(hid, past, fut, edge, 64, bad)
     # a gradient is no refusal: the ops are autograd Functions
     assert mp.gather_diff(hid.requires_grad_(), past, fut, edge).requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(4096, 64), (32768, 64), (16384, 64), (300, 16), (1000, 128),
+                                 (5, 16), (200000, 64), (777, 100), (50, 4), (999, 264)])
+def test_gather_kernels_match_plain_versions(cuda, n, h):
+    """#1 in both modes (gather_diff, gather_concat) bitwise equal to its
+    plain version and on a relaunch, one launch a call: at the batch-1,
+    packed and serving row counts at H 64, at H 16 and 128, above one wave
+    of resident CTAs (200,000 rows: each group walks several rows), and at
+    widths whose lanes do not fill a power of two (100, 264)."""
+    hid, past, fut, edge = problem(n + 1, n, h, cuda)
+    for name, plain in (("gather_diff", mp.gather_diff_reference),
+                        ("gather_concat", mp.gather_concat_reference)):
+        op = getattr(mp, name)
+        before = mp.LAUNCHES[name]
+        got, again = op(hid, past, fut, edge), op(hid, past, fut, edge)
+        torch.cuda.synchronize()
+        assert mp.LAUNCHES[name] == before + 2
+        want = plain(hid, past, fut, edge)
+        assert got.shape == want.shape and torch.equal(got, want), name
+        assert torch.equal(got, again), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(4096, 64), (16384, 64), (300, 16), (1000, 128), (5, 4),
+                                 (777, 100)])
+def test_segment_sum_halves_matches_plain_version(cuda, n, h):
+    """The pull's halves mode (gather_concat's VJP) within atol 1e-5 of its
+    plain version evaluated in f64, with and without an incidence given,
+    bitwise the same on a relaunch, one launch a call; the autograd
+    backward of gather_concat is one launch of it and matches the CPU's."""
+    hid, past, fut, edge = problem(n + 2, n, h, cuda)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 2 * h)).astype(np.float32)
+                         ).to(cuda)
+    inc = mp.segment_incidence(past, fut, n)
+    before = mp.LAUNCHES["segment_sum_halves"]
+    given, again = (mp.segment_sum_halves_raw(g, past, fut, edge, n, inc) for _ in range(2))
+    built = mp.segment_sum_halves_raw(g, past, fut, edge, n)
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES["segment_sum_halves"] == before + 3
+    (want,) = in_f64(lambda a: mp.segment_sum_halves_reference(a, past, fut, edge, n), g)
+    torch.testing.assert_close(given, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(given, again) and torch.equal(given, built)
+    x = hid.requires_grad_(True)
+    launched = dict(mp.LAUNCHES)
+    (dx,) = torch.autograd.grad((mp.gather_concat(x, past, fut, edge, inc) * g).sum(), x)
+    assert {k: mp.LAUNCHES[k] - launched[k] for k in launched} == {
+        "gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0, "gather_concat": 1,
+        "segment_sum_halves": 1}
+    x_c = hid.detach().cpu().requires_grad_(True)
+    (dx_c,) = torch.autograd.grad((mp.gather_concat(x_c, past.cpu(), fut.cpu(), edge.cpu())
+                                   * g.cpu()).sum(), x_c)
+    torch.testing.assert_close(dx.cpu(), dx_c, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gather_concat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    hid, past, fut, edge = problem(1, 64, 16, cuda)
+    with pytest.raises(TypeError):
+        mp.gather_concat(hid, past.long(), fut, edge)
+    with pytest.raises(ValueError):  # not a multiple of 4
+        mp.gather_concat(hid[:, :6].contiguous(), past, fut, edge)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        mp.gather_concat(hid.view(-1)[1:1 + 64 * 12].view(64, 12), past, fut, edge)
+    with pytest.raises(ValueError):
+        mp.gather_concat(hid, past, fut.cpu(), edge)
+    g = torch.zeros(64, 32, device=cuda)
+    with pytest.raises(ValueError):  # halves of 12 columns: H 6
+        mp.segment_sum_halves_raw(g[:, :12].contiguous(), past, fut, edge, 64)
+    with pytest.raises(ValueError):
+        mp.segment_sum_halves_raw(g.view(-1)[1:1 + 64 * 16].view(64, 16), past, fut, edge, 64)
+    with pytest.raises(TypeError):
+        mp.segment_sum_halves_raw(g.double(), past, fut, edge, 64)
+    ptr, ent = mp.segment_incidence(past, fut, 64)
+    with pytest.raises(ValueError):
+        mp.segment_sum_halves_raw(g, past, fut, edge, 64, (ptr[:-1], ent))
 
 
 def gru_problem(seed, n, h, device):
@@ -802,9 +881,11 @@ def test_mp_autograd_launches_each_kernel_as_the_others_backward(cuda):
         (g_gd,) = torch.autograd.grad((mp.gather_diff(x, *idx) * cot.to(dev)).sum(), x)
         (g_ss,) = torch.autograd.grad((mp.signed_segment_sum(x, *idx, n) * cot.to(dev)).sum(), x)
         launched = {k: mp.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
+        assert launched == ({"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0,
+                             "gather_concat": 0, "segment_sum_halves": 0}
                             if dev == "cpu" else
-                            {"gather_diff": 2, "signed_segment_sum": 2, "fused_edge_gru": 0})
+                            {"gather_diff": 2, "signed_segment_sum": 2, "fused_edge_gru": 0,
+                             "gather_concat": 0, "segment_sum_halves": 0})
         grads[str(dev)] = (g_gd.cpu(), g_ss.cpu())
     torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], rtol=0, atol=1e-5)
     assert torch.equal(grads["cuda"][1], grads["cpu"][1])
@@ -1409,7 +1490,7 @@ def test_batch_tracker_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(a, b)
     assert {k: mp.LAUNCHES[k] - before[k] for k in before} == {
         "gather_diff": 0, "signed_segment_sum": tracker.n_forwards,
-        "fused_edge_gru": tracker.n_forwards}
+        "fused_edge_gru": tracker.n_forwards, "gather_concat": 0, "segment_sum_halves": 0}
 
 
 @pytest.mark.cuda

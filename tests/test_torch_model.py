@@ -200,10 +200,60 @@ def test_forward_matches_jax(features, weights_kind, train, with_hidden):
         assert (live > 0.5).any() and (live < 0.5).any()
 
 
-@pytest.mark.parametrize("cfg", [tmpnn.ModelConfig(msg_type="concat")])
-def test_unported_options_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmpnn.init_params(torch.Generator().manual_seed(0), cfg)
+# ------------------------------------------------------------- msg concat ----
+CONCAT_J = CFG_J._replace(msg_type="concat")
+CONCAT_T = CFG_T._replace(msg_type="concat")
+
+
+def test_concat_weights_round_trip():
+    """With msg 'concat' the edge GRU's w_ih is [2H, 3H] in init_params, as
+    JAX's (mpnn.py:86-90), and crosses both ways unchanged; a [H, 3H] one is
+    refused by name."""
+    p_np = jax.tree_util.tree_map(np.asarray, jmpnn.init_params(jax.random.key(7), CONCAT_J))
+    s_np = jax.tree_util.tree_map(np.asarray, jmpnn.init_batch_stats(CONCAT_J))
+    p = tmpnn.init_params(torch.Generator().manual_seed(0), CONCAT_T)
+    for a, b in zip(jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(p_np)):
+        assert tuple(a.shape) == b.shape
+    assert tuple(p["branches"][0]["edge_gru"]["w_ih"].shape) == (32, 48)
+    tp, ts = weights.from_jax_params(p_np, s_np, CONCAT_T)
+    back_p, back_s = weights.to_jax_params(tp, ts, CONCAT_T)
+    for a, b in zip(jax.tree_util.tree_leaves((back_p, back_s)),
+                    jax.tree_util.tree_leaves((p_np, s_np))):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="edge_gru/w_ih"):
+        weights.from_jax_params(p_np, s_np, CFG_T)
+
+
+@pytest.mark.parametrize("heads", [0, 2])
+@pytest.mark.parametrize("train", [False, True])
+def test_concat_forward_matches_jax(monkeypatch, train, heads):
+    """msg 'concat' forward against JAX's, in eval and train mode, with 0
+    and 2 heads (dropout 0 on both sides, as test_gat_forward_matches_jax):
+    hidden, logits, scores and BN stats within ATOL."""
+    monkeypatch.setattr(jmpnn, "ATT_DROPOUT", 0.0)
+    monkeypatch.setattr(tmpnn, "ATT_DROPOUT", 0.0)
+    cfg_j, cfg_t = CONCAT_J._replace(nattheads=heads), CONCAT_T._replace(nattheads=heads)
+    g, X, n_new = window_graph(num_tracks=6, num_frames=8, steps=3, seed=8)
+    cap = 512
+    jv, tv = views(g, X, n_new, cap)
+    p_np, s_np = spread_weights(cfg_t, 9)
+    p, s = weights.from_jax_params(p_np, s_np, cfg_t)
+    h_prev = np.random.default_rng(8).normal(size=(cap, 16)).astype(np.float32)
+    want, want_s = jmpnn.forward(p_np, s_np, cfg_j, jv, jnp.asarray(h_prev), train=train,
+                                 rng=jax.random.key(1))
+    got, got_s = tmpnn.forward(p, s, cfg_t, tv, torch.from_numpy(h_prev), train=train)
+    close(got.hidden, want.hidden)
+    close(got.logits, want.logits)
+    close(got.scores, want.scores)
+    for k in ("mean", "var"):
+        close(got_s["branches"][0]["bn"][k], want_s["branches"][0]["bn"][k])
+    live = got.scores[: g.n].numpy()
+    assert (live > 0.5).any() and (live < 0.5).any()
+
+
+def test_unknown_msg_type_is_refused():
+    with pytest.raises(ValueError, match="msg_type"):
+        tmpnn.init_params(torch.Generator().manual_seed(0), CFG_T._replace(msg_type="sum"))
 
 
 # ------------------------------------------------------------ attention heads ----

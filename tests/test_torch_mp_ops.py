@@ -114,3 +114,46 @@ def test_signed_segment_sum_refuses_a_gradient_for_n_other_than_rows():
         out = mp.signed_segment_sum(x, past, fut, edge, 65)
     assert out.shape == (65, 16)
     assert torch.equal(out[:64], mp.signed_segment_sum(hid, past, fut, edge, 64))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gather_concat_and_its_vjp_match_jax_node_support(seed):
+    """msg concat's node support against JAX's _node_support(h, g, 'concat')
+    (mpnn.py:123-125) and its VJP against jax.vjp, on a seeded view whose
+    detection and padding rows point at themselves, with a fifth of the
+    window's rows dead.  The forward is a copy (exact); the VJP,
+    segment_sum_halves, sums in f64 rounded once where XLA sums in f32
+    (atol 1e-5)."""
+    import jax
+
+    from torch_port_util import window_graph
+    from trackmpnn_tpu.graph import view as jview
+    from trackmpnn_tpu.models import mpnn as jmpnn
+    from trackmpnn_tpu_torch.graph import view as tview
+
+    g, X, n_new = window_graph(num_tracks=5, num_frames=8, steps=3, seed=seed)
+    cap = 512
+    is_det, past, fut, _ = tview.pack_slots(g, X, cap)
+    rows = np.arange(cap)
+    rng = np.random.default_rng(seed)
+    live = (rows < g.n) & (rng.random(cap) > 0.2)  # a fifth of the window's rows dead
+    assert ((past == rows) & (fut == rows)).sum() > 100 and (~is_det[:g.n] & ~live[:g.n]).any()
+    h = rng.normal(size=(cap, 16)).astype(np.float32)
+    cot = rng.normal(size=(cap, 32)).astype(np.float32)
+    jv = jview.GraphView(is_det=jnp.asarray(is_det), past=jnp.asarray(past),
+                         fut=jnp.asarray(fut), live=jnp.asarray(live),
+                         new=jnp.zeros(cap, bool), feat=jnp.zeros((cap, 1)))
+    want, vjp = jax.vjp(lambda x: jmpnn._node_support(x, jv, "concat"), jnp.asarray(h))
+    (want_dh,) = vjp(jnp.asarray(cot))
+    em = torch.from_numpy(live & ~is_det)
+    x = torch.from_numpy(h).requires_grad_(True)
+    tp, tf = torch.from_numpy(past), torch.from_numpy(fut)
+    got = mp.gather_concat(x, tp, tf, em)
+    (got_dh,) = torch.autograd.grad((got * torch.from_numpy(cot)).sum(), x)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    np.testing.assert_allclose(got_dh.numpy(), np.asarray(want_dh), rtol=0, atol=1e-5)
+    assert np.abs(got_dh.numpy()).max() > 0
+    # the plain versions are what a CPU tensor gets
+    assert torch.equal(got.detach(), mp.gather_concat_reference(x.detach(), tp, tf, em))
+    assert torch.equal(got_dh, mp.segment_sum_halves_reference(torch.from_numpy(cot), tp, tf,
+                                                               em, cap))

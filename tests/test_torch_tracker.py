@@ -48,6 +48,8 @@ CASES = {
                       nattheads=2),
     "temp_vis": dict(seq=lambda: with_temp_vis(*synthetic(4)),
                      cfg=dict(cur_win_size=5, hungarian=True), features="2d+temp+vis"),
+    "msg_concat": dict(seq=lambda: synthetic(5), cfg=dict(cur_win_size=5, hungarian=True),
+                       msg_type="concat"),
 }
 NUM_VIS = 16
 
@@ -65,7 +67,8 @@ def test_tracker_matches_jax(case):
     X, y = CASES[case]["seq"]()
     tcfg = CASES[case]["cfg"]
     kw = dict(nattheads=CASES[case].get("nattheads", 0),
-              features=CASES[case].get("features", "2d"), num_vis_feats=NUM_VIS)
+              features=CASES[case].get("features", "2d"), num_vis_feats=NUM_VIS,
+              msg_type=CASES[case].get("msg_type", "diff"))
     cfg_j, cfg_t = CFG_J._replace(**kw), CFG_T._replace(**kw)
     assert X.shape[1] == cfg_t.nfeatures
     p_np, s_np = spread_weights(cfg_t, seed=0, std=0.3)

@@ -10,6 +10,7 @@ the JAX package's, on the CPU.
   transforms), shared by a module-scoped fixture.  The per-epoch losses
   agree within rtol 1e-4 (the port's history) and to the logs' printed
   digits; val F1, MOTA and mAP are equal (the same decoded tracks).
+* --msg-type concat through both training CLIs and the ablation CLI.
 * The output-dir refusal, the routing of --batch-windows and TM_PACKED, and
   the refusals of the flags whose paths are not ported.
 """
@@ -223,11 +224,13 @@ def test_resume_and_output_dir_refusal(runs):
 
 @pytest.mark.parametrize("env,flags,log", [
     ({}, ["--batch-windows", "2", "--no-bf16"], "block-structured batched training: 2"),
-    ({"TM_PACKED": "1"}, ["--batch-windows", "2"], "packed batched training: 2")])
+    ({"TM_PACKED": "1"}, ["--batch-windows", "2"], "packed batched training: 2"),
+    ({}, ["--batch-windows", "2", "--no-bf16", "--msg-type", "concat"],
+     "block-structured batched training: 2")])
 def test_routing(runs, monkeypatch, env, flags, log):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    out = str(runs["base"] / ("route_" + "_".join(env) + flags[-1]))
+    out = str(runs["base"] / ("route_" + "_".join(env) + "_".join(flags[2:])))
     hist = train.main(["--dataset-root-path", runs["root"], "--output-dir", out,
                        "--device", "cpu"] + COMMON + flags)
     assert log in open(os.path.join(out, "logs.txt")).read()
@@ -246,13 +249,42 @@ def test_gat_dropout_stream_is_seeded_by_the_seed(runs):
     assert hist[0]["loss"] == hist[1]["loss"] and np.isfinite(hist[0]["loss"][0])
 
 
+def test_msg_concat_cli_matches_jax(runs):
+    """--msg-type concat: one epoch of both training CLIs from one JAX
+    concat snapshot on the fixture's tree; losses within rtol 1e-4 and val
+    F1, MOTA and mAP equal, as test_train_cli_matches_jax holds them; the
+    ablation CLI reads the run's options and serves the port's best
+    checkpoint as JAX's does."""
+    jcfg = jmpnn.ModelConfig(features="2d", nhidden=16, msg_type="concat")
+    p = jmpnn.init_params(jax.random.key(4), jcfg)
+    snap = str(runs["base"] / "snap_concat" / "track-mpnn_0000.npz")
+    jcheckpoint.save(snap, {"params": p, "batch_stats": jmpnn.init_batch_stats(jcfg),
+                            "opt_state": joptim.make_optimizer().init(p), "epoch": 0,
+                            "best_mota": -1e3})
+    args = ["--dataset-root-path", runs["root"], "--snapshot", snap, "--msg-type",
+            "concat"] + COMMON
+    jh = jtrain.main(args + ["--output-dir", str(runs["base"] / "jax_concat")])
+    tdir = str(runs["base"] / "port_concat")
+    th = train.main(args + ["--output-dir", tdir, "--device", "cpu"])
+    for k in ("loss_c", "loss_f", "loss", "train_f1"):
+        np.testing.assert_allclose(th[k], jh[k], rtol=1e-4, err_msg=k)
+    for k in ("val_f1", "val_mota", "val_map"):
+        assert th[k] == jh[k], k
+    assert json.load(open(os.path.join(tdir, "config.json")))["msg_type"] == "concat"
+    best = ["--snapshot", os.path.join(tdir, "track-mpnn_best.npz"), "--dataset-root-path",
+            runs["root"]]
+    want = jablation.main(best + ["--output-dir", str(runs["base"] / "jabl_concat")])
+    got = ablation.main(best + ["--output-dir", str(runs["base"] / "tabl_concat"),
+                                "--device", "cpu"])
+    assert got == want and got["num_unique_objects"] > 0
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--batch-windows", "4"], "'bf16 rectangles'; pass --no-bf16"),
     (["--embed-bf16"], "'bf16 rectangles'"),
     (["--mesh", "data=2"], "'Multi-GPU'"),
     (["--dataset", "bdd100k", "--category", "car", "--detections", "libra"], "'BDD100K data'"),
-    (["--plot-gradients"], "'Tail'"),
-    (["--msg-type", "concat"], "'msg concat and the row-layout train paths'")])
+    (["--plot-gradients"], "'Tail'")])
 def test_refusals_name_their_item(tmp_path, flags, item):
     out = str(tmp_path / "refused")
     argv = ["--dataset-root-path", str(tmp_path), "--output-dir", out, "--device", "cpu"]

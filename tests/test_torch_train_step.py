@@ -313,3 +313,58 @@ def test_row_layout_with_two_feature_branches_matches_jax(temp_case, path):
     assert any(path.startswith("branches/1/") and np.abs(a).max() > 0 for (path, a), _ in pairs)
     assert_stats_match(taux["batch_stats"], jaux["batch_stats"], cfg)
     np.testing.assert_allclose(taux["hidden"].numpy(), np.asarray(jaux["hidden"]), **GRAD)
+
+
+# ------------------------------------------------------------- msg concat ----
+def concat_configs():
+    return tuple(c._replace(msg_type="concat") for c in configs())
+
+
+def test_batch1_concat_step_matches_jax_make_train_step(schedules):
+    """msg 'concat' on the batch-1 step: make_train_step's loss, aux,
+    gradients (left on each leaf's .grad) and new BN stats against JAX's
+    make_train_step(return_grads=True) on the same window (Adam 1e-4, L2
+    5e-4)."""
+    (jw, _, _), (tw, _, _) = schedules
+    jcfg, cfg = concat_configs()
+    p_np, s_np = spread_weights(cfg, 4)
+    jp = jax.tree_util.tree_map(jnp.asarray, p_np)
+    tx = joptim.make_optimizer(1e-4, 5e-4)
+    _, jstats, _, jloss, jaux = jstep.make_train_step(jcfg, tx, True, return_grads=True)(
+        jp, s_np, tx.init(jp), jstep.schedule_to_device(jw))
+    params, stats = port_model(p_np, s_np, cfg)
+    opt = optim.make_optimizer(block.param_leaves(params), 1e-4, 5e-4)
+    _, new_stats, loss, aux = step.make_train_step(cfg, True)(
+        params, stats, opt, step.schedule_to_device(tw, device="cpu"))
+    assert_losses_match(loss, aux, jloss, jaux)
+    assert not aux["step_valid"].all()
+    pairs = assert_grads_match(params, jaux["grads"], cfg)
+    w_ih = dict(p for p, _ in pairs)["branches/0/edge_gru/w_ih"]
+    assert w_ih.shape == (2 * HIDDEN, 3 * HIDDEN) and np.abs(w_ih[HIDDEN:]).max() > 0
+    assert_stats_match(new_stats, jstats, cfg)
+
+
+def test_packed_concat_forward_matches_jax_and_the_fused_round_refuses_it(schedules):
+    """msg 'concat' on the unfused packed step: loss, aux, grads, BN stats
+    and final hidden state against jax.value_and_grad of JAX's
+    packed_window_forward; the fused round refuses concat with JAX's
+    ValueError (packed.py:160-161) on both sides."""
+    jw, tw = schedules
+    jcfg, cfg = concat_configs()
+    p_np, s_np = spread_weights(cfg, 5)
+    jpb = jpacked.pack_schedules(jw, CAP, TCAP)
+    tpb = packed.pack_schedules(tw, CAP, TCAP, device="cpu")
+    f = lambda p: jpacked.packed_window_forward(p, s_np, jcfg, jpb, True)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, p_np))
+    params, stats = port_model(p_np, s_np, cfg)
+    tl, taux = packed.packed_window_forward(params, stats, cfg, tpb, True)
+    tl.backward()
+    assert_losses_match(tl.detach(), taux, jl, jaux)
+    assert_grads_match(params, jg, cfg)
+    assert_stats_match(taux["batch_stats"], jaux["batch_stats"], cfg)
+    np.testing.assert_allclose(taux["hidden"].numpy(), np.asarray(jaux["hidden"]), **GRAD)
+    with pytest.raises(ValueError, match="fused round supports msg 'diff'"):
+        jpacked.packed_window_forward(p_np, s_np, jcfg, jpb, True, fused_round=True)
+    with pytest.raises(ValueError, match="fused round supports msg 'diff'"):
+        packed.packed_window_forward(params, stats, cfg, tpb, True, fused_round=True)

@@ -3,17 +3,43 @@
 // plain C interface and called through ctypes from ops/mp.py, which checks
 // device, dtype, shape, contiguity and alignment before any pointer gets here.
 //
-// gather_diff
-//   Replaces _gather_diff_kernel / gather_diff_pallas in
-//   trackmpnn_tpu/ops/pallas_mp.py.
-//   out[k] = edge_k ? h[past_k] - h[fut_k] : 0          (f32, exact)
-//   Bound: device-memory bytes (h rows read, out written, 9 B of index per
-//   row); one subtraction per element is nothing against that.  The TPU
-//   kernel walks rows in a serial fori_loop because Mosaic could not lower a
-//   vector gather; the card gathers natively, so here every thread owns one
-//   float4 of one row (H/4 threads per row, 16 for H = 64): neighbouring
-//   threads read neighbouring 16-byte words of the same h row, and every
-//   load and store is one 16-byte transaction.
+// gather_diff and gather_concat (gather_rows_kernel<kConcat, L>)
+//   gather_diff replaces _gather_diff_kernel / gather_diff_pallas in
+//   trackmpnn_tpu/ops/pallas_mp.py:
+//     out[k] = edge_k ? h[past_k] - h[fut_k] : 0                    (f32, exact)
+//   gather_concat is msg concat's node support, [h[past] | h[fut]] on edge
+//   rows (trackmpnn_tpu/models/mpnn.py:123-125; the JAX package computes it
+//   in XLA, so it replaces no TPU kernel):
+//     out[k, :H] = edge_k ? h[past_k] : 0,  out[k, H:] = edge_k ? h[fut_k] : 0
+//   Both exact: a subtraction or a copy per element.
+//   Bound: device-memory bytes (the rows of h the edge rows address read
+//   once, 9 B of index and mask a row, out written once).  The TPU kernel
+//   walks rows in a serial fori_loop because Mosaic could not lower a vector
+//   gather; the card gathers natively.  The first design gave every float4
+//   of the output a thread, which read mask[row], then inside that branch
+//   past and fut, then the two h words, then stored: four dependent steps,
+//   2.72 us at batch 1 (4,096 rows, H 64) against a 0.34 us bound.  This one:
+//   * A group of L lanes takes a row (L = H/4 rounded up to a power of two,
+//     at most 32; 16 at H 64): lane c owns float4 columns c, c + L, ...
+//   * Mask and both endpoints are loaded together and unconditionally, so
+//     the chain is index words -> h -> store.  A dead row selects row 0's
+//     address instead of branching (one row, cached, for all of them) and
+//     stores zeros; an endpoint outside the rows of a live row traps.
+//   * Each group has kGatherRows = 2 rows in flight at once (their index
+//     words, then their h words), walking rows grid-stride; the grid is
+//     sized to the SMs (the most CTAs resident at once), not to the element
+//     count.
+//   * Dead rows are written with streaming stores (st.global.cs): every
+//     element is written, and the zeros do not push live rows out of L2.
+//   Measured (NVIDIA H100 80GB HBM3 at 700 W, trackmpnn_tpu_torch/tools/
+//   ab_gather.py beside the first design): within 5% of the first design at
+//   batch 1, serving and packed (~2.7, 3.8, 5.1 us), which is the launch
+//   and two dependent loads: a kernel issued behind another in the stream
+//   pays the gap between them.  As a programmatic dependent launch
+//   (griddepcontrol.wait before the first load) the same kernel took 1.49 /
+//   2.60 / 3.93 us back to back, but the batch-1 step's device time did not
+//   move (14.39 ms either way: the host issues the step's launches slower
+//   than the card runs them), so it launches plainly.
 //
 // signed_segment_sum
 //   Replaces _signed_scatter_kernel / signed_segment_sum_pallas in
@@ -44,6 +70,14 @@
 //   rounds of loads a listed row.  Fixed order throughout: bitwise the same
 //   on every launch, and the correctly rounded sum unless the exact sum lies
 //   within f64 rounding (~1e-14) of an f32 rounding boundary.
+//
+// segment_sum_halves (signed_pull_kernel<true>, the halves mode)
+//   gather_concat's VJP (the JAX package takes it through XLA's autodiff of
+//   the concatenation, so it replaces no TPU kernel):
+//     out[d] = sum over d's incidence entries k of mask[e] * g[e, half_k]
+//   with e the entry's row, half_k = :H for k < N (the past end) and H: for
+//   k >= N (the fut end), every sign +1, g f32[N, 2H].  The same pull over
+//   the same incidence, f64 sums in a fixed order rounded once, one launch.
 //
 // segment_incidence (the pull's incidence; no TPU counterpart)
 //   ptr int32[n + 1] and ent int32[2N]: destination d's entries are
@@ -156,27 +190,78 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kGatherThreads = 256;
 
-__global__ void gather_diff_kernel(const float4* __restrict__ h,
-                                   const int32_t* __restrict__ past,
-                                   const int32_t* __restrict__ fut,
-                                   const uint8_t* __restrict__ mask,
-                                   float4* __restrict__ out,
-                                   int64_t total, int h4, int n_rows) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t row = t / h4;
-  const int c = (int)(t - row * h4);
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (mask[row]) {
-    const int32_t p = past[row], f = fut[row];
-    if ((uint32_t)p >= (uint32_t)n_rows || (uint32_t)f >= (uint32_t)n_rows) __trap();
-    const float4 a = __ldg(h + (int64_t)p * h4 + c);
-    const float4 b = __ldg(h + (int64_t)f * h4 + c);
-    v = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+// A row's index words: mask and both endpoints, loaded together.
+struct RowIdx {
+  int32_t p, f;
+  bool m;
+};
+
+__device__ __forceinline__ RowIdx row_idx(const int32_t* __restrict__ past,
+                                          const int32_t* __restrict__ fut,
+                                          const uint8_t* __restrict__ mask, int64_t row,
+                                          int n_rows) {
+  RowIdx r = {0, 0, false};
+  if (row < n_rows) {
+    r.m = __ldg(mask + row) != 0;
+    r.p = __ldg(past + row);
+    r.f = __ldg(fut + row);
   }
-  out[t] = v;
+  return r;
+}
+
+constexpr int kGatherRows = 2;  // rows a group has in flight at once
+
+// out [n_rows, W] with W = 2 h4 float4s for kConcat, else h4.  Grid: any
+// count of CTAs of kGatherThreads; group g = blockIdx.x * (threads / L) +
+// threadIdx.x / L takes the U = kGatherRows rows base + u * groups (u < U)
+// at once, for base = g, g + U groups, ...
+template <bool kConcat, int L>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_rows_kernel(const float4* __restrict__ h, const int32_t* __restrict__ past,
+                   const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
+                   float4* __restrict__ out, int n_rows, int h4) {
+  constexpr int kGroups = kGatherThreads / L, U = kGatherRows;
+  const int lane = threadIdx.x % L;
+  const int64_t groups = (int64_t)gridDim.x * kGroups;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int64_t base = (int64_t)blockIdx.x * kGroups + threadIdx.x / L; base < n_rows;
+       base += groups * U) {
+    RowIdx r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) r[u] = row_idx(past, fut, mask, base + u * groups, n_rows);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (r[u].m && ((uint32_t)r[u].p >= (uint32_t)n_rows || (uint32_t)r[u].f >= (uint32_t)n_rows))
+        __trap();
+    for (int c = lane; c < h4; c += L) {
+      float4 a[U], b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // a dead row reads row 0
+        a[u] = __ldg(h + (int64_t)(r[u].m ? r[u].p : 0) * h4 + c);
+        b[u] = __ldg(h + (int64_t)(r[u].m ? r[u].f : 0) * h4 + c);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t row = base + u * groups;
+        if (row >= n_rows) continue;
+        float4* o = out + row * (kConcat ? 2 * h4 : h4);
+        if (r[u].m) {
+          if (kConcat) {
+            o[c] = a[u];
+            o[h4 + c] = b[u];
+          } else {
+            o[c] = make_float4(a[u].x - b[u].x, a[u].y - b[u].y, a[u].z - b[u].z,
+                               a[u].w - b[u].w);
+          }
+        } else {
+          __stcs(o + c, zero);
+          if (kConcat) __stcs(o + h4 + c, zero);
+        }
+      }
+    }
+  }
 }
 
 constexpr int kPullThreads = 256;
@@ -184,14 +269,19 @@ constexpr int kPullRows = 16;    // destination rows a CTA owns (gridDim.x apart
 constexpr int kPullUnroll = 8;   // entries a thread has in flight
 
 // Incidence entry k: row k with sign +1 for k < n_rows, row k - n_rows with
-// sign -1 for k >= n_rows (the doubled incidence [past; fut]).
+// sign -1 for k >= n_rows (the doubled incidence [past; fut]).  kHalves (the
+// halves mode, gather_concat's VJP): h is [n_rows, 2 h4] float4s, entry k <
+// n_rows reads h[k, :h4], entry k >= n_rows reads h[k - n_rows, h4:], every
+// entry with sign +1.
 // Grid: ceil(n_out / kPullRows) CTAs of kPullThreads; CTA b owns the rows
 // b + k * gridDim.x, k < kPullRows (see the note at the top).
+template <bool kHalves>
 __global__ void __launch_bounds__(kPullThreads)
 signed_pull_kernel(const float4* __restrict__ h, const int32_t* __restrict__ past,
                    const int32_t* __restrict__ fut, const uint8_t* __restrict__ mask,
                    const int32_t* __restrict__ inc_ptr, const int32_t* __restrict__ inc_ent,
                    int n_ent, float4* __restrict__ out, int n_rows, int n_out, int h4) {
+  const int in4 = kHalves ? 2 * h4 : h4;  // float4s a row of h
   __shared__ double2 part[2 * kPullThreads];  // each thread's four partial sums
   __shared__ int beg_s[kPullRows], end_s[kPullRows];
   const int G = gridDim.x;
@@ -253,11 +343,12 @@ signed_pull_kernel(const float4* __restrict__ h, const int32_t* __restrict__ pas
           float4 v[kPullUnroll];
 #pragma unroll
           for (int u = 0; u < kPullUnroll; ++u)
-            v[u] = use[u] ? __ldg(h + (int64_t)ent[u] * h4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+            v[u] = use[u] ? __ldg(h + (int64_t)ent[u] * in4 + (kHalves && neg[u] ? h4 : 0) + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
           for (int u = 0; u < kPullUnroll; ++u) {
             if (!use[u]) continue;
-            if (neg[u]) {
+            if (!kHalves && neg[u]) {
               ax -= (double)v[u].x; ay -= (double)v[u].y;
               az -= (double)v[u].z; aw -= (double)v[u].w;
             } else {
@@ -434,8 +525,64 @@ incidence_order_kernel(const int32_t* __restrict__ ptr, const int32_t* __restric
   }
 }
 
-inline unsigned int blocks_for(int64_t total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+constexpr int kDevices = 64;  // devices whose resident CTA counts are cached
+
+// One launch of gather_rows_kernel<kConcat, L>, its grid the rows' groups or
+// the CTAs resident at once, whichever is fewer (found once a device).
+template <bool kConcat, int L>
+int launch_gather_rows(const void* h, const void* past, const void* fut, const void* mask,
+                       void* out, int n_rows, int h4, cudaStream_t s) {
+  static int cache[kDevices] = {};
+  auto kernel = gather_rows_kernel<kConcat, L>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = dev < kDevices ? cache[dev] : 0;
+  if (ctas == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGatherThreads,
+                                                             0)) != cudaSuccess)
+      return (int)err;
+    ctas = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < kDevices) cache[dev] = ctas;
+  }
+  const int64_t rows_a_cta = (int64_t)kGatherRows * (kGatherThreads / L);
+  const int64_t need = (n_rows + rows_a_cta - 1) / rows_a_cta;
+  kernel<<<(unsigned)(need < ctas ? need : ctas), kGatherThreads, 0, s>>>(
+      (const float4*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
+      (float4*)out, n_rows, h4);
+  return (int)cudaGetLastError();
+}
+
+// gather_rows_kernel's instance for h4 float4s a row: L = h4 rounded up to a
+// power of two, at most 32.
+template <bool kConcat>
+int gather_rows(const void* h, const void* past, const void* fut, const void* mask, void* out,
+                int n_rows, int hidden, void* stream) {
+  const int h4 = hidden / 4;
+  if (n_rows == 0 || h4 == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (h4 <= 1) return launch_gather_rows<kConcat, 1>(h, past, fut, mask, out, n_rows, h4, s);
+  if (h4 <= 2) return launch_gather_rows<kConcat, 2>(h, past, fut, mask, out, n_rows, h4, s);
+  if (h4 <= 4) return launch_gather_rows<kConcat, 4>(h, past, fut, mask, out, n_rows, h4, s);
+  if (h4 <= 8) return launch_gather_rows<kConcat, 8>(h, past, fut, mask, out, n_rows, h4, s);
+  if (h4 <= 16) return launch_gather_rows<kConcat, 16>(h, past, fut, mask, out, n_rows, h4, s);
+  return launch_gather_rows<kConcat, 32>(h, past, fut, mask, out, n_rows, h4, s);
+}
+
+template <bool kHalves>
+int signed_pull(const void* h, const void* past, const void* fut, const void* mask,
+                const void* inc_ptr, const void* inc_ent, int n_ent, void* out, int n_rows,
+                int n_out, int hidden, void* stream) {
+  if (n_out == 0 || hidden == 0) return (int)cudaSuccess;
+  const unsigned grid = (unsigned)((n_out + kPullRows - 1) / kPullRows);
+  signed_pull_kernel<kHalves><<<grid, kPullThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
+      (const int32_t*)inc_ptr, (const int32_t*)inc_ent, n_ent, (float4*)out, n_rows, n_out,
+      hidden / 4);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- edge GRU ----
@@ -767,16 +914,19 @@ int launch_fused_edge_gru(const GruShape& sh, const void* h, const void* past, c
 // h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
 // out: f32[n_rows, hidden].  hidden % 4 == 0, h and out 16-byte aligned;
 // past/fut of every masked-in row lie in [0, n_rows), or the kernel traps.
+// One launch.
 extern "C" int tm_gather_diff(const void* h, const void* past, const void* fut,
                               const void* mask, void* out, int n_rows,
                               int hidden, void* stream) {
-  const int h4 = hidden / 4;
-  const int64_t total = (int64_t)n_rows * h4;
-  if (total == 0) return (int)cudaSuccess;
-  gather_diff_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)h, (const int32_t*)past, (const int32_t*)fut,
-      (const uint8_t*)mask, (float4*)out, total, h4, n_rows);
-  return (int)cudaGetLastError();
+  return gather_rows<false>(h, past, fut, mask, out, n_rows, hidden, stream);
+}
+
+// As tm_gather_diff, with out: f32[n_rows, 2 hidden], h[past] in columns
+// :hidden and h[fut] in hidden: of every masked-in row, zeros elsewhere.
+extern "C" int tm_gather_concat(const void* h, const void* past, const void* fut,
+                                const void* mask, void* out, int n_rows, int hidden,
+                                void* stream) {
+  return gather_rows<true>(h, past, fut, mask, out, n_rows, hidden, stream);
 }
 
 // h: f32[n_rows, hidden]; past, fut: int32[n_rows]; mask: uint8/bool[n_rows];
@@ -791,13 +941,20 @@ extern "C" int tm_signed_segment_sum(const void* h, const void* past, const void
                                      const void* mask, const void* inc_ptr,
                                      const void* inc_ent, int n_ent, void* out, int n_rows,
                                      int n_out, int hidden, void* stream) {
-  if (n_out == 0 || hidden == 0) return (int)cudaSuccess;
-  const unsigned grid = (unsigned)((n_out + kPullRows - 1) / kPullRows);
-  signed_pull_kernel<<<grid, kPullThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)h, (const int32_t*)past, (const int32_t*)fut, (const uint8_t*)mask,
-      (const int32_t*)inc_ptr, (const int32_t*)inc_ent, n_ent, (float4*)out, n_rows, n_out,
-      hidden / 4);
-  return (int)cudaGetLastError();
+  return signed_pull<false>(h, past, fut, mask, inc_ptr, inc_ent, n_ent, out, n_rows, n_out,
+                            hidden, stream);
+}
+
+// The halves mode: g f32[n_rows, 2 hidden]; out[d] = the sum of g[e, :hidden]
+// over masked-in rows e with past(e) = d plus that of g[e, hidden:] over those
+// with fut(e) = d, through the same incidence, f64 rounded once; otherwise as
+// tm_signed_segment_sum.  One launch.
+extern "C" int tm_segment_sum_halves(const void* g, const void* past, const void* fut,
+                                     const void* mask, const void* inc_ptr,
+                                     const void* inc_ent, int n_ent, void* out, int n_rows,
+                                     int n_out, int hidden, void* stream) {
+  return signed_pull<true>(g, past, fut, mask, inc_ptr, inc_ent, n_ent, out, n_rows, n_out,
+                           hidden, stream);
 }
 
 // past, fut int32[n_rows]; writes ptr int32[n_out + 1] and the first

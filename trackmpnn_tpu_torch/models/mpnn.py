@@ -1,6 +1,7 @@
 """TrackMPNN forward on a GraphView (the counterpart of
-trackmpnn_tpu/models/mpnn.py), for msg_type 'diff', with or without GAT
-attention heads, for any of the feature branches 2d, temp and vis.
+trackmpnn_tpu/models/mpnn.py), for msg_type 'diff' and 'concat', with or
+without GAT attention heads, for any of the feature branches 2d, temp and
+vis.
 
   * per-feature-branch input MLP (Linear-BN-ReLU-Linear) applied to the rows
     introduced this step - including zero-feature edge rows, which therefore
@@ -8,7 +9,10 @@ attention heads, for any of the feature branches 2d, temp and vis.
   * new edge rows start with zero hidden state;
   * one FactorGraphGRU round per step: edge rows update from the difference
     of their endpoints' hiddens (ops.mp.gather_diff) through the edge GRU,
-    both in one ops.mp.fused_edge_gru where no gradient is recorded;
+    both in one ops.mp.fused_edge_gru where no gradient is recorded; with
+    msg 'concat' from both endpoints' hiddens side by side
+    (ops.mp.gather_concat) through an edge GRU of input width 2H, with or
+    without a gradient;
     detection rows update from the signed sum of incident edge hiddens
     (ops.mp.signed_segment_sum), or with attention heads from the mean over
     heads of the attention-weighted signed sums, through the node GRU (ref
@@ -69,11 +73,9 @@ class ModelConfig(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the model this port does not run yet."""
-    if cfg.msg_type != "diff":
-        raise NotImplementedError(
-            f"msg_type={cfg.msg_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, 'msg concat and the row-layout train paths')")
+    """Raise for a configuration the model does not define."""
+    if cfg.msg_type not in ("diff", "concat"):
+        raise ValueError(f"msg_type must be 'diff' or 'concat', got {cfg.msg_type!r}")
 
 
 class ModelOutput(NamedTuple):
@@ -93,7 +95,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cpu"):
     for _, width in cfg.branches:
         b = {
             "input": nn.input_transform_init(generator, width, H, device),
-            "edge_gru": nn.gru_init(generator, H, H, device=device),
+            "edge_gru": nn.gru_init(generator, 2 * H if cfg.msg_type == "concat" else H, H,
+                                    device=device),
             "node_gru": nn.gru_init(generator, H, H, device=device),
         }
         if cfg.nattheads > 0:
@@ -140,12 +143,14 @@ def _gat_head(params, h, g: GraphView, generator, keep=None):
     return segment_sum(torch.cat([h, h]) * (att * sign)[:, None], seg, n, mask=mask2)
 
 
-def _factor_graph_gru(params, h, g: GraphView, nattheads, generator, keeps=None):
+def _factor_graph_gru(params, h, g: GraphView, msg_type, nattheads, generator, keeps=None):
     """FactorGraphGRU round (ref layers.py:84-116): edge-GRU then node-GRU.
     keeps: per head, the keep mask of its attention dropout, or None."""
     em = g.edge_mask()
     eg = params["edge_gru"]
-    if torch.is_grad_enabled():
+    if msg_type == "concat":  # fused_edge_gru takes diff only
+        edge_out = nn.gru_cell(eg, mp.gather_concat(h, g.past, g.fut, em, g.inc), h)
+    elif torch.is_grad_enabled():
         edge_out = nn.gru_cell(eg, mp.gather_diff(h, g.past, g.fut, em, g.inc), h)
     else:  # the same function in one launch, which has no backward
         edge_out = mp.fused_edge_gru(h, g.past, g.fut, em, eg["w_ih"], eg["w_hh"],
@@ -206,7 +211,7 @@ def forward(params, batch_stats, cfg: ModelConfig, g: GraphView,
         # new detection rows take the transformed input; new edge rows start at 0
         h_b = torch.where(new_det[:, None], xt, torch.where(g.new[:, None], 0.0, h_b))
         h_b = torch.where(g.live[:, None], h_b, 0.0)
-        outs.append(_factor_graph_gru(bp, h_b, g, cfg.nattheads,
+        outs.append(_factor_graph_gru(bp, h_b, g, cfg.msg_type, cfg.nattheads,
                                       generator if dropout else None,
                                       att_keep[bi] if dropout and att_keep is not None else None))
 

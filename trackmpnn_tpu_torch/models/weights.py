@@ -25,7 +25,7 @@ def param_shapes(cfg: ModelConfig):
         "input": {"lin1": {"w": (width, H), "b": (H,)},
                   "bn": {"gamma": (H,), "beta": (H,)},
                   "lin2": {"w": (H, H), "b": (H,)}},
-        "edge_gru": gru(H),
+        "edge_gru": gru(2 * H if cfg.msg_type == "concat" else H),
         "node_gru": gru(H),
     } for _, width in cfg.branches]
     if cfg.nattheads > 0:

@@ -37,7 +37,9 @@ LIBRARIES = {
     "mp": (os.path.join(_PKG, "csrc", "mp_kernels.cu"),
            os.path.join(BUILD_DIR, "libtm_mp.so"),
            {"tm_gather_diff": [_P, _P, _P, _P, _P, _I, _I, _P],
+            "tm_gather_concat": [_P, _P, _P, _P, _P, _I, _I, _P],
             "tm_signed_segment_sum": [_P] * 6 + [_I, _P, _I, _I, _I, _P],
+            "tm_segment_sum_halves": [_P] * 6 + [_I, _P, _I, _I, _I, _P],
             "tm_segment_incidence": [_P] * 5 + [_I, _I, _P],
             "tm_fused_edge_gru_setup": [_I, _P],
             "tm_fused_edge_gru": [_P] * 9 + [_I, _I, _I, _P]}),

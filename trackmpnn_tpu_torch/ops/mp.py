@@ -1,6 +1,7 @@
 """Message-passing ops of the serving path (the counterpart of
 trackmpnn_tpu/ops/pallas_mp.py's gather_diff, signed_segment_sum and
-fused_edge_gru).
+fused_edge_gru), and msg concat's node support (gather_concat) with its
+VJP (segment_sum_halves).
 
 Each op has
   * a plain PyTorch version (`*_reference`), the semantics the tests hold
@@ -27,6 +28,12 @@ branch (`inc=`); without one the CUDA wrapper builds it for the call.
 On the card one call of the build kernels makes it; a CPU view or batch
 builds none (kernel_incidence).  BUILDS[name] counts the incidence builds.
 
+gather_concat is msg concat's node support, [h[past] | h[fut]] on edge
+rows (trackmpnn_tpu/models/mpnn.py:123-125), an autograd Function whose
+backward is segment_sum_halves: the same pull over the same incidence,
+every entry with sign +1, entry k < N taking the cotangent's columns :H
+and entry k >= N its columns H: (the halves mode of the pull kernel).
+
 fused_edge_gru (pallas_mp.py:84) is gather_diff and the edge GRU in one
 launch, forward only as on the TPU: it refuses to run where autograd would
 need its gradient.  The served forward (no gradient recorded) takes it in
@@ -42,7 +49,8 @@ import torch
 
 from trackmpnn_tpu_torch.ops import _build
 
-LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0}
+LAUNCHES = {"gather_diff": 0, "signed_segment_sum": 0, "fused_edge_gru": 0,
+            "gather_concat": 0, "segment_sum_halves": 0}
 BUILDS = {"segment_incidence": 0}
 _EDGE_GRU_CTAS: dict = {}  # (device index, H) -> the kernel's grid cap, set up once
 
@@ -52,6 +60,26 @@ def gather_diff_reference(h, past, fut, edge_mask):
     """node_support: per edge row, h[past] - h[fut]; zero elsewhere."""
     diff = h.index_select(0, past) - h.index_select(0, fut)
     return torch.where(edge_mask.bool()[:, None], diff, 0.0)
+
+
+def gather_concat_reference(h, past, fut, edge_mask):
+    """msg concat's node support: per edge row [h[past] | h[fut]] (f32[N,
+    2H]); zero elsewhere (trackmpnn_tpu/models/mpnn.py:123-125)."""
+    cat = torch.cat([h.index_select(0, past), h.index_select(0, fut)], 1)
+    return torch.where(edge_mask.bool()[:, None], cat, 0.0)
+
+
+def segment_sum_halves_reference(g, past, fut, edge_mask, n):
+    """gather_concat's VJP: row d accumulates g[e, :H] over edge rows with
+    past(e)=d and g[e, H:] over edge rows with fut(e)=d (g f32[N, 2H], out
+    f32[n, H]).  Sums in f64, rounded to f32 once, as the kernel's."""
+    H = g.shape[1] // 2
+    m = edge_mask.bool()
+    gm = torch.where(m[:, None], g, 0.0).double()
+    acc = gm.new_zeros(n + 1, H)
+    acc.index_add_(0, torch.where(m, past, n), gm[:, :H])
+    acc.index_add_(0, torch.where(m, fut, n), gm[:, H:])
+    return acc[:n].to(g.dtype)
 
 
 def signed_segment_sum_reference(h, past, fut, edge_mask, n):
@@ -190,6 +218,24 @@ def _dispatch(h):
     return True
 
 
+def _gather_rows(name, h, past, fut, edge_mask, width):
+    """The gather kernel (`name`: gather_diff or gather_concat) into a fresh
+    f32[N, width]; h checked."""
+    _check_cuda_inputs(name, h, past, fut, edge_mask)
+    N, H = h.shape
+    out = torch.empty(N, width, dtype=torch.float32, device=h.device)
+    if N == 0:
+        return out
+    with torch.cuda.device(h.device):
+        rc = getattr(_build.load(), f"tm_{name}")(
+            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(),
+            out.data_ptr(), N, H, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def gather_diff_raw(h, past, fut, edge_mask):
     """out[k] = edge_mask[k] ? h[past[k]] - h[fut[k]] : 0, without autograd:
     the kernel on a CUDA tensor, the plain version on a CPU tensor.
@@ -198,19 +244,16 @@ def gather_diff_raw(h, past, fut, edge_mask):
     outside traps the kernel, and the next synchronisation raises."""
     if not _dispatch(h):
         return gather_diff_reference(h, past, fut, edge_mask)
-    _check_cuda_inputs("gather_diff", h, past, fut, edge_mask)
-    N, H = h.shape
-    out = torch.empty_like(h)
-    if N == 0:
-        return out
-    with torch.cuda.device(h.device):
-        rc = _build.load().tm_gather_diff(
-            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(),
-            out.data_ptr(), N, H, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_diff kernel launch failed: CUDA error {rc}")
-    LAUNCHES["gather_diff"] += 1
-    return out
+    return _gather_rows("gather_diff", h, past, fut, edge_mask, h.shape[1])
+
+
+def gather_concat_raw(h, past, fut, edge_mask):
+    """out[k] = edge_mask[k] ? [h[past[k]] | h[fut[k]]] : 0 (f32[N, 2H]),
+    without autograd: the kernel's concat mode on a CUDA tensor, the plain
+    version on a CPU tensor.  Indices as gather_diff_raw."""
+    if not _dispatch(h):
+        return gather_concat_reference(h, past, fut, edge_mask)
+    return _gather_rows("gather_concat", h, past, fut, edge_mask, 2 * h.shape[1])
 
 
 def _check_incidence(name, h, inc, n):
@@ -225,6 +268,30 @@ def _check_incidence(name, h, inc, n):
         raise ValueError(f"{name}: inc ptr has {ptr.shape[0]} offsets, expected {n + 1}")
 
 
+def _pull(name, h, past, fut, edge_mask, n, inc, H):
+    """The pull kernel (`name`: signed_segment_sum, or segment_sum_halves
+    over h [N, 2H]) into a fresh f32[n, H] through `inc` (built here for the
+    call when None)."""
+    _check_cuda_inputs(name, h, past, fut, edge_mask)
+    N = h.shape[0]
+    if inc is None:
+        inc = segment_incidence(past, fut, n)
+    _check_incidence(name, h, inc, n)
+    ptr, ent = inc
+    out = torch.empty(n, H, dtype=torch.float32, device=h.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(h.device):
+        rc = getattr(_build.load(), f"tm_{name}")(
+            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(), ptr.data_ptr(),
+            ent.data_ptr(), ent.numel(), out.data_ptr(), N, n, H,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def signed_segment_sum_raw(h, past, fut, edge_mask, n, inc=None):
     """out[d] = sum over edges e with past(e)=d of h[e] minus the sum over
     edges with fut(e)=d; out is f32[n, H].  Without autograd: the kernel on
@@ -236,24 +303,21 @@ def signed_segment_sum_raw(h, past, fut, edge_mask, n, inc=None):
     synchronisation raises."""
     if not _dispatch(h):
         return signed_segment_sum_reference(h, past, fut, edge_mask, n)
-    _check_cuda_inputs("signed_segment_sum", h, past, fut, edge_mask)
-    N, H = h.shape
-    if inc is None:
-        inc = segment_incidence(past, fut, n)
-    _check_incidence("signed_segment_sum", h, inc, n)
-    ptr, ent = inc
-    out = torch.empty(n, H, dtype=torch.float32, device=h.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(h.device):
-        rc = _build.load().tm_signed_segment_sum(
-            h.data_ptr(), past.data_ptr(), fut.data_ptr(), edge_mask.data_ptr(), ptr.data_ptr(),
-            ent.data_ptr(), ent.numel(), out.data_ptr(), N, n, H,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"signed_segment_sum kernel launch failed: CUDA error {rc}")
-    LAUNCHES["signed_segment_sum"] += 1
-    return out
+    return _pull("signed_segment_sum", h, past, fut, edge_mask, n, inc, h.shape[1])
+
+
+def segment_sum_halves_raw(g, past, fut, edge_mask, n, inc=None):
+    """out[d] = sum over edges e with past(e)=d of g[e, :H] plus the sum over
+    edges with fut(e)=d of g[e, H:]; g f32[N, 2H], out f32[n, H].  Without
+    autograd: the pull kernel's halves mode on a CUDA tensor (through `inc`
+    as signed_segment_sum_raw, one launch, f64 sums rounded once), the plain
+    version on a CPU tensor."""
+    if not _dispatch(g):
+        return segment_sum_halves_reference(g, past, fut, edge_mask, n)
+    if g.dim() != 2 or g.shape[1] % 8 != 0:
+        raise ValueError(f"segment_sum_halves: g must be f32[N, 2H] with H a multiple of 4, "
+                         f"got {list(g.shape)}")
+    return _pull("segment_sum_halves", g, past, fut, edge_mask, n, inc, g.shape[1] // 2)
 
 
 class GatherDiff(torch.autograd.Function):
@@ -292,6 +356,30 @@ class SignedSegmentSum(torch.autograd.Function):
         past, fut, edge_mask = ctx.saved_tensors
         return (gather_diff_raw(g.contiguous(), past, fut, edge_mask),
                 None, None, None, None, None, None)
+
+
+class GatherConcat(torch.autograd.Function):
+    """gather_concat_raw; its VJP is segment_sum_halves_raw of the cotangent
+    back to the endpoints, through `inc` where given."""
+
+    @staticmethod
+    def forward(ctx, h, past, fut, edge_mask, inc_ptr, inc_ent):
+        ctx.save_for_backward(past, fut, edge_mask, inc_ptr, inc_ent)
+        ctx.n = h.shape[0]
+        return gather_concat_raw(h, past, fut, edge_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        past, fut, edge_mask, inc_ptr, inc_ent = ctx.saved_tensors
+        inc = None if inc_ptr is None else (inc_ptr, inc_ent)
+        return (segment_sum_halves_raw(g.contiguous(), past, fut, edge_mask, ctx.n, inc),
+                None, None, None, None, None)
+
+
+def gather_concat(h, past, fut, edge_mask, inc=None):
+    """msg concat's node support, differentiable in h (GatherConcat).  inc:
+    the segment_incidence of past/fut, for the backward's halves pull."""
+    return GatherConcat.apply(h, past, fut, edge_mask, *(inc or (None, None)))
 
 
 def gather_diff(h, past, fut, edge_mask, inc=None):

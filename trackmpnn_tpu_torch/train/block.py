@@ -32,7 +32,8 @@ their head partials) and in the node head.
 
 By default this is the composition the JAX package runs on the TPU (fused
 round, defer_loss, hoisted BN, window scatter/gather, the stacked attention
-kernels), for any of the feature branches, msg 'diff', f32.  Two keyword
+kernels), for any of the feature branches, msg 'diff' or 'concat' (sign +1
+and the two halves of w_ih as the round's input gates), f32.  Two keyword
 arguments select its two other block-step compositions (TM_ES_KERNEL=1 and
 TM_FUSED_LOSS=1 there):
 
@@ -529,8 +530,7 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
     aux holds loss_ce, loss_f, tp, fp, fn (detached) and the new BN running
     stats of every branch (`batch_stats`).  Any feature branches, msg
-    'diff'; it raises NotImplementedError for the rest, naming its ROADMAP
-    item.
+    'diff' or 'concat'.
 
     With attention heads, training applies dropout to the attention weights:
     att_keep[s] is round s's keep masks, one (rows, columns) pair per
@@ -643,18 +643,24 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
             h_e[bi] = torch.cat([h_e[bi], h_e[bi].new_zeros(B, na_cap, nt_cap, H)])
             h_d_b = torch.where(det_new[s][:, None], xts[bi],
                                 torch.where(det_live[s][:, None], h_d[bi], 0.0))
-            # edge GRU input gates factorise over the rectangle:
-            # gi[i, j] = ga_d[act_i] - ga_d[new_j] + b_ih
-            ga_d = h_d_b @ eg["w_ih"]
+            # edge GRU input gates factorise over the rectangle (block.py:854-860):
+            # gi[i, j] = ga_d[act_i] + sign * gb_d[new_j] + b_ih, with msg 'diff'
+            # ga_d = gb_d = h_d w_ih and sign -1, with 'concat' the two halves
+            # of w_ih and sign +1
+            if cfg.msg_type == "concat":
+                ga_d, gb_d, sign = h_d_b @ eg["w_ih"][:H], h_d_b @ eg["w_ih"][H:], 1.0
+            else:
+                ga_d = gb_d = h_d_b @ eg["w_ih"]
+                sign = -1.0
             if es_kernel:
                 edge_out, lg_b, es = fused_block_round_es(
-                    h_e[bi], act_l[:P], new_l[:P], ga_d, ga_d, eg["b_ih"], eg["w_hh"],
-                    eg["b_hh"], w_ebs[bi], m3[s, :P], -1.0, B, capD, inc)
+                    h_e[bi], act_l[:P], new_l[:P], ga_d, gb_d, eg["b_ih"], eg["w_hh"],
+                    eg["b_hh"], w_ebs[bi], m3[s, :P], sign, B, capD, inc)
             else:
-                ga_g, gb = window_gather2(ga_d, ga_d, act_l[:P], new_l[:P], B, capD, inc)
+                ga_g, gb = window_gather2(ga_d, gb_d, act_l[:P], new_l[:P], B, capD, inc)
                 edge_out, rs, cs, lg_b = fused_block_round(h_e[bi], ga_g + eg["b_ih"], gb,
                                                            eg["w_hh"], eg["b_hh"], w_ebs[bi],
-                                                           m3[s, :P], -1.0)
+                                                           m3[s, :P], sign)
                 if cfg.nattheads > 0:
                     # the round's rs / cs go unused: attention weighs the edges
                     es = gat_support(bp["gat"], h_d_b, h_e[bi], act[:P], new[:P], act_l[:P],

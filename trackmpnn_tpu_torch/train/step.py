@@ -2,7 +2,8 @@
 trackmpnn_tpu/train/step.py): one window's schedule, step after step.
 
 Every step runs mpnn.forward on the window's live prefix (the gather-diff
-and signed-scatter kernels of ops/mp.py, each the other's backward) and the
+and signed-scatter kernels of ops/mp.py, each the other's backward; with
+msg 'concat' gather_concat, whose backward is the halves pull) and the
 row-layout losses (losses/losses.py); the loss of the window is the sum
 over steps of CE + BCE, and one backward runs through all steps (the
 truncated BPTT over the whole chunk of ref train.py:92-134).

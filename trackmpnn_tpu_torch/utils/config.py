@@ -127,9 +127,6 @@ def check_ported(args) -> None:
         refuse.append("--embed-bf16 ('bf16 rectangles')")
     if args.bf16 and train_route(args) == "block":
         refuse.append("--bf16 on the block route ('bf16 rectangles'; pass --no-bf16)")
-    if args.msg_type != "diff":
-        refuse.append(f"--msg-type {args.msg_type} "
-                      "('msg concat and the row-layout train paths')")
     if refuse:
         raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(refuse))
 
