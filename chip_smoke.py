@@ -287,12 +287,36 @@ failure exits non-zero:
     phase 23's tree (launches held on every step, validation through
     gather_concat), then the infer CLI on its best checkpoint over phase 4's
     test tree (two result files, gather_concat launched, no fused_edge_gru).
+25. The native planner and bf16 rectangles: (a) phase 3's three sequences
+    (Tracker) and phase 22's batched run (BatchedTracker over phase 17's
+    sequences) served with the native planner (graph/native.py) and with
+    TM_NATIVE=0 in this process: tracks identical to each other and to the
+    phases' CPU runs; frames/s and the engine's host ms a frame for both.
+    (c) The bf16 block step (compute_dtype=torch.bfloat16) on phase 5's
+    workload, phase 18's default features and phase 19's three stacked
+    heads (phase 19's keep masks): 20 timed steps, launches 15 / 15 / 30 a
+    branch (block_round_fwd_bf16 / _bwd_bf16 / window_scatter) plus T of
+    each attention kernel with heads (the aggregate's bf16 pair), none of
+    the f32 round's; each first step against its CPU rerun (loss rtol 1e-3,
+    grads rtol 1e-2 with atol 1e-3 x the largest |grad|) and against the
+    f32 step's on the card (loss rtol 1e-2, gradient cosine > 0.99 a leaf);
+    ms a step beside f32's.  (b) block_round_fwd_bf16 / _bwd_bf16 on that
+    step's widest round and at P 16, na = nt = 64, H 128 (seeded), and
+    gat_aggregate_fwd_bf16 / _bwd_bf16 on phase 8's 3-head row, against
+    their plain versions (bf16 outputs within one bf16 ulp, two for the
+    aggregate's d h_e, plus one flipped d gh operand where a product reads
+    it; f32 outputs rtol 1e-4), bitwise on a relaunch, timed beside the f32
+    kernels.  (d) The training CLI with --batch-windows 8 and its default
+    --bf16, one epoch on phase 23's tree: "(bf16)" logged, the bf16 round's
+    launches held on every step.
 
 The kernels line gives each serving kernel the launches of the path it
 runs on: gather_diff phase 10's, signed_segment_sum phase 3's,
 fused_edge_gru phase 17's, gather_concat and segment_sum_halves (rows at
 phase 2's window) phase 24 (c)'s; the single-head attention kernels phase
-19's per-head route; kernel #8's rows say 0 with a note.  A line gives the
+19's per-head route; kernel #8's rows say 0 with a note; the bf16 kernels
+phase 25 (c)'s (the round's on phase 5's workload, the aggregate's with
+heads).  A line gives the
 incidence builds (device or host time, counts a path).  The line before
 the last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
@@ -859,8 +883,9 @@ def serving_phase(torch, np, mp):
                                         ncategories=3, seed=s)
         seqs.append((X, bbox_pred[:, :2].astype(np.int64)))
     X, bbox_pred, _ = make_sequence(num_tracks=SERVE_TRACKS, num_frames=12, seed=99)
-    return serve_and_check(torch, np, mp, cfg, params, stats, seqs,
-                           (X, bbox_pred[:, :2].astype(np.int64)), "serving")
+    warm, runs = (X, bbox_pred[:, :2].astype(np.int64)), {}
+    summary = serve_and_check(torch, np, mp, cfg, params, stats, seqs, warm, "serving", keep=runs)
+    return summary, (cfg, params, stats, seqs, warm, runs)
 
 
 def cli_phase(torch, np):
@@ -1033,18 +1058,20 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def steps_agree(torch, first, other, what, names=("card", "CPU")):
+def steps_agree(torch, first, other, what, names=("card", "CPU"),
+                tol=(LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE)):
     """Two first steps, each (loss, aux, grads): loss terms within rtol
     LOSS_RTOL, tp/fp/fn equal, grads within GRAD_RTOL with an atol of
-    GRAD_ATOL_SCALE x the largest |grad| of `other`.  Returns (worst grad
-    diff, scale)."""
+    GRAD_ATOL_SCALE x the largest |grad| of `other` (or tol's three).
+    Returns (worst grad diff, scale)."""
     (loss1, aux1, grads1), (loss2, aux2, grads2) = first, other
+    loss_rtol, grad_rtol, grad_atol_scale = tol
     for name, a, b in (("loss", loss1, loss2), ("loss_ce", aux1["loss_ce"], aux2["loss_ce"]),
                        ("loss_f", aux1["loss_f"], aux2["loss_f"])):
         a, b = float(a), float(b)
-        if not abs(a - b) <= LOSS_RTOL * abs(b):
+        if not abs(a - b) <= loss_rtol * abs(b):
             fail(f"{what} first step {name}: {names[0]} {a!r}, {names[1]} {b!r} "
-                 f"(rtol {LOSS_RTOL})")
+                 f"(rtol {loss_rtol})")
     for k in ("tp", "fp", "fn"):
         if int(aux1[k]) != int(aux2[k]):
             fail(f"{what} first step {k}: {names[0]} {int(aux1[k])}, {names[1]} {int(aux2[k])}")
@@ -1054,17 +1081,18 @@ def steps_agree(torch, first, other, what, names=("card", "CPU")):
     for i, (a, b) in enumerate(zip(grads1, grads2)):
         a = a.cpu()
         worst = max(worst, float((a - b).abs().max()))
-        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL_SCALE * gscale):
+        if not torch.allclose(a, b, rtol=grad_rtol, atol=grad_atol_scale * gscale):
             fail(f"{what} first step grad of leaf {i} differs between {names[0]} and "
-                 f"{names[1]} by {float((a - b).abs().max()):.3g} (rtol {GRAD_RTOL}, "
-                 f"atol {GRAD_ATOL_SCALE * gscale:.3g})")
+                 f"{names[1]} by {float((a - b).abs().max()):.3g} (rtol {grad_rtol}, "
+                 f"atol {grad_atol_scale * gscale:.3g})")
     return worst, gscale
 
 
-def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, params_c, what):
+def first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c, aux_c, params_c, what,
+                      tol=(LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE)):
     """The card's first step against the CPU's rerun (steps_agree)."""
     grads_c = [p.grad for p in train_block.param_leaves(params_c)]
-    return steps_agree(torch, (loss1, aux1, grads1), (loss_c, aux_c, grads_c), what)
+    return steps_agree(torch, (loss1, aux1, grads1), (loss_c, aux_c, grads_c), what, tol=tol)
 
 
 def draw_keep_masks(train_block, gen, heads, nb, bb):
@@ -1103,12 +1131,14 @@ def block_incidence_host(np, block_ops, bb, what):
 
 def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=False,
                    fused_loss=False, features="2d", workload=None, gat_fused=True, timed=True,
-                   keep1=None, hidden=HIDDEN, msg_type="diff"):
+                   keep1=None, hidden=HIDDEN, msg_type="diff", compute_dtype=None):
     """Phase 5 (heads = 0), 7, 13 (es_kernel, with or without fused_loss),
     18 (features 2d+temp+vis on `workload`: the default composition timed,
     es_kernel and fused_loss a first step), 19 (the same with 3 heads on
-    either attention route) or 24 (d) (phase 18 with msg_type 'concat'):
-    the block train step on bench.py's workload.
+    either attention route), 24 (d) (phase 18 with msg_type 'concat') or
+    25 (c) (compute_dtype=torch.bfloat16: the bf16 kernels in the f32
+    round's and stacked aggregate's place, the card against the CPU to
+    BF16_*'s tolerances): the block train step on bench.py's workload.
     The first step's launches are counted (the counters set to 0 just
     before, read just after) and must be one step's expected launches; with
     `timed`, 3 warm-up steps, 20 timed steps counted the same way and a
@@ -1128,6 +1158,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         what = f"{what}, nhidden {hidden}"
     if msg_type != "diff":
         what = f"{what}, msg {msg_type}"
+    if compute_dtype is not None:
+        what = f"bf16 {what}"
     flags = [k for k, on in (("es_kernel", es_kernel), ("fused_loss", fused_loss),
                              ("per-head route", heads and not gat_fused)) if on]
     if flags:
@@ -1150,7 +1182,8 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
     params0 = mpnn.init_params(torch.Generator().manual_seed(0), cfg)
     stats0 = mpnn.init_batch_stats(cfg)
     step = train_block.make_block_train_step(cfg, tp_classifier=False, es_kernel=es_kernel,
-                                             fused_loss=fused_loss, gat_fused=gat_fused)
+                                             fused_loss=fused_loss, gat_fused=gat_fused,
+                                             compute_dtype=compute_dtype)
     params = train_block.trainable(to_device(params0, "cuda"))
     stats = to_device(stats0, "cuda")
     opt = optim.make_optimizer(train_block.param_leaves(params), TRAIN_LR, TRAIN_WD)
@@ -1186,7 +1219,13 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         # #8's (gat0_*), which no path launches
         route = "gat1_" if per_head else "gat_"
         expected.update({k: rounds * heads if per_head else rounds for k in gat_ops.LAUNCHES
-                         if k.startswith(route)})
+                         if k.startswith(route) and not k.endswith("_bf16")})
+    if compute_dtype is not None:
+        # the bf16 round and, with heads, the bf16 aggregate in their f32
+        # kernels' place; the scores kernels read f32 projections still
+        for k in ("block_round_fwd", "block_round_bwd") + (
+                ("gat_aggregate_fwd", "gat_aggregate_bwd") if heads else ()):
+            expected[k + "_bf16"], expected[k] = expected[k], 0
     counters = (block_ops.LAUNCHES, gat_ops.LAUNCHES, loss_ops.LAUNCHES, block_ops.BUILDS)
 
     def check_launches(launches, steps):
@@ -1234,6 +1273,7 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
         fail(f"{what} first step loss not finite: {float(loss1)}")
     summary = {
         "features": features, "branches": nb, "heads": heads, "gat_fused": gat_fused,
+        "compute_dtype": None if compute_dtype is None else str(compute_dtype),
         "es_kernel": es_kernel, "fused_loss": fused_loss,
         "windows": bb.n_windows, "t_cap": t_cap, "capD": bb.capD,
         "na_cap": bb.na_cap, "nt_cap": bb.nt_cap, "hidden": hidden, "edges_per_step": edges,
@@ -1288,8 +1328,10 @@ def training_phase(torch, np, block_ops, gat_ops, loss_ops, heads, es_kernel=Fal
     t0 = time.perf_counter()
     params_c, _, loss_c, aux_c = step(params_c, stats0, opt_c, bb_cpu, att_keep=keep_c)
     cpu_step_s = time.perf_counter() - t0
+    tol = ((LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SCALE) if compute_dtype is None else
+           (BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL_SCALE))
     worst_grad, gscale = first_step_agrees(torch, train_block, loss1, aux1, grads1, loss_c,
-                                           aux_c, params_c, what)
+                                           aux_c, params_c, what, tol)
     print(f"{what} vs CPU: loss {float(loss1)!r} / {float(loss_c)!r}, tp/fp/fn "
           f"{[int(aux1[k]) for k in ('tp', 'fp', 'fn')]} equal, worst grad diff "
           f"{worst_grad:.3g} (largest |grad| {gscale:.3g}); CPU step {cpu_step_s:.2f} s")
@@ -1534,23 +1576,24 @@ def gat_bounds(args, name, nh):
         return (f(ha, hn, a, m3, *args[6:9]) + f(ha, hn, a),
                 cells * nh * (12 * H + 2 * GAT_CELL_OPS))
     e, mr, mc, zr, zc, he, m3, ka, kn, keep = args[:10]
-    H = he.shape[3]
+    H, esz = he.shape[3], he.element_size()  # bf16 h_e and d h_e: 2 bytes a value
     cells = int((m3 != 0).sum())
     masks = f(ka, kn) if keep < 1.0 else 0
-    small = f(e, mr, mc, zr, zc, m3) + masks + 4 * cells * H
+    small = f(e, mr, mc, zr, zc, m3) + masks + esz * cells * H
     if name == "gat_aggregate_fwd":
         # rs and cs written; a multiply-add a cell and unit for each
         P, na, nt = m3.shape
         return small + 4 * P * (na + nt) * H, cells * (nh * GAT_CELL_OPS + 4 * H)
     g_rs, g_cs = args[10:12]
     # datt: two dot products a cell; d h_e: two multiply-adds a cell, head and unit
-    out = f(e, mr, mc, zr, zc) + 4 * he.numel()
+    out = f(e, mr, mc, zr, zc) + esz * he.numel()
     return small + f(g_rs, g_cs) + out, cells * (4 * H + nh * (4 * H + GAT_CELL_OPS))
 
 
 def gat_kernel_phase(torch, gat_ops, inputs, launches):
     """Phase 8: the four attention kernels at the widest round of phase 7,
-    and at the same shape with 3 heads on seeded inputs."""
+    and at the same shape with 3 heads on seeded inputs.  Returns (rows,
+    the 3-head rows, the 3-head aggregate inputs (forward, backward))."""
     fwd_s, bwd_s = inputs["gat_scores_fwd"], inputs["gat_scores_bwd"]
     fwd_a, bwd_a = inputs["gat_aggregate_fwd"], inputs["gat_aggregate_bwd"]
     ha, hn, a, m3, alpha, _ = fwd_s
@@ -1579,6 +1622,7 @@ def gat_kernel_phase(torch, gat_ops, inputs, launches):
              "gat_aggregate_fwd": gat_ops.gat_aggregate_reference,
              "gat_aggregate_bwd": gat_ops.gat_aggregate_backward_reference}
     rows, wide = [], {}
+    three = (cases["gat_aggregate_fwd"][1][1], cases["gat_aggregate_bwd"][1][1])
     for name, runs in cases.items():
         kernel = getattr(gat_ops, f"_{name}_cuda")
         forward = name.endswith("fwd")
@@ -1619,7 +1663,7 @@ def gat_kernel_phase(torch, gat_ops, inputs, launches):
                 rows.append(r)
             else:
                 wide[name] = r
-    return rows, wide
+    return rows, wide, three
 
 
 # the attention kernels held once more at widths the first design refused
@@ -2992,7 +3036,7 @@ def default_training_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
                 fail(f"default-feature fused_loss: the edge losses saw K = "
                      f"{wide['edge_loss_l1'][0].shape[-1]}, expected {3 * HIDDEN}")
         runs[key], firsts[key] = summary, first
-    return runs, wide
+    return runs, wide, firsts["default"]
 
 
 def default_heads_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
@@ -3004,7 +3048,7 @@ def default_heads_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
     3 x 3 of each single-head kernel and no stacked one), each first step
     against its CPU rerun, and the two routes' first steps against each
     other.  Returns (summaries, the per-head route's widest single-head
-    kernel inputs)."""
+    kernel inputs, the stacked route's first step and its keep masks)."""
     from trackmpnn_tpu_torch.models import mpnn
     from trackmpnn_tpu_torch.train import block as train_block
 
@@ -3029,7 +3073,7 @@ def default_heads_phase(torch, np, block_ops, gat_ops, loss_ops, workload):
           f"stacked route on the card, same masks: loss {float(firsts['per_head'][0])!r} / "
           f"{float(firsts['stacked'][0])!r}, tp/fp/fn equal, worst grad diff {worst:.3g} "
           f"(largest |grad| {scale:.3g})")
-    return runs, inputs
+    return runs, inputs, firsts["stacked"], keep1
 
 
 def gat1_kernel_phase(torch, gat_ops, inputs, launches):
@@ -3925,6 +3969,407 @@ def concat_phase(torch, np, mp, block_ops, gat_ops, loss_ops, packed_wl, default
     return out, rows
 
 
+# ------------------------------------------------ the planner and bf16 rectangles ----
+# dense bf16 on the H100's tensor cores (NVIDIA's data sheet): the bf16 block
+# round's products
+PEAK_BF16_PER_S = 989e12
+BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_GRAD_ATOL_SCALE = 1e-3, 1e-2, 1e-3
+BF16_VS_F32_LOSS_RTOL, BF16_VS_F32_COSINE = 1e-2, 0.99
+BF16_FLIP = 2.0 ** -8  # one bf16 operand rounded to its other neighbour, relative
+BF16_REPLACES = {"block_round_fwd_bf16": "trackmpnn_tpu/ops/pallas_block.py:123",
+                 "block_round_bwd_bf16": "trackmpnn_tpu/ops/pallas_block.py:140",
+                 "gat_aggregate_fwd_bf16": "trackmpnn_tpu/ops/pallas_gat.py:644",
+                 "gat_aggregate_bwd_bf16": "trackmpnn_tpu/ops/pallas_gat.py:664"}
+
+
+@contextlib.contextmanager
+def engine_timer():
+    """While active, the host seconds spent in the graph engine's calls that
+    the trackers make (initialize, update, decode_tracks, prune: association
+    and decode planning, appending frames, renumbering) are summed into
+    the yielded list's one entry."""
+    from trackmpnn_tpu_torch.graph import engine
+
+    spent = [0.0]
+
+    def timing(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name in ("initialize", "update", "decode_tracks", "prune"):
+            stack.enter_context(patched(engine, name, timing))
+        yield spent
+
+
+@contextlib.contextmanager
+def native_planner(on: bool):
+    """TM_NATIVE set for the engine's calls: the C++ planner (on) or its
+    numpy paths (TM_NATIVE=0)."""
+    old = os.environ.get("TM_NATIVE")
+    os.environ["TM_NATIVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TM_NATIVE")
+        else:
+            os.environ["TM_NATIVE"] = old
+
+
+def planner_phase(torch, np, mp, serving3, served17):
+    """Phase 25 (a): phase 3's three sequences (Tracker) and phase 22's
+    batched run (BatchedTracker over phase 17's sequences and model), each
+    served with the native planner and with TM_NATIVE=0 in this process:
+    decoded tracks identical between the two and to the phases' CPU runs;
+    frames/s and the host ms a frame spent in the graph engine for both."""
+    from trackmpnn_tpu_torch.decode import BatchedTracker, Tracker, TrackerConfig
+    from trackmpnn_tpu_torch.graph import native
+
+    t0 = time.perf_counter()
+    built = native.build()
+    print(f"planner: {native.library_path()} {'built' if built else 'up to date'} in "
+          f"{time.perf_counter() - t0:.2f} s (set-up)")
+    out = {}
+    tcfg = TrackerConfig(cur_win_size=WIN, hungarian=True)
+    cfg, params, stats, seqs, warm, runs3 = serving3
+    frames = sum(len(np.unique(y[:, 0])) for _, y in seqs)
+    for on in (True, False):
+        key = "planner" if on else "numpy"
+        with native_planner(on):
+            gpu = Tracker(params, stats, cfg, tcfg, device="cuda")
+            gpu.run(*warm)
+            torch.cuda.synchronize()
+            with engine_timer() as spent:
+                t1 = time.perf_counter()
+                y_outs = [gpu.run(X, y) for X, y in seqs]
+                wall = time.perf_counter() - t1
+        for i, y_out in enumerate(y_outs):
+            if not np.array_equal(y_out, runs3["cpu"][i][1]):
+                fail(f"planner ({key}), phase 3's sequence {i}: tracks differ from phase 3's "
+                     "CPU run")
+        out[f"serving_{key}"] = {"frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+                                 "engine_s": spent[0], "engine_ms_per_frame": spent[0] * 1e3 / frames,
+                                 "engine_share_of_wall": spent[0] / wall}
+        print(f"planner, phase 3's sequences ({key}): {frames} frames in {wall:.3f} s = "
+              f"{frames / wall:.4g} frames/s; engine {spent[0] * 1e3 / frames:.3f} host ms a "
+              f"frame ({spent[0] / wall:.3f} of the wall); tracks identical to phase 3's CPU run")
+
+    cfg, params, stats, seqs, runs17 = served17
+    frames = sum(len(np.unique(y[:, 0])) for _, y in seqs)
+    for on in (True, False):
+        key = "planner" if on else "numpy"
+        with native_planner(on):
+            tracker = BatchedTracker(params, stats, cfg, tcfg, device="cuda")
+            tracker.run([(X[:200], y[:200]) for X, y in seqs[:2]])
+            torch.cuda.synchronize()
+            with engine_timer() as spent:
+                t1 = time.perf_counter()
+                y_outs = tracker.run(seqs, pipeline=True)
+                wall = time.perf_counter() - t1
+        for i, y_out in enumerate(y_outs):
+            if not np.array_equal(y_out, runs17["cpu"][i][1]):
+                fail(f"planner ({key}), phase 22's sequence {i}: tracks differ from phase 17's "
+                     "CPU run")
+        out[f"batched_{key}"] = {"frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+                                 "engine_s": spent[0], "engine_ms_per_frame": spent[0] * 1e3 / frames,
+                                 "engine_share_of_wall": spent[0] / wall}
+        print(f"planner, phase 22's batched run ({key}): {frames} frames in {wall:.3f} s = "
+              f"{frames / wall:.4g} frames/s; engine {spent[0] * 1e3 / frames:.3f} host ms a "
+              f"frame ({spent[0] / wall:.3f} of the wall); tracks identical to phase 17's CPU run")
+    for what in ("serving", "batched"):
+        out[f"{what}_speedup"] = out[f"{what}_planner"]["frames_per_s"] / \
+            out[f"{what}_numpy"]["frames_per_s"]
+    print(f"planner: frames/s with the planner over TM_NATIVE=0: serving "
+          f"{out['serving_speedup']:.3f}x, batched {out['batched_speedup']:.3f}x")
+    return out
+
+
+def bf16_close(torch, what, name, got, want, ulps=1, flip=0.0):
+    """A bf16 output within `ulps` bf16 ulps of the larger magnitude plus
+    `flip` plus 1e-5 of its scale (tests/test_torch_cuda.py::
+    assert_bf16_close); returns the largest difference."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import bf16_ulp
+
+    a, b = got.float(), want.float()
+    lim = ulps * bf16_ulp(torch.maximum(a.abs(), b.abs())) + flip + 1e-5 * max(
+        float(b.abs().max()), 1.0)
+    err = (a - b).abs()
+    if got.dtype != torch.bfloat16 or bool((err > lim).any()):
+        fail(f"{what} {name}: {int((err > lim).sum())} values beyond {ulps} bf16 ulp(s) + "
+             f"{flip:.3g} of the plain version (largest excess "
+             f"{float((err - lim).max()):.3g}), dtype {got.dtype}")
+    return float(err.max())
+
+
+def f32_close(torch, what, name, got, want, extra=0.0):
+    """An f32 output within rtol 1e-4, atol 1e-5 of its scale (+ extra)."""
+    atol = ROUND_BWD_ATOL_SCALE * max(float(want.abs().max()), 1.0) + extra
+    if not torch.allclose(got, want, rtol=ROUND_BWD_RTOL, atol=atol):
+        fail(f"{what} {name} differs from its plain version by "
+             f"{float((got - want).abs().max()):.3g} (rtol {ROUND_BWD_RTOL}, atol {atol:.3g})")
+    return float((got - want).abs().max())
+
+
+def bound_bf16_ms(nbytes: float, product_flops: float, other_flops: float):
+    """The bf16 round's bound: its products at the dense bf16 tensor rate
+    plus its gate arithmetic at the f32 rate, or its bytes."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = product_flops / PEAK_BF16_PER_S + other_flops / PEAK_F32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_round_rows(torch, block_ops, fwd_args, cots, f32_fwd, f32_bwd, launches, where):
+    """block_round_fwd_bf16 and block_round_bwd_bf16 on fwd_args (bf16
+    h_e, ga, gb) and cots (bf16 g_eo) against their plain versions on the
+    card: edge_out, d h_e, d ga, d gb within one bf16 ulp (d h_e also one
+    flipped d gh operand), the f32 outputs within rtol 1e-4 (d w_hh also one
+    flipped operand); bitwise the same on a second launch; timed beside
+    their plain versions and the f32 kernels on f32_fwd / f32_bwd (the same
+    shape in f32)."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_util import bf16_dgh_scale
+
+    he, ga, gb, whh, bhh, web, mask, sign = fwd_args
+    P, na, nt, H = he.shape
+    live = mask != 0
+    cells, rows_a, cols_b = int(live.sum()), int(live.any(2).sum()), int(live.any(1).sum())
+    shape = f"P {P}, na {na}, nt {nt}, H {H}, live cells {cells}, {where}"
+    what = f"block_round_fwd_bf16 ({shape})"
+    got = block_ops._block_round_fwd_cuda(*fwd_args)
+    again = block_ops._block_round_fwd_cuda(*fwd_args)
+    want = block_ops.block_round_reference(*fwd_args)
+    torch.cuda.synchronize()
+    err = bf16_close(torch, what, "edge_out", got[0], want[0])
+    for name, a, b in zip(("rs", "cs", "lg"), got[1:], want[1:]):
+        err = max(err, f32_close(torch, what, name, a, b))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what} is not bitwise the same on a second launch")
+    if not (torch.all(got[0][~live] == 0) and torch.all(got[3][~live] == 0)):
+        fail(f"{what} wrote a nonzero edge_out or lg at a padded cell")
+    prod = cells * 2 * H * 3 * H
+    other = cells * (2 * H + 2 * H + GATE_FLOPS_PER_UNIT * H)
+    fwd_bytes = (2 * cells * H + 4 * P * na * nt + 2 * (rows_a + cols_b) * 3 * H
+                 + 4 * (H * 3 * H + 4 * H) + P * na * nt * (2 * H + 4) + 4 * P * (na + nt) * H)
+    b, by = bound_bf16_ms(fwd_bytes, prod, other)
+    rows = [{
+        "name": "block_round_fwd_bf16", "route": "cuda",
+        "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+        "replaces": BF16_REPLACES["block_round_fwd_bf16"],
+        "launches": launches["block_round_fwd_bf16"], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: block_ops._block_round_fwd_cuda(*fwd_args)),
+        "call_ms": cuda_time_ms(lambda: block_ops._block_round_fwd_cuda(*fwd_args),
+                                queue_ahead=False),
+        "plain_ms": cuda_time_ms(lambda: block_ops.block_round_reference(*fwd_args),
+                                 iters=PLAIN_ITERS),
+        "f32_kernel_ms": cuda_time_ms(lambda: block_ops._block_round_fwd_cuda(*f32_fwd)),
+        "bound_ms": b, "bound_by": by, "library_ms": None, "shape": shape}]
+
+    bwd_args = tuple(fwd_args) + tuple(cots)
+    what = f"block_round_bwd_bf16 ({shape})"
+    got = block_ops._block_round_bwd_cuda(*bwd_args)
+    again = block_ops._block_round_bwd_cuda(*bwd_args)
+    want = block_ops.block_round_backward_reference(*bwd_args)
+    torch.cuda.synchronize()
+    dgh = BF16_FLIP * bf16_dgh_scale(fwd_args[:7], cots, sign)
+    err = bf16_close(torch, what, "dhe", got[0], want[0], flip=dgh * float(whh.abs().max()))
+    for name, a, w in zip(("dga", "dgb"), got[1:3], want[1:3]):
+        err = max(err, bf16_close(torch, what, name, a, w))
+    err = max(err, f32_close(torch, what, "dwhh", got[3], want[3],
+                             extra=dgh * float(he.float().abs().max())))
+    for name, a, w in zip(("dbhh", "dweb"), got[4:], want[4:]):
+        err = max(err, f32_close(torch, what, name, a, w))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what} is not bitwise the same on a second launch")
+    bwd_bytes = (2 * 2 * cells * H + 4 * 2 * P * na * nt + 2 * (rows_a + cols_b) * 3 * H
+                 + 4 * (rows_a + cols_b) * H + 4 * (H * 3 * H + 4 * H) + 2 * P * na * nt * H
+                 + 2 * P * (na + nt) * 3 * H + 4 * (H * 3 * H + 4 * H))
+    b, by = bound_bf16_ms(bwd_bytes, 3 * prod, cells * 2 * GATE_FLOPS_PER_UNIT * H)
+    rows.append({
+        "name": "block_round_bwd_bf16", "route": "cuda",
+        "source": "trackmpnn_tpu_torch/csrc/block_kernels.cu",
+        "replaces": BF16_REPLACES["block_round_bwd_bf16"],
+        "launches": launches["block_round_bwd_bf16"], "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: block_ops._block_round_bwd_cuda(*bwd_args)),
+        "call_ms": cuda_time_ms(lambda: block_ops._block_round_bwd_cuda(*bwd_args),
+                                queue_ahead=False),
+        "plain_ms": cuda_time_ms(lambda: block_ops.block_round_backward_reference(*bwd_args),
+                                 iters=PLAIN_ITERS),
+        "f32_kernel_ms": cuda_time_ms(lambda: block_ops._block_round_bwd_cuda(*f32_bwd)),
+        "bound_ms": b, "bound_by": by, "library_ms": None, "shape": shape})
+    for r in rows:
+        print_kernel_row(r, f"; the f32 kernel on the same shape {r['f32_kernel_ms'] * 1e3:.2f} us")
+    return rows
+
+
+def bf16_gat_rows(torch, gat_ops, fwd_args, bwd_args, launches):
+    """gat_aggregate_fwd_bf16 / _bwd_bf16 on phase 8's 3-head row with its
+    h_e in bf16 against their plain versions: rs, cs within GAT_FWD_*; the
+    backward's f32 outputs within rtol 1e-4 and 1e-5 of their scale; d h_e
+    (bf16, each head's term rounded and added in bf16 in head order) within
+    two bf16 ulps; bitwise on a relaunch; timed beside the f32 kernels on
+    the f32 row."""
+    bf = lambda args: tuple(a.bfloat16() if i == 5 else a for i, a in enumerate(args))
+    rows = []
+    for name, args32 in (("gat_aggregate_fwd_bf16", fwd_args),
+                         ("gat_aggregate_bwd_bf16", bwd_args)):
+        args = bf(args32)
+        base = name[:-len("_bf16")]
+        kernel = getattr(gat_ops, f"_{base}_cuda")
+        plain = (gat_ops.gat_aggregate_reference if base.endswith("fwd")
+                 else gat_ops.gat_aggregate_backward_reference)
+        e, m3 = args[0], args[6]
+        nh, (P, na, nt), H = e.shape[0], m3.shape, args[5].shape[3]
+        shape = f"nh {nh}, P {P}, na {na}, nt {nt}, H {H}, live cells {int((m3 != 0).sum())}"
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        if base.endswith("fwd"):
+            for x, w in zip(got, want):
+                err = max(err, float((x - w).abs().max()))
+                if not torch.allclose(x, w, rtol=GAT_FWD_RTOL, atol=GAT_FWD_ATOL):
+                    fail(f"{name} ({shape}) differs from its plain version by "
+                         f"{float((x - w).abs().max()):.3g}")
+        else:
+            for k, (x, w) in enumerate(zip(got[:5], want[:5])):
+                err = max(err, f32_close(torch, f"{name} ({shape})", f"output {k}", x, w))
+            err = max(err, bf16_close(torch, f"{name} ({shape})", "dhe", got[5], want[5], ulps=2))
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} ({shape}) is not bitwise the same on a second launch")
+        b, by = bound_ms(*gat_bounds(args, base, nh))
+        r = {"name": name, "route": "cuda", "source": "trackmpnn_tpu_torch/csrc/gat_kernels.cu",
+             "replaces": BF16_REPLACES[name], "launches": launches[name], "max_abs_err": err,
+             "ms": cuda_time_ms(lambda: kernel(*args)),
+             "call_ms": cuda_time_ms(lambda: kernel(*args), queue_ahead=False),
+             "plain_ms": cuda_time_ms(lambda: plain(*args), iters=PLAIN_ITERS),
+             "f32_kernel_ms": cuda_time_ms(lambda: kernel(*args32)),
+             "bound_ms": b, "bound_by": by, "library_ms": None, "shape": shape}
+        print_kernel_row(r, f"; the f32 kernel on the f32 row {r['f32_kernel_ms'] * 1e3:.2f} us")
+        rows.append(r)
+    return rows
+
+
+def bf16_tracks_f32(torch, first_bf16, first_f32, what):
+    """The bf16 step's first step against the f32 step's on the card (as
+    tests/test_block_step.py holds JAX's): loss within rtol
+    BF16_VS_F32_LOSS_RTOL, and each gradient's direction, cosine >
+    BF16_VS_F32_COSINE, for every leaf whose f32 gradient norm is at least
+    1e-3 of the largest (lin1's bias, which BN makes invariant, has only
+    rounding noise for a gradient).  Returns (loss rel diff, worst cosine)."""
+    (l16, _, g16), (l32, _, g32) = first_bf16, first_f32
+    rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    if rel > BF16_VS_F32_LOSS_RTOL:
+        fail(f"{what}: the bf16 step's loss {float(l16)!r} against the f32 step's "
+             f"{float(l32)!r} (rel {rel:.3g} > {BF16_VS_F32_LOSS_RTOL})")
+    norms = [float(g.norm()) for g in g32]
+    worst = 1.0
+    for i, (a, b) in enumerate(zip(g16, g32)):
+        if norms[i] < 1e-3 * max(norms):
+            continue
+        cos = float((a.double() * b.double()).sum() / (a.double().norm() * b.double().norm()))
+        worst = min(worst, cos)
+        if not cos > BF16_VS_F32_COSINE:
+            fail(f"{what}: gradient of leaf {i} at cosine {cos:.5f} to the f32 step's")
+    return rel, worst
+
+
+def bf16_phase(torch, np, block_ops, gat_ops, loss_ops, f32_runs, f32_inputs, gat3_args,
+               default_wl, keep19):
+    """Phase 25 (b) and (c): the bf16 block step (compute_dtype=bf16) on
+    phase 5's workload, phase 18's default features and phase 19's stacked
+    heads (timed, launches exact, each first step against its CPU rerun
+    and against the f32 step's on the card), then the bf16 kernels at the
+    phase-5 workload's widest round, at P 16, na = nt = 64, H 128 and on
+    phase 8's 3-head row."""
+    bf16 = torch.bfloat16
+    runs, firsts, inputs = {}, {}, {}
+    for key, kw in (("phase5", dict(heads=0)),
+                    ("default", dict(heads=0, features=DEFAULT_FEATS, workload=default_wl)),
+                    ("heads", dict(heads=GAT_HEADS_WIDE, features=DEFAULT_FEATS,
+                                   workload=default_wl, keep1=keep19))):
+        summary, rec, first = training_phase(torch, np, block_ops, gat_ops, loss_ops,
+                                             compute_dtype=bf16, **kw)
+        f32_summary, f32_first = f32_runs[key]
+        rel, cos = bf16_tracks_f32(torch, first, f32_first, f"bf16 training ({key})")
+        summary.update({"loss_rel_vs_f32": rel, "worst_grad_cosine_vs_f32": cos,
+                        "f32_ms_per_step_events": f32_summary["ms_per_step_events"],
+                        "f32_ms_per_step_wall": f32_summary["ms_per_step_wall"]})
+        print(f"bf16 training ({key}) vs the f32 step on the card: loss {float(first[0])!r} / "
+              f"{float(f32_first[0])!r} (rel {rel:.3g}), worst gradient cosine {cos:.6f}; "
+              f"{summary['ms_per_step_events']:.3f} / {summary['ms_per_step_wall']:.3f} ms a "
+              f"step (events / host) against f32's {f32_summary['ms_per_step_events']:.3f} / "
+              f"{f32_summary['ms_per_step_wall']:.3f}")
+        runs[key], firsts[key] = summary, first
+        if key == "phase5":
+            inputs = rec
+    launches = {k: runs["phase5"]["launches"][k] for k in ("block_round_fwd_bf16",
+                                                           "block_round_bwd_bf16")}
+    launches.update({k: runs["heads"]["launches"][k] for k in ("gat_aggregate_fwd_bf16",
+                                                              "gat_aggregate_bwd_bf16")})
+    fwd, bwd = inputs["fwd"], inputs["bwd"]
+    rows = bf16_round_rows(torch, block_ops, fwd, bwd[8:], f32_inputs["fwd"], f32_inputs["bwd"],
+                           launches, "the bf16 step's widest round")
+    args, cots = round_problem(np, torch, 11, **WIDE_ROUND)
+    wide_rows = bf16_round_rows(
+        torch, block_ops, [a.bfloat16() if i < 3 else a for i, a in enumerate(args)] + [-1.0],
+        [cots[0].bfloat16()] + cots[1:], args + [-1.0], args + [-1.0] + cots,
+        {"block_round_fwd_bf16": None, "block_round_bwd_bf16": None}, "seeded")
+    rows += bf16_gat_rows(torch, gat_ops, *gat3_args, launches)
+    return runs, rows, wide_rows
+
+
+def bf16_cli_phase(torch, block_ops):
+    """Phase 25 (d): the training CLI with --batch-windows 8 and its default
+    --bf16, one epoch on phase 23's tree: the bf16 route logged, T x 3
+    launches of block_round_fwd_bf16 and _bwd_bf16 and 2T x 3 window_scatter
+    every step, none of the f32 round's, one BlockBatch incidence a step."""
+    from trackmpnn_tpu_torch.cli import train as cli
+    from trackmpnn_tpu_torch.models import mpnn
+    from trackmpnn_tpu_torch.train import block as train_block
+
+    what = "train CLI (--batch-windows 8, bf16 by default)"
+    root = os.path.join(WORK, "train_cli", "kitti")  # phase 23's tree
+    out_dir = os.path.join(WORK, "train_cli", "bf16")
+    nb3 = len(mpnn.ModelConfig(features=DEFAULT_FEATS).branches)
+    plain = block_expect(nb3)
+
+    def expect(bb):
+        r = bb.t_cap * nb3
+        return {**plain(bb), "block_round_fwd": 0, "block_round_bwd": 0,
+                "block_round_fwd_bf16": r, "block_round_bwd_bf16": r}
+
+    rec = StepRecorder(torch, (block_ops.LAUNCHES, block_ops.BUILDS), expect)
+    built = block_ops.BUILDS["block_incidence"]
+    t0 = time.perf_counter()
+    with patched(train_block, "make_block_train_step", rec.wrap):
+        hist = cli.main(["--dataset-root-path", root, "--detections", "rrc", "--log-schedule",
+                         "50", "--output-dir", out_dir, "--epochs", "1", "--batch-windows", "8"])
+    wall = time.perf_counter() - t0
+    losses = rec.check(what)
+    if block_ops.BUILDS["block_incidence"] - built != len(rec.steps):
+        fail(f"{what}: {block_ops.BUILDS['block_incidence'] - built} BlockBatch incidences for "
+             f"{len(rec.steps)} steps, expected one a batch")
+    if "block-structured batched training: 8 windows/step (bf16)" not in read_log(out_dir):
+        fail(f"{what}: the log does not say the bf16 block route ran")
+    ev, host = rec.ms()
+    out = {"steps": len(rec.steps), "wall_s": wall, "history": hist,
+           "ms_per_step_events": ev, "ms_per_step_wall": host,
+           "launches_per_step": [s["launched"] for s in rec.steps[:3]]}
+    print(f"{what}: {len(rec.steps)} block steps (T x {nb3} block_round_fwd_bf16 / _bwd_bf16 "
+          f"and 2T x {nb3} window_scatter, held on every step), {ev:.3f} ms (events) / "
+          f"{host:.3f} ms (host) a step, wall {wall:.1f} s, losses {losses[0]:.5g} -> "
+          f"{losses[-1]:.5g}, val MOTA {hist['val_mota']}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write every number to this file")
@@ -3974,7 +4419,7 @@ def main():
 
     # 2. kernels, 3. serving, 4. CLI: the serving path
     kernels, edge_gru_wide, serving_in = kernel_phase(torch, np, mp, tracker_mod, view_mod)
-    serving = serving_phase(torch, np, mp)
+    serving, serving3 = serving_phase(torch, np, mp)
     cli = cli_phase(torch, np)
     # 5. training, 6. block kernels: the training path
     training, inputs, first5 = training_phase(torch, np, block_ops, gat_ops, loss_ops, heads=0)
@@ -3988,7 +4433,8 @@ def main():
     # 7. GAT training, 8. GAT kernels, 9. GAT serving: the attention path
     gat_training, gat_inputs, _ = training_phase(torch, np, block_ops, gat_ops, loss_ops,
                                                  heads=GAT_HEADS)
-    gat_kernels, gat_wide = gat_kernel_phase(torch, gat_ops, gat_inputs, gat_training["launches"])
+    gat_kernels, gat_wide, gat3_args = gat_kernel_phase(torch, gat_ops, gat_inputs,
+                                                        gat_training["launches"])
     kernels += gat_kernels
     gat_refused = gat_wide_rows(torch, gat_ops, "stacked")
     gat_serving = gat_serving_phase(torch, np, mp)
@@ -4015,16 +4461,16 @@ def main():
     # losses also at phase 18's width), 19. with three heads on both
     # attention routes, 20. the single-head kernels
     default_wl = default_training_workload(torch, np)
-    default_training, loss_wide = default_training_phase(torch, np, block_ops, gat_ops, loss_ops,
-                                                         default_wl)
+    default_training, loss_wide, default_first = default_training_phase(
+        torch, np, block_ops, gat_ops, loss_ops, default_wl)
     es_loss_rows, loss_narrow = es_loss_kernel_phase(
         torch, block_ops, loss_ops, es_inputs, compositions["es_kernel_fused_loss"]["launches"],
         loss_wide)
     kernels += es_loss_rows
     es_wide = wide_es_rows(torch, np, block_ops)
     loss_wide_rows = wide_loss_rows(torch, np, loss_ops)
-    default_heads, gat1_inputs = default_heads_phase(torch, np, block_ops, gat_ops, loss_ops,
-                                                     default_wl)
+    default_heads, gat1_inputs, heads_first, keep19 = default_heads_phase(
+        torch, np, block_ops, gat_ops, loss_ops, default_wl)
     kernels += gat1_kernel_phase(torch, gat_ops, gat1_inputs,
                                  default_heads["per_head"]["launches"])
     gat_refused += gat_wide_rows(torch, gat_ops, "gat1")
@@ -4043,6 +4489,8 @@ def main():
     full, served = full_serving_phase(torch, np, mp)
     # 22. the batched validation tracker on phase 17's sequences
     batch_tracking = batch_tracker_phase(torch, np, mp, served, full)
+    # 25 (a) the native planner against TM_NATIVE=0 on phases 3 and 22
+    planner = planner_phase(torch, np, mp, serving3, served)
     del served
     # 23. the training CLI
     train_cli = train_cli_phase(torch, np, mp, block_ops, gat_ops)
@@ -4050,6 +4498,13 @@ def main():
     concat, concat_rows = concat_phase(torch, np, mp, block_ops, gat_ops, loss_ops, packed_wl,
                                        default_wl, serving_in)
     kernels += concat_rows
+    # 25 (b), (c) the bf16 block step and its kernels, (d) the CLI's default --bf16
+    bf16_runs, bf16_rows, bf16_wide = bf16_phase(
+        torch, np, block_ops, gat_ops, loss_ops,
+        {"phase5": (training, first5), "default": (default_training["default"], default_first),
+         "heads": (default_heads["stacked"], heads_first)}, inputs, gat3_args, default_wl, keep19)
+    kernels += bf16_rows
+    bf16_cli = bf16_cli_phase(torch, block_ops)
     # each serving kernel's launches on the path it runs on: gather_diff in
     # row-layout training (phase 10; a served forward takes fused_edge_gru),
     # signed_segment_sum serving (phase 3), fused_edge_gru the default
@@ -4078,7 +4533,9 @@ def main():
                        "default_training": default_training, "default_heads": default_heads,
                        "embedding": embedding, "full_serving": full,
                        "batch_tracker": batch_tracking, "train_cli": train_cli,
-                       "msg_concat": concat,
+                       "msg_concat": concat, "planner": planner,
+                       "bf16_training": bf16_runs, "bf16_round_wide": bf16_wide,
+                       "bf16_train_cli": bf16_cli,
                        "incidence": INCIDENCE},
                       f, indent=1)
     print(f"incidence builds: {json.dumps(INCIDENCE)}")

@@ -224,6 +224,7 @@ def test_resume_and_output_dir_refusal(runs):
 
 @pytest.mark.parametrize("env,flags,log", [
     ({}, ["--batch-windows", "2", "--no-bf16"], "block-structured batched training: 2"),
+    ({}, ["--batch-windows", "2"], "block-structured batched training: 2 windows/step (bf16)"),
     ({"TM_PACKED": "1"}, ["--batch-windows", "2"], "packed batched training: 2"),
     ({}, ["--batch-windows", "2", "--no-bf16", "--msg-type", "concat"],
      "block-structured batched training: 2")])
@@ -280,7 +281,7 @@ def test_msg_concat_cli_matches_jax(runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--batch-windows", "4"], "'bf16 rectangles'; pass --no-bf16"),
+    (["--batch-windows", "2", "--embed-bf16"], "'bf16 rectangles'"),
     (["--embed-bf16"], "'bf16 rectangles'"),
     (["--mesh", "data=2"], "'Multi-GPU'"),
     (["--dataset", "bdd100k", "--category", "car", "--detections", "libra"], "'BDD100K data'"),

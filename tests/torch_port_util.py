@@ -171,6 +171,36 @@ def in_f64(plain, *args):
     return [o.float() for o in (out if isinstance(out, (tuple, list)) else [out])]
 
 
+def bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) at |x| of a tensor, as f32:
+    2^(exponent - 7) of each value's binade (normal numbers)."""
+    import torch
+
+    x = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+
+
+def bf16_dgh_scale(args, cots, sign):
+    """The largest |d gh| of the bf16 block round (ops/block.py::
+    block_round_backward_reference's intermediate) on args (h_e, ga, gb,
+    w_hh, b_hh, w_eb, mask3) and cots (g_eo, g_rs, g_cs, g_lg): the operand
+    that d gh @ w_hh^T and he_m^T @ d gh round to bf16.  The kernel's f32
+    d gh differs from the plain version's in its last bits (gh's sums come
+    in another order), so now and then one rounds to the other bf16
+    neighbour, which moves the product's sum by up to 2^-8 |d gh| times the
+    other operand."""
+    from trackmpnn_tpu_torch.ops import block
+
+    h_e, ga, gb, w_hh, b_hh, w_eb, m3 = args
+    m = m3[..., None]
+    he_m = h_e.float() * m
+    r, z, n, ghn = block._gates(he_m, ga.float(), gb.float(), w_hh, b_hh, sign, True)
+    go = (cots[0].float() + cots[3][..., None] * w_eb.reshape(1, 1, 1, -1)) * m
+    dpre_n = go * (1.0 - z) * (1.0 - n * n)
+    return max(float(t.abs().max()) for t in (dpre_n * ghn * r * (1.0 - r),
+                                              go * (he_m - n) * z * (1.0 - z), dpre_n * r))
+
+
 def es_inputs(seed, sign, B=3, T=3, capD=16, na=5, nt=6, H=8):
     """numpy inputs and cotangents of the es round (ops/block.py::
     fused_block_round_es) over B*T step-major blocks (block q of window

@@ -4,7 +4,8 @@ of trackmpnn_tpu/cli/train.py).
 Every chunk of the train split becomes a teacher-forced WindowSchedule on
 the host, bucketed to a bounded set of padded shapes, and one train step
 on the device: the batch-1 step (train/step.py) with --batch-windows 1,
-the block step (train/block.py) over that many windows, or the packed step
+the block step (train/block.py, bf16 rectangles unless --no-bf16) over that
+many windows, or the packed step
 (train/packed.py) with TM_PACKED=1.  Validation tracks the val split's
 sequences in lockstep (decode/batch_tracker.py) and selects on MOTA like
 the reference (train.py:300-307); checkpoints carry the full train state
@@ -240,9 +241,11 @@ def main(argv: Optional[List[str]] = None):
         from trackmpnn_tpu_torch.train.block import (block_dims, build_block_batch,
                                                      make_block_train_step)
 
-        step = make_block_train_step(cfg, args.tp_classifier)
+        step = make_block_train_step(cfg, args.tp_classifier,
+                                     compute_dtype=torch.bfloat16 if args.bf16 else None)
         block_dims_max = [0, 0, 0]  # growing buckets bound the distinct shapes
-        log(f"block-structured batched training: {batch_windows} windows/step")
+        log(f"block-structured batched training: {batch_windows} windows/step"
+            + (" (bf16)" if args.bf16 else ""))
         if args.fused or args.defer_loss:
             log("--fused / --defer-loss choose TPU compositions with the same result; "
                 "the card runs one block round, its kernels")

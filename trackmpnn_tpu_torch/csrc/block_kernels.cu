@@ -107,6 +107,27 @@
 //   * Widths: shared memory depends on H only; any na, nt >= 1 and every H
 //     that is a multiple of 8 from 8 to kMaxH = 256.
 //
+// block_round_fwd_bf16 / block_round_bwd_bf16 (#4 in bf16)
+//   The round of the block step's bf16 rectangles (train/block.py,
+//   compute_dtype=torch.bfloat16), the TPU kernel with mm_dtype bf16
+//   (pallas_block.py:94-190, :253-279): h_e, ga, gb and d edge_out bf16;
+//   he_m = f32(h_e) * mask; gh = he_m @ w_hh with both operands rounded to
+//   bf16 and f32 sums; the gates in f32; edge_out stored in bf16 and lg
+//   taken from the f32 edge_out before that rounding; rs / cs f32 sums of
+//   he_m; the backward's d gh @ w_hh^T and he_m^T @ d gh with both operands
+//   rounded to bf16; d h_e, d ga, d gb written in bf16, d w_hh, d b_hh,
+//   d w_eb f32.  The same four kernels instantiated on the element type
+//   and the product: each k step is one mma.sync.m16n8k16 .bf16 with f32
+//   accumulators where the f32 round runs three m16n8k8 .tf32 (and K is 16
+//   a step, not 8), so a product is a sixth of the f32 round's tensor-core
+//   instructions; the tile of h_e, the gate rows and the outputs move half
+//   the bytes.  A stage of w_hh is copied in f32 with cp.async and
+//   converted once to bf16 in two layouts, one for each product that reads
+//   it ([3][H][8] for d gh @ w_hh^T, [3][8][H] for gh).  d gh stays f32 in
+//   the scratch (d b_hh and the gate sums are f32 sums of it) and is
+//   rounded to bf16 where d w_hh's product reads it.  Same tiles, grids,
+//   launches and reduction orders as the f32 round.
+//
 // window_scatter
 //   Replaces _wscatter_kernel / window_scatter in pallas_block.py.
 //   out[(p % B)*capD + idx[p, i]] += vals[p, i]  over blocks p and rows i,
@@ -156,12 +177,21 @@
 // no host synchronisation).  Each entry point returns cudaGetLastError() so
 // the caller can raise on a refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tf32_mma.cuh"  // 3xTF32 mma, cp.async
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// the round's element type: float (the f32 round) or bf16 (the bf16 round)
+template <class E>
+struct IsBf16 {
+  static constexpr bool value = sizeof(E) == 2;
+};
 
 constexpr int kWarps = 4;              // warps of a round CTA
 constexpr int kThreads = 32 * kWarps;
@@ -193,8 +223,28 @@ __host__ __device__ __forceinline__ int he_stride(int H) { return H + (36 - H % 
 // rows g, columns 2t and 2t + 1).
 __host__ __device__ __forceinline__ int slab_floats(int H) { return 3 * H * kChunk; }
 
-size_t tile_smem(int H) {  // forward and d h_e: a CTA tile and its masks, two slabs
-  return sizeof(float) * (kTile * (he_stride(H) + 1) + 2 * 2 * slab_floats(H));
+// Elements a staged row of h_e takes: f32 he_stride(H); bf16 two a 32-bit
+// word, he_stride(H / 2) words (4 mod 32 again, for the fragments' word
+// loads).
+template <class E>
+__host__ __device__ __forceinline__ int tile_stride(int H) {
+  return IsBf16<E>::value ? 2 * he_stride(H / 2) : he_stride(H);
+}
+
+// Floats a stage of w_hh takes: f32 its split (big | small); bf16 the
+// staged f32 slab, then its bf16 copies in the A layout [3 gates][H rows][8
+// units] (d gh @ w_hh^T reads its words: rows g, units 2t, 2t + 1) and the
+// T layout [3 gates][8 units][H], rows he_stride(H / 2) words apart (gh
+// reads its words: units g, rows 2t, 2t + 1).
+template <class E>
+__host__ __device__ __forceinline__ int stage_floats(int H) {
+  return IsBf16<E>::value ? slab_floats(H) + slab_floats(H) / 2 + 3 * kChunk * he_stride(H / 2)
+                          : 2 * slab_floats(H);
+}
+
+template <class E>
+size_t tile_smem(int H) {  // forward and d h_e: a CTA tile and its masks, two stages
+  return sizeof(E) * kTile * tile_stride<E>(H) + sizeof(float) * (kTile + 2 * stage_floats<E>(H));
 }
 size_t dw_smem() {  // two cell tiles of h_e and of d gh, their masks
   return sizeof(float) * 2 * kTile * (kAStride + kBStride + 1);
@@ -205,27 +255,31 @@ size_t dw_smem() {  // two cell tiles of h_e and of d gh, their masks
 // already in ga).  kGather true: the detection layout ga_d / gb_d [B*capD,
 // 3H] at row (q % B)*capD + the window-local id act[q, i] / new[q, j], with
 // b_ih added to the ga side; an id outside [0, capD) traps.
-struct GateSrc {
-  const float *ga, *gb, *bih;
+template <class E>
+struct GateSrcT {
+  const E *ga, *gb;
+  const float* bih;
   const int32_t *act, *nw;
   int B, capD;
 };
+using GateSrc = GateSrcT<float>;
 
 // One cell of a thread's rows: its index among all P*na*nt cells (-1 past
 // the block's), its mask and, where live, its gate rows; da / dn the rows
 // of the cotangents of the row and column sums (detection rows where
 // kGather).
-struct Cell {
+template <class E>
+struct CellT {
   int64_t cell;
   float m;
-  const float *ga, *gb;
+  const E *ga, *gb;
   int64_t da, dn;
 };
 
-template <bool kGather>
-__device__ __forceinline__ Cell cell_at(const GateSrc& g, const float* __restrict__ mask,
-                                        int64_t q, int na, int nt, int H, int c) {
-  Cell r{-1, 0.f, nullptr, nullptr, 0, 0};
+template <bool kGather, class E>
+__device__ __forceinline__ CellT<E> cell_at(const GateSrcT<E>& g, const float* __restrict__ mask,
+                                            int64_t q, int na, int nt, int H, int c) {
+  CellT<E> r{-1, 0.f, nullptr, nullptr, 0, 0};
   const int ncell = na * nt;
   if (c >= ncell) return r;
   r.cell = q * ncell + c;
@@ -248,6 +302,41 @@ __device__ __forceinline__ Cell cell_at(const GateSrc& g, const float* __restric
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) { return __ldg((const float2*)p); }
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(__ldg((const __nv_bfloat162*)p));
+}
+// two values from shared memory, as floats
+__device__ __forceinline__ float2 sh2(const float* p) { return *(const float2*)p; }
+__device__ __forceinline__ float2 sh2(const bf16* p) {
+  return __bfloat1622float2(*(const __nv_bfloat162*)p);
+}
+// two values stored in the output's type (bf16: rounded to nearest, ties even)
+__device__ __forceinline__ void st2(float* p, float x, float y) { *(float2*)p = make_float2(x, y); }
+__device__ __forceinline__ void st2(bf16* p, float x, float y) {
+  *(__nv_bfloat162*)p = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// (lo, hi) rounded to bf16 in one 32-bit register, lo in the low half: an
+// mma fragment's pair of consecutive k (or n) values
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a b, one m16n8k16 bf16 product with f32 accumulators.  A (row
+// major): a[0] row g, k 2t, 2t + 1; a[1] row g + 8; a[2], a[3] the same at k
+// + 8.  B (column major): b[0] k 2t, 2t + 1 of column g; b[1] at k + 8.
+// C as m16n8k8's: rows g, g + 8, columns 2t, 2t + 1.  The products of two
+// bf16 values are exact in f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // x where the mask at m is set, else m itself (which holds 0): a select of
 // addresses, not a branch, so that a loop's loads are in flight together
@@ -262,9 +351,9 @@ struct GateIn {
   float gi[3][2], bh[3][2];
 };
 
-template <bool kGather>
-__device__ __forceinline__ GateIn gate_in(const GateSrc& g, const Cell& c, const float* bhh,
-                                          int H, int h, float sign) {
+template <bool kGather, class E>
+__device__ __forceinline__ GateIn gate_in(const GateSrcT<E>& g, const CellT<E>& c,
+                                          const float* bhh, int H, int h, float sign) {
   GateIn o;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -331,6 +420,34 @@ __device__ __forceinline__ void split_slab(float* big, int H, int tid, int nthre
   }
 }
 
+// The bf16 round's stage: converts the f32 slab at raw, the 16-byte pieces
+// this thread copied (stage_slab's mapping), into its A and T layouts
+// (stage_floats).
+__device__ __forceinline__ void convert_slab(float* raw, int H, int tid, int nthreads) {
+  bf16* a = (bf16*)(raw + slab_floats(H));
+  bf16* tl = (bf16*)(raw + slab_floats(H) + slab_floats(H) / 2);
+  const int ts = 2 * he_stride(H / 2);
+  for (int e = tid; e < 2 * 3 * H; e += nthreads) {
+    const float4 v = *(const float4*)(raw + 4 * e);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    const int row = e >> 1, u0 = 4 * (e & 1), gate = row / H, k = row - gate * H;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bf16 b = __float2bfloat16_rn(x[i]);
+      a[4 * e + i] = b;  // raw index row * 8 + u0 + i
+      tl[(gate * kChunk + u0 + i) * ts + k] = b;
+    }
+  }
+}
+
+template <class E>
+__device__ __forceinline__ void prepare_slab(float* slab, int H, int tid, int nthreads) {
+  if constexpr (IsBf16<E>::value)
+    convert_slab(slab, H, tid, nthreads);
+  else
+    split_slab(slab, H, tid, nthreads);
+}
+
 // acc[gate] = the 16 staged rows at hs, times their masks m_lo (rows 0-7)
 // and m_hi (8-15), @ the slab's gate columns (K = H), 3xTF32 with the
 // slab's split.  Thread (g, t) holds rows g, g + 8 and units u*8 + 2t, + 1 of
@@ -360,18 +477,56 @@ __device__ __forceinline__ void gate_chunk(const float* hs, int stride, const fl
   }
 }
 
+// The bf16 round's gh: acc[gate] = the 16 staged bf16 rows at hs, times
+// their masks, @ the stage's T layout (K = H, 16 a step; where H is not a
+// multiple of 16 the last step's upper 8 are zeros), bf16 products, f32
+// sums.  Thread (g, t) holds rows g, g + 8 and units u*8 + 2t, + 1 of each
+// gate, as gate_chunk's f32 form.
+__device__ __forceinline__ void gate_chunk(const bf16* hs, int stride, const float* slab, int H,
+                                           int lane, float m_lo, float m_hi, float (&acc)[3][4]) {
+  const int g = lane >> 2, t = lane & 3, tw = he_stride(H / 2);
+  const uint32_t* tl = (const uint32_t*)(slab + slab_floats(H) + slab_floats(H) / 2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
+  const bf16* lo = hs + g * stride + 2 * t;
+  const bf16* hi = lo + 8 * stride;
+#pragma unroll 2
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    const bool up = k0 + 8 < H;
+    uint32_t a[4] = {0u, 0u, 0u, 0u};
+    float2 x = sh2(lo + k0), y = sh2(hi + k0);
+    a[0] = pack_bf16(m_lo * x.x, m_lo * x.y);
+    a[1] = pack_bf16(m_hi * y.x, m_hi * y.y);
+    if (up) {
+      x = sh2(lo + k0 + 8);
+      y = sh2(hi + k0 + 8);
+      a[2] = pack_bf16(m_lo * x.x, m_lo * x.y);
+      a[3] = pack_bf16(m_hi * y.x, m_hi * y.y);
+    }
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate) {
+      const uint32_t* col = tl + (gate * kChunk + g) * tw + k0 / 2 + t;
+      const uint32_t b[2] = {col[0], up ? col[4] : 0u};
+      mma_bf16(acc[gate], a, b);
+    }
+  }
+}
+
 // Copies the live ones (mask_s[r] != 0) of the len cells from c0 of block
-// q's h_e into dst [kTile][stride] with cp.async; the rest of the tile is
-// zero-filled.
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ he, int64_t q,
+// q's h_e into dst [kTile][stride] with cp.async (16-byte pieces); the rest
+// of the tile is zero-filled.
+template <class E>
+__device__ __forceinline__ void stage_tile(E* dst, const E* __restrict__ he, int64_t q,
                                            int ncell, int c0, int len, int H, int stride,
                                            const float* mask_s) {
-  const int per_row = H / 4;
+  constexpr int kPer = 16 / sizeof(E);  // elements a piece
+  const int per_row = H / kPer;
   for (int e = threadIdx.x; e < kTile * per_row; e += kThreads) {
     const int r = e / per_row, c4 = e - r * per_row;
     const bool valid = r < len && mask_s[r] != 0.f;
-    cp_async16(dst + r * stride + 4 * c4,
-               valid ? he + (q * ncell + c0 + r) * (int64_t)H + 4 * c4 : he, valid);
+    cp_async16((float*)(dst + r * stride + kPer * c4),
+               (const float*)(valid ? he + (q * ncell + c0 + r) * (int64_t)H + kPer * c4 : he),
+               valid);
   }
 }
 
@@ -397,16 +552,25 @@ __device__ __forceinline__ bool cta_tile_live(float m, float* mask_s) {
 
 // Zeros rows [c0, c0 + rows) of a [.., H] output of block q (cells past
 // ncell left alone), threads tid, tid + nthreads, ...
-__device__ __forceinline__ void zero_rows(float* out, int64_t q, int ncell, int c0, int rows,
+template <class E>
+__device__ __forceinline__ void zero_rows(E* out, int64_t q, int ncell, int c0, int rows,
                                           int H, int tid, int nthreads) {
   rows = min(rows, ncell - c0);
   float4* p = (float4*)(out + (q * ncell + c0) * H);
-  for (int k = tid; k < rows * H / 4; k += nthreads) p[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int n4 = rows * H / (16 / (int)sizeof(E));
+  for (int k = tid; k < n4; k += nthreads) p[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// *x where the mask at m is set, else 0 (masked(): a select of addresses)
+__device__ __forceinline__ float masked_ld(const float* m, const float* x) { return *masked(m, x); }
+__device__ __forceinline__ float masked_ld(const float* m, const bf16* x) {
+  return __bfloat162float(*(*m != 0.f ? x : (const bf16*)m));  // the mask's 0.f reads as +0
 }
 
 // Row and column sums of the masked rectangle of block q, in a fixed order
 // (f64, rounded once): rows and columns split + nsplit * k of it.
-__device__ void row_col_sums(const float* __restrict__ he, const float* __restrict__ mask,
+template <class E>
+__device__ void row_col_sums(const E* __restrict__ he, const float* __restrict__ mask,
                              int64_t q, int na, int nt, int H, float* __restrict__ rs,
                              float* __restrict__ cs, int split, int nsplit) {
   const int64_t cell0 = q * na * nt;
@@ -415,19 +579,21 @@ __device__ void row_col_sums(const float* __restrict__ he, const float* __restri
     const int i = split + nsplit * (k / H), h = k % H;
     double acc = 0.0;
     const float* mrow = mask + cell0 + (int64_t)i * nt;
-    const float* hrow = he + (cell0 + (int64_t)i * nt) * H + h;
+    const E* hrow = he + (cell0 + (int64_t)i * nt) * H + h;
 #pragma unroll 8
-    for (int j = 0; j < nt; ++j) acc += (double)(mrow[j] * *masked(mrow + j, hrow + (int64_t)j * H));
+    for (int j = 0; j < nt; ++j)
+      acc += (double)(mrow[j] * masked_ld(mrow + j, hrow + (int64_t)j * H));
     rs[(q * na + i) * H + h] = (float)acc;
   }
   for (int k = threadIdx.x; k < my_cols * H; k += blockDim.x) {
     const int j = split + nsplit * (k / H), h = k % H;
     double acc = 0.0;
     const float* mcol = mask + cell0 + j;
-    const float* hcol = he + (cell0 + j) * H + h;
+    const E* hcol = he + (cell0 + j) * H + h;
 #pragma unroll 8
     for (int i = 0; i < na; ++i)
-      acc += (double)(mcol[(int64_t)i * nt] * *masked(mcol + (int64_t)i * nt, hcol + (int64_t)i * nt * H));
+      acc += (double)(mcol[(int64_t)i * nt] *
+                      masked_ld(mcol + (int64_t)i * nt, hcol + (int64_t)i * nt * H));
     cs[(q * nt + j) * H + h] = (float)acc;
   }
 }
@@ -439,16 +605,16 @@ __device__ void row_col_sums(const float* __restrict__ he, const float* __restri
 // s, c0, live) runs steps s = 0 .. steps - 1 on chunk s % chunks, hs the
 // warp's rows (h_e unmasked), c0 its first cell; dead(c0) writes a tile of
 // masked cells.
-template <class Step, class Dead>
-__device__ __forceinline__ void for_cta_tile(const float* __restrict__ he,
+template <class E, class Step, class Dead>
+__device__ __forceinline__ void for_cta_tile(const E* __restrict__ he,
                                              const float* __restrict__ whh,
                                              const float* __restrict__ mask, int64_t q,
                                              int ncell, int H, int steps, Step step, Dead dead) {
   extern __shared__ float4 smem4[];
-  const int stride = he_stride(H), chunks = H / kChunk, lane = threadIdx.x & 31;
-  float* tile_s = (float*)smem4;
-  float* mask_s = tile_s + kTile * stride;  // [kTile]
-  float* slabs = mask_s + kTile;            // [2][big | small]
+  const int stride = tile_stride<E>(H), chunks = H / kChunk, lane = threadIdx.x & 31;
+  E* tile_s = (E*)smem4;
+  float* mask_s = (float*)(tile_s + kTile * stride);  // [kTile]
+  float* slabs = mask_s + kTile;                      // [2][stage_floats]
   const int c0 = blockIdx.y * kTile, len = min(kTile, ncell - c0);
   if (!cta_tile_live(tile_mask(mask, q, ncell, c0, len), mask_s)) {
     dead(c0);
@@ -460,13 +626,13 @@ __device__ __forceinline__ void for_cta_tile(const float* __restrict__ he,
   const int w0 = c0 + (threadIdx.x >> 5) * kRows;
   const bool live = warp_tile_live(mask, q, ncell, w0, lane);
   for (int s = 0; s < steps; ++s) {
-    float* slab = slabs + (s & 1) * 2 * slab_floats(H);
+    float* slab = slabs + (s & 1) * stage_floats<E>(H);
     if (s + 1 < steps)
-      stage_slab(slabs + ((s + 1) & 1) * 2 * slab_floats(H), whh, H, (s + 1) % chunks,
+      stage_slab(slabs + ((s + 1) & 1) * stage_floats<E>(H), whh, H, (s + 1) % chunks,
                  threadIdx.x, kThreads);
     cp_async_commit();
     cp_async_wait<1>();
-    split_slab(slab, H, threadIdx.x, kThreads);
+    prepare_slab<E>(slab, H, threadIdx.x, kThreads);
     __syncthreads();
     step(tile_s + (threadIdx.x >> 5) * kRows * stride, slab, s, w0, live);
     __syncthreads();
@@ -475,20 +641,21 @@ __device__ __forceinline__ void for_cta_tile(const float* __restrict__ he,
 }
 
 // Grid (P, tiles); CTA (q, s) also sums rows and columns s + tiles * k of
-// block q for rs and cs.
-template <bool kGather>
+// block q for rs and cs.  E: the element type of h_e, the gates and
+// edge_out (bf16: the bf16 round).
+template <bool kGather, class E>
 __global__ void __launch_bounds__(kThreads)
-round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* __restrict__ whh,
+round_fwd_kernel(const E* __restrict__ he, const GateSrcT<E> gsrc, const float* __restrict__ whh,
                  const float* __restrict__ bhh, const float* __restrict__ web,
-                 const float* __restrict__ mask, float* __restrict__ eo, float* __restrict__ rs,
+                 const float* __restrict__ mask, E* __restrict__ eo, float* __restrict__ rs,
                  float* __restrict__ cs, float* __restrict__ lg, int na, int nt, int H,
                  float sign) {
   const int64_t q = blockIdx.x;
   const int ncell = na * nt, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int stride = he_stride(H), chunks = H / kChunk;
-  Cell c[2];
+  const int stride = tile_stride<E>(H), chunks = H / kChunk;
+  CellT<E> c[2];
   double lgp[2];  // lg sums H products: f64, rounded once
-  auto step = [&](const float* hs, const float* slab, int u, int w0, bool live) {
+  auto step = [&](const E* hs, const float* slab, int u, int w0, bool live) {
     if (u == 0) {
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -517,13 +684,13 @@ round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* 
                                {acc[1][2 * rr], acc[1][2 * rr + 1]},
                                {acc[2][2 * rr], acc[2][2 * rr + 1]}};
         const Gates2 gt = gates2(in[rr], p);
-        const float2 hm = *(const float2*)(hs + (g + 8 * rr) * stride + h);
+        const float2 hm = sh2(hs + (g + 8 * rr) * stride + h);
         const float hme[2] = {c[rr].m * hm.x, c[rr].m * hm.y};
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           out[e] = c[rr].m * ((1.f - gt.z[e]) * gt.n[e] + gt.z[e] * hme[e]);
       }
-      if (c[rr].cell >= 0) *(float2*)(eo + c[rr].cell * H + h) = make_float2(out[0], out[1]);
+      if (c[rr].cell >= 0) st2(eo + c[rr].cell * H + h, out[0], out[1]);
       lgp[rr] = fma((double)out[1], (double)we.y, fma((double)out[0], (double)we.x, lgp[rr]));
     }
     if (u + 1 == chunks) {  // lg: the four lanes of a row, a fixed tree
@@ -548,23 +715,23 @@ round_fwd_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* 
 // = d es at da, g_cs = -d es at dn).  Grid as round_fwd_kernel's.  A warp
 // holds kDheTiles n tiles (8 columns each) of d h_e; where H/8 is more, the
 // chunks run once a pass of columns.
-template <bool kGather>
+template <bool kGather, class E>
 __global__ void __launch_bounds__(kThreads)
-round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* __restrict__ whh,
+round_dh_kernel(const E* __restrict__ he, const GateSrcT<E> gsrc, const float* __restrict__ whh,
                 const float* __restrict__ bhh, const float* __restrict__ web,
-                const float* __restrict__ mask, const float* __restrict__ geo,
+                const float* __restrict__ mask, const E* __restrict__ geo,
                 const float* __restrict__ grs, const float* __restrict__ gcs,
-                const float* __restrict__ glg, float* __restrict__ dhe, float* __restrict__ dgs,
+                const float* __restrict__ glg, E* __restrict__ dhe, float* __restrict__ dgs,
                 int na, int nt, int H, float sign) {
   const int64_t q = blockIdx.x;
   const int ncell = na * nt, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int stride = he_stride(H), chunks = H / kChunk;
+  const int stride = tile_stride<E>(H), chunks = H / kChunk;
   const int passes = (chunks + kDheTiles - 1) / kDheTiles;
   const int per_pass = (chunks + passes - 1) / passes;
-  Cell c[2];
+  CellT<E> c[2];
   float gl[2];
   float acc[kDheTiles][4];
-  auto step = [&](const float* hs, const float* slab, int s, int w0, bool live) {
+  auto step = [&](const E* hs, const float* slab, int s, int w0, bool live) {
     const int u = s % chunks, n0 = (s / chunks) * per_pass, ncount = min(per_pass, chunks - n0);
     if (!live) {
       if (s == 0) zero_rows(dhe, q, ncell, w0, kRows, H, lane, 32);
@@ -604,7 +771,7 @@ round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* _
                              {gh[1][2 * rr], gh[1][2 * rr + 1]},
                              {gh[2][2 * rr], gh[2][2 * rr + 1]}};
       const Gates2 gt = gates2(in[rr], p);
-      const float2 hm = *(const float2*)(hs + (g + 8 * rr) * stride + h);
+      const float2 hm = sh2(hs + (g + 8 * rr) * stride + h);
       const float hme[2] = {c[rr].m * hm.x, c[rr].m * hm.y}, gee[2] = {ge[rr].x, ge[rr].y};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -645,21 +812,40 @@ round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* _
     }
     // d h_e += d gh (this chunk's 24 columns) @ w_hh[:, those]^T: the
     // accumulator's columns 2t, 2t + 1 are the A fragment's k slots t, t + 4
-    const float* small = slab + slab_floats(H);
-#pragma unroll
-    for (int gate = 0; gate < 3; ++gate) {
-      const FragA a = frag_a(dgh[gate][0], dgh[gate][2], dgh[gate][1], dgh[gate][3]);
+    // (f32) or 2t, 2t + 1 (bf16: gates r | z as one k step of 16, n as one
+    // with its upper 8 zero)
+    if constexpr (IsBf16<E>::value) {
+      const uint32_t* aw = (const uint32_t*)(slab + slab_floats(H));  // [3][H][4 words]
+      const uint32_t arz[4] = {pack_bf16(dgh[0][0], dgh[0][1]), pack_bf16(dgh[0][2], dgh[0][3]),
+                               pack_bf16(dgh[1][0], dgh[1][1]), pack_bf16(dgh[1][2], dgh[1][3])};
+      const uint32_t an[4] = {pack_bf16(dgh[2][0], dgh[2][1]), pack_bf16(dgh[2][2], dgh[2][3]),
+                              0u, 0u};
 #pragma unroll
       for (int n = 0; n < kDheTiles; ++n) {
         if (n >= ncount) continue;
-        const int i = (gate * H + (n0 + n) * kChunk + g) * kChunk + 2 * t;
-        const float2 bb = *(const float2*)(slab + i), bs = *(const float2*)(small + i);
-        FragB b;
-        b.big[0] = __float_as_uint(bb.x);
-        b.big[1] = __float_as_uint(bb.y);
-        b.small[0] = __float_as_uint(bs.x);
-        b.small[1] = __float_as_uint(bs.y);
-        mma3(acc[n], a, b);
+        const int hrow = (n0 + n) * kChunk + g;
+        const uint32_t brz[2] = {aw[hrow * 4 + t], aw[(H + hrow) * 4 + t]};
+        const uint32_t bn[2] = {aw[(2 * H + hrow) * 4 + t], 0u};
+        mma_bf16(acc[n], arz, brz);
+        mma_bf16(acc[n], an, bn);
+      }
+    } else {
+      const float* small = slab + slab_floats(H);
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        const FragA a = frag_a(dgh[gate][0], dgh[gate][2], dgh[gate][1], dgh[gate][3]);
+#pragma unroll
+        for (int n = 0; n < kDheTiles; ++n) {
+          if (n >= ncount) continue;
+          const int i = (gate * H + (n0 + n) * kChunk + g) * kChunk + 2 * t;
+          const float2 bb = *(const float2*)(slab + i), bs = *(const float2*)(small + i);
+          FragB b;
+          b.big[0] = __float_as_uint(bb.x);
+          b.big[1] = __float_as_uint(bb.y);
+          b.small[0] = __float_as_uint(bs.x);
+          b.small[1] = __float_as_uint(bs.y);
+          mma3(acc[n], a, b);
+        }
       }
     }
     if (u + 1 < chunks) return;
@@ -682,7 +868,7 @@ round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* _
                             m * ((acc[n][2 * rr + 1] + a.y) + b.y));
           }
         }
-        *(float2*)(dhe + c[rr].cell * H + hh) = v;
+        st2(dhe + c[rr].cell * H + hh, v.x, v.y);
       }
     }
   };
@@ -697,8 +883,9 @@ round_dh_kernel(const float* __restrict__ he, const GateSrc gsrc, const float* _
 // a warp; its entries of the partials row part[q * ksplit + s] = [H*3H].
 // d gh comes from the scratch dgs that round_dh_kernel wrote for its live
 // tiles; a masked cell reads as 0 (select), whatever the scratch holds.
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-round_dw_kernel(const float* __restrict__ he, const float* __restrict__ mask,
+round_dw_kernel(const E* __restrict__ he, const float* __restrict__ mask,
                 const float* __restrict__ dgs, float* __restrict__ part, int na, int nt, int H,
                 int ksplit) {
   extern __shared__ float4 smem4[];
@@ -714,14 +901,17 @@ round_dw_kernel(const float* __restrict__ he, const float* __restrict__ mask,
   const int ncell = na * nt, ntiles = (ncell + kTile - 1) / kTile;
   const int per = (ntiles + ksplit - 1) / ksplit;
   const int first = split * per, last = min(first + per, ntiles);
+  constexpr int kPer = 16 / sizeof(E);  // elements of h_e a 16-byte piece
   const auto stage = [&](int b, int c0, int len) {  // live cells only
     const float* m_s = mask_s + b * kTile;
-    float* a = a_s + b * kTile * kAStride;
-    for (int e = tid; e < kTile * (kDwRows / 4); e += kThreads) {
-      const int r = e / (kDwRows / 4), p = e % (kDwRows / 4);
-      const bool valid = r < len && 4 * p < hcount && m_s[r] != 0.f;
-      cp_async16(a + r * kAStride + 4 * p,
-                 valid ? he + (q * ncell + c0 + r) * (int64_t)H + h_base + 4 * p : he, valid);
+    E* a = (E*)a_s + b * kTile * kAStride;  // bf16: half the region, the same stride
+    for (int e = tid; e < kTile * (kDwRows / kPer); e += kThreads) {
+      const int r = e / (kDwRows / kPer), p = e % (kDwRows / kPer);
+      const bool valid = r < len && kPer * p < hcount && m_s[r] != 0.f;
+      cp_async16((float*)(a + r * kAStride + kPer * p),
+                 (const float*)(valid ? he + (q * ncell + c0 + r) * (int64_t)H + h_base + kPer * p
+                                      : he),
+                 valid);
     }
     float* bb = b_s + b * kTile * kBStride;
     for (int e = tid; e < kTile * (kDwCols / 4); e += kThreads) {
@@ -761,15 +951,39 @@ round_dw_kernel(const float* __restrict__ he, const float* __restrict__ mask,
       const int pb = b ^ 1;
       cp_async_wait<1>();
       __syncthreads();
-      const float* a = a_s + pb * kTile * kAStride;
       const float* bb = b_s + pb * kTile * kBStride;
       const float* m_s = mask_s + pb * kTile;
-      if (lo_ok) {
+      const auto mk = [](float m, float x) { return m != 0.f ? m * x : 0.f; };
+      if constexpr (IsBf16<E>::value) {
+        // k steps of 16 cells: cells k0 + 2t, + 1 and k0 + 2t + 8, + 9
+        const bf16* a = (const bf16*)a_s + pb * kTile * kAStride;
+        for (int k0 = 0; lo_ok && k0 < kTile; k0 += 16) {
+          const int cl[4] = {k0 + 2 * t, k0 + 2 * t + 1, k0 + 2 * t + 8, k0 + 2 * t + 9};
+          float mm[4], lo[4], hi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mm[i] = m_s[cl[i]];
+            lo[i] = mk(mm[i], __bfloat162float(a[cl[i] * kAStride + hl]));
+            hi[i] = hi_ok ? mk(mm[i], __bfloat162float(a[cl[i] * kAStride + hl + 8])) : 0.f;
+          }
+          const uint32_t fa[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(hi[0], hi[1]),
+                                  pack_bf16(lo[2], lo[3]), pack_bf16(hi[2], hi[3])};
+#pragma unroll
+          for (int n = 0; n < kDwCols / 8; ++n) {
+            float v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = mm[i] != 0.f ? bb[cl[i] * kBStride + 8 * n + g] : 0.f;
+            const uint32_t fb[2] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])};
+            mma_bf16(acc[n], fa, fb);
+          }
+        }
+      } else if (lo_ok) {
+        const float* a = (const float*)a_s + pb * kTile * kAStride;
         for (int k0 = 0; k0 < kTile; k0 += 8) {
           const float m0 = m_s[k0 + t], m1 = m_s[k0 + t + 4];
           const float* a0 = a + (k0 + t) * kAStride + hl;
           const float* a1 = a0 + 4 * kAStride;
-          const auto mk = [](float m, float x) { return m != 0.f ? m * x : 0.f; };
           const FragA fa = frag_a(mk(m0, a0[0]), hi_ok ? mk(m0, a0[8]) : 0.f, mk(m1, a1[0]),
                                   hi_ok ? mk(m1, a1[8]) : 0.f);
           const float* b0 = bb + (k0 + t) * kBStride + g;
@@ -804,10 +1018,10 @@ round_dw_kernel(const float* __restrict__ he, const float* __restrict__ mask,
 // d pre_r | d pre_z | d pre_n)]; for each column (q, j), over i: d gb =
 // sign * (d pre_r | d pre_z | d pre_n).  Masked cells read as 0.  Each sum
 // runs in cell order.
-template <bool kGather>
+template <bool kGather, class E>
 __global__ void __launch_bounds__(256)
 round_sums_kernel(const float* __restrict__ mask, const float* __restrict__ dgs,
-                  float* __restrict__ dga, float* __restrict__ dgb, float* __restrict__ rsum,
+                  E* __restrict__ dga, E* __restrict__ dgb, float* __restrict__ rsum,
                   int P, int na, int nt, int H, float sign) {
   const int chunks = H / kChunk, ncell = na * nt, H3 = 3 * H;
   const int64_t id = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -829,9 +1043,9 @@ round_sums_kernel(const float* __restrict__ mask, const float* __restrict__ dgs,
 #pragma unroll 8
       for (int j = 0; j < nt; ++j) acc += *masked(m + j, x + (int64_t)j * chunks * kDgs);
       total += acc;
-      float* ga = dga + (q * na + i) * H3;
-      if (kind < 2) ga[kind * H + unit] = acc;         // d pre_r, d pre_z
-      else if (kind == 3) ga[2 * H + unit] = acc;      // d pre_n
+      E* ga = dga + (q * na + i) * H3;
+      if (kind < 2) st1(ga + kind * H + unit, acc);         // d pre_r, d pre_z
+      else if (kind == 3) st1(ga + 2 * H + unit, acc);      // d pre_n
     }
     float* rs = rsum + (q * groups + grp) * (kGather ? 7 * H : 4 * H);
     if (kind < 2) {
@@ -860,7 +1074,7 @@ round_sums_kernel(const float* __restrict__ mask, const float* __restrict__ dgs,
 #pragma unroll 8
   for (int i = 0; i < na; ++i)
     acc += *masked(m + (int64_t)i * nt, x + (int64_t)i * nt * chunks * kDgs);
-  dgb[(q * nt + j) * H3 + (k / kChunk) * H + u * kChunk + k % kChunk] = sign * acc;
+  st1(dgb + (q * nt + j) * H3 + (k / kChunk) * H + u * kChunk + k % kChunk, sign * acc);
 }
 
 // out[k] = the sum over rows q of part[q][k] (width columns, rows rows),
@@ -1060,12 +1274,18 @@ cudaError_t configure_rounds() {
   if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
   if (err == cudaSuccess) err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
   if (err != cudaSuccess) return err;
-  const void* kernels[] = {(const void*)round_fwd_kernel<false>, (const void*)round_fwd_kernel<true>,
-                           (const void*)round_dh_kernel<false>, (const void*)round_dh_kernel<true>,
-                           (const void*)round_dw_kernel};
-  for (int k = 0; k < 5; ++k) {
-    const int bytes = (int)(k < 4 ? tile_smem(kMaxH) : dw_smem());
-    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const void* kernels[] = {
+      (const void*)round_fwd_kernel<false, float>, (const void*)round_fwd_kernel<true, float>,
+      (const void*)round_dh_kernel<false, float>,  (const void*)round_dh_kernel<true, float>,
+      (const void*)round_fwd_kernel<false, bf16>,  (const void*)round_dh_kernel<false, bf16>,
+      (const void*)round_dw_kernel<float>,         (const void*)round_dw_kernel<bf16>};
+  const size_t bytes[] = {tile_smem<float>(kMaxH), tile_smem<float>(kMaxH),
+                          tile_smem<float>(kMaxH), tile_smem<float>(kMaxH),
+                          tile_smem<bf16>(kMaxH),  tile_smem<bf16>(kMaxH),
+                          dw_smem(),               dw_smem()};
+  for (int k = 0; k < 8; ++k) {
+    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes[k]);
     if (err != cudaSuccess) return err;
   }
   done[dev] = true;
@@ -1079,13 +1299,13 @@ bool round_width_ok(int na, int nt, int H) {
 // the forward's and d h_e's grid: (P, a block's tiles)
 dim3 round_grid(int P, int na, int nt) { return dim3(P, (na * nt + kTile - 1) / kTile); }
 
-template <bool kGather>
-cudaError_t launch_fwd(const float* he, const GateSrc& g, const float* whh, const float* bhh,
-                       const float* web, const float* mask, float* eo, float* rs, float* cs,
+template <bool kGather, class E>
+cudaError_t launch_fwd(const E* he, const GateSrcT<E>& g, const float* whh, const float* bhh,
+                       const float* web, const float* mask, E* eo, float* rs, float* cs,
                        float* lg, int P, int na, int nt, int H, float sign, cudaStream_t s) {
   const cudaError_t err = configure_rounds();
   if (err != cudaSuccess) return err;
-  round_fwd_kernel<kGather><<<round_grid(P, na, nt), kThreads, tile_smem(H), s>>>(
+  round_fwd_kernel<kGather, E><<<round_grid(P, na, nt), kThreads, tile_smem<E>(H), s>>>(
       he, g, whh, bhh, web, mask, eo, rs, cs, lg, na, nt, H, sign);
   return cudaGetLastError();
 }
@@ -1094,15 +1314,15 @@ cudaError_t launch_fwd(const float* he, const GateSrc& g, const float* whh, cons
 // the same time, the cell sums (d ga, d gb, the biases' row parts); then the
 // partials and the row parts summed into dw = [d w_hh | d b_hh | d w_eb (|
 // d b_ih)]
-template <bool kGather>
-cudaError_t launch_bwd(const float* he, const GateSrc& g, const float* whh, const float* bhh,
-                       const float* web, const float* mask, const float* geo, const float* grs,
-                       const float* gcs, const float* glg, float* dhe, float* dga, float* dgb,
+template <bool kGather, class E>
+cudaError_t launch_bwd(const E* he, const GateSrcT<E>& g, const float* whh, const float* bhh,
+                       const float* web, const float* mask, const E* geo, const float* grs,
+                       const float* gcs, const float* glg, E* dhe, E* dga, E* dgb,
                        float* dgs, float* wpart, int ksplit, float* rsum, float* dw, int P,
                        int na, int nt, int H, float sign, cudaStream_t s) {
   cudaError_t err = configure_rounds();
   if (err != cudaSuccess) return err;
-  round_dh_kernel<kGather><<<round_grid(P, na, nt), kThreads, tile_smem(H), s>>>(
+  round_dh_kernel<kGather, E><<<round_grid(P, na, nt), kThreads, tile_smem<E>(H), s>>>(
       he, g, whh, bhh, web, mask, geo, grs, gcs, glg, dhe, dgs, na, nt, H, sign);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1115,14 +1335,15 @@ cudaError_t launch_bwd(const float* he, const GateSrc& g, const float* whh, cons
   if (err != cudaSuccess) return err;
   const int groups = (na + kSumRows - 1) / kSumRows;
   const int64_t items = (int64_t)P * (groups * 5 + nt * 3) * H;
-  round_sums_kernel<kGather><<<(unsigned)((items + 255) / 256), 256, 0, side.stream>>>(
+  round_sums_kernel<kGather, E><<<(unsigned)((items + 255) / 256), 256, 0, side.stream>>>(
       mask, dgs, dga, dgb, rsum, P, na, nt, H, sign);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaEventRecord(side.join, side.stream);
   if (err != cudaSuccess) return err;
   const int H3 = 3 * H;
   const dim3 dw_grid(P * ksplit, ((H + kDwRows - 1) / kDwRows) * ((H3 + kDwCols - 1) / kDwCols));
-  round_dw_kernel<<<dw_grid, kThreads, dw_smem(), s>>>(he, mask, dgs, wpart, na, nt, H, ksplit);
+  round_dw_kernel<E><<<dw_grid, kThreads, dw_smem(), s>>>(he, mask, dgs, wpart, na, nt, H,
+                                                          ksplit);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = cudaStreamWaitEvent(s, side.join, 0);
   if (err != cudaSuccess) return err;
@@ -1174,6 +1395,41 @@ extern "C" int tm_block_round_bwd(const void* he, const void* ga, const void* gb
                                 (float*)dhe, (float*)dga, (float*)dgb, (float*)dgs,
                                 (float*)wpart, ksplit, (float*)rsum, (float*)dw, P, na, nt, H,
                                 sign, (cudaStream_t)stream);
+}
+
+// The bf16 round: tm_block_round_fwd with h_e, ga, gb and edge_out bf16
+// (the other inputs and rs, cs, lg f32).
+extern "C" int tm_block_round_fwd_bf16(const void* he, const void* ga, const void* gb,
+                                       const void* whh, const void* bhh, const void* web,
+                                       const void* mask, void* eo, void* rs, void* cs, void* lg,
+                                       int P, int na, int nt, int H, float sign, void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
+  const GateSrcT<bf16> g{(const bf16*)ga, (const bf16*)gb, nullptr, nullptr, nullptr, 1, 0};
+  return (int)launch_fwd<false, bf16>((const bf16*)he, g, (const float*)whh, (const float*)bhh,
+                                      (const float*)web, (const float*)mask, (bf16*)eo,
+                                      (float*)rs, (float*)cs, (float*)lg, P, na, nt, H, sign,
+                                      (cudaStream_t)stream);
+}
+
+// The bf16 round's backward: tm_block_round_bwd with h_e, ga, gb, g_eo and
+// d h_e, d ga, d gb bf16 (dw, the cotangents g_rs, g_cs, g_lg and the
+// scratch f32, as there).
+extern "C" int tm_block_round_bwd_bf16(const void* he, const void* ga, const void* gb,
+                                       const void* whh, const void* bhh, const void* web,
+                                       const void* mask, const void* geo, const void* grs,
+                                       const void* gcs, const void* glg, void* dhe, void* dga,
+                                       void* dgb, void* dgs, void* wpart, void* rsum, void* dw,
+                                       int ksplit, int P, int na, int nt, int H, float sign,
+                                       void* stream) {
+  if (P == 0 || na == 0 || nt == 0) return (int)cudaSuccess;
+  if (!round_width_ok(na, nt, H)) return (int)cudaErrorInvalidValue;
+  const GateSrcT<bf16> g{(const bf16*)ga, (const bf16*)gb, nullptr, nullptr, nullptr, 1, 0};
+  return (int)launch_bwd<false, bf16>(
+      (const bf16*)he, g, (const float*)whh, (const float*)bhh, (const float*)web,
+      (const float*)mask, (const bf16*)geo, (const float*)grs, (const float*)gcs,
+      (const float*)glg, (bf16*)dhe, (bf16*)dga, (bf16*)dgb, (float*)dgs, (float*)wpart, ksplit,
+      (float*)rsum, (float*)dw, P, na, nt, H, sign, (cudaStream_t)stream);
 }
 
 // The es round's forward.  h_e, w_hh, b_hh, w_eb, mask as tm_block_round_fwd;

@@ -129,15 +129,29 @@
 //   the JAX package calls gat_scores (its routes need the statistics with
 //   the scores), so no path of the port launches these yet.
 //
+// gat_aggregate_fwd_bf16 / gat_aggregate_bwd_bf16 (#12 with a bf16 h_e)
+//   The two aggregate kernels above instantiated on a bf16 edge hidden (the
+//   block step's bf16 rectangles, train/block.py compute_dtype): the
+//   forward upcasts h_e where it loads it (pallas_gat.py:646) and its rs /
+//   cs stay f32; the backward's datt reads the upcast h_e, and d h_e is
+//   bf16: each head's term att_a g_rs + att_n g_cs, rounded to bf16 and
+//   added into a bf16 sum in head order 0..nh-1, as the TPU kernel adds
+//   them (:693-696), where the f32 kernel sums the heads' weights first.
+//   Same tiles and order otherwise; h_e's and d h_e's bytes halve (8-byte
+//   loads and stores of four values).
+//
 // No kernel synchronises or allocates: the caller allocates every output
 // and the scratch, and every launch goes to the stream it is given.  Each
 // entry point returns cudaGetLastError() so the caller can raise on a
 // refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -637,6 +651,42 @@ __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
     p[0] = v[0];
 }
 
+// V consecutive bf16 values as floats (V = 4: one 8-byte access)
+template <int V>
+__device__ __forceinline__ void load_v(float (&v)[V], const bf16* p) {
+  if constexpr (V == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
+}
+
+// V floats that are bf16 values already, stored as bf16
+template <int V>
+__device__ __forceinline__ void store_v(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const uint32_t*>(&lo);
+    t.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// x rounded to bf16 (to nearest, ties to even), as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 struct AggTile {
   int ntiles, t, p, i0, nrows;
 };
@@ -655,10 +705,10 @@ __device__ __forceinline__ AggTile agg_tile(const AggArgs& g) {
 // V: floats a lane moves at a time (4 when H % 4 == 0 and the pointers are
 // 16-byte aligned, else 1); a half-warp covers 16 V hidden units of a cell.
 // cs goes to cs_part [ntiles, P, nt, H] when the block has more than one
-// row tile.
-template <int kNH, int V>
+// row tile.  E: h_e's element type (float, or bf16 upcast where loaded).
+template <int kNH, int V, class E = float>
 __global__ void __launch_bounds__(kThreads)
-    gat_aggregate_fwd_kernel(AggArgs g, const float* __restrict__ he, float* __restrict__ rs,
+    gat_aggregate_fwd_kernel(AggArgs g, const E* __restrict__ he, float* __restrict__ rs,
                              float* __restrict__ cs, float* __restrict__ cs_part, int H) {
   constexpr int kHC = 16 * V;
   __shared__ float w_a[kRows][kCols], w_n[kRows][kCols], m_s[kRows][kCols];
@@ -749,15 +799,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The column sums go to dmc / dzc when the block has one row tile, else the
-// raw sums to colpart [ntiles, nh, P, nt] for agg_col_finish_kernel.
-template <int kNH, int V>
+// raw sums to colpart [ntiles, nh, P, nt] for agg_col_finish_kernel.  E:
+// h_e's and d h_e's element type; with bf16 each head's d h_e term is
+// rounded to bf16 and added into a bf16 sum in head order.
+template <int kNH, int V, class E = float>
 __global__ void __launch_bounds__(kThreads)
-    gat_aggregate_bwd_kernel(AggArgs g, const float* __restrict__ he,
+    gat_aggregate_bwd_kernel(AggArgs g, const E* __restrict__ he,
                              const float* __restrict__ grs, const float* __restrict__ gcs,
                              float* __restrict__ de, float* __restrict__ dmr,
                              float* __restrict__ dmc, float* __restrict__ dzr,
-                             float* __restrict__ dzc, float* __restrict__ dhe,
+                             float* __restrict__ dzc, E* __restrict__ dhe,
                              float* __restrict__ colpart, int H) {
+  constexpr bool kBf16 = sizeof(E) == 2;
   constexpr int kHC = 16 * V;
   __shared__ float w_a[kRows][kCols], w_n[kRows][kCols], m_s[kRows][kCols];
   __shared__ float datt_a[kRows][kCols], datt_n[kRows][kCols];
@@ -823,7 +876,29 @@ __global__ void __launch_bounds__(kThreads)
           for (int x = 0; x < V; ++x) {
             pa[u] = fmaf(ga[u][x], v[u][x], pa[u]);
             pn[u] = fmaf(gc[x], v[u][x], pn[u]);
-            o[x] = m_s[r][c] != 0.f ? a_w * ga[u][x] + n_w * gc[x] : 0.f;
+            if constexpr (!kBf16) o[x] = m_s[r][c] != 0.f ? a_w * ga[u][x] + n_w * gc[x] : 0.f;
+          }
+          if constexpr (kBf16) {
+            // each head's term rounded to bf16, added in bf16 in head order
+#pragma unroll
+            for (int x = 0; x < V; ++x) o[x] = 0.f;
+            const float m = m_s[r][c];
+            for (int h = 0; m != 0.f && h < nh; ++h) {
+              float aa, an;
+              if (h < kStash) {
+                aa = att_s[0][h][r][c];
+                an = att_s[1][h][r][c];
+              } else {
+                aa = attention<kNH>(g, true, h, T.p, T.i0 + r, j, m);
+                an = attention<kNH>(g, false, h, T.p, T.i0 + r, j, m);
+              }
+#pragma unroll
+              for (int x = 0; x < V; ++x) {
+                const float term = bf16_round(__fadd_rn(__fmul_rn(aa, ga[u][x]),
+                                                        __fmul_rn(an, gc[x])));
+                o[x] = h == 0 ? term : bf16_round(o[x] + term);
+              }
+            }
           }
           store_v<V>(dhe + ((rows0 + r) * g.nt + j) * H + k, o);
         }
@@ -1030,7 +1105,7 @@ AggArgs agg_args(const void* e, const void* mr, const void* mc, const void* zr, 
   return g;
 }
 
-template <int kNH>
+template <int kNH, class E = float>
 int launch_aggregate_fwd(const void* e, const void* mr, const void* mc, const void* zr,
                          const void* zc, const void* he, const void* mask, const void* ka,
                          const void* kn, void* rs, void* cs, void* scratch, int P, int na, int nt,
@@ -1044,11 +1119,11 @@ int launch_aggregate_fwd(const void* e, const void* mr, const void* mc, const vo
   const bool v4 = H % 4 == 0 && aligned16(he) && aligned16(rs) && aligned16(cs) &&
                   aligned16(scratch);
   if (v4)
-    gat_aggregate_fwd_kernel<kNH, 4><<<(unsigned)blocks, kThreads, 0, s>>>(
-        g, (const float*)he, (float*)rs, (float*)cs, (float*)scratch, H);
+    gat_aggregate_fwd_kernel<kNH, 4, E><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, (const E*)he, (float*)rs, (float*)cs, (float*)scratch, H);
   else
-    gat_aggregate_fwd_kernel<kNH, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        g, (const float*)he, (float*)rs, (float*)cs, (float*)scratch, H);
+    gat_aggregate_fwd_kernel<kNH, 1, E><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, (const E*)he, (float*)rs, (float*)cs, (float*)scratch, H);
   cudaError_t err = cudaGetLastError();
   const int64_t n = (int64_t)P * nt * H;
   if (err != cudaSuccess || ntiles == 1 || n == 0) return (int)err;
@@ -1056,7 +1131,7 @@ int launch_aggregate_fwd(const void* e, const void* mr, const void* mc, const vo
   return (int)cudaGetLastError();
 }
 
-template <int kNH>
+template <int kNH, class E = float>
 int launch_aggregate_bwd(const void* e, const void* mr, const void* mc, const void* zr,
                          const void* zc, const void* he, const void* mask, const void* ka,
                          const void* kn, const void* grs, const void* gcs, void* de, void* dmr,
@@ -1071,13 +1146,13 @@ int launch_aggregate_bwd(const void* e, const void* mr, const void* mc, const vo
   const bool v4 = H % 4 == 0 && aligned16(he) && aligned16(grs) && aligned16(gcs) &&
                   aligned16(dhe);
   if (v4)
-    gat_aggregate_bwd_kernel<kNH, 4><<<(unsigned)blocks, kThreads, 0, s>>>(
-        g, (const float*)he, (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr,
-        (float*)dmc, (float*)dzr, (float*)dzc, (float*)dhe, (float*)scratch, H);
+    gat_aggregate_bwd_kernel<kNH, 4, E><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, (const E*)he, (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr,
+        (float*)dmc, (float*)dzr, (float*)dzc, (E*)dhe, (float*)scratch, H);
   else
-    gat_aggregate_bwd_kernel<kNH, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        g, (const float*)he, (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr,
-        (float*)dmc, (float*)dzr, (float*)dzc, (float*)dhe, (float*)scratch, H);
+    gat_aggregate_bwd_kernel<kNH, 1, E><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, (const E*)he, (const float*)grs, (const float*)gcs, (float*)de, (float*)dmr,
+        (float*)dmc, (float*)dzr, (float*)dzc, (E*)dhe, (float*)scratch, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || ntiles == 1) return (int)err;
   const int64_t n = (int64_t)nh * P * nt;
@@ -1143,6 +1218,32 @@ extern "C" int tm_gat_aggregate_bwd(const void* e, const void* mr, const void* m
                                     int nh, int H, int nk, float keep, void* stream) {
   return launch_aggregate_bwd<0>(e, mr, mc, zr, zc, he, mask, ka, kn, grs, gcs, de, dmr, dmc, dzr,
                                  dzc, dhe, scratch, P, na, nt, nh, H, nk, keep, stream);
+}
+
+// tm_gat_aggregate_fwd with h_e bf16[P, na, nt, H] (the other inputs and
+// rs, cs f32).
+extern "C" int tm_gat_aggregate_fwd_bf16(const void* e, const void* mr, const void* mc,
+                                         const void* zr, const void* zc, const void* he,
+                                         const void* mask, const void* ka, const void* kn,
+                                         void* rs, void* cs, void* scratch, int P, int na,
+                                         int nt, int nh, int H, int nk, float keep,
+                                         void* stream) {
+  return launch_aggregate_fwd<0, bf16>(e, mr, mc, zr, zc, he, mask, ka, kn, rs, cs, scratch, P,
+                                       na, nt, nh, H, nk, keep, stream);
+}
+
+// tm_gat_aggregate_bwd with h_e and d h_e bf16[P, na, nt, H]: d h_e the
+// heads' bf16-rounded terms added in bf16 in head order.
+extern "C" int tm_gat_aggregate_bwd_bf16(const void* e, const void* mr, const void* mc,
+                                         const void* zr, const void* zc, const void* he,
+                                         const void* mask, const void* ka, const void* kn,
+                                         const void* grs, const void* gcs, void* de, void* dmr,
+                                         void* dmc, void* dzr, void* dzc, void* dhe,
+                                         void* scratch, int P, int na, int nt, int nh, int H,
+                                         int nk, float keep, void* stream) {
+  return launch_aggregate_bwd<0, bf16>(e, mr, mc, zr, zc, he, mask, ka, kn, grs, gcs, de, dmr,
+                                       dmc, dzr, dzc, dhe, scratch, P, na, nt, nh, H, nk, keep,
+                                       stream);
 }
 
 // One head (gat_scores_stats, pallas_gat.py:224): ha f32[P, na, H], hn

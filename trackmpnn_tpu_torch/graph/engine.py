@@ -1,10 +1,12 @@
-"""Rolling-window graph engine (host side), the numpy counterpart of
+"""Rolling-window graph engine (host side), the counterpart of
 trackmpnn_tpu/graph/engine.py.
 
-The port always takes the numpy association and decode paths, which are
-the semantic reference; the JAX package's optional C++ planner
-(csrc/graph_planner.cpp) is fuzz-equivalent to them and is not carried
-over.  Slot order and every tie-break are kept exactly.
+Association and decode planning go to the port's native C++ planner
+(csrc/graph_planner.cpp through graph/native.py, built with g++ on first
+use), as the JAX engine sends them to its own; the numpy functions below
+are the semantic reference, fuzz-equal to it, and TM_NATIVE=0 (read at
+each call) makes the engine take them instead.  Slot order and every
+tie-break are kept exactly.
 
 Reproduces the behavioral contract of the reference's dynamic graph module
 (the reference's utils/graph.py) on compact record arrays instead of dense
@@ -21,11 +23,11 @@ reproduces identically.  Per-row records:
     fut[i]     row index of the edge's future detection endpoint; -1
     label[i]   GT binary class (det: is-TP; edge: endpoints same GT track)
 
-The engine is pure NumPy: device code never sees any of this - it
-receives padded index tensors (see graph/view.py) and streams back per-row
-scores.  While serving, the numpy association and decode planning take
-most of each step's wall time (PERF.md).  In training mode association is
-teacher-forced from labels (graph.py:229-245).
+Device code never sees any of this - it receives padded index tensors
+(see graph/view.py) and streams back per-row scores.  While serving, the
+numpy association and decode planning took most of each step's wall time
+(PERF.md); the planner is their native form.  In training mode association
+is teacher-forced from labels (graph.py:229-245).
 
 Semantics cross-references (reference file:line):
   initialize   graph.py:96-186      update        graph.py:189-334
@@ -35,11 +37,22 @@ Semantics cross-references (reference file:line):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 from scipy.optimize import linear_sum_assignment
+
+
+def _native():
+    """graph/native.py, or None where TM_NATIVE=0 asks for the numpy paths
+    (read at each call, so one process can run both)."""
+    if os.environ.get("TM_NATIVE", "1") == "0":
+        return None
+    from trackmpnn_tpu_torch.graph import native
+
+    return native
 
 
 @dataclass
@@ -234,12 +247,13 @@ def associate_hungarian(g: RollingGraph, scores: np.ndarray) -> None:
 
 
 def associate(g, scores, mode: str, use_hungarian: bool) -> None:
+    nat = _native()
     if mode == "train":
-        associate_teacher_forced(g)
+        (nat.associate_teacher_forced if nat else associate_teacher_forced)(g)
     elif use_hungarian:
-        associate_hungarian(g, scores)
+        (nat.associate_hungarian if nat else associate_hungarian)(g, scores)
     else:
-        associate_greedy(g, scores)
+        (nat.associate_greedy if nat else associate_greedy)(g, scores)
 
 
 # ----------------------------------------------------------------- update ----
@@ -322,7 +336,9 @@ def decode_tracks(
     the hidden-state gather plan for the device.
     """
     associate(g, scores, "test", use_hungarian)
-    keep = _decode_plan_py(g, scores, y_out, t_upto, ret_win_size)
+    nat = _native()
+    plan = nat.decode_plan if nat is not None else _decode_plan_py
+    keep = plan(g, scores, y_out, t_upto, ret_win_size)
     _apply_keep(g, keep)
     return keep
 

@@ -26,6 +26,22 @@ def linear(params, x):
     return x @ params["w"] + params["b"]
 
 
+def matmul_lp(x, w, dtype=None):
+    """x @ w, optionally with both operands rounded to a lower precision
+    (matmul_lp, nn.py:34): dtype=None is a plain f32 product; dtype=bf16
+    rounds x and w to bf16 and sums the products in f32, and the output is
+    f32 (not rounded to bf16).  Computed as the rounded operands upcast to
+    f32 in an f32 product: a product of two bf16 values is exact in f32 (and
+    in TF32, whose 10 mantissa bits hold bf16's 7), so this is the bf16
+    product with f32 accumulation on the CPU and on the card, whatever
+    PyTorch's TF32 flag says.  (`x.bfloat16() @ w.bfloat16()` would round the
+    sum to bf16.)  The casts' gradients round d x and d w to bf16 and back,
+    as JAX's transpose of the mixed-precision dot does."""
+    if dtype is None:
+        return x @ w
+    return x.to(dtype).float() @ w.to(dtype).float()
+
+
 def xavier_uniform(generator, shape, gain=1.0, device="cpu"):
     """torch.nn.init.xavier_uniform_: U(-a, a), a = gain * sqrt(6 / (fan_in + fan_out))."""
     a = gain * (6.0 / (shape[0] + shape[1])) ** 0.5
@@ -82,14 +98,16 @@ def gru_init(generator, n_in, n_hidden, w_std=0.01, device="cpu"):
     }
 
 
-def gru_cell(params, x, h):
+def gru_cell(params, x, h, dtype=None):
     """torch.nn.GRUCell:  r,z gates sigmoid; n tanh with r-gated hidden path.
 
     h' = (1 - z) * n + z * h
+
+    dtype selects the products' precision (matmul_lp); the gates stay f32.
     """
     H = h.shape[-1]
-    gi = x @ params["w_ih"] + params["b_ih"]
-    gh = h @ params["w_hh"] + params["b_hh"]
+    gi = matmul_lp(x, params["w_ih"], dtype) + params["b_ih"]
+    gh = matmul_lp(h, params["w_hh"], dtype) + params["b_hh"]
     r = torch.sigmoid(gi[..., :H] + gh[..., :H])
     z = torch.sigmoid(gi[..., H : 2 * H] + gh[..., H : 2 * H])
     n = torch.tanh(gi[..., 2 * H :] + r * gh[..., 2 * H :])

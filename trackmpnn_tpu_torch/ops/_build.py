@@ -47,6 +47,8 @@ LIBRARIES = {
               os.path.join(BUILD_DIR, "libtm_block.so"),
               {"tm_block_round_fwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
                "tm_block_round_bwd": [_P] * 18 + [_I] * 5 + [_F, _P],
+               "tm_block_round_fwd_bf16": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+               "tm_block_round_bwd_bf16": [_P] * 18 + [_I] * 5 + [_F, _P],
                "tm_block_round_es_fwd": [_P] * 17 + [_I] * 6 + [_F, _P],
                "tm_block_round_es_bwd": [_P] * 24 + [_I] * 7 + [_F, _P],
                "tm_window_scatter": [_P] * 8 + [_I] * 9 + [_P]}),
@@ -57,6 +59,8 @@ LIBRARIES = {
              "tm_gat_scores_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
              "tm_gat_aggregate_fwd": [_P] * 12 + [_I] * 6 + [_F, _P],
              "tm_gat_aggregate_bwd": [_P] * 18 + [_I] * 6 + [_F, _P],
+             "tm_gat_aggregate_fwd_bf16": [_P] * 12 + [_I] * 6 + [_F, _P],
+             "tm_gat_aggregate_bwd_bf16": [_P] * 18 + [_I] * 6 + [_F, _P],
              "tm_gat1_scores_fwd": [_P] * 10 + [_I] * 4 + [_F, _P],
              "tm_gat1_scores_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
              "tm_gat1_aggregate_fwd": [_P] * 12 + [_I] * 4 + [_F, _P],

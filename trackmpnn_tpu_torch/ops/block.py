@@ -45,16 +45,31 @@ import torch
 from trackmpnn_tpu_torch.ops import _build
 
 LAUNCHES = {"block_round_fwd": 0, "block_round_bwd": 0, "window_scatter": 0,
-            "block_round_es_fwd": 0, "block_round_es_bwd": 0}
+            "block_round_es_fwd": 0, "block_round_es_bwd": 0,
+            "block_round_fwd_bf16": 0, "block_round_bwd_bf16": 0}
 BUILDS = {"block_incidence": 0, "window_incidence": 0}
 
 
 # -------------------------------------------------------------- references ----
-def _gates(he_m, ga, gb, w_hh, b_hh, sign):
+def _up(x):
+    """x in f32 where it is bf16, else x itself (f32, or f64 in the tests)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _mm(x, w, lp):
+    """x @ w; with lp (the bf16 round) both operands rounded to bf16 and
+    the products summed in f32 (pallas_block.py:94, nn.matmul_lp)."""
+    if lp:
+        return x.bfloat16().float() @ w.bfloat16().float()
+    return x @ w
+
+
+def _gates(he_m, ga, gb, w_hh, b_hh, sign, lp=False):
     """GRU gates of the edge rectangle, torch order r | z | n
-    (pallas_block.py:104-120); he_m is the masked h_e [P, na, nt, H]."""
+    (pallas_block.py:104-120); he_m is the masked f32 h_e [P, na, nt, H],
+    ga / gb f32 (upcast where the round streams them in bf16)."""
     P, na, nt, H = he_m.shape
-    gh = (he_m.reshape(-1, H) @ w_hh).reshape(P, na, nt, 3 * H) + b_hh
+    gh = _mm(he_m.reshape(-1, H), w_hh, lp).reshape(P, na, nt, 3 * H) + b_hh
     gi = ga[:, :, None, :] + sign * gb[:, None, :, :]
     r = torch.sigmoid(gi[..., :H] + gh[..., :H])
     z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
@@ -75,26 +90,37 @@ def block_round_reference(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
         lg       = edge_out @ w_eb
 
     h_e [P,na,nt,H]; ga [P,na,3H]; gb [P,nt,3H]; w_hh [H,3H]; b_hh [3H];
-    w_eb [H,1]; mask3 [P,na,nt] f32 0/1; sign +-1 ('diff' = -1)."""
+    w_eb [H,1]; mask3 [P,na,nt] f32 0/1; sign +-1 ('diff' = -1).
+
+    The bf16 round (h_e, ga and gb bf16; the JAX round with mm_dtype
+    bf16): he_m = f32(h_e) * mask, gh's product with both operands rounded
+    to bf16 and summed in f32, the gates in f32 from the upcast ga / gb,
+    edge_out stored in bf16, lg from the f32 edge_out before that rounding,
+    rs / cs f32 sums of he_m.  The rest f32."""
+    lp = h_e.dtype == torch.bfloat16
     m = mask3[..., None]
-    he_m = h_e * m
-    r, z, n, _ = _gates(he_m, ga, gb, w_hh, b_hh, sign)
+    he_m = _up(h_e) * m
+    r, z, n, _ = _gates(he_m, _up(ga), _up(gb), w_hh, b_hh, sign, lp)
     eo = ((1.0 - z) * n + z * he_m) * m
     lg = (eo @ w_eb)[..., 0]
-    return eo, he_m.sum(2), he_m.sum(1), lg
+    return eo.to(h_e.dtype), he_m.sum(2), he_m.sum(1), lg
 
 
 def block_round_backward_reference(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign,
                                    g_eo, g_rs, g_cs, g_lg):
     """The hand-derived backward of the round (_bwd_kernel,
     pallas_block.py:140-188): recomputes the gates from the inputs and
-    returns (d h_e, d ga, d gb, d w_hh, d b_hh, d w_eb)."""
+    returns (d h_e, d ga, d gb, d w_hh, d b_hh, d w_eb).  The bf16 round
+    also rounds both operands of d gh @ w_hh^T and he_m^T @ d gh to bf16
+    (f32 sums) and writes d h_e, d ga and d gb in bf16 (:159-166); d w_hh,
+    d b_hh and d w_eb stay f32."""
     P, na, nt, H = h_e.shape
+    lp = h_e.dtype == torch.bfloat16
     m = mask3[..., None]
-    he_m = h_e * m
-    r, z, n, ghn = _gates(he_m, ga, gb, w_hh, b_hh, sign)
+    he_m = _up(h_e) * m
+    r, z, n, ghn = _gates(he_m, _up(ga), _up(gb), w_hh, b_hh, sign, lp)
     # d(masked edge_out): the direct cotangent + the head's g_lg (x) w_eb
-    go = (g_eo + g_lg[..., None] * w_eb.reshape(1, 1, 1, H)) * m
+    go = (_up(g_eo) + g_lg[..., None] * w_eb.reshape(1, 1, 1, H)) * m
     eo = ((1.0 - z) * n + z * he_m) * m
     dweb = (eo * g_lg[..., None]).reshape(-1, H).sum(0)[:, None]
     dz = go * (he_m - n)
@@ -103,12 +129,12 @@ def block_round_backward_reference(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign,
     dpre_z = dz * z * (1.0 - z)
     dgh = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=-1)
     dgi = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1)
-    dhe_m = (go * z + (dgh.reshape(-1, 3 * H) @ w_hh.t()).reshape(P, na, nt, H)
+    dhe_m = (go * z + _mm(dgh.reshape(-1, 3 * H), w_hh.t(), lp).reshape(P, na, nt, H)
              + g_rs[:, :, None, :] + g_cs[:, None, :, :])
-    dhe = dhe_m * m
-    dga = dgi.sum(2)
-    dgb = sign * dgi.sum(1)
-    dwhh = he_m.reshape(-1, H).t() @ dgh.reshape(-1, 3 * H)
+    dhe = (dhe_m * m).to(h_e.dtype)
+    dga = dgi.sum(2).to(ga.dtype)
+    dgb = (sign * dgi.sum(1)).to(gb.dtype)
+    dwhh = _mm(he_m.reshape(-1, H).t(), dgh.reshape(-1, 3 * H), lp)
     dbhh = dgh.reshape(-1, 3 * H).sum(0)
     return dhe, dga, dgb, dwhh, dbhh, dweb
 
@@ -309,19 +335,25 @@ def _round_scratch(P, na, nt, H, rsum_width, device):
 
 
 def _round_inputs(name, h_e, ga, gb, w_hh, b_hh, w_eb, mask3):
+    """The library, P, na, nt, H and the entry points' suffix: "" for the
+    f32 round, "_bf16" for the bf16 one (h_e, ga and gb bf16)."""
     if h_e.dim() != 4:
         raise TypeError(f"{name}: h_e must be [P, na, nt, H], got {list(h_e.shape)}")
     P, na, nt, H = h_e.shape
-    f32 = torch.float32
-    _check(name, h_e.device, h_e=(h_e, f32, (P, na, nt, H)), ga=(ga, f32, (P, na, 3 * H)),
-           gb=(gb, f32, (P, nt, 3 * H)), w_hh=(w_hh, f32, (H, 3 * H)),
+    f32, dt = torch.float32, h_e.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: h_e must be f32 or bf16, got {dt}")
+    _check(name, h_e.device, h_e=(h_e, dt, (P, na, nt, H)), ga=(ga, dt, (P, na, 3 * H)),
+           gb=(gb, dt, (P, nt, 3 * H)), w_hh=(w_hh, f32, (H, 3 * H)),
            b_hh=(b_hh, f32, (3 * H,)), w_eb=(w_eb, f32, (H, 1)),
            mask3=(mask3, f32, (P, na, nt)))
-    return _round_library(name, na, nt, H), P, na, nt, H
+    suffix = "_bf16" if dt == torch.bfloat16 else ""
+    return _round_library(name + suffix, na, nt, H), P, na, nt, H, suffix
 
 
 def _block_round_fwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
-    lib, P, na, nt, H = _round_inputs("block_round_fwd", h_e, ga, gb, w_hh, b_hh, w_eb, mask3)
+    lib, P, na, nt, H, sfx = _round_inputs("block_round_fwd", h_e, ga, gb, w_hh, b_hh, w_eb,
+                                           mask3)
     eo = torch.empty_like(h_e)
     rs = torch.empty(P, na, H, dtype=torch.float32, device=h_e.device)
     cs = torch.empty(P, nt, H, dtype=torch.float32, device=h_e.device)
@@ -329,26 +361,27 @@ def _block_round_fwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
     if P == 0 or na == 0 or nt == 0:
         return eo.zero_(), rs.zero_(), cs.zero_(), lg.zero_()
     with torch.cuda.device(h_e.device):
-        rc = lib.tm_block_round_fwd(
+        rc = getattr(lib, "tm_block_round_fwd" + sfx)(
             h_e.data_ptr(), ga.data_ptr(), gb.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             w_eb.data_ptr(), mask3.data_ptr(), eo.data_ptr(), rs.data_ptr(), cs.data_ptr(),
             lg.data_ptr(), P, na, nt, H, float(sign), _stream())
     if rc != 0:
-        raise RuntimeError(f"block_round_fwd kernel launch failed: CUDA error {rc}")
-    LAUNCHES["block_round_fwd"] += 1
+        raise RuntimeError(f"block_round_fwd{sfx} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["block_round_fwd" + sfx] += 1
     return eo, rs, cs, lg
 
 
 def _block_round_bwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign, g_eo, g_rs, g_cs, g_lg):
-    lib, P, na, nt, H = _round_inputs("block_round_bwd", h_e, ga, gb, w_hh, b_hh, w_eb, mask3)
+    lib, P, na, nt, H, sfx = _round_inputs("block_round_bwd", h_e, ga, gb, w_hh, b_hh, w_eb,
+                                           mask3)
     f32 = torch.float32
-    _check("block_round_bwd", h_e.device, g_eo=(g_eo, f32, h_e.shape),
+    _check("block_round_bwd" + sfx, h_e.device, g_eo=(g_eo, h_e.dtype, h_e.shape),
            g_rs=(g_rs, f32, (P, na, H)), g_cs=(g_cs, f32, (P, nt, H)),
            g_lg=(g_lg, f32, (P, na, nt)))
     dev = h_e.device
     dhe = torch.empty_like(h_e)
-    dga = torch.empty(P, na, 3 * H, dtype=f32, device=dev)
-    dgb = torch.empty(P, nt, 3 * H, dtype=f32, device=dev)
+    dga = torch.empty(P, na, 3 * H, dtype=h_e.dtype, device=dev)
+    dgb = torch.empty(P, nt, 3 * H, dtype=h_e.dtype, device=dev)
     dw = torch.empty(H * 3 * H + 4 * H, dtype=f32, device=dev)  # d w_hh | d b_hh | d w_eb
     if P == 0 or na == 0 or nt == 0:
         dw.zero_()
@@ -356,15 +389,15 @@ def _block_round_bwd_cuda(h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign, g_eo, g_rs
     else:
         dgs, wpart, rsum, ksplit = _round_scratch(P, na, nt, H, 4 * H, dev)
         with torch.cuda.device(dev):
-            rc = lib.tm_block_round_bwd(
+            rc = getattr(lib, "tm_block_round_bwd" + sfx)(
                 h_e.data_ptr(), ga.data_ptr(), gb.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                 w_eb.data_ptr(), mask3.data_ptr(), g_eo.data_ptr(), g_rs.data_ptr(),
                 g_cs.data_ptr(), g_lg.data_ptr(), dhe.data_ptr(), dga.data_ptr(),
                 dgb.data_ptr(), dgs.data_ptr(), wpart.data_ptr(), rsum.data_ptr(), dw.data_ptr(),
                 ksplit, P, na, nt, H, float(sign), _stream())
         if rc != 0:
-            raise RuntimeError(f"block_round_bwd kernel launch failed: CUDA error {rc}")
-        LAUNCHES["block_round_bwd"] += 1
+            raise RuntimeError(f"block_round_bwd{sfx} kernel launch failed: CUDA error {rc}")
+        LAUNCHES["block_round_bwd" + sfx] += 1
     dwhh = dw[:3 * H * H].view(H, 3 * H)
     dbhh = dw[3 * H * H:3 * H * H + 3 * H]
     dweb = dw[3 * H * H + 3 * H:].view(H, 1)
@@ -535,18 +568,20 @@ def window_gather2_backward_raw(dga, dgb, act_l, new_l, B, capD, inc=None):
             window_scatter_reference(dgb, new_l, B, capD))
 
 
-def _zeros_if_none(g, shape, device):
-    """An f32 cotangent autograd passed as None (output unused) made zeros;
-    the kernels take contiguous tensors only."""
+def _zeros_if_none(g, shape, device, dtype=torch.float32):
+    """A cotangent autograd passed as None (output unused) made zeros of
+    `dtype`; the kernels take contiguous tensors only."""
     if g is None:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     return g.contiguous()
 
 
 class FusedBlockRound(torch.autograd.Function):
     """(edge_out, rs, cs, lg) = block_round_reference(...), with the
     hand-derived backward.  The forward saves only its inputs; the backward
-    recomputes the gates (as the JAX custom VJP does, pallas_block.py:241)."""
+    recomputes the gates (as the JAX custom VJP does, pallas_block.py:241).
+    A bf16 h_e (with bf16 ga, gb) selects the bf16 round and its kernels
+    (block_round_fwd_bf16 / _bwd_bf16)."""
 
     @staticmethod
     def forward(ctx, h_e, ga, gb, w_hh, b_hh, w_eb, mask3, sign):
@@ -560,7 +595,7 @@ class FusedBlockRound(torch.autograd.Function):
     def backward(ctx, g_eo, g_rs, g_cs, g_lg):
         h_e, ga, gb, w_hh, b_hh, w_eb, mask3 = ctx.saved_tensors
         P, na, nt, H = h_e.shape
-        g_eo = _zeros_if_none(g_eo, h_e.shape, h_e.device)
+        g_eo = _zeros_if_none(g_eo, h_e.shape, h_e.device, h_e.dtype)
         g_rs = _zeros_if_none(g_rs, (P, na, H), h_e.device)
         g_cs = _zeros_if_none(g_cs, (P, nt, H), h_e.device)
         g_lg = _zeros_if_none(g_lg, (P, na, nt), h_e.device)

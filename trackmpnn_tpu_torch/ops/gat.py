@@ -50,7 +50,7 @@ import functools
 import torch
 
 from trackmpnn_tpu_torch.ops import _build
-from trackmpnn_tpu_torch.ops.block import _check, _on_cuda, _stream, _zeros_if_none
+from trackmpnn_tpu_torch.ops.block import _check, _on_cuda, _stream, _up, _zeros_if_none
 
 NEG_SCORE = -1e30  # score of a masked cell in the max (pallas_gat.py:164)
 Z_FLOOR = 1e-30    # floor of a softmax normaliser
@@ -59,7 +59,8 @@ LAUNCHES = {"gat_scores_fwd": 0, "gat_scores_bwd": 0,
             "gat_aggregate_fwd": 0, "gat_aggregate_bwd": 0,
             "gat1_scores_fwd": 0, "gat1_scores_bwd": 0,
             "gat1_aggregate_fwd": 0, "gat1_aggregate_bwd": 0,
-            "gat0_scores_fwd": 0, "gat0_scores_bwd": 0}
+            "gat0_scores_fwd": 0, "gat0_scores_bwd": 0,
+            "gat_aggregate_fwd_bf16": 0, "gat_aggregate_bwd_bf16": 0}
 
 
 # -------------------------------------------------------------- references ----
@@ -145,8 +146,10 @@ def gat_aggregate_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, k
         rs[i] = sum_h sum_j att_a h_e[i, j],  cs[j] = sum_h sum_i att_n h_e[i, j]
 
     e [nh, P, na, nt]; m_row, z_row [nh, P, na]; m_col, z_col [nh, P, nt];
-    h_e [P, na, nt, H]; mask3 [P, na, nt] 0/1; ka, kn [nh or 1, P, na, nt]."""
+    h_e [P, na, nt, H] (f32, or bf16 read as f32: pallas_gat.py:646); mask3
+    [P, na, nt] 0/1; ka, kn [nh or 1, P, na, nt].  rs, cs f32."""
     att_a, att_n = _attention(e, m_row, m_col, z_row, z_col, mask3, ka, kn, keep)
+    h_e = _up(h_e)
     return (torch.einsum("hpij,pijd->pid", att_a, h_e),
             torch.einsum("hpij,pijd->pjd", att_n, h_e))
 
@@ -155,14 +158,22 @@ def gat_aggregate_backward_reference(e, m_row, m_col, z_row, z_col, h_e, mask3, 
                                      keep, g_rs, g_cs):
     """The hand-derived backward (_mh_agg_bwd_kernel, pallas_gat.py:664-696,
     with the datt contraction of _datt, :398-405): returns (d e, d m_row,
-    d m_col, d z_row, d z_col, d h_e)."""
+    d m_col, d z_row, d z_col, d h_e).  With a bf16 h_e, d h_e is bf16:
+    each head's term rounded to bf16 and added into a bf16 sum in head
+    order 0..nh-1 (:693-696); else the heads' f32 sum."""
     att_a, att_n = _attention(e, m_row, m_col, z_row, z_col, mask3, ka, kn, keep)
-    datt_a = torch.einsum("pijd,pid->pij", h_e, g_rs)
-    datt_n = torch.einsum("pijd,pjd->pij", h_e, g_cs)
+    datt_a = torch.einsum("pijd,pid->pij", _up(h_e), g_rs)
+    datt_n = torch.einsum("pijd,pjd->pij", _up(h_e), g_cs)
     pa, pn = datt_a * att_a, datt_n * att_n
     s_a, s_n = pa.sum(3), pn.sum(2)
-    dhe = (att_a[..., None] * g_rs[None, :, :, None, :]
-           + att_n[..., None] * g_cs[None, :, None, :, :]).sum(0)
+    terms = (att_a[..., None] * g_rs[None, :, :, None, :]
+             + att_n[..., None] * g_cs[None, :, None, :, :])
+    if h_e.dtype == torch.bfloat16:
+        dhe = terms[0].bfloat16()
+        for h in range(1, terms.shape[0]):
+            dhe = dhe + terms[h].bfloat16()
+    else:
+        dhe = terms.sum(0)
     return (pa + pn, -s_a, -s_n, -s_a / torch.clamp(z_row, min=Z_FLOOR),
             -s_n / torch.clamp(z_col, min=Z_FLOOR), dhe)
 
@@ -311,37 +322,40 @@ def _aggregate_inputs(name, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn):
     if nk not in (1, nh):
         raise ValueError(f"{name}: keep masks have {nk} heads, expected 1 or {nh}")
     f32 = torch.float32
+    if h_e.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: h_e must be f32 or bf16, got {h_e.dtype}")
     _check(name, e.device, e=(e, f32, (nh, P, na, nt)), m_row=(m_row, f32, (nh, P, na)),
            m_col=(m_col, f32, (nh, P, nt)), z_row=(z_row, f32, (nh, P, na)),
-           z_col=(z_col, f32, (nh, P, nt)), h_e=(h_e, f32, (P, na, nt, H)),
+           z_col=(z_col, f32, (nh, P, nt)), h_e=(h_e, h_e.dtype, (P, na, nt, H)),
            mask3=(mask3, f32, (P, na, nt)), ka=(ka, f32, (nk, P, na, nt)),
            kn=(kn, f32, (nk, P, na, nt)))
-    return _gat_library(name, H), nh, P, na, nt, H, nk
+    sfx = "_bf16" if h_e.dtype == torch.bfloat16 else ""
+    return _gat_library(name + sfx, H), nh, P, na, nt, H, nk, sfx
 
 
 def _gat_aggregate_fwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):
     args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
-    lib, nh, P, na, nt, H, nk = _aggregate_inputs("gat_aggregate_fwd", *args)
+    lib, nh, P, na, nt, H, nk, sfx = _aggregate_inputs("gat_aggregate_fwd", *args)
     rs = torch.empty(P, na, H, dtype=torch.float32, device=e.device)
     cs = torch.empty(P, nt, H, dtype=torch.float32, device=e.device)
     if P == 0 or na == 0 or nt == 0:
         return rs.zero_(), cs.zero_()
     scratch = _scratch(lib, e.device, 1, P, na, nt, nh, H, False)
     with torch.cuda.device(e.device):
-        rc = lib.tm_gat_aggregate_fwd(*(t.data_ptr() for t in args), rs.data_ptr(),
-                                      cs.data_ptr(), scratch.data_ptr(), P, na, nt, nh, H, nk,
-                                      float(keep), _stream())
+        rc = getattr(lib, "tm_gat_aggregate_fwd" + sfx)(
+            *(t.data_ptr() for t in args), rs.data_ptr(), cs.data_ptr(), scratch.data_ptr(), P,
+            na, nt, nh, H, nk, float(keep), _stream())
     if rc != 0:
-        raise RuntimeError(f"gat_aggregate_fwd kernel launch failed: CUDA error {rc}")
-    LAUNCHES["gat_aggregate_fwd"] += 1
+        raise RuntimeError(f"gat_aggregate_fwd{sfx} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_aggregate_fwd" + sfx] += 1
     return rs, cs
 
 
 def _gat_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep,
                             g_rs, g_cs):
     args = (e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn)
-    lib, nh, P, na, nt, H, nk = _aggregate_inputs("gat_aggregate_bwd", *args)
-    _check("gat_aggregate_bwd", e.device, g_rs=(g_rs, torch.float32, (P, na, H)),
+    lib, nh, P, na, nt, H, nk, sfx = _aggregate_inputs("gat_aggregate_bwd", *args)
+    _check("gat_aggregate_bwd" + sfx, e.device, g_rs=(g_rs, torch.float32, (P, na, H)),
            g_cs=(g_cs, torch.float32, (P, nt, H)))
     out = (torch.empty_like(e), torch.empty_like(m_row), torch.empty_like(m_col),
            torch.empty_like(z_row), torch.empty_like(z_col), torch.empty_like(h_e))
@@ -349,13 +363,13 @@ def _gat_aggregate_bwd_cuda(e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, k
         return tuple(t.zero_() for t in out)
     scratch = _scratch(lib, e.device, 1, P, na, nt, nh, H, True)
     with torch.cuda.device(e.device):
-        rc = lib.tm_gat_aggregate_bwd(*(t.data_ptr() for t in args), g_rs.data_ptr(),
-                                      g_cs.data_ptr(), *(t.data_ptr() for t in out),
-                                      scratch.data_ptr(), P, na, nt, nh, H, nk, float(keep),
-                                      _stream())
+        rc = getattr(lib, "tm_gat_aggregate_bwd" + sfx)(
+            *(t.data_ptr() for t in args), g_rs.data_ptr(), g_cs.data_ptr(),
+            *(t.data_ptr() for t in out), scratch.data_ptr(), P, na, nt, nh, H, nk, float(keep),
+            _stream())
     if rc != 0:
-        raise RuntimeError(f"gat_aggregate_bwd kernel launch failed: CUDA error {rc}")
-    LAUNCHES["gat_aggregate_bwd"] += 1
+        raise RuntimeError(f"gat_aggregate_bwd{sfx} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["gat_aggregate_bwd" + sfx] += 1
     return out
 
 
@@ -512,7 +526,8 @@ class GatScoresStats(torch.autograd.Function):
 
 class GatAggregate(torch.autograd.Function):
     """(rs, cs) = gat_aggregate_reference(...), with the hand-derived
-    backward; the masks take no gradient."""
+    backward; the masks take no gradient.  A bf16 h_e selects the bf16
+    kernels (gat_aggregate_fwd_bf16 / _bwd_bf16), d h_e then bf16."""
 
     @staticmethod
     def forward(ctx, e, m_row, m_col, z_row, z_col, h_e, mask3, ka, kn, keep):

@@ -33,7 +33,9 @@ their head partials) and in the node head.
 By default this is the composition the JAX package runs on the TPU (fused
 round, defer_loss, hoisted BN, window scatter/gather, the stacked attention
 kernels), for any of the feature branches, msg 'diff' or 'concat' (sign +1
-and the two halves of w_ih as the round's input gates), f32.  Two keyword
+and the two halves of w_ih as the round's input gates), in f32 or, with
+compute_dtype=torch.bfloat16, with bf16 edge rectangles and bf16 products
+(the JAX training CLI's default --bf16).  Two keyword
 arguments select its two other block-step compositions (TM_ES_KERNEL=1 and
 TM_FUSED_LOSS=1 there):
 
@@ -513,18 +515,32 @@ def _fused_step_losses(partials, logits_d, det_label, det_live, B, tp_classifier
     return l_ce, l_f, tp, fp, fn
 
 
-def _check_composition(cfg, es_kernel):
+def _check_composition(cfg, es_kernel, fused_loss=False, gat_fused=True, compute_dtype=None):
     mpnn.check_supported(cfg)
     if es_kernel and cfg.nattheads > 0:
         raise ValueError("es_kernel computes edge_support without attention: it takes no "
                          "attention heads (nattheads > 0)")
+    if compute_dtype is None:
+        return
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, not {compute_dtype}")
+    refuse = [what for what, on in (
+        ("es_kernel=True (the es round, #7)", es_kernel),
+        ("fused_loss=True (the fused edge losses, #13)", fused_loss),
+        ("gat_fused=False (the per-head attention kernels, #9 and #10)",
+         not gat_fused and cfg.nattheads > 0)) if on]
+    if refuse:
+        raise NotImplementedError("compute_dtype=torch.bfloat16 with " + " or ".join(refuse)
+                                  + " is not ported yet (ROADMAP.md queue 1, "
+                                  "'bf16 rectangles')")
 
 
 def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBatch,
                          tp_classifier: bool, train: bool = True,
                          generator: Optional[torch.Generator] = None,
                          att_keep: Optional[Sequence] = None, es_kernel: bool = False,
-                         fused_loss: bool = False, gat_fused: bool = True):
+                         fused_loss: bool = False, gat_fused: bool = True,
+                         compute_dtype: Optional[torch.dtype] = None):
     """(loss, aux) of a batch of windows (block_window_forward, block.py:533,
     as the TPU runs it: fused round, defer_loss, hoisted BN, window
     scatter/gather, stacked attention kernels, f32).  loss = (CE + BCE) / B;
@@ -552,8 +568,20 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
     through edge_losses over every branch's edge hidden side by side
     (TM_FUSED_LOSS=1 with defer_loss=False there); the round kernels' head
     partials go unused.  BN stays hoisted out of the loop: the JAX package's
-    in-loop BN of that composition gives the same numbers up to rounding."""
-    _check_composition(cfg, es_kernel)
+    in-loop BN of that composition gives the same numbers up to rounding.
+
+    compute_dtype=torch.bfloat16 (the JAX training CLI's default --bf16,
+    block.py:546, :846-896): each branch's edge rectangle h_e is carried in
+    bf16 (new blocks enter as bf16 zeros), the detection-side input-gate
+    products and the node GRU's products take bf16 operands with f32 sums
+    (nn.matmul_lp), the gathered gates (+ b_ih) are rounded to bf16 for the
+    round, which runs in bf16 (ops.block.fused_block_round on a bf16 h_e)
+    and gives edge_out in bf16, and with attention heads the stacked
+    aggregate reads the bf16 h_e and returns its d h_e in bf16, added to the
+    round's in bf16 as JAX's autodiff adds them.  BN, the heads and the
+    losses stay f32.  With es_kernel, fused_loss or, with heads, gat_fused=
+    False it raises NotImplementedError ('bf16 rectangles')."""
+    _check_composition(cfg, es_kernel, fused_loss, gat_fused, compute_dtype)
     if train and cfg.nattheads > 0 and generator is None and att_keep is None:
         raise ValueError("training with attention heads needs a generator for the "
                          "attention dropout (pass generator=...)")
@@ -626,7 +654,8 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
 
     # each branch's hidden state: detections [nD, H], edges [P, na, nt, H]
     h_d = [xt.new_zeros(nD, H) for xt in xts]
-    h_e = [xt.new_zeros(0, na_cap, nt_cap, H) for xt in xts]
+    h_e = [xt.new_zeros(0, na_cap, nt_cap, H, dtype=compute_dtype or torch.float32)
+           for xt in xts]
     hd_steps, lg_steps = [], []
     for s in range(T):
         P = (s + 1) * B
@@ -648,9 +677,11 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
             # ga_d = gb_d = h_d w_ih and sign -1, with 'concat' the two halves
             # of w_ih and sign +1
             if cfg.msg_type == "concat":
-                ga_d, gb_d, sign = h_d_b @ eg["w_ih"][:H], h_d_b @ eg["w_ih"][H:], 1.0
+                ga_d = nn.matmul_lp(h_d_b, eg["w_ih"][:H], compute_dtype)
+                gb_d = nn.matmul_lp(h_d_b, eg["w_ih"][H:], compute_dtype)
+                sign = 1.0
             else:
-                ga_d = gb_d = h_d_b @ eg["w_ih"]
+                ga_d = gb_d = nn.matmul_lp(h_d_b, eg["w_ih"], compute_dtype)
                 sign = -1.0
             if es_kernel:
                 edge_out, lg_b, es = fused_block_round_es(
@@ -658,9 +689,14 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                     eg["b_hh"], w_ebs[bi], m3[s, :P], sign, B, capD, inc)
             else:
                 ga_g, gb = window_gather2(ga_d, gb_d, act_l[:P], new_l[:P], B, capD, inc)
-                edge_out, rs, cs, lg_b = fused_block_round(h_e[bi], ga_g + eg["b_ih"], gb,
-                                                           eg["w_hh"], eg["b_hh"], w_ebs[bi],
-                                                           m3[s, :P], sign)
+                ga = ga_g + eg["b_ih"]
+                if compute_dtype is not None:
+                    # the round streams its gates in bf16; the casts' backward
+                    # brings its bf16 d ga / d gb back to f32 for the gather's
+                    ga, gb = ga.to(compute_dtype), gb.to(compute_dtype)
+                edge_out, rs, cs, lg_b = fused_block_round(h_e[bi], ga, gb, eg["w_hh"],
+                                                           eg["b_hh"], w_ebs[bi], m3[s, :P],
+                                                           sign)
                 if cfg.nattheads > 0:
                     # the round's rs / cs go unused: attention weighs the edges
                     es = gat_support(bp["gat"], h_d_b, h_e[bi], act[:P], new[:P], act_l[:P],
@@ -669,7 +705,7 @@ def block_window_forward(params, batch_stats, cfg: mpnn.ModelConfig, bb: BlockBa
                                      inc)
                 else:
                     es = window_scatter(torch.cat([rs, -cs], dim=1), es_idx[:P], B, capD, inc)
-            node_out = nn.gru_cell(bp["node_gru"], es, h_d_b)
+            node_out = nn.gru_cell(bp["node_gru"], es, h_d_b, compute_dtype)
             hd_parts.append(torch.where(det_live[s][:, None], node_out, 0.0))
             eo_parts.append(edge_out)
             lg = lg_b if lg is None else lg + lg_b
@@ -732,7 +768,8 @@ def trainable(params):
 
 
 def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel: bool = False,
-                          fused_loss: bool = False, gat_fused: bool = True):
+                          fused_loss: bool = False, gat_fused: bool = True,
+                          compute_dtype: Optional[torch.dtype] = None):
     """A train step over a BlockBatch (make_block_train_step, block.py:1129):
 
         step(params, batch_stats, optimizer, bb, generator=None, att_keep=None)
@@ -740,7 +777,9 @@ def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel:
 
     es_kernel / fused_loss select block_window_forward's composition,
     gat_fused its attention route (the stacked heads, or one at a time with
-    False); no probe picks one for the caller.
+    False); no probe picks one for the caller.  compute_dtype=torch.bfloat16
+    is the bf16 step (block_window_forward; make_block_train_step,
+    block.py:1130, with compute_dtype=jnp.bfloat16).
 
     params: the parameter tree with leaves that require grad (`trainable`);
     optimizer: train/optim.py::make_optimizer over param_leaves(params);
@@ -749,14 +788,14 @@ def make_block_train_step(cfg: mpnn.ModelConfig, tp_classifier: bool, es_kernel:
     batch_stats are new tensors; loss and aux (loss_ce, loss_f, tp, fp, fn)
     are detached tensors on the batch's device, so the step never waits for
     the card."""
-    _check_composition(cfg, es_kernel)
+    _check_composition(cfg, es_kernel, fused_loss, gat_fused, compute_dtype)
 
     def step(params, batch_stats, optimizer, bb: BlockBatch, generator=None, att_keep=None):
         optimizer.zero_grad(set_to_none=True)
         loss, aux = block_window_forward(params, batch_stats, cfg, bb, tp_classifier,
                                          generator=generator, att_keep=att_keep,
                                          es_kernel=es_kernel, fused_loss=fused_loss,
-                                         gat_fused=gat_fused)
+                                         gat_fused=gat_fused, compute_dtype=compute_dtype)
         loss.backward()
         if fused_loss and not tp_classifier:
             # out_node feeds no loss term here, and autograd leaves its

@@ -74,8 +74,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--embed-bf16", action=argparse.BooleanOptionalAction, default=False,
                    help="bf16 embedding-net convs (not ported: the backbones run in f32)")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
-                   help="bf16 edge state in the block step (not ported: the block "
-                        "route needs --no-bf16)")
+                   help="bf16 edge state and bf16 GRU products with f32 sums in the block "
+                        "step (--batch-windows > 1); the other routes run f32")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=True,
                    help="a TPU composition of the block round with the same result; "
                         "the card has one block round, its kernels")
@@ -125,8 +125,6 @@ def check_ported(args) -> None:
         refuse.append("--plot-gradients ('Tail')")
     if args.embed_bf16:
         refuse.append("--embed-bf16 ('bf16 rectangles')")
-    if args.bf16 and train_route(args) == "block":
-        refuse.append("--bf16 on the block route ('bf16 rectangles'; pass --no-bf16)")
     if refuse:
         raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(refuse))
 
